@@ -1,0 +1,126 @@
+"""Engine configuration (port of dynamo_tpu/engine/config.py).
+
+The fields this slice serves keep the reference's names and defaults.
+The reference's other serving features are fields too, so that
+``validate()`` can refuse them by name instead of ignoring them; each
+arrives with a later slice (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+
+import torch
+
+from dynamo_tpu_torch.models.config import ModelConfig
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass
+class EngineConfig:
+    model: ModelConfig
+    dtype: str = "bfloat16"
+    block_size: int = 16
+    num_blocks: int = 512            # device KV blocks (block 0 is trash)
+    max_num_seqs: int = 8            # decode batch slots
+    max_model_len: int = 512         # context limit per sequence
+    prefill_batch: int = 4           # prompts prefilling at once
+    watermark: float = 0.05          # keep this fraction of blocks free
+    enable_prefix_caching: bool = True
+    seed: int = 0
+    # Unified dispatches in flight before the oldest is forced: dispatch
+    # N+1 feeds on dispatch N's device-resident tokens, so issuing never
+    # waits on a fetch.
+    pipeline_depth: int = 2
+    # Max tokens per unified dispatch; batches snap UP onto the ladder
+    # {16, 32, ..., bucket(unified_token_budget)} (compile_cache.py).
+    unified_token_budget: int = 256
+    # Prefill tokens one sequence may take per step while decode lanes
+    # share it — and the budget slice reserved for prefill when prompts
+    # wait. Fixed here: the reference's adaptive co-location controller
+    # is not part of this slice.
+    unified_prefill_quantum: int = 64
+
+    # -- reference features this slice refuses (validate) ------------------
+    kv_quant: str | None = None
+    quant: str | None = None
+    weight_quant: str | None = None
+    speculative_k: int = 0
+    mesh_shape: dict[str, int] = field(default_factory=dict)
+    kv_sp: bool = False
+    multimodal: bool = False
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return (self.max_model_len + self.block_size - 1) // self.block_size
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    def validate(self) -> None:
+        refused = [
+            (self.kv_quant, "kv_quant (the int8-KV leg of the kernel)"),
+            (self.quant or self.weight_quant, "weight quantization"),
+            (self.speculative_k > 0, "speculative decoding"),
+            (self.mesh_shape, "a device mesh"),
+            (self.kv_sp, "kv_sp"),
+            (self.multimodal, "multimodal"),
+        ]
+        for on, what in refused:
+            if on:
+                raise ValueError(
+                    f"{what} is not served by this slice of the port"
+                )
+        missing = self.model.unsupported_features()
+        if missing:
+            raise ValueError(
+                f"model {self.model.name}: {', '.join(missing)} not served "
+                "by this slice of the port"
+            )
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype={self.dtype!r} not in {list(DTYPES)}")
+        if self.num_blocks < self.max_blocks_per_seq + 1:
+            raise ValueError(
+                f"num_blocks={self.num_blocks} cannot hold even one "
+                f"max-length sequence ({self.max_blocks_per_seq} blocks)"
+            )
+        if self.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if self.unified_token_budget < 16:
+            raise ValueError(
+                f"unified_token_budget={self.unified_token_budget} "
+                f"must be >= 16 (one minimum bucket)"
+            )
+        if not 1 <= self.unified_prefill_quantum <= self.unified_token_budget:
+            raise ValueError(
+                f"unified_prefill_quantum={self.unified_prefill_quantum} "
+                f"must be in [1, unified_token_budget]"
+            )
+        # Every budget rung must be reachable by some span combination;
+        # small-context configs clamp the budget down to the largest
+        # reachable rung instead of erroring (the reference's rule).
+        reachable = (
+            (self.max_num_seqs + self.prefill_batch) * (self.max_model_len - 1)
+        )
+        if self.unified_token_budget > reachable:
+            if reachable < 16:
+                raise ValueError(
+                    f"no reachable unified budget rung: (max_num_seqs + "
+                    f"prefill_batch) * (max_model_len - 1) = {reachable} "
+                    f"< 16; raise the slot/context limits"
+                )
+            clamped = 16
+            while clamped * 2 <= reachable:
+                clamped *= 2
+            logging.getLogger(__name__).warning(
+                "unified_token_budget=%d exceeds the largest fillable "
+                "batch (%d); clamped to the %d-token rung",
+                self.unified_token_budget, reachable, clamped,
+            )
+            self.unified_token_budget = clamped
+            self.unified_prefill_quantum = min(
+                self.unified_prefill_quantum, self.unified_token_budget
+            )

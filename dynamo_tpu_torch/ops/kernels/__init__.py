@@ -1,0 +1,4 @@
+"""Hand-written Hopper kernels of the port, one module per kernel; each
+keeps its plain PyTorch version beside it and a launch counter."""
+
+KERNEL_SOURCES = ["ragged_attention"]

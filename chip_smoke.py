@@ -5,32 +5,63 @@
 Phases, one JSON line each; any failure exits non-zero without the final
 ``ok`` line:
 
-1. build    — compile every CUDA kernel of the port from csrc/ with nvcc.
-2. kernel   — the ragged paged-attention kernel against its plain PyTorch
-              version at llama3.2-1b shapes (H=32, kvH=8, D=64, bs=16):
-              decode-only, prefill-only with a prefix hit, a mixed T=256
-              batch (timed beside the plain version, SDPA and the bound),
-              a 4-row spec-verify span, idle metadata and padding rows, a
-              windowed batch, and a float32 batch.
-3. tiny     — a tiny-test TorchEngine in float32 serves 3 concurrent
-              greedy requests; streams must equal the port's own
-              reference_forward greedy continuation on the card.
-4. serve    — the main path at full width: a llama3.2-1b TorchEngine in
-              bf16 (random weights from a seed) serves 8 concurrent
-              requests through generate(); the kernel must have launched
-              num_layers times per unified dispatch.
-5. profile  — 8 more requests on the same engine under torch.profiler:
-              device time by kernel and the device's busy share of the
-              wall (both under the profiler's own overhead).
+1. build      — compile every CUDA kernel of the port from csrc/ with
+                nvcc, one nvcc per source, all started together.
+2. kernel     — each kernel against its plain PyTorch version at
+                llama3.2-1b shapes (H=32, kvH=8, D=64, bs=16); the main
+                case of each is timed beside the plain version, one SDPA
+                call over the K/V gathered dense, and the bound:
+                ragged, caches in q's dtype: decode-only, prefill with a
+                prefix hit, a mixed T=256 batch, a 4-row spec-verify span,
+                a windowed batch, float32, the other head dims;
+                ragged, int8 caches: decode-only, mixed T=256, windowed,
+                spec-verify, float32 q, the other head dims;
+                decode: the phase-split run's 4 lanes (phase 7) at its
+                first, middle and last step, timed at the middle one;
+                8 lanes (contexts 1–600) and an idle lane in bf16 and
+                f32, windowed, and a striped sp=4 scan whose shards'
+                stats merge to the unstriped call;
+                prefill: the phase-split run's prefill_batch (4 whole
+                prompts padded to T=512), timed; 4 lanes of T=256 with
+                prefix hits, padded rows and an idle lane, windowed,
+                f32, and striped sp=4.
+3. tiny       — tiny-test in float32: 3 concurrent greedy requests through
+                TorchEngine.generate equal the port's reference_forward
+                continuation on the card; an int8-KV engine keeps a greedy
+                match rate >= 0.7 against them; ModelRunner.prefill_batch
+                + decode_multi equal reference_forward too.
+4. serve      — the main path at full width: a llama3.2-1b TorchEngine in
+                bf16 (random weights from a seed) serves 8 concurrent
+                requests through generate(); the ragged kernel must have
+                launched num_layers times per unified dispatch; every
+                stream is fed back through the no-cache reference_forward
+                (finite logits of shape [T, V]; argmax agreement and the
+                log-probability gap of each disagreement reported).
+5. profile    — 8 more requests on the same engine under torch.profiler:
+                device time by kernel and the device's busy share.
+6. serve_int8 — the same 8 requests through an int8-KV engine: the int8
+                leg must have launched num_layers times per dispatch;
+                then its own profile, as in 5.
+7. phases     — the phase-split entry points at full width on the serve's
+                weights: prefill_batch of 4 prompts (64–512 tokens), then
+                decode_multi of 32 steps; the prefill kernel launches
+                num_layers times per call, the decode kernel num_layers
+                times per step; the streams fed back through the no-cache
+                reference_forward must agree with its argmax (where they
+                do not, as near ties), and prefill_batch's first-token
+                log-probabilities must match it; token-match rate
+                against the unified serve.
 
-Then the card's name and power limit, the kernels line, and the last
-line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the
-JAX package. Needs one CUDA device.
+Each path's launch counts are set to 0 just before it and read just
+after. Then the card's name and power limit, the kernels line, and the
+last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+of the JAX package. Needs one CUDA device.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,9 +71,27 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_FLOPS = {                # H100 SXM dense peaks
+    torch.bfloat16: 989e12,   # tensor cores
+    torch.float32: 67e12,     # outside the tensor cores
+}
 KERNEL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 DEVICE = "cuda"
+H, KVH, D, BS = 32, 8, 64, 16        # llama3.2-1b attention shapes
+G = H // KVH
+SP = 4                               # kv_sp shards emulated on one card
+PHASE_LANES = 4                      # lanes of the full-width phase-split run
+# The full-width phase-split run against the no-cache reference, fed the
+# run's own tokens: argmax agreement; where the argmax differs, the run's
+# token must be a near tie in the reference's log-probabilities; and the
+# first token's log-probability from prefill_batch against the reference.
+# Random bf16 weights give near-flat logits: the reference's top two
+# tokens lie a median ~0.025 nats apart, and bf16 rounding moves a
+# log-probability by a few thousandths, so a flipped argmax within 0.02
+# nats is a tie and a wrong token is not.
+PHASES_AGREEMENT = 0.9
+NEAR_TIE_NATS = 0.02
+FIRST_LOGPROB_TOL = 0.02
 
 
 def emit(obj: dict) -> None:
@@ -85,39 +134,154 @@ def host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes over the HBM rate
+    and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check(phase: str, case: str, errs: dict, tol: float, **extra) -> float:
+    """Emit one case's errors against its plain version; fail if any is
+    over the tolerance or not finite."""
+    flag = extra.pop("ok", True)
+    worst = max(errs.values())
+    ok = bool(np.isfinite(worst)) and worst <= tol and flag
+    emit({"phase": phase, "case": case, **errs, "tol": tol, **extra, "ok": ok})
+    if not ok:
+        raise SystemExit(f"{phase} case {case} disagrees with the plain version")
+    return worst
+
+
+def t_(a):
+    return torch.from_numpy(np.asarray(a)).to(DEVICE)
+
+
+def timing(case: str, kernel, plain, library, lib_want, nbytes, flops, dtype,
+           kernel_iters=20) -> dict:
+    """Time a main case: kernel, plain version and library call on the
+    same inputs, beside the bound computed from this run's inputs."""
+    kernel_ms = device_ms(kernel, iters=kernel_iters)
+    plain_ms = device_ms(plain, iters=2)
+    lib_got, lib_mask = library()
+    lib_err = max_err(lib_got[lib_mask], lib_want[lib_mask])
+    library_ms = device_ms(library, iters=5)
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    out = {"phase": "kernel_timing", "case": case, "kernel_ms": kernel_ms,
+           "kernel_host_ms": host_ms(kernel, iters=50), "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_max_abs_err": lib_err,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops, "bound_share": bound_ms / kernel_ms}
+    emit(out)
+    return out
+
+
 # -- phase 1 -----------------------------------------------------------------
 def phase_build() -> None:
-    from dynamo_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
+    from dynamo_tpu_torch.ops.kernels import (
+        KERNEL_SOURCES,
+        _build,
+        paged_decode_attention,
+        paged_prefill_attention,
+        ragged_attention,
+    )
 
     t0 = time.monotonic()
     reports = _build.build_all(KERNEL_SOURCES)
-    from dynamo_tpu_torch.ops.kernels import ragged_attention
-
-    ragged_attention.build()
-    ptxas = [
-        line.split("ptxas info    : ")[-1].strip()
-        for text in reports.values() for line in text.splitlines()
-        if "Compiling entry" in line or "registers" in line or "spill" in line
-    ]
+    for module in (ragged_attention, paged_decode_attention, paged_prefill_attention):
+        module.build()
     emit({"phase": "build", "kernels": KERNEL_SOURCES,
-          "build_s": round(time.monotonic() - t0, 3), "ptxas": ptxas})
+          "build_s": round(time.monotonic() - t0, 3),
+          "ptxas": ptxas_summary(reports)})
 
 
-# -- phase 2 -----------------------------------------------------------------
-H, KVH, D, BS = 32, 8, 64, 16        # llama3.2-1b attention shapes
+def ptxas_summary(reports: dict) -> dict:
+    """{kernel<template args>: [registers, spill store bytes]} from the
+    compiler's -Xptxas -v report, the mangled names cut to their core."""
+    import re
+
+    out, entry = {}, None
+    for text in reports.values():
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                m = re.search(r"\d+([a-z_]+_kernel|zero_unowned_rows)I(.*?)E+v", name)
+                entry = f"{m.group(1)}<{m.group(2)}>" if m else name
+                out[entry] = [0, 0]
+            elif entry and "spill stores" in line:
+                out[entry][1] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            elif entry and "registers" in line:
+                out[entry][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
+# -- phase 2: shared inputs --------------------------------------------------
+def make_cache(rng, num_blocks, dtype, kvh=KVH, d=D, bs=BS):
+    """Random paged K/V caches; an int8 cache comes with per-(block, kv
+    head) scales."""
+    shape = (num_blocks * bs, kvh, d)
+    if dtype == torch.int8:
+        k, v = (t_(rng.integers(-127, 128, shape).astype(np.int8)) for _ in range(2))
+        ks, vs = (t_(rng.uniform(0.002, 0.02, (num_blocks, kvh)).astype(np.float32))
+                  for _ in range(2))
+        return dict(k=k, v=v, ks=ks, vs=vs)
+    return dict(k=t_(rng.standard_normal(shape)).to(dtype),
+                v=t_(rng.standard_normal(shape)).to(dtype))
+
+
+def dense_kv(c):
+    """The caches in q's dtype (int8 pages dequantized by their scales),
+    for the library yardstick."""
+    if "ks" not in c:
+        return c["k"], c["v"]
+    bs = c["k"].shape[0] // c["ks"].shape[0]
+    return tuple(
+        (c[n].float() * c[s].repeat_interleave(bs, 0)[:, :, None]).to(c["q"].dtype)
+        for n, s in (("k", "ks"), ("v", "vs"))
+    )
+
+
+def disjoint_tables(rng, rows, max_blocks, num_blocks):
+    ids = rng.permutation(np.arange(1, num_blocks))[: rows * max_blocks]
+    return ids.reshape(rows, max_blocks).astype(np.int32)
+
+
+def striped_tables(rng, rows, max_blocks, num_blocks, sp=SP):
+    """Tables under the striped allocator: logical page i lives on shard
+    i % sp, whose blocks are [r*nb/sp, (r+1)*nb/sp)."""
+    local = num_blocks // sp
+    pools = [list(rng.permutation(np.arange(r * local + 1, (r + 1) * local)))
+             for r in range(sp)]
+    tables = np.zeros((rows, max_blocks), np.int32)
+    for b in range(rows):
+        for i in range(max_blocks):
+            tables[b, i] = pools[i % sp].pop()
+    return tables
+
+
+def gather_dense(k, v, tables, L, bs=BS):
+    """Each row's first L keys gathered dense, heads repeated for GQA:
+    [rows, H, L, D] — the library yardstick's input, built once."""
+    keys = torch.arange(L, device=DEVICE)
+    slots = tables.long()[:, keys // bs] * bs + keys % bs        # [rows, L]
+    return tuple(x[slots].permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                 for x in (k, v))
+
+
+# -- phase 2a: ragged ----------------------------------------------------------
 def make_case(rng, spans, T, dtype, num_blocks=1024, max_blocks=48,
-              dims=(H, KVH, D, BS)):
+              dims=(H, KVH, D, BS), kv_dtype=None):
     """Random paged caches and a flat batch for spans [(q_start, q_len)],
     packed from row 0; each span gets its own disjoint blocks."""
-    dev = DEVICE
     h, kvh, d, bs = dims
     S = len(spans)
-    k = torch.from_numpy(rng.standard_normal((num_blocks * bs, kvh, d))).to(dev, dtype)
-    v = torch.from_numpy(rng.standard_normal((num_blocks * bs, kvh, d))).to(dev, dtype)
-    ids = rng.permutation(np.arange(1, num_blocks))[: S * max_blocks]
-    tables = ids.reshape(S, max_blocks).astype(np.int32)
+    c = make_cache(rng, num_blocks, kv_dtype or dtype, kvh, d, bs)
+    tables = disjoint_tables(rng, S, max_blocks, num_blocks)
     q_start = np.array([a for a, _ in spans], np.int32)
     q_len = np.array([b for _, b in spans], np.int32)
     row_start = np.zeros(S, np.int32)
@@ -130,16 +294,13 @@ def make_case(rng, spans, T, dtype, num_blocks=1024, max_blocks=48,
         token_pos[cursor:cursor + ql] = np.arange(qs, qs + ql)
         cursor += ql
     assert cursor <= T
-    q = torch.from_numpy(rng.standard_normal((T, h, d))).to(dev, dtype)
-
-    def t(a):
-        return torch.from_numpy(a).to(dev)
-
-    return dict(
-        q=q, k=k, v=v, tables=t(tables), q_start=t(q_start), q_len=t(q_len),
-        kv_len=t(q_start + q_len), row_start=t(row_start),
-        token_seq=t(token_seq), token_pos=t(token_pos), spans=spans, bs=bs,
+    c.update(
+        q=t_(rng.standard_normal((T, h, d))).to(dtype), tables=t_(tables),
+        q_start=t_(q_start), q_len=t_(q_len), kv_len=t_(q_start + q_len),
+        row_start=t_(row_start), token_seq=t_(token_seq),
+        token_pos=t_(token_pos), spans=spans, bs=bs,
     )
+    return c
 
 
 def run_kernel(c, window=0):
@@ -150,6 +311,7 @@ def run_kernel(c, window=0):
     return ragged_paged_attention_cuda(
         c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["q_len"],
         c["kv_len"], c["row_start"], c["bs"], window=window,
+        k_scales=c.get("ks"), v_scales=c.get("vs"),
     )
 
 
@@ -158,131 +320,371 @@ def run_plain(c, window=0):
 
     return ragged_paged_attention(
         c["q"], c["k"], c["v"], c["tables"], c["token_seq"], c["token_pos"],
-        c["bs"], window,
+        c["bs"], window, k_scales=c.get("ks"), v_scales=c.get("vs"),
     )
 
 
-def work_of(c, window=0):
+def ragged_work(c, window=0):
     """(bytes, flops) the function must move and do on these inputs:
-    each span's visible K/V read once, q read once, out written once."""
-    el = c["q"].element_size()
+    each span's visible K/V (and, for int8, its pages' scales) read once,
+    q read once, out written once."""
+    el_q, el_kv = c["q"].element_size(), c["k"].element_size()
     T = c["q"].shape[0]
     kv_bytes, flops = 0, 0
     for qs, ql in c["spans"]:
         if ql == 0:
             continue
         first = max(0, qs - window + 1) if window else 0
-        kv_bytes += (qs + ql - first) * KVH * D * el * 2
+        kv_bytes += (qs + ql - first) * KVH * D * el_kv * 2
+        if "ks" in c:
+            kv_bytes += (-(-(qs + ql) // BS) - first // BS) * KVH * 4 * 2
         for pos in range(qs, qs + ql):
             lo = max(0, pos - window + 1) if window else 0
             flops += 4 * (pos + 1 - lo) * H * D
-    io = 2 * T * H * D * el + c["tables"].numel() * 4 + 4 * 4 * len(c["spans"])
+    io = 2 * T * H * D * el_q + c["tables"].numel() * 4 + 4 * 4 * len(c["spans"])
     return kv_bytes + io, flops
 
 
-def library_sdpa(c):
+def ragged_library(c):
     """One scaled_dot_product_attention call over the K/V each row sees,
     gathered dense and masked — a yardstick only (the port never calls
-    it). Returns the call; the gather happens once, outside it."""
+    it). Returns the call, giving (out, rows to compare); the gather
+    happens once, outside it. The decode and prefill yardsticks below
+    follow the same pattern."""
     import torch.nn.functional as F
 
-    T = c["q"].shape[0]
-    tables = c["tables"].long()
-    seq = c["token_seq"].long()
+    tables = c["tables"][c["token_seq"].long()]
     pos = c["token_pos"].long()
     L = int(c["kv_len"].max().item())
+    kd, vd = gather_dense(*dense_kv(c), tables, L)
     keys = torch.arange(L, device=DEVICE)
-    pages = tables[seq][:, keys // BS]                           # [T, L]
-    slots = pages * BS + keys % BS
-    G = H // KVH
-    kd = c["k"][slots].permute(0, 2, 1, 3).repeat_interleave(G, dim=1)  # [T, H, L, D]
-    vd = c["v"][slots].permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
     mask = (keys[None, :] <= pos[:, None])[:, None, None, :]     # [T,1,1,L]
     mask = mask | (pos[:, None, None, None] < 0) & (keys == 0)[None, None, None, :]
     qd = c["q"][:, :, None, :]                                   # [T, H, 1, D]
-
-    def call():
-        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
-
-    return call
+    owned = pos >= 0
+    return lambda: (F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)[:, :, 0, :],
+                    owned)
 
 
-def phase_kernel() -> dict:
+def phase_ragged() -> tuple[dict, dict]:
     rng = np.random.default_rng(0)
-    bf16 = torch.bfloat16
+    bf16, f32, int8 = torch.bfloat16, torch.float32, torch.int8
     decode = [(c - 1, 1) for c in (64, 130, 257, 300, 411, 512, 600, 1)]
     mixed = [(c - 1, 1) for c in (100, 180, 250, 333, 420, 480, 530, 600)] + [
         (0, 64), (128, 64), (32, 100), (0, 0)
     ]
+    spec = [(300, 4), (50, 1), (0, 10), (0, 0)]
     main = (H, KVH, D, BS)
     cases = [
-        ("decode_only", decode, 16, bf16, 0, main),
-        ("prefill_prefix_hit", [(0, 128), (64, 100)], 256, bf16, 0, main),
-        ("mixed_T256", mixed, 256, bf16, 0, main),
-        ("spec_verify_4rows", [(300, 4), (50, 1), (0, 10), (0, 0)], 16, bf16, 0, main),
-        ("windowed_mixed", mixed, 256, bf16, 128, main),
-        ("mixed_f32", mixed, 256, torch.float32, 0, main),
+        ("decode_only", decode, 16, bf16, 0, main, None),
+        ("prefill_prefix_hit", [(0, 128), (64, 100)], 256, bf16, 0, main, None),
+        ("mixed_T256", mixed, 256, bf16, 0, main, None),
+        ("spec_verify_4rows", spec, 16, bf16, 0, main, None),
+        ("windowed_mixed", mixed, 256, bf16, 128, main, None),
+        ("mixed_f32", mixed, 256, f32, 0, main, None),
+        ("int8_decode_only", decode, 16, bf16, 0, main, int8),
+        ("int8_mixed_T256", mixed, 256, bf16, 0, main, int8),
+        ("int8_windowed_mixed", mixed, 256, bf16, 128, main, int8),
+        ("int8_spec_verify_4rows", spec, 16, bf16, 0, main, int8),
+        ("int8_mixed_f32", mixed, 256, f32, 0, main, int8),
     ]
     # The kernel's other supported shapes — head dims 16..256 and block
     # size 4, one per template instantiation — on a shorter mixed batch.
     short = [(99, 1), (179, 1), (0, 64), (32, 100), (0, 0)]
     for dims in [(4, 2, 16, 4), (32, 8, 128, 16), (16, 2, 256, 16)]:
-        for dt in (bf16, torch.float32):
-            cases.append(("shape_H%d_kvH%d_D%d_bs%d" % dims, short, 256, dt, 0, dims))
-    worst = {bf16: 0.0, torch.float32: 0.0}
-    timed = {}
-    for name, spans, T, dtype, window, dims in cases:
-        c = make_case(rng, spans, T, dtype, dims=dims)
+        for dt in (bf16, f32):
+            for kv in (None, int8):
+                name = "shape_H%d_kvH%d_D%d_bs%d" % dims + ("_int8" if kv else "")
+                cases.append((name, short, 256, dt, 0, dims, kv))
+    worst = {"plain": 0.0, "int8": 0.0}
+    kept = {}
+    for name, spans, T, dtype, window, dims, kv in cases:
+        c = make_case(rng, spans, T, dtype, dims=dims, kv_dtype=kv)
         got = run_kernel(c, window)
         want = run_plain(c, window)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
         owned = sum(ql for _, ql in spans)
         pad_zero = bool((got[owned:] == 0).all().item()) if owned < T else True
-        tol = KERNEL_TOL[dtype]
-        ok = err <= tol and pad_zero and bool(torch.isfinite(got.float()).all())
-        worst[dtype] = max(worst[dtype], err)
-        emit({"phase": "kernel", "case": name, "dtype": str(dtype).split(".")[-1],
-              "T": T, "spans": len(spans), "window": window,
-              "H_kvH_D_bs": list(dims),
-              "max_abs_err": err, "tol": tol, "padding_rows_zero": pad_zero,
-              "ok": ok})
-        if not ok:
-            raise SystemExit(f"kernel case {name} disagrees with the plain version")
-        if name == "mixed_T256":
-            timed = dict(c=c)
-        if name == "decode_only":
-            emit({"phase": "kernel_timing", "case": name,
-                  "kernel_ms": device_ms(lambda: run_kernel(c, window), 20)})
-
-    c = timed["c"]
-    kernel_ms = device_ms(lambda: run_kernel(c), iters=20)
-    kernel_host_ms = host_ms(lambda: run_kernel(c), iters=50)
-    plain_ms = device_ms(lambda: run_plain(c), iters=2)
-    sdpa = library_sdpa(c)
-    lib_out = sdpa()[:, :, 0, :]
-    want = run_plain(c)
-    owned = sum(ql for _, ql in c["spans"])
-    lib_err = (lib_out[:owned].float() - want[:owned].float()).abs().max().item()
-    library_ms = device_ms(sdpa, iters=5)
-    nbytes, flops = work_of(c)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    timing = {
-        "phase": "kernel_timing", "case": "mixed_T256", "kernel_ms": kernel_ms,
-        "kernel_host_ms": kernel_host_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-        "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-        "bound_share": bound_ms / kernel_ms,
-    }
-    emit(timing)
-    timing["max_abs_err"] = worst[bf16]
-    return timing
+        err = check("kernel", "ragged_" + name, {"max_abs_err": max_err(got, want)},
+                    KERNEL_TOL[dtype], ok=pad_zero, dtype=str(dtype).split(".")[-1],
+                    kv_dtype=str(kv or dtype).split(".")[-1], T=T,
+                    spans=len(spans), window=window, H_kvH_D_bs=list(dims),
+                    padding_rows_zero=pad_zero)
+        if dtype == bf16:
+            leg = "int8" if kv else "plain"
+            worst[leg] = max(worst[leg], err)
+        if name in ("mixed_T256", "int8_mixed_T256"):
+            kept[name] = c
+    out = []
+    for name in ("mixed_T256", "int8_mixed_T256"):
+        c = kept[name]
+        nbytes, flops = ragged_work(c)
+        out.append(timing(
+            "ragged_" + name, lambda c=c: run_kernel(c), lambda c=c: run_plain(c),
+            ragged_library(c), run_plain(c), nbytes, flops, torch.bfloat16,
+        ))
+    out[0]["max_abs_err"], out[1]["max_abs_err"] = worst["plain"], worst["int8"]
+    return out[0], out[1]
 
 
-# -- phases 3 and 4 ----------------------------------------------------------
+def contiguous_tables(lens, steps, max_blocks, bs=BS):
+    """Each lane's blocks laid end to end from block 1, covering its
+    prompt and `steps` more tokens: the phase-split run's block tables.
+    Returns (per-lane block lists, [lanes, max_blocks] int32 table)."""
+    blocks, nxt = [], 1
+    for n in lens:
+        need = -(-(n + steps + 1) // bs)
+        blocks.append(list(range(nxt, nxt + need)))
+        nxt += need
+    table = np.zeros((len(lens), max_blocks), np.int32)
+    for i, b in enumerate(blocks):
+        table[i, :len(b)] = b
+    return blocks, table
+
+
+# -- phase 2b: decode ----------------------------------------------------------
+def decode_case(rng, ctxs, dtype, striped=False, num_blocks=1024, max_blocks=48,
+                tables=None):
+    c = make_cache(rng, num_blocks, dtype)
+    rows = len(ctxs)
+    if tables is None:
+        tables = (striped_tables if striped else disjoint_tables)(
+            rng, rows, max_blocks, num_blocks)
+    c.update(q=t_(rng.standard_normal((rows, H, D))).to(dtype), tables=t_(tables),
+             ctx=t_(np.asarray(ctxs, np.int32)), ctxs=list(ctxs),
+             local=num_blocks // SP)
+    return c
+
+
+def decode_kernel(c, window=0, **kw):
+    from dynamo_tpu_torch.ops.kernels.paged_decode_attention import (
+        paged_decode_attention_cuda,
+    )
+
+    return paged_decode_attention_cuda(
+        c["q"], c["k"], c["v"], c["tables"], c["ctx"], BS, window=window, **kw)
+
+
+def decode_plain(c, window=0, **kw):
+    from dynamo_tpu_torch.ops.attention import paged_decode_attention
+
+    return paged_decode_attention(
+        c["q"], c["k"], c["v"], c["tables"], c["ctx"], BS, window, **kw)
+
+
+def shard_of(c, r):
+    """Shard r's view of a striped case: its LOCAL cache slice and
+    compacted stripe, and its page offset as a [1] int32 on the card."""
+    from dynamo_tpu_torch.ops.attention import stripe_tables
+
+    local = c["local"]
+    sl = slice(r * local * BS, (r + 1) * local * BS)
+    return dict(c, k=c["k"][sl], v=c["v"][sl],
+                tables=stripe_tables(c["tables"], r, SP, local)), dict(
+        page_offset=torch.tensor([r], dtype=torch.int32, device=DEVICE),
+        page_stride=SP, with_stats=True)
+
+
+def check_striped(phase, case, c, kernel, plain, window, tol):
+    """Each shard's kernel call (out, m, l) against its plain version
+    (l relative to max(l, 1): it sums up to hundreds of terms), and the
+    merged shards against the unstriped kernel call and the unstriped
+    plain version."""
+    from dynamo_tpu_torch.ops.attention import merge_stats
+
+    parts, errs = [], {"out": 0.0, "m": 0.0, "l_rel": 0.0}
+    for r in range(SP):
+        sc, kw = shard_of(c, r)
+        got, want = kernel(sc, window, **kw), plain(sc, window, **kw)
+        parts.append(got)
+        errs["out"] = max(errs["out"], max_err(got[0], want[0]))
+        errs["m"] = max(errs["m"], max_err(got[1], want[1]))
+        rel = ((got[2] - want[2]).abs() / want[2].clamp(min=1.0)).max().item()
+        errs["l_rel"] = max(errs["l_rel"], rel)
+    # The unstriped calls with stats too: float32 out, as the merge's.
+    merged = merge_stats(parts)
+    whole = kernel(c, window, with_stats=True)[0]
+    errs["merged_vs_unstriped_kernel"] = max_err(merged, whole)
+    errs["merged_vs_unstriped_plain"] = max_err(
+        merged, plain(c, window, with_stats=True)[0])
+    return check(phase, case, errs, tol, shards=SP, window=window)
+
+
+def decode_work(c):
+    el = c["q"].element_size()
+    keys = sum(c["ctxs"])
+    nbytes = keys * KVH * D * el * 2 + 2 * c["q"].numel() * el + c["tables"].numel() * 4
+    return nbytes, 4 * keys * H * D
+
+
+def decode_library(c):
+    import torch.nn.functional as F
+
+    L = max(c["ctxs"])
+    kd, vd = gather_dense(c["k"], c["v"], c["tables"], L)
+    keys = torch.arange(L, device=DEVICE)
+    mask = keys[None, :] < c["ctx"][:, None]
+    mask = (mask | (c["ctx"][:, None] == 0) & (keys == 0)[None, :])[:, None, None, :]
+    qd = c["q"][:, :, None, :]
+    owned = c["ctx"] > 0
+    return lambda: (F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)[:, :, 0, :],
+                    owned)
+
+
+def phase_decode(lens, steps) -> dict:
+    """The main case is the phase-split run's own: its lanes (prompts of
+    `lens` tokens, contiguous tables of the full-width config's width),
+    checked at its first, middle and last decode step and timed at the
+    middle one. Then 8 lanes of contexts 1–600 with an idle lane (bf16
+    and f32, windowed) and a striped sp=4 scan as further checks."""
+    rng = np.random.default_rng(1)
+    bf16, tol = torch.bfloat16, KERNEL_TOL
+    ecfg = full_width_config()
+    _, table = contiguous_tables(lens, steps, ecfg.max_blocks_per_seq)
+    worst, main = 0.0, None
+    for step in (0, steps // 2, steps - 1):
+        c = decode_case(rng, [n + 1 + step for n in lens], bf16,
+                        num_blocks=ecfg.num_blocks, tables=table)
+        worst = max(worst, check(
+            "kernel", f"decode_phases_step{step}",
+            {"max_abs_err": max_err(decode_kernel(c), decode_plain(c))}, tol[bf16],
+            lanes=len(lens), contexts=c["ctxs"], max_blocks=table.shape[1]))
+        if step == steps // 2:
+            main = c
+    ctxs = [1, 64, 130, 257, 300, 411, 512, 600, 0]     # 8 lanes + an idle lane
+    for dtype in (bf16, torch.float32):
+        c = decode_case(rng, ctxs, dtype)
+        for window in (0, 128):
+            got, want = decode_kernel(c, window), decode_plain(c, window)
+            idle_zero = bool((got[-1] == 0).all().item())
+            err = check("kernel", f"decode_{str(dtype)[6:]}_w{window}",
+                        {"max_abs_err": max_err(got, want)}, tol[dtype],
+                        ok=idle_zero, lanes=len(ctxs), window=window,
+                        idle_lane_zero=idle_zero)
+            if dtype == bf16:
+                worst = max(worst, err)
+    c = decode_case(rng, ctxs, bf16, striped=True)
+    for window in (0, 128):
+        check_striped("kernel", f"decode_striped_sp{SP}", c, decode_kernel,
+                      decode_plain, window, tol[bf16])
+    nbytes, flops = decode_work(main)
+    out = timing(f"decode_phases_{len(lens)}lanes_step{steps // 2}_bf16",
+                 lambda: decode_kernel(main), lambda: decode_plain(main),
+                 decode_library(main), decode_plain(main), nbytes, flops, bf16)
+    out["max_abs_err"] = worst
+    return out
+
+
+# -- phase 2c: prefill -------------------------------------------------------
+def prefill_case(rng, lanes, T, dtype, striped=False, num_blocks=1024, max_blocks=48,
+                 tables=None):
+    c = make_cache(rng, num_blocks, dtype)
+    N = len(lanes)
+    if tables is None:
+        tables = (striped_tables if striped else disjoint_tables)(
+            rng, N, max_blocks, num_blocks)
+    c.update(q=t_(rng.standard_normal((N, T, H, D))).to(dtype), tables=t_(tables),
+             q_start=t_(np.asarray([a for a, _ in lanes], np.int32)),
+             total=t_(np.asarray([b for _, b in lanes], np.int32)),
+             lanes=lanes, local=num_blocks // SP)
+    return c
+
+
+def prefill_kernel(c, window=0, **kw):
+    from dynamo_tpu_torch.ops.kernels.paged_prefill_attention import (
+        paged_prefill_attention_cuda,
+    )
+
+    return paged_prefill_attention_cuda(
+        c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["total"], BS,
+        window=window, **kw)
+
+
+def prefill_plain(c, window=0, **kw):
+    from dynamo_tpu_torch.ops.attention import paged_prefill_attention
+
+    return paged_prefill_attention(
+        c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["total"], BS,
+        window=window, **kw)
+
+
+def prefill_work(c):
+    el = c["q"].element_size()
+    T = c["q"].shape[1]
+    keys, flops = 0, 0
+    for qs, total in c["lanes"]:
+        if total == 0:
+            continue
+        keys += total
+        flops += sum(4 * min(qs + t + 1, total) * H * D for t in range(T))
+    nbytes = keys * KVH * D * el * 2 + 2 * c["q"].numel() * el + c["tables"].numel() * 4
+    return nbytes, flops
+
+
+def prefill_library(c):
+    import torch.nn.functional as F
+
+    T = c["q"].shape[1]
+    L = max(total for _, total in c["lanes"])
+    kd, vd = gather_dense(c["k"], c["v"], c["tables"], L)
+    keys = torch.arange(L, device=DEVICE)
+    qpos = c["q_start"][:, None] + torch.arange(T, device=DEVICE)   # [N, T]
+    mask = (keys[None, None, :] <= qpos[:, :, None]) & (
+        keys[None, None, :] < c["total"][:, None, None])
+    mask = mask | (~mask.any(-1, keepdim=True) & (keys == 0))
+    qd = c["q"].permute(0, 2, 1, 3)                                  # [N, H, T, D]
+    owned = (c["total"] > 0)[:, None].expand(-1, T)
+    return lambda: (F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask[:, None]).permute(0, 2, 1, 3), owned)
+
+
+def phase_prefill(lens, steps) -> dict:
+    """The main case is the phase-split run's prefill_batch: its lanes
+    (whole prompts of `lens` tokens, no prefix), padded as the runner
+    pads them (lanes and T to power-of-two buckets), on its contiguous
+    tables; checked and timed. Then 4 lanes of T=256 with prefix hits,
+    padded rows and an idle lane (bf16 and f32, windowed) and a striped
+    sp=4 scan as further checks."""
+    from dynamo_tpu_torch.engine.compile_cache import _bucket
+
+    rng = np.random.default_rng(2)
+    bf16 = torch.bfloat16
+    ecfg = full_width_config()
+    N, T = _bucket(len(lens), minimum=2), _bucket(max(lens))
+    _, table = contiguous_tables(lens, steps, ecfg.max_blocks_per_seq)
+    table = np.concatenate([table, np.zeros((N - len(lens), table.shape[1]), np.int32)])
+    main = prefill_case(rng, [(0, n) for n in lens] + [(0, 0)] * (N - len(lens)), T,
+                        bf16, num_blocks=ecfg.num_blocks, tables=table)
+    worst = check("kernel", f"prefill_phases_{N}lanes_T{T}",
+                  {"max_abs_err": max_err(prefill_kernel(main), prefill_plain(main))},
+                  KERNEL_TOL[bf16], lanes=len(lens), T=T, prompt_lens=list(lens),
+                  max_blocks=table.shape[1])
+    # A whole prompt, a prefix hit, a prefix hit with padded rows, idle.
+    lanes = [(0, 256), (128, 384), (64, 264), (0, 0)]
+    for dtype in (bf16, torch.float32):
+        c = prefill_case(rng, lanes, 256, dtype)
+        for window in (0, 128):
+            got, want = prefill_kernel(c, window), prefill_plain(c, window)
+            idle_zero = bool((got[-1] == 0).all().item())
+            err = check("kernel", f"prefill_{str(dtype)[6:]}_w{window}",
+                        {"max_abs_err": max_err(got, want)}, KERNEL_TOL[dtype],
+                        ok=idle_zero, lanes=len(lanes), T=256, window=window,
+                        idle_lane_zero=idle_zero)
+            if dtype == bf16:
+                worst = max(worst, err)
+    c = prefill_case(rng, lanes, 256, bf16, striped=True)
+    for window in (0, 128):
+        check_striped("kernel", f"prefill_striped_sp{SP}", c, prefill_kernel,
+                      prefill_plain, window, KERNEL_TOL[bf16])
+    nbytes, flops = prefill_work(main)
+    out = timing(f"prefill_phases_{N}lanes_T{T}_bf16", lambda: prefill_kernel(main),
+                 lambda: prefill_plain(main), prefill_library(main),
+                 prefill_plain(main), nbytes, flops, bf16)
+    out["max_abs_err"] = worst
+    return out
+
+
+# -- phases 3 to 7 -----------------------------------------------------------
 async def serve(engine, prompts, max_tokens):
     """Submit every prompt at once through generate(); returns
     (streams, finish reasons, ttft seconds, wall seconds)."""
@@ -318,6 +720,18 @@ async def serve(engine, prompts, max_tokens):
     )
 
 
+async def serve_once(ecfg, params, prompts, max_tokens):
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    engine = TorchEngine(ecfg, params=params, device=DEVICE)
+    await engine.start()
+    try:
+        streams, *_ = await serve(engine, prompts, max_tokens)
+    finally:
+        await engine.stop()
+    return streams
+
+
 def greedy_reference(cfg, params, prompt, n):
     from dynamo_tpu_torch.models import llama
 
@@ -333,9 +747,79 @@ def greedy_reference(cfg, params, prompt, n):
     return out
 
 
+def teacher_forced(cfg, params, prompts, streams) -> dict:
+    """The no-cache reference (reference_forward) over each prompt and
+    its stream, fed the stream's own tokens: finite logits of shape
+    [T, V]; how often its argmax is the stream's next token; where it is
+    not, how far the stream's token lies below the reference's top in
+    log-probability (a near tie shows rounding, a wide gap a fault);
+    the median gap between the reference's top two tokens, for scale;
+    and the reference's log-probability of each stream's first token."""
+    from dynamo_tpu_torch.models import llama
+
+    hits, n, gaps, top2, first_lp = 0, 0, [], [], []
+    finite = shape_ok = True
+    for p, s in zip(prompts, streams):
+        seq = torch.tensor(p + s, device=DEVICE)
+        logits = llama.reference_forward(cfg, params, seq)
+        finite &= bool(torch.isfinite(logits).all().item())
+        shape_ok &= tuple(logits.shape) == (len(seq), cfg.vocab_size)
+        lp = torch.log_softmax(logits[len(p) - 1:-1].float(), dim=-1)
+        want = seq[len(p):].long()
+        chosen = lp[torch.arange(len(s), device=DEVICE), want]
+        best, arg = lp.max(dim=-1)
+        hit = arg == want
+        hits += int(hit.sum().item())
+        n += len(s)
+        gaps += (best - chosen)[~hit].tolist()
+        two = lp.topk(2, dim=-1).values
+        top2 += (two[:, 0] - two[:, 1]).tolist()
+        first_lp.append(chosen[0].item())
+    return {
+        "logits_finite": finite, "logits_shape_ok": shape_ok,
+        "greedy_agreement_vs_no_cache_reference": hits / max(n, 1),
+        "disagreements": len(gaps),
+        "max_logprob_gap_at_disagreement": max(gaps, default=0.0),
+        "median_top2_logprob_gap": float(np.median(top2)),
+        "first_token_ref_logprob": first_lp,
+    }
+
+
+def match_rate(a_streams, b_streams) -> float:
+    pairs = [(x, y) for a, b in zip(a_streams, b_streams) for x, y in zip(a, b)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def phase_split(runner, prompts, steps):
+    """prefill_batch of the prompts, then decode_multi of ``steps`` steps
+    on contiguous blocks; returns (per-prompt streams of steps + 1
+    tokens, timings)."""
+    B = len(prompts)
+    blocks, table = contiguous_tables(
+        [len(p) for p in prompts], steps, runner.cfg.max_blocks_per_seq,
+        runner.cfg.block_size)
+    lanes = [(p, b, 0, (0.0, 0, 1.0)) for p, b in zip(prompts, blocks)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = runner.prefill_batch(lanes)
+    t1 = time.perf_counter()
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    zeros = np.zeros(B, np.float32)
+    multi = runner.decode_multi(
+        np.asarray(first, np.int32), lens, table, lens + 1, zeros,
+        np.zeros(B, np.int32), zeros + 1.0, num_steps=steps,
+    )
+    t2 = time.perf_counter()
+    streams = [[first[i]] + [int(row[i]) for row in multi] for i in range(B)]
+    return streams, {"prefill_batch_ms": (t1 - t0) * 1e3,
+                     "decode_multi_ms": (t2 - t1) * 1e3,
+                     "decode_ms_per_step": (t2 - t1) * 1e3 / steps}
+
+
 async def phase_tiny() -> None:
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.runner import ModelRunner
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
 
@@ -365,30 +849,48 @@ async def phase_tiny() -> None:
     if not ok:
         raise SystemExit(f"tiny engine streams {streams} != reference {want}")
 
+    int8 = await serve_once(dataclasses.replace(ecfg, kv_quant="int8"), params,
+                            prompts, n)
+    rate = match_rate(int8, want)
+    emit({"phase": "tiny_int8", "model": cfg.name, "kv_quant": "int8",
+          "greedy_match_rate_vs_unquantized": rate, "gate": 0.7, "ok": rate >= 0.7})
+    if rate < 0.7:
+        raise SystemExit(f"tiny int8 serve matched {rate:.2f} < 0.7")
 
-async def phase_serve() -> dict:
+    runner = ModelRunner(ecfg, params=params, device=DEVICE)
+    split, _ = phase_split(runner, prompts, n - 1)
+    ok = split == want
+    emit({"phase": "tiny_phases", "model": cfg.name, "dtype": "float32",
+          "prefill_batch_decode_multi_equal_reference": ok})
+    if not ok:
+        raise SystemExit(f"tiny prefill_batch + decode_multi {split} != {want}")
+
+
+def full_width_config(**kw):
     from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    return EngineConfig(
+        model=ModelConfig.llama32_1b(), dtype="bfloat16", block_size=16,
+        num_blocks=1024, max_num_seqs=8, max_model_len=1024, prefill_batch=4,
+        unified_token_budget=256, unified_prefill_quantum=64, seed=0, **kw,
+    )
+
+
+async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
+    """Serve at full width with the ragged kernel's launches counted over
+    exactly this serve; returns (result line, engine, streams)."""
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm.protocols.common import FinishReason
-    from dynamo_tpu_torch.models import llama
-    from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
         ragged_paged_attention_cuda,
     )
 
-    cfg = ModelConfig.llama32_1b()
-    ecfg = EngineConfig(
-        model=cfg, dtype="bfloat16", block_size=16, num_blocks=1024,
-        max_num_seqs=8, max_model_len=1024, prefill_batch=4,
-        unified_token_budget=256, unified_prefill_quantum=64, seed=0,
-    )
+    cfg = ecfg.model
     # Random weights from torch.Generator(seed=ecfg.seed) on the card.
     engine = TorchEngine(ecfg, device=DEVICE)
     await engine.start()
-    rng = np.random.default_rng(1)
-    lens = rng.integers(64, 513, 8)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    max_tokens = 32
+    profile = None
     try:
         ragged_paged_attention_cuda.launches = 0
         streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
@@ -396,29 +898,24 @@ async def phase_serve() -> dict:
         dispatches = engine.unified_dispatches
         prefill_tokens = engine.unified_prefill_tokens
         decode_tokens = engine.unified_decode_tokens
-        more = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-        profile = await profile_serve(engine, more, max_tokens)
+        if profile_prompts is not None:
+            profile = await profile_serve(engine, profile_prompts, max_tokens)
+            profile["of"] = phase
     finally:
         await engine.stop()
     full = all(len(s) == max_tokens for s in streams) and all(
         f is FinishReason.LENGTH for f in finishes
     )
     in_vocab = all(0 <= t < cfg.vocab_size for s in streams for t in s)
-    # The served model's logits on one request, recomputed without the
-    # cache: finite, [T, V], and how often their argmax matches the stream.
-    params = engine.runner.params
-    seq = prompts[0] + streams[0]
-    logits = llama.reference_forward(
-        cfg, params, torch.tensor(seq, device=DEVICE)
-    )
-    finite = bool(torch.isfinite(logits).all().item())
-    shape_ok = tuple(logits.shape) == (len(seq), cfg.vocab_size)
-    ref_next = torch.argmax(logits[len(prompts[0]) - 1:-1], dim=-1).tolist()
-    agree = sum(a == b for a, b in zip(ref_next, streams[0])) / max_tokens
+    # The served model's logits on every request, recomputed without the
+    # cache and fed the streams' own tokens.
+    ref = teacher_forced(cfg, engine.runner.params, prompts, streams)
+    ref.pop("first_token_ref_logprob")
     total = sum(len(s) for s in streams)
     result = {
-        "phase": "serve", "model": cfg.name, "dtype": "bfloat16",
-        "requests": len(prompts), "prompt_lens": lens.tolist(),
+        "phase": phase, "model": cfg.name, "dtype": ecfg.dtype,
+        "kv_quant": ecfg.kv_quant, "requests": len(prompts),
+        "prompt_lens": [len(p) for p in prompts],
         "max_tokens": max_tokens, "generated_tokens": total,
         "wall_s": wall, "tokens_per_s": total / wall,
         "ttft_p50_ms": float(np.median(ttft)) * 1e3,
@@ -426,20 +923,19 @@ async def phase_serve() -> dict:
         "unified_dispatches": dispatches,
         "prefill_tokens": prefill_tokens, "decode_tokens": decode_tokens,
         "kernel_launches": launches, "num_layers": cfg.num_layers,
-        "streams_full_length": full, "tokens_in_vocab": in_vocab,
-        "logits_finite": finite, "logits_shape_ok": shape_ok,
-        "greedy_agreement_vs_no_cache_reference": agree,
+        "streams_full_length": full, "tokens_in_vocab": in_vocab, **ref,
     }
     emit(result)
-    emit(profile)
+    if profile is not None:
+        emit(profile)
     if launches != cfg.num_layers * dispatches or dispatches == 0:
         raise SystemExit(
-            f"kernel launched {launches} times for {dispatches} dispatches "
-            f"x {cfg.num_layers} layers"
+            f"{phase}: kernel launched {launches} times for {dispatches} "
+            f"dispatches x {cfg.num_layers} layers"
         )
-    if not (full and in_vocab and finite and shape_ok):
-        raise SystemExit("served streams failed their checks")
-    return result
+    if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]):
+        raise SystemExit(f"{phase}: served streams failed their checks")
+    return result, engine, streams
 
 
 async def profile_serve(engine, prompts, max_tokens) -> dict:
@@ -468,6 +964,62 @@ async def profile_serve(engine, prompts, max_tokens) -> dict:
     }
 
 
+def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
+    """The phase-split entry points at full width on the serve's weights,
+    each kernel's launches counted over exactly this run."""
+    from dynamo_tpu_torch.engine.runner import ModelRunner
+    from dynamo_tpu_torch.ops.kernels.paged_decode_attention import (
+        paged_decode_attention_cuda,
+    )
+    from dynamo_tpu_torch.ops.kernels.paged_prefill_attention import (
+        paged_prefill_attention_cuda,
+    )
+
+    ecfg = full_width_config()
+    runner = ModelRunner(ecfg, params=params, device=DEVICE)
+    paged_prefill_attention_cuda.launches = 0
+    paged_decode_attention_cuda.launches = 0
+    streams, times = phase_split(runner, prompts, max_tokens)
+    streams = [s[:max_tokens] for s in streams]
+    prefill_launches = paged_prefill_attention_cuda.launches
+    decode_launches = paged_decode_attention_cuda.launches
+    L = ecfg.model.num_layers
+    in_vocab = all(0 <= t < ecfg.model.vocab_size for s in streams for t in s)
+    # prefill_batch's log-probability of each lane's first token against
+    # the no-cache reference's, and every stream fed back through it.
+    ref = teacher_forced(ecfg.model, params, prompts, streams)
+    first_lp = runner.last_logprobs[0][: len(prompts)].tolist()
+    lp_err = max(abs(a - b) for a, b in zip(first_lp, ref.pop("first_token_ref_logprob")))
+    gates = {"agreement_min": PHASES_AGREEMENT, "gap_max": NEAR_TIE_NATS,
+             "first_logprob_err_max": FIRST_LOGPROB_TOL}
+    ok = (ref["logits_finite"] and ref["logits_shape_ok"]
+          and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+          and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS
+          and lp_err <= FIRST_LOGPROB_TOL)
+    result = {
+        "phase": "phases", "model": ecfg.model.name, "dtype": ecfg.dtype,
+        "lanes": len(prompts), "prompt_lens": [len(p) for p in prompts],
+        "decode_steps": max_tokens, **times,
+        "prefill_kernel_launches": prefill_launches,
+        "decode_kernel_launches": decode_launches, "num_layers": L,
+        "tokens_in_vocab": in_vocab, **ref,
+        "first_token_logprob_err_vs_reference": lp_err, "gates": gates,
+        "token_match_rate_vs_unified_serve": match_rate(streams, unified_streams),
+        "ok": ok,
+    }
+    emit(result)
+    if prefill_launches != L or decode_launches != L * max_tokens:
+        raise SystemExit(
+            f"phases: prefill kernel launched {prefill_launches} (want {L}), "
+            f"decode kernel {decode_launches} (want {L * max_tokens})"
+        )
+    if not in_vocab:
+        raise SystemExit("phases: tokens out of the vocabulary")
+    if not ok:
+        raise SystemExit("phases: streams disagree with the no-cache reference")
+    return result
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -479,6 +1031,15 @@ def card_line() -> str:
     return out
 
 
+def kernel_entry(name, source, replaces, launches, t) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": t["max_abs_err"],
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -486,24 +1047,51 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    # The full-width serves' prompts; the phase-split run takes the first
+    # PHASE_LANES of them, and the decode and prefill kernels' main cases
+    # are that run's.
+    rng = np.random.default_rng(1)
+    vocab = full_width_config().model.vocab_size
+    lens = rng.integers(64, 513, 8)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+    more = [rng.integers(0, vocab, n).tolist() for n in lens]
+    max_tokens = 32
+    phase_lens = [int(n) for n in lens[:PHASE_LANES]]
+
     phase_build()
-    timing = phase_kernel()
+    t_ragged, t_int8 = phase_ragged()
+    t_decode = phase_decode(phase_lens, max_tokens)
+    t_prefill = phase_prefill(phase_lens, max_tokens)
     asyncio.run(phase_tiny())
-    served = asyncio.run(phase_serve())
+
+    served, engine, streams = asyncio.run(serve_full(
+        full_width_config(), prompts, max_tokens, "serve", profile_prompts=more))
+    served_int8, _, streams_int8 = asyncio.run(serve_full(
+        full_width_config(kv_quant="int8"), prompts, max_tokens, "serve_int8",
+        profile_prompts=more))
+    emit({"phase": "serve_int8_vs_bf16",
+          "greedy_match_rate": match_rate(streams_int8, streams)})
+    phases = phase_phases(engine.runner.params, prompts[:PHASE_LANES],
+                          streams[:PHASE_LANES], max_tokens)
+
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "dynamo_tpu_torch/csrc/ragged_attention.cu",
-        "replaces": "dynamo_tpu/ops/pallas/ragged_attention.py:67",
-        "launches": served["kernel_launches"],
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]})
+    ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
+    emit({"kernels": [
+        kernel_entry("ragged_paged_attention", ragged_src,
+                     "dynamo_tpu/ops/pallas/ragged_attention.py:67",
+                     served["kernel_launches"], t_ragged),
+        kernel_entry("ragged_paged_attention_int8", ragged_src,
+                     "dynamo_tpu/ops/pallas/ragged_attention.py:227",
+                     served_int8["kernel_launches"], t_int8),
+        kernel_entry("paged_decode_attention",
+                     "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
+                     "dynamo_tpu/ops/pallas/attention.py:91",
+                     phases["decode_kernel_launches"], t_decode),
+        kernel_entry("paged_prefill_attention",
+                     "dynamo_tpu_torch/csrc/paged_prefill_attention.cu",
+                     "dynamo_tpu/ops/pallas/attention.py:405",
+                     phases["prefill_kernel_launches"], t_prefill),
+    ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

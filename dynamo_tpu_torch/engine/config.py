@@ -26,6 +26,7 @@ class EngineConfig:
     num_blocks: int = 512            # device KV blocks (block 0 is trash)
     max_num_seqs: int = 8            # decode batch slots
     max_model_len: int = 512         # context limit per sequence
+    prefill_chunk: int = 512         # max (padded) tokens per raw prefill call
     prefill_batch: int = 4           # prompts prefilling at once
     watermark: float = 0.05          # keep this fraction of blocks free
     enable_prefix_caching: bool = True
@@ -42,9 +43,11 @@ class EngineConfig:
     # wait. Fixed here: the reference's adaptive co-location controller
     # is not part of this slice.
     unified_prefill_quantum: int = 64
+    # int8 KV blocks with per-(block, kv head) float32 scales (ops/quant.py
+    # quantize_kv_write); served by the unified step only.
+    kv_quant: str | None = None
 
     # -- reference features this slice refuses (validate) ------------------
-    kv_quant: str | None = None
     quant: str | None = None
     weight_quant: str | None = None
     speculative_k: int = 0
@@ -60,9 +63,20 @@ class EngineConfig:
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
+    _KV_QUANT_MODES = (None, "int8")
+
     def validate(self) -> None:
+        if self.kv_quant not in self._KV_QUANT_MODES:
+            raise ValueError(
+                f"kv_quant={self.kv_quant!r} is not served: the modes are "
+                f"{self._KV_QUANT_MODES}"
+            )
+        if self.kv_quant and self.kv_sp:
+            raise ValueError(
+                "conflicting flags kv_quant + kv_sp: kv_quant does not "
+                "support the striped (sequence-parallel) KV cache"
+            )
         refused = [
-            (self.kv_quant, "kv_quant (the int8-KV leg of the kernel)"),
             (self.quant or self.weight_quant, "weight quantization"),
             (self.speculative_k > 0, "speculative decoding"),
             (self.mesh_shape, "a device mesh"),

@@ -13,6 +13,10 @@ import enum
 from dataclasses import dataclass, field
 from typing import Any
 
+# Top alternatives reported per generated token (ops/sampling.py
+# token_logprobs); the reference's cap.
+MAX_LOGPROBS = 8
+
 
 class RequestError(ValueError):
     """A client-caused request failure (unsupported parameter, over-limit

@@ -3,9 +3,10 @@ dynamo_tpu/models/llama.py, dense GQA trunk).
 
 Plain functions over a params dictionary with the reference's keys and
 ``[in, out]`` weight layout, so a JAX params tree carries over unchanged
-through ``params_from_jax``. The unified step writes K/V into the caches
-IN PLACE — PyTorch's counterpart of the reference's donated jit buffers —
-so ``unified`` returns only the logits.
+through ``params_from_jax``. Every entry point (``unified``, ``prefill``,
+``prefill_batch``, ``decode``) writes K/V into the caches IN PLACE —
+PyTorch's counterpart of the reference's donated jit buffers — so it
+returns only the logits (and, for an int8 cache, the new scales).
 """
 
 from __future__ import annotations
@@ -16,10 +17,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.attention import full_causal_attention, ragged_attention
+from dynamo_tpu_torch.ops.kernels.paged_decode_attention import (
+    paged_decode_attention_cuda,
+)
+from dynamo_tpu_torch.ops.kernels.paged_prefill_attention import (
+    paged_prefill_attention_cuda,
+)
 from dynamo_tpu_torch.ops.norms import rms_norm
-from dynamo_tpu_torch.ops.quant import embed_lookup, qdot, tied_head_mm
+from dynamo_tpu_torch.ops.quant import (
+    embed_lookup,
+    qdot,
+    quantize_kv_write,
+    tied_head_mm,
+)
 from dynamo_tpu_torch.ops.rope import rope_angles, rotate
 
 Params = dict[str, Any]
@@ -49,11 +62,14 @@ def init_params(
     cfg: ModelConfig,
     generator: torch.Generator,
     dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Params:
     """Random-init params with 1/sqrt(fan_in) scaling (the reference's
-    law; the draws come from ``generator`` and differ from JAX's)."""
+    law; the draws come from ``generator``, which must live on the
+    target device, and differ from JAX's). ``device`` defaults to the
+    card (``resolve_device``)."""
     check_supported(cfg)
+    device = resolve_device(device)
     D, H, kvH, hd = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     I = cfg.intermediate_size
     g = generator
@@ -106,12 +122,14 @@ def _to_torch(arr, dtype, device) -> torch.Tensor:
 def params_from_jax(
     tree: Params,
     dtype: torch.dtype | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Params:
     """The weight bridge: a reference params tree whose leaves are numpy
     arrays (``jax.tree.map(np.asarray, params)``) → the port's params, in
-    ``dtype`` (default: each leaf's own) on ``device``. The layout is
-    shared, so this is a copy, not a re-layout."""
+    ``dtype`` (default: each leaf's own) on ``device`` (default: the
+    card, ``resolve_device``). The layout is shared, so this is a copy,
+    not a re-layout."""
+    device = resolve_device(device)
     out: Params = {
         "embed": _to_torch(tree["embed"], dtype, device),
         "ln_f": _to_torch(tree["ln_f"], dtype, device),
@@ -156,6 +174,36 @@ def _logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return qdot(h, params["lm_head"]).float()
 
 
+def _layers(
+    cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
+    positions: torch.Tensor, attend,
+) -> torch.Tensor:
+    """The decoder stack over flat rows: embed, then per layer RMSNorm,
+    q/k/v, RoPE at ``positions``, ``attend(li, q, k, v) -> [rows, H, D]``
+    (which writes the layer's cache first where there is one), ``wo``,
+    SwiGLU. Returns the pre-final-norm hidden states [rows, D]."""
+    check_supported(cfg)
+    rows = token_ids.shape[0]
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    x = _embed(params, token_ids.long())
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["ln_attn"], cfg.rms_eps)
+        q, k, v = _qkv(layer, h, cfg)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        attn = attend(li, q, k, v)
+        x = x + qdot(attn.reshape(rows, -1), layer["wo"])
+        x = x + _swiglu(layer, rms_norm(x, layer["ln_mlp"], cfg.rms_eps))
+    return x
+
+
+def _write_kv(cache: tuple[torch.Tensor, torch.Tensor], slots, k, v) -> None:
+    """The plain K/V scatter, in place (the JAX package donates the
+    cache buffers to its jitted programs instead)."""
+    k_cache, v_cache = cache
+    k_cache[slots] = k.to(k_cache.dtype)
+    v_cache[slots] = v.to(v_cache.dtype)
+
+
 def unified(
     cfg: ModelConfig,
     params: Params,
@@ -170,62 +218,143 @@ def unified(
     kv_len: torch.Tensor,        # [S] context after this step
     row_start: torch.Tensor,     # [S] span's first flat row
     block_size: int,
-) -> torch.Tensor:
+    kv_scales: torch.Tensor | None = None,  # [L, 2, num_blocks, kvH] f32
+):
     """ONE forward for a mixed prefill+decode token batch (the unified
     step): embed, RoPE at ``token_pos``, K/V scatter at ``slot_mapping``,
     ragged paged attention, MLP. Decode lanes are spans of length 1,
-    prefill quanta their chunk's rows. Writes K/V into ``kv_caches`` in
-    place and returns per-span logits ``[S, V]`` from each span's LAST
-    row (mid-prompt quanta's samples are discarded by the engine)."""
-    check_supported(cfg)
+    prefill quanta their chunk's rows. Returns per-span logits ``[S, V]``
+    from each span's LAST row (mid-prompt quanta's samples are discarded
+    by the engine).
+
+    With ``kv_scales`` (int8 caches) the K/V scatter goes through the
+    write law (ops/quant.py ``quantize_kv_write``), attention dequantizes
+    in the kernel or the plain version, and the return is
+    ``(logits, new_scales [L, 2, num_blocks, kvH])``."""
     T = token_ids.shape[0]
-    positions = torch.clamp(token_pos, min=0)
     slots = slot_mapping.long()
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-    x = _embed(params, token_ids.long())
-    for li, (layer, (k_cache, v_cache)) in enumerate(
-        zip(params["layers"], kv_caches)
-    ):
-        h = rms_norm(x, layer["ln_attn"], cfg.rms_eps)
-        q, k, v = _qkv(layer, h, cfg)
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        # In place: the cache buffers are the engine's state (the JAX
-        # package donates them to the jitted step instead).
-        k_cache[slots] = k.to(k_cache.dtype)
-        v_cache[slots] = v.to(v_cache.dtype)
-        attn = ragged_attention(
+    new_scales = []
+
+    def attend(li, q, k, v):
+        k_cache, v_cache = kv_caches[li]
+        scale_kw = {}
+        if kv_scales is None:
+            _write_kv(kv_caches[li], slots, k, v)
+        else:
+            k_sc = quantize_kv_write(k_cache, kv_scales[li, 0], slots, k, block_size)
+            v_sc = quantize_kv_write(v_cache, kv_scales[li, 1], slots, v, block_size)
+            new_scales.append(torch.stack([k_sc, v_sc]))
+            scale_kw = {"k_scales": k_sc, "v_scales": v_sc}
+        return ragged_attention(
             q, k_cache, v_cache, block_tables, token_seq, token_pos,
             q_start, q_len, kv_len, row_start, block_size,
+            window=cfg.layer_window(li), **scale_kw,
+        )
+
+    x = _layers(cfg, params, token_ids, torch.clamp(token_pos, min=0), attend)
+    last = torch.clamp(row_start + q_len - 1, 0, T - 1).long()
+    logits = _logits(params, cfg, x[last])
+    if kv_scales is not None:
+        return logits, torch.stack(new_scales)
+    return logits
+
+
+def prefill_batch(
+    cfg: ModelConfig,
+    params: Params,
+    kv_caches: list[tuple[torch.Tensor, torch.Tensor]],
+    token_ids: torch.Tensor,     # [N, T] padded new tokens per lane
+    block_tables: torch.Tensor,  # [N, max_blocks]
+    slot_mapping: torch.Tensor,  # [N, T] (trash slots for padding/idle lanes)
+    prefix_len: torch.Tensor,    # [N]
+    total_len: torch.Tensor,     # [N] (0 = idle lane)
+    block_size: int,
+) -> torch.Tensor:
+    """N sequences' prefills fused into one call: the projections and
+    MLP run over all N*T rows, K/V scatter once, and the prefill kernel
+    reads the shared cache through per-lane block tables. Returns
+    last-token logits [N, V]."""
+    N, T = token_ids.shape
+    positions = prefix_len[:, None] + torch.arange(T, device=token_ids.device)
+    slots = slot_mapping.reshape(N * T).long()
+
+    def attend(li, q, k, v):
+        _write_kv(kv_caches[li], slots, k, v)
+        k_cache, v_cache = kv_caches[li]
+        out = paged_prefill_attention_cuda(
+            q.reshape(N, T, *q.shape[1:]), k_cache, v_cache, block_tables,
+            prefix_len, total_len, block_size, window=cfg.layer_window(li),
+        )
+        return out.reshape(N * T, *q.shape[1:])
+
+    x = _layers(cfg, params, token_ids.reshape(N * T), positions.reshape(N * T), attend)
+    last = torch.clamp(total_len - prefix_len - 1, 0, T - 1).long()
+    hs = x.reshape(N, T, -1)[torch.arange(N, device=x.device), last]
+    return _logits(params, cfg, hs)
+
+
+def prefill(
+    cfg: ModelConfig,
+    params: Params,
+    kv_caches: list[tuple[torch.Tensor, torch.Tensor]],
+    token_ids: torch.Tensor,     # [T] padded new tokens
+    block_table: torch.Tensor,   # [max_blocks]
+    slot_mapping: torch.Tensor,  # [T] cache slots (trash slots for padding)
+    prefix_len: torch.Tensor,    # scalar — prefix-cache hit length
+    total_len: torch.Tensor,     # scalar — prefix + real new tokens
+    block_size: int,
+) -> torch.Tensor:
+    """Prefill one sequence's new tokens (the suffix after any
+    prefix-cache hit); returns the last real token's logits [V]."""
+    return prefill_batch(
+        cfg, params, kv_caches, token_ids[None], block_table[None],
+        slot_mapping[None], prefix_len.reshape(1), total_len.reshape(1),
+        block_size,
+    )[0]
+
+
+def decode(
+    cfg: ModelConfig,
+    params: Params,
+    kv_caches: list[tuple[torch.Tensor, torch.Tensor]],
+    token_ids: torch.Tensor,     # [B]
+    positions: torch.Tensor,     # [B] — context_len - 1 for active slots
+    block_tables: torch.Tensor,  # [B, max_blocks]
+    context_lens: torch.Tensor,  # [B] — 0 marks an inactive slot
+    slot_mapping: torch.Tensor,  # [B] cache slots for the new token
+    block_size: int,
+) -> torch.Tensor:
+    """One decode step for the whole running batch; returns logits
+    [B, V]."""
+    slots = slot_mapping.long()
+
+    def attend(li, q, k, v):
+        _write_kv(kv_caches[li], slots, k, v)
+        k_cache, v_cache = kv_caches[li]
+        return paged_decode_attention_cuda(
+            q, k_cache, v_cache, block_tables, context_lens, block_size,
             window=cfg.layer_window(li),
         )
-        x = x + qdot(attn.reshape(T, -1), layer["wo"])
-        x = x + _swiglu(layer, rms_norm(x, layer["ln_mlp"], cfg.rms_eps))
-    last = torch.clamp(row_start + q_len - 1, 0, T - 1).long()
-    return _logits(params, cfg, x[last])
+
+    return _logits(params, cfg, _layers(cfg, params, token_ids, positions, attend))
 
 
 def hidden_states(
     cfg: ModelConfig, params: Params, token_ids: torch.Tensor
 ) -> torch.Tensor:
     """Full no-cache trunk [T] -> pre-final-norm hidden states [T, D]."""
-    check_supported(cfg)
-    T = token_ids.shape[0]
-    positions = torch.arange(T, device=token_ids.device)
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-    x = _embed(params, token_ids.long())
-    for li, layer in enumerate(params["layers"]):
-        h = rms_norm(x, layer["ln_attn"], cfg.rms_eps)
-        q, k, v = _qkv(layer, h, cfg)
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        attn = full_causal_attention(q, k, v, window=cfg.layer_window(li))
-        x = x + qdot(attn.reshape(T, -1), layer["wo"])
-        x = x + _swiglu(layer, rms_norm(x, layer["ln_mlp"], cfg.rms_eps))
-    return x
+    positions = torch.arange(token_ids.shape[0], device=token_ids.device)
+    return _layers(
+        cfg, params, token_ids, positions,
+        lambda li, q, k, v: full_causal_attention(
+            q, k, v, window=cfg.layer_window(li)
+        ),
+    )
 
 
 def reference_forward(
     cfg: ModelConfig, params: Params, token_ids: torch.Tensor
 ) -> torch.Tensor:
     """Full no-cache forward [T] -> logits [T, V]; the correctness oracle
-    the paged unified path is tested against."""
+    the paged paths are tested against."""
     return _logits(params, cfg, hidden_states(cfg, params, token_ids))

@@ -57,11 +57,13 @@ def nvcc_command(nvcc: str, name: str, out: Path) -> list[str]:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared
+    header (``csrc/*.cuh``)."""
     lib = library_path(name)
-    return (
-        not lib.exists()
-        or lib.stat().st_mtime < source_path(name).stat().st_mtime
-    )
+    if not lib.exists():
+        return True
+    sources = [source_path(name), *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all(names: list[str]) -> dict[str, str]:
@@ -107,3 +109,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def launch(name: str, symbol: str, argtypes: list, *args) -> None:
+    """Call the launcher ``symbol`` of kernel library ``name`` (a C
+    function returning a CUDA error code, with ``<symbol>_error`` for its
+    message); raises if the launch failed. ``argtypes`` declares the
+    signature on first use: pointers as c_void_p, so none is cut to 32
+    bits."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{symbol}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    code = fn(*args)
+    if code:
+        msg = getattr(lib, f"{symbol}_error")(code).decode()
+        raise RuntimeError(f"{symbol} kernel launch failed: {msg}")

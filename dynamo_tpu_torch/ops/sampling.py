@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from dynamo_tpu_torch.llm.protocols.common import MAX_LOGPROBS
+
 MAX_TOP_K = 64
 
 _M32 = 0xFFFFFFFF
@@ -69,6 +71,19 @@ def _uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
     c = torch.arange(n, device=keys.device)
     bits = _mix(keys[:, None], c[None, :]) >> 8          # 24 random bits
     return (bits.float() + 0.5) * (1.0 / (1 << 24))
+
+
+def token_logprobs(
+    logits: torch.Tensor,        # [B, V]
+    chosen: torch.Tensor,        # [B] int — the sampled token ids
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(chosen_logprob [B], top_ids [B, MAX_LOGPROBS] int32, top_logprobs
+    [B, MAX_LOGPROBS]) — log-softmax of the distribution sampled from, at
+    temperature-1 scale, like the reference's engines report."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = torch.gather(lp, 1, chosen.long()[:, None])[:, 0]
+    top_lps, top_ids = torch.topk(lp, min(MAX_LOGPROBS, lp.shape[-1]), dim=-1)
+    return chosen_lp, top_ids.to(torch.int32), top_lps
 
 
 def sample_tokens(

@@ -35,7 +35,7 @@ from dynamo_tpu_torch.runtime.engine import Context
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_CFG = JCfg.tiny_test()
 PARAMS = j_llama.init_params(jax.random.PRNGKey(0), JAX_CFG, dtype=jnp.float32)
-TPARAMS = t_llama.params_from_jax(jax.tree.map(np.asarray, PARAMS))
+TPARAMS = t_llama.params_from_jax(jax.tree.map(np.asarray, PARAMS), device="cpu")
 ENGINE_KW = dict(
     dtype="float32", block_size=4, num_blocks=64, max_num_seqs=4,
     max_model_len=128, prefill_batch=2, unified_token_budget=32,
@@ -328,6 +328,9 @@ from dynamo_tpu_torch.llm.protocols.common import (
     PreprocessedRequest, SamplingOptions, StopConditions)
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.engine.runner import ModelRunner
+from dynamo_tpu_torch.ops.kernels import (  # noqa: F401
+    paged_decode_attention, paged_prefill_attention, ragged_attention)
 import chip_smoke  # noqa: F401
 
 
@@ -348,6 +351,9 @@ async def main():
 
 toks = asyncio.run(main())
 assert len(toks) == 4, toks
+runner = ModelRunner(EngineConfig(model=ModelConfig.tiny_test(), dtype="float32",
+                                  num_blocks=32, max_model_len=64), device="cpu")
+assert len(runner.prefill_batch([([1, 2, 3], [1], 0, (0.0, 0, 1.0))])) == 1
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu")]
 assert not leaked, leaked
 print("SERVED", toks)

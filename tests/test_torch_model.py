@@ -83,7 +83,9 @@ STEPS = [
 def _run_both(name):
     jcfg, tcfg = _configs(name)
     jparams = j_llama.init_params(jax.random.PRNGKey(3), jcfg, dtype=jnp.float32)
-    tparams = t_llama.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = t_llama.params_from_jax(
+        jax.tree.map(np.asarray, jparams), device="cpu"
+    )
     shape = (NUM_BLOCKS * BS, tcfg.num_kv_heads, tcfg.head_dim)
     jcaches = [(jnp.zeros(shape), jnp.zeros(shape)) for _ in range(tcfg.num_layers)]
     tcaches = [(torch.zeros(shape), torch.zeros(shape))
@@ -153,7 +155,9 @@ def test_params_from_jax_keeps_bf16_bits():
     jparams = j_llama.init_params(
         jax.random.PRNGKey(0), JCfg.tiny_test(), dtype=jnp.bfloat16
     )
-    tparams = t_llama.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = t_llama.params_from_jax(
+        jax.tree.map(np.asarray, jparams), device="cpu"
+    )
     assert tparams["embed"].dtype == torch.bfloat16
     want = np.asarray(jparams["layers"][1]["wq"]).view(np.uint16)
     got = tparams["layers"][1]["wq"].view(torch.int16).numpy().view(np.uint16)
@@ -165,10 +169,10 @@ def test_params_from_jax_refuses_what_the_slice_does_not_serve():
         jax.random.PRNGKey(0), JCfg.tiny_test(), dtype=jnp.float32))
     quant = dict(tree, embed={"q": tree["embed"], "s": tree["ln_f"]})
     with pytest.raises(NotImplementedError, match="weight-quant"):
-        t_llama.params_from_jax(quant)
+        t_llama.params_from_jax(quant, device="cpu")
     biased = dict(tree, layers=[dict(tree["layers"][0], bq=tree["ln_f"])])
     with pytest.raises(NotImplementedError, match="families"):
-        t_llama.params_from_jax(biased)
+        t_llama.params_from_jax(biased, device="cpu")
 
 
 def test_init_params_shapes_match_jax():
@@ -177,7 +181,7 @@ def test_init_params_shapes_match_jax():
         j_llama.init_params(jax.random.PRNGKey(0), JCfg.tiny_test()),
     )
     g = torch.Generator().manual_seed(0)
-    tparams = t_llama.init_params(ModelConfig.tiny_test(), g)
+    tparams = t_llama.init_params(ModelConfig.tiny_test(), g, device="cpu")
     assert tparams["embed"].shape == jshapes["embed"]
     for tl, jl in zip(tparams["layers"], jshapes["layers"]):
         assert {k: tuple(v.shape) for k, v in tl.items()} == jl

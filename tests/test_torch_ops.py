@@ -369,7 +369,7 @@ def test_token_block_sequence_chains_hashes():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_quant", "int8"), ("quant", "int8"), ("weight_quant", "int8"),
+    ("kv_quant", "fp8"), ("quant", "int8"), ("weight_quant", "int8"),
     ("speculative_k", 2), ("mesh_shape", {"tp": 2}), ("kv_sp", True),
     ("multimodal", True),
 ])

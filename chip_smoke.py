@@ -16,15 +16,24 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 a windowed batch, float32, the other head dims;
                 ragged, int8 caches: decode-only, mixed T=256, windowed,
                 spec-verify, float32 q, the other head dims;
-                decode: the phase-split run's 4 lanes (phase 7) at its
-                first, middle and last step, timed at the middle one;
-                8 lanes (contexts 1–600) and an idle lane in bf16 and
-                f32, windowed, and a striped sp=4 scan whose shards'
-                stats merge to the unstriped call;
-                prefill: the phase-split run's prefill_batch (4 whole
+                decode (split-KV + merge): the phase-split run's 4
+                lanes (phase 7) at its first, middle and last step,
+                timed at the middle one; 8 lanes (contexts 1–600) and an
+                idle lane in bf16 and f32, windowed; 1 lane at the
+                longest context a 64-column table holds (windows that
+                leave whole splits behind); 32 lanes with idle ones
+                (2 splits); 40 lanes (1 split, no merge); head dims
+                16–256, G = 3 and 16, block size 4; a striped sp=4
+                scan (with splits) whose shards' stats merge to the
+                unstriped call; each case's (splits, pages) printed;
+                prefill (bf16 on the tensor-core entry, f32 on the
+                walk): the phase-split run's prefill_batch (4 whole
                 prompts padded to T=512), timed; 4 lanes of T=256 with
                 prefix hits, padded rows and an idle lane, windowed,
-                f32, and striped sp=4.
+                f32; T=512 behind prefixes that put causal and window
+                edges inside chunks; block size 4; every head-dim
+                template (16–256, 96) with G = 1, 3, 4, 8, 16; striped
+                sp=4.
 3. tiny       — tiny-test in float32: 3 concurrent greedy requests through
                 TorchEngine.generate equal the port's reference_forward
                 continuation on the card; an int8-KV engine keeps a greedy
@@ -45,8 +54,9 @@ Phases, one JSON line each; any failure exits non-zero without the final
 7. phases     — the phase-split entry points at full width on the serve's
                 weights: prefill_batch of 4 prompts (64–512 tokens), then
                 decode_multi of 32 steps; the prefill kernel launches
-                num_layers times per call, the decode kernel num_layers
-                times per step; the streams fed back through the no-cache
+                num_layers times per call, all on the tensor-core entry,
+                the decode wrapper num_layers times per step; the
+                streams fed back through the no-cache
                 reference_forward must agree with its argmax (where they
                 do not, as near ties), and prefill_batch's first-token
                 log-probabilities must match it; token-match rate
@@ -197,6 +207,8 @@ def phase_build() -> None:
         module.build()
     emit({"phase": "build", "kernels": KERNEL_SOURCES,
           "build_s": round(time.monotonic() - t0, 3),
+          "nvcc_s": {name: float(text.rsplit("nvcc seconds:", 1)[1])
+                     for name, text in reports.items()},
           "ptxas": ptxas_summary(reports)})
 
 
@@ -444,15 +456,16 @@ def contiguous_tables(lens, steps, max_blocks, bs=BS):
 
 # -- phase 2b: decode ----------------------------------------------------------
 def decode_case(rng, ctxs, dtype, striped=False, num_blocks=1024, max_blocks=48,
-                tables=None):
-    c = make_cache(rng, num_blocks, dtype)
+                tables=None, dims=(H, KVH, D, BS)):
+    h, kvh, d, bs = dims
+    c = make_cache(rng, num_blocks, dtype, kvh, d, bs)
     rows = len(ctxs)
     if tables is None:
         tables = (striped_tables if striped else disjoint_tables)(
             rng, rows, max_blocks, num_blocks)
-    c.update(q=t_(rng.standard_normal((rows, H, D))).to(dtype), tables=t_(tables),
+    c.update(q=t_(rng.standard_normal((rows, h, d))).to(dtype), tables=t_(tables),
              ctx=t_(np.asarray(ctxs, np.int32)), ctxs=list(ctxs),
-             local=num_blocks // SP)
+             local=num_blocks // SP, bs=bs)
     return c
 
 
@@ -462,14 +475,22 @@ def decode_kernel(c, window=0, **kw):
     )
 
     return paged_decode_attention_cuda(
-        c["q"], c["k"], c["v"], c["tables"], c["ctx"], BS, window=window, **kw)
+        c["q"], c["k"], c["v"], c["tables"], c["ctx"], c["bs"], window=window, **kw)
 
 
 def decode_plain(c, window=0, **kw):
     from dynamo_tpu_torch.ops.attention import paged_decode_attention
 
     return paged_decode_attention(
-        c["q"], c["k"], c["v"], c["tables"], c["ctx"], BS, window, **kw)
+        c["q"], c["k"], c["v"], c["tables"], c["ctx"], c["bs"], window, **kw)
+
+
+def decode_plan(c, window=0, page_stride=1) -> list:
+    """The kernel's (splits, pages per split) for this case, as its
+    wrapper computes it."""
+    from dynamo_tpu_torch.ops.kernels.paged_decode_attention import call_split_plan
+
+    return list(call_split_plan(c["q"], c["k"], c["tables"], c["bs"], window, page_stride))
 
 
 def shard_of(c, r):
@@ -485,7 +506,7 @@ def shard_of(c, r):
         page_stride=SP, with_stats=True)
 
 
-def check_striped(phase, case, c, kernel, plain, window, tol):
+def check_striped(phase, case, c, kernel, plain, window, tol, **extra):
     """Each shard's kernel call (out, m, l) against its plain version
     (l relative to max(l, 1): it sums up to hundreds of terms), and the
     merged shards against the unstriped kernel call and the unstriped
@@ -507,7 +528,7 @@ def check_striped(phase, case, c, kernel, plain, window, tol):
     errs["merged_vs_unstriped_kernel"] = max_err(merged, whole)
     errs["merged_vs_unstriped_plain"] = max_err(
         merged, plain(c, window, with_stats=True)[0])
-    return check(phase, case, errs, tol, shards=SP, window=window)
+    return check(phase, case, errs, tol, shards=SP, window=window, **extra)
 
 
 def decode_work(c):
@@ -552,21 +573,46 @@ def phase_decode(lens, steps) -> dict:
         if step == steps // 2:
             main = c
     ctxs = [1, 64, 130, 257, 300, 411, 512, 600, 0]     # 8 lanes + an idle lane
-    for dtype in (bf16, torch.float32):
-        c = decode_case(rng, ctxs, dtype)
-        for window in (0, 128):
-            got, want = decode_kernel(c, window), decode_plain(c, window)
-            idle_zero = bool((got[-1] == 0).all().item())
-            err = check("kernel", f"decode_{str(dtype)[6:]}_w{window}",
-                        {"max_abs_err": max_err(got, want)}, tol[dtype],
-                        ok=idle_zero, lanes=len(ctxs), window=window,
-                        idle_lane_zero=idle_zero)
-            if dtype == bf16:
-                worst = max(worst, err)
+    lanes32 = [int(x) for x in rng.integers(1, 385, 32)]
+    lanes32[5] = lanes32[17] = 0                         # idle lanes
+    # (name, contexts, dtypes, windows, make_cache/tables keywords): the
+    # split kernel at one split (40 lanes fill the card), two (32 lanes),
+    # many (1 lane at the longest context a 64-column table holds, with a
+    # window that leaves whole splits behind), and the other head shapes
+    # (head dims 16..256, G = 3 and G = 16, block size 4).
+    cases = [
+        ("", ctxs, (bf16, torch.float32), (0, 128), {}),
+        ("_b1_ctx1024", [1024], (bf16,), (0, 128, 100), dict(max_blocks=64)),
+        ("_b32", lanes32, (bf16, torch.float32), (0, 128), dict(max_blocks=24)),
+        ("_b40", [int(x) for x in rng.integers(0, 385, 40)], (bf16,), (0,),
+         dict(max_blocks=24)),
+    ]
+    short = [1, 77, 130, 300, 0]
+    for dims in [(4, 2, 16, 4), (24, 8, 96, 16), (32, 8, 128, 16), (16, 2, 256, 16),
+                 (32, 2, 64, 16)]:
+        mb = 96 if dims[3] == 4 else 24
+        cases.append(("_H%d_kvH%d_D%d_bs%d" % dims, short, (bf16, torch.float32), (0, 40),
+                      dict(dims=dims, max_blocks=mb)))
+    for name, cx, dtypes, windows, kw in cases:
+        for dtype in dtypes:
+            c = decode_case(rng, cx, dtype, **kw)
+            for window in windows:
+                got, want = decode_kernel(c, window), decode_plain(c, window)
+                idle = [i for i, n in enumerate(cx) if n == 0]
+                idle_zero = bool((got[idle] == 0).all().item()) if idle else True
+                err = check("kernel", f"decode{name}_{str(dtype)[6:]}_w{window}",
+                            {"max_abs_err": max_err(got, want)}, tol[dtype],
+                            ok=idle_zero, lanes=len(cx), max_context=max(cx),
+                            window=window, splits_pages=decode_plan(c, window),
+                            H_kvH_D_bs=list(kw.get("dims", (H, KVH, D, BS))),
+                            idle_lanes_zero=idle_zero)
+                if dtype == bf16:
+                    worst = max(worst, err)
     c = decode_case(rng, ctxs, bf16, striped=True)
     for window in (0, 128):
         check_striped("kernel", f"decode_striped_sp{SP}", c, decode_kernel,
-                      decode_plain, window, tol[bf16])
+                      decode_plain, window, tol[bf16],
+                      splits_pages=decode_plan(shard_of(c, 0)[0], window, SP))
     nbytes, flops = decode_work(main)
     out = timing(f"decode_phases_{len(lens)}lanes_step{steps // 2}_bf16",
                  lambda: decode_kernel(main), lambda: decode_plain(main),
@@ -577,34 +623,41 @@ def phase_decode(lens, steps) -> dict:
 
 # -- phase 2c: prefill -------------------------------------------------------
 def prefill_case(rng, lanes, T, dtype, striped=False, num_blocks=1024, max_blocks=48,
-                 tables=None):
-    c = make_cache(rng, num_blocks, dtype)
+                 tables=None, dims=(H, KVH, D, BS)):
+    h, kvh, d, bs = dims
+    c = make_cache(rng, num_blocks, dtype, kvh, d, bs)
     N = len(lanes)
     if tables is None:
         tables = (striped_tables if striped else disjoint_tables)(
             rng, N, max_blocks, num_blocks)
-    c.update(q=t_(rng.standard_normal((N, T, H, D))).to(dtype), tables=t_(tables),
+    c.update(q=t_(rng.standard_normal((N, T, h, d))).to(dtype), tables=t_(tables),
              q_start=t_(np.asarray([a for a, _ in lanes], np.int32)),
              total=t_(np.asarray([b for _, b in lanes], np.int32)),
-             lanes=lanes, local=num_blocks // SP)
+             lanes=lanes, local=num_blocks // SP, bs=bs)
     return c
 
 
 def prefill_kernel(c, window=0, **kw):
+    """The wrapper's call; a bf16 call must go through the tensor-core
+    entry and an f32 call through the walk."""
     from dynamo_tpu_torch.ops.kernels.paged_prefill_attention import (
-        paged_prefill_attention_cuda,
+        paged_prefill_attention_cuda as fn,
     )
 
-    return paged_prefill_attention_cuda(
-        c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["total"], BS,
-        window=window, **kw)
+    tc0 = fn.launches_tc
+    out = fn(c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["total"], c["bs"],
+             window=window, **kw)
+    want_tc = 1 if c["q"].dtype == torch.bfloat16 else 0
+    if fn.launches_tc - tc0 != want_tc:
+        raise SystemExit(f"prefill {c['q'].dtype} call took the wrong entry point")
+    return out
 
 
 def prefill_plain(c, window=0, **kw):
     from dynamo_tpu_torch.ops.attention import paged_prefill_attention
 
     return paged_prefill_attention(
-        c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["total"], BS,
+        c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["total"], c["bs"],
         window=window, **kw)
 
 
@@ -661,17 +714,35 @@ def phase_prefill(lens, steps) -> dict:
                   max_blocks=table.shape[1])
     # A whole prompt, a prefix hit, a prefix hit with padded rows, idle.
     lanes = [(0, 256), (128, 384), (64, 264), (0, 0)]
-    for dtype in (bf16, torch.float32):
-        c = prefill_case(rng, lanes, 256, dtype)
-        for window in (0, 128):
-            got, want = prefill_kernel(c, window), prefill_plain(c, window)
-            idle_zero = bool((got[-1] == 0).all().item())
-            err = check("kernel", f"prefill_{str(dtype)[6:]}_w{window}",
-                        {"max_abs_err": max_err(got, want)}, KERNEL_TOL[dtype],
-                        ok=idle_zero, lanes=len(lanes), T=256, window=window,
-                        idle_lane_zero=idle_zero)
-            if dtype == bf16:
-                worst = max(worst, err)
+    # (name, lanes, T, dtypes, windows, keywords): the tile's causal and
+    # window edges inside 64-key chunks (T=512 behind prefixes that are
+    # no multiple of 64, windows of 100), block size 4, and every head
+    # dim template (16..256, 96 on the 128 template) with G = 1, 3, 4,
+    # 8, 16.
+    cases = [
+        ("", lanes, 256, (bf16, torch.float32), (0, 128), {}),
+        ("_T512_prefix", [(37, 549), (200, 700), (5, 300), (0, 0)], 512, (bf16,),
+         (0, 100), {}),
+        ("_bs4", lanes, 256, (bf16, torch.float32), (0, 100),
+         dict(dims=(H, KVH, D, 4), max_blocks=96)),
+    ]
+    for dims in [(4, 2, 16, 16), (8, 8, 64, 16), (24, 8, 96, 16), (32, 8, 128, 16),
+                 (16, 2, 256, 16), (32, 2, 64, 16)]:
+        cases.append(("_H%d_kvH%d_D%d_bs%d" % dims, lanes, 256, (bf16,), (0, 100),
+                      dict(dims=dims)))
+    for name, ln, rows, dtypes, windows, kw in cases:
+        for dtype in dtypes:
+            c = prefill_case(rng, ln, rows, dtype, **kw)
+            for window in windows:
+                got, want = prefill_kernel(c, window), prefill_plain(c, window)
+                idle_zero = bool((got[-1] == 0).all().item())
+                err = check("kernel", f"prefill{name}_{str(dtype)[6:]}_w{window}",
+                            {"max_abs_err": max_err(got, want)}, KERNEL_TOL[dtype],
+                            ok=idle_zero, lanes=len(ln), T=rows, window=window,
+                            H_kvH_D_bs=list(kw.get("dims", (H, KVH, D, BS))),
+                            idle_lane_zero=idle_zero)
+                if dtype == bf16:
+                    worst = max(worst, err)
     c = prefill_case(rng, lanes, 256, bf16, striped=True)
     for window in (0, 128):
         check_striped("kernel", f"prefill_striped_sp{SP}", c, prefill_kernel,
@@ -978,10 +1049,12 @@ def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
     ecfg = full_width_config()
     runner = ModelRunner(ecfg, params=params, device=DEVICE)
     paged_prefill_attention_cuda.launches = 0
+    paged_prefill_attention_cuda.launches_tc = 0
     paged_decode_attention_cuda.launches = 0
     streams, times = phase_split(runner, prompts, max_tokens)
     streams = [s[:max_tokens] for s in streams]
     prefill_launches = paged_prefill_attention_cuda.launches
+    prefill_launches_tc = paged_prefill_attention_cuda.launches_tc
     decode_launches = paged_decode_attention_cuda.launches
     L = ecfg.model.num_layers
     in_vocab = all(0 <= t < ecfg.model.vocab_size for s in streams for t in s)
@@ -1001,6 +1074,7 @@ def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
         "lanes": len(prompts), "prompt_lens": [len(p) for p in prompts],
         "decode_steps": max_tokens, **times,
         "prefill_kernel_launches": prefill_launches,
+        "prefill_tensor_core_launches": prefill_launches_tc,
         "decode_kernel_launches": decode_launches, "num_layers": L,
         "tokens_in_vocab": in_vocab, **ref,
         "first_token_logprob_err_vs_reference": lp_err, "gates": gates,
@@ -1008,9 +1082,11 @@ def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
         "ok": ok,
     }
     emit(result)
-    if prefill_launches != L or decode_launches != L * max_tokens:
+    if (prefill_launches != L or prefill_launches_tc != L
+            or decode_launches != L * max_tokens):
         raise SystemExit(
-            f"phases: prefill kernel launched {prefill_launches} (want {L}), "
+            f"phases: prefill kernel launched {prefill_launches} times, "
+            f"{prefill_launches_tc} on tensor cores (want {L}), "
             f"decode kernel {decode_launches} (want {L * max_tokens})"
         )
     if not in_vocab:
@@ -1031,12 +1107,12 @@ def card_line() -> str:
     return out
 
 
-def kernel_entry(name, source, replaces, launches, t) -> dict:
+def kernel_entry(name, source, replaces, launches, t, design) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": t["max_abs_err"],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "design": design,
     }
 
 
@@ -1076,21 +1152,25 @@ def main() -> int:
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
+    walk = "CUDA-core span walk (paged_attention.cuh), 32-key f32 chunks"
     emit({"kernels": [
         kernel_entry("ragged_paged_attention", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:67",
-                     served["kernel_launches"], t_ragged),
+                     served["kernel_launches"], t_ragged, walk),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
-                     served_int8["kernel_launches"], t_int8),
+                     served_int8["kernel_launches"], t_int8, walk + ", int8 dequant"),
         kernel_entry("paged_decode_attention",
                      "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:91",
-                     phases["decode_kernel_launches"], t_decode),
+                     phases["decode_kernel_launches"], t_decode,
+                     "split-KV over table columns, cp.async ring, merge kernel"),
         kernel_entry("paged_prefill_attention",
                      "dynamo_tpu_torch/csrc/paged_prefill_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:405",
-                     phases["prefill_kernel_launches"], t_prefill),
+                     phases["prefill_kernel_launches"], t_prefill,
+                     "bf16: mma.sync m16n8k16 tile of 128 query vectors "
+                     "(paged_attention_tc.cuh); f32: the walk"),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 // Shared core of the port's paged-attention kernels for Hopper (sm_90a):
-// ragged_attention.cu, paged_decode_attention.cu and
-// paged_prefill_attention.cu each launch `attend_tile` from a kernel of
-// their own that maps blockIdx onto one SPAN of query rows:
+// ragged_attention.cu (both legs) and the f32 leg of
+// paged_prefill_attention.cu launch `attend_tile` from a kernel of their
+// own that maps blockIdx onto one SPAN of query rows:
 //   row0   flat row of the span's first query row in q / out
 //   nrows  rows of the span
 //   q0     position of the span's first row (row i sits at q0 + i)
@@ -27,9 +27,13 @@
 //
 // Bound on this card: the K/V bytes read. Each span's visible keys cross
 // HBM once; the arithmetic (4 x rows x visible keys x H x D flops) sits
-// far below the tensor-core roof at the serving shapes. Not done yet:
-// splitting one long context over several blocks, cp.async/TMA staging,
-// wgmma.
+// far below the tensor-core roof at the serving shapes. The walk itself
+// is serial: synchronous staging, scalar f32 products, one query vector
+// at a time per warp. Two kernels have left it: decode splits a lane's
+// keys over blocks and stages them by cp.async
+// (paged_decode_attention.cu), and bf16 prefill runs tensor-core tiles
+// with a cp.async ring (paged_attention_tc.cuh). The ragged kernel does
+// neither yet; none uses TMA or wgmma.
 
 #pragma once
 

@@ -18,65 +18,64 @@
 // idle lane writes zeros. With stats the output is f32 and m, l
 // [N, T, H] hold each head's softmax stats for the cross-shard merge.
 //
-// Bound on this card: the K/V bytes of each lane's visible pages, read
-// once per query tile (a tile holds QV/G rows, so long prompts re-read
-// their prefix once per tile: bytes, not flops, still bound it at the
-// serving shapes). Design in paged_attention.cuh: grid (query tile, lane,
-// kv head); the TPU kernel's q_tile is a layout choice of the TPU and is
-// replaced by the register tile.
+// Two entry points, chosen by dtype in the Python wrapper:
+// - paged_prefill_attention_tc (bf16): the tensor-core tile of
+//   paged_attention_tc.cuh. At T=512 the bytes of q, out and K/V
+//   (0.0059 ms) and the tensor-core flops (0.0039 ms) bound it about
+//   equally; the tile folds the G query heads into 128 MMA rows, stages
+//   64-key chunks as bf16 by cp.async and runs S = QK^T and PV through
+//   mma.sync (design notes and bound in that header).
+// - paged_prefill_attention (f32): the CUDA-core walk of
+//   paged_attention.cuh, grid (query tile, lane, kv head). A float32
+//   product on tensor cores would be TF32 and miss the 1e-4 f32
+//   tolerance, so the f32 leg stays in f32 on CUDA cores, bound by its
+//   serial 32-key walk. It refuses bf16: a bf16 call never reaches it.
 
 #include "paged_attention.cuh"
+#include "paged_attention_tc.cuh"
 
 namespace {
 
 using namespace paged;
 
-template <typename T, int DPL>
+template <int DPL>
 __global__ void __launch_bounds__(kThreads)
-prefill_attn_kernel(Call<T, T> a, const int* __restrict__ block_tables,
+prefill_attn_kernel(Call<float, float> a, const int* __restrict__ block_tables,
                     const int* __restrict__ q_start, const int* __restrict__ total_len,
                     const int* __restrict__ page_offset, int T_rows, int max_blocks) {
   const int n = blockIdx.y;
   const Span sp{n * T_rows, T_rows, q_start[n], total_len[n],
                 block_tables + (size_t)n * max_blocks, max_blocks};
-  attend_tile<T, T, DPL>(a, sp, blockIdx.z, page_offset != nullptr ? page_offset[0] : 0);
+  attend_tile<float, float, DPL>(a, sp, blockIdx.z, page_offset != nullptr ? page_offset[0] : 0);
 }
 
-template <typename T, int DPL>
-cudaError_t launch(const Call<T, T>& a, const int* tables, const int* qs, const int* tl,
+template <int DPL>
+cudaError_t launch(const Call<float, float>& a, const int* tables, const int* qs, const int* tl,
                    const int* off, int N, int T_rows, int max_blocks, cudaStream_t st) {
   constexpr int QV = Tile<DPL>::QV;
   const int G = a.H / a.kvH;
   const dim3 grid((T_rows * G + QV - 1) / QV, N, a.kvH);
-  return launch_tiles<DPL>(prefill_attn_kernel<T, DPL>, grid, a.D, st, a, tables, qs, tl, off,
+  return launch_tiles<DPL>(prefill_attn_kernel<DPL>, grid, a.D, st, a, tables, qs, tl, off,
                            T_rows, max_blocks);
 }
 
-template <typename T>
-cudaError_t run(const Call<T, T>& a, const int* tables, const int* qs, const int* tl,
-                const int* off, int N, int T_rows, int max_blocks, cudaStream_t st) {
-  switch (dpl_for(a.D)) {
-    case 1: return launch<T, 1>(a, tables, qs, tl, off, N, T_rows, max_blocks, st);
-    case 2: return launch<T, 2>(a, tables, qs, tl, off, N, T_rows, max_blocks, st);
-    case 4: return launch<T, 4>(a, tables, qs, tl, off, N, T_rows, max_blocks, st);
-    case 8: return launch<T, 8>(a, tables, qs, tl, off, N, T_rows, max_blocks, st);
-    default: return cudaErrorInvalidValue;
-  }
+int bs_log2(int bs) {
+  int lg = 0;
+  while ((1 << lg) < bs) ++lg;
+  return (1 << lg) == bs ? lg : -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
-// dtype: 0 = float32, 1 = bfloat16 (q and caches). m_out/l_out non-null
-// = with stats, and then out is float32.
+// Launches the f32 walk on `stream`; returns cudaGetLastError() (0 =
+// ok). m_out/l_out non-null = with stats (out is float32 either way).
 int paged_prefill_attention(const void* q, const void* k_cache, const void* v_cache, void* out,
                             void* m_out, void* l_out, const void* block_tables,
                             const void* q_start, const void* total_len, const void* page_offset,
                             int N, int T_rows, int H, int kvH, int D, int max_blocks,
-                            int block_size, int window, int page_stride, int dtype,
-                            void* stream) {
+                            int block_size, int window, int page_stride, void* stream) {
   if (!head_dim_ok(D, H, kvH) || page_stride < 1) return cudaErrorInvalidValue;
   if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -84,29 +83,60 @@ int paged_prefill_attention(const void* q, const void* k_cache, const void* v_ca
   const int* qs = static_cast<const int*>(q_start);
   const int* tl = static_cast<const int*>(total_len);
   const int* off = static_cast<const int*>(page_offset);
-  float* m = static_cast<float*>(m_out);
-  float* l = static_cast<float*>(l_out);
-  const int out_f32 = m != nullptr;
-  const float scale = 1.0f / sqrtf((float)D);
+  const Call<float, float> a{static_cast<const float*>(q), static_cast<const float*>(k_cache),
+                             static_cast<const float*>(v_cache), nullptr, nullptr, out,
+                             static_cast<float*>(m_out), static_cast<float*>(l_out), 1, H, kvH,
+                             D, block_size, window, page_stride, 1.0f / sqrtf((float)D)};
   cudaError_t err;
-  if (dtype == 1) {
-    using T = __nv_bfloat16;
-    const Call<T, T> a{static_cast<const T*>(q), static_cast<const T*>(k_cache),
-                       static_cast<const T*>(v_cache), nullptr, nullptr, out, m, l, out_f32,
-                       H, kvH, D, block_size, window, page_stride, scale};
-    err = run<T>(a, tb, qs, tl, off, N, T_rows, max_blocks, st);
-  } else if (dtype == 0) {
-    const Call<float, float> a{static_cast<const float*>(q), static_cast<const float*>(k_cache),
-                               static_cast<const float*>(v_cache), nullptr, nullptr, out, m, l,
-                               out_f32, H, kvH, D, block_size, window, page_stride, scale};
-    err = run<float>(a, tb, qs, tl, off, N, T_rows, max_blocks, st);
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (dpl_for(D)) {
+    case 1: err = launch<1>(a, tb, qs, tl, off, N, T_rows, max_blocks, st); break;
+    case 2: err = launch<2>(a, tb, qs, tl, off, N, T_rows, max_blocks, st); break;
+    case 4: err = launch<4>(a, tb, qs, tl, off, N, T_rows, max_blocks, st); break;
+    case 8: err = launch<8>(a, tb, qs, tl, off, N, T_rows, max_blocks, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// Launches the bf16 tensor-core tile on `stream`; returns
+// cudaGetLastError() (0 = ok). m_out/l_out non-null = with stats, and
+// then out is float32, else bf16.
+int paged_prefill_attention_tc(const void* q, const void* k_cache, const void* v_cache,
+                               void* out, void* m_out, void* l_out, const void* block_tables,
+                               const void* q_start, const void* total_len,
+                               const void* page_offset, int N, int T_rows, int H, int kvH,
+                               int D, int max_blocks, int block_size, int window,
+                               int page_stride, void* stream) {
+  const int bs_log = bs_log2(block_size);
+  if (!head_dim_ok(D, H, kvH) || page_stride < 1 || bs_log < 0 || max_blocks < 1)
+    return cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
+  using paged_tc::bf16;
+  const paged_tc::PrefillArgs a{
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_cache),
+      static_cast<const bf16*>(v_cache), out, static_cast<float*>(m_out),
+      static_cast<float*>(l_out), static_cast<const int*>(block_tables),
+      static_cast<const int*>(q_start), static_cast<const int*>(total_len),
+      static_cast<const int*>(page_offset), T_rows, H, kvH, D, max_blocks, block_size, bs_log,
+      window, page_stride, 1.0f / sqrtf((float)D)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (paged_tc::dp_for(D)) {
+    case 16: err = paged_tc::launch_prefill_tc<16>(a, N, st); break;
+    case 32: err = paged_tc::launch_prefill_tc<32>(a, N, st); break;
+    case 64: err = paged_tc::launch_prefill_tc<64>(a, N, st); break;
+    case 128: err = paged_tc::launch_prefill_tc<128>(a, N, st); break;
+    case 256: err = paged_tc::launch_prefill_tc<256>(a, N, st); break;
+    default: err = cudaErrorInvalidValue;
   }
   return (int)err;
 }
 
 const char* paged_prefill_attention_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+const char* paged_prefill_attention_tc_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

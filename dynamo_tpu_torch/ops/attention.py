@@ -111,10 +111,11 @@ def _decode_partials(
             k = _dequant_rows(k, entry, k_scales)
             v = _dequant_rows(v, entry, v_scales)
         scores = torch.einsum("bkgd,bskd->bkgs", qr, k)          # [B, kvH, G, bs]
-        # Positions from the UNCLAMPED logical page: a clamped
-        # over-the-end gather lands at key_pos >= ctx and is masked.
+        # Positions from the UNCLAMPED logical page; a clamped
+        # over-the-end gather is masked, so a slice of the table's
+        # columns (a split of the CUDA kernel) sees only its own pages.
         key_pos = (page_offset + col * page_stride)[:, None] * block_size + offs
-        mask = key_pos < context_lens[:, None]
+        mask = (key_pos < context_lens[:, None]) & (col < cols)[:, None]
         if window:
             mask = mask & (key_pos >= context_lens[:, None] - window)
         mask4 = mask[:, None, None, :]

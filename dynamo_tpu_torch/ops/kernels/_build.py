@@ -15,6 +15,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -68,13 +70,15 @@ def _stale(name: str) -> bool:
 
 def build_all(names: list[str]) -> dict[str, str]:
     """Compile every stale kernel library in parallel (one nvcc each,
-    all started together). Returns {name: ptxas report}. Raises with
-    the compiler's output if any build fails."""
+    all started together). Returns {name: ptxas report, ending with a
+    line ``nvcc seconds: <wall time of that nvcc>``}. Raises with the
+    compiler's output if any build fails."""
     todo = [n for n in names if _stale(n)]
     if not todo:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
     procs = {}
     for name in todo:
         tmp = BUILD_DIR / f"lib{name}.so.tmp{os.getpid()}"
@@ -85,9 +89,16 @@ def build_all(names: list[str]) -> dict[str, str]:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ),
         )
+
+    def finish(proc):
+        output, _ = proc.communicate()
+        return f"{output}\nnvcc seconds: {time.monotonic() - t0:.1f}\n"
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        outputs = {name: pool.submit(finish, proc) for name, (_, proc) in procs.items()}
     reports, failed = {}, []
     for name, (tmp, proc) in procs.items():
-        output, _ = proc.communicate()
+        output = outputs[name].result()
         reports[name] = output
         if proc.returncode != 0:
             failed.append(f"{name}:\n{output}")

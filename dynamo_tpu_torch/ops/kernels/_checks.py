@@ -76,3 +76,18 @@ def check_paged_args(
         raise ValueError("all operands must be contiguous")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("the caches must be 16-byte aligned (vector loads)")
+
+
+MAX_GRID_YZ = 65535
+
+
+def check_lane_args(q, block_tables) -> None:
+    """What the decode and prefill kernels add to ``check_paged_args``:
+    lanes map onto grid.y, the split plan divides the table's columns,
+    and q's fragments are read in whole words."""
+    if block_tables.shape[0] > MAX_GRID_YZ:
+        raise ValueError(f"at most {MAX_GRID_YZ} lanes per call")
+    if block_tables.shape[1] < 1:
+        raise ValueError("block_tables needs at least one column")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")

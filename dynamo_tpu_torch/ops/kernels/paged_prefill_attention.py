@@ -1,18 +1,23 @@
-"""Paged prefill attention — the CUDA kernel's wrapper.
+"""Paged prefill attention — the CUDA kernels' wrapper.
 
 Replaces ``_prefill_kernel`` (dynamo_tpu/ops/pallas/attention.py, called
-through ``paged_prefill_attention_pallas``) on the card; the kernel's
+through ``paged_prefill_attention_pallas``) on the card; the kernels'
 source, with its bound and design notes, is
-``dynamo_tpu_torch/csrc/paged_prefill_attention.cu``. The bound is the
-K/V bytes each lane must read divided by the H100's 3.35 TB/s.
+``dynamo_tpu_torch/csrc/paged_prefill_attention.cu``. Two entry points,
+chosen by dtype (``kernel_entry``): bf16 runs the tensor-core tile
+(``paged_prefill_attention_tc``), float32 the CUDA-core walk
+(``paged_prefill_attention``), since a float32 product on tensor cores
+would be TF32. The choice is this module's, in Python; neither entry
+falls back to the other.
 
 ``paged_prefill_attention_cuda`` takes the TPU function's arguments,
 striped kv_sp scan and ``with_stats`` included. ``q_tile`` is kept for
-the signature: the TPU kernel tiles its rows by it, the CUDA kernel by
-its register tile, and neither changes the result. For a CUDA tensor it
-launches the kernel (building it on first use) or raises; for a CPU
-tensor it runs the plain version from ops/attention.py. Each launch adds
-one to ``paged_prefill_attention_cuda.launches``.
+the signature: the TPU kernel tiles its rows by it, the CUDA kernels by
+their own tiles, and neither changes the result. For a CUDA tensor it
+launches a kernel (building it on first use) or raises; for a CPU tensor
+it runs the plain version from ops/attention.py. Each launch adds one to
+``paged_prefill_attention_cuda.launches``, and a launch of the
+tensor-core tile one to ``paged_prefill_attention_cuda.launches_tc``.
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ import torch
 
 from dynamo_tpu_torch.ops.attention import paged_prefill_attention
 from dynamo_tpu_torch.ops.kernels import _build
-from dynamo_tpu_torch.ops.kernels._checks import SUPPORTED_DTYPES, check_paged_args
+from dynamo_tpu_torch.ops.kernels._checks import check_lane_args, check_paged_args
 
 NAME = "paged_prefill_attention"
+TC_ENTRY = "paged_prefill_attention_tc"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
+ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 
 
 def build() -> None:
@@ -35,11 +41,19 @@ def build() -> None:
     _build.load(NAME)
 
 
+def kernel_entry(dtype: torch.dtype) -> str:
+    """The C entry point a CUDA call in ``dtype`` launches."""
+    entries = {torch.bfloat16: TC_ENTRY, torch.float32: NAME}
+    if dtype not in entries:
+        raise TypeError(f"dtype {dtype} not in {list(entries)}")
+    return entries[dtype]
+
+
 def check_kernel_args(
     q, k_cache, v_cache, block_tables, q_start, total_len, block_size: int,
     window: int = 0, page_offset=None, page_stride: int = 1,
 ) -> None:
-    """Everything the kernel does not take raises here, before launch."""
+    """Everything the kernels do not take raises here, before launch."""
     if q.dim() != 4:
         raise ValueError("q must be [N, T, H, D]")
     if block_tables.dim() == 2 and q.shape[0] != block_tables.shape[0]:
@@ -48,6 +62,7 @@ def check_kernel_args(
         q, k_cache, v_cache, block_tables, (q_start, total_len), block_size,
         window, page_offset=page_offset, page_stride=page_stride,
     )
+    check_lane_args(q, block_tables)
 
 
 def paged_prefill_attention_cuda(
@@ -79,6 +94,7 @@ def paged_prefill_attention_cuda(
         q, k_cache, v_cache, block_tables, q_start, total_len, block_size,
         window, page_offset, page_stride,
     )
+    entry = kernel_entry(q.dtype)
     N, T, H, D = q.shape
     if with_stats:
         out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -87,18 +103,21 @@ def paged_prefill_attention_cuda(
     else:
         out, m, l = torch.empty_like(q), None, None
     _build.launch(
-        NAME, NAME, ARGTYPES,
+        NAME, entry, ARGTYPES,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         m.data_ptr() if with_stats else None,
         l.data_ptr() if with_stats else None,
         block_tables.data_ptr(), q_start.data_ptr(), total_len.data_ptr(),
         page_offset.data_ptr() if page_offset is not None else None,
         N, T, H, k_cache.shape[1], D, block_tables.shape[1], block_size,
-        window, page_stride, SUPPORTED_DTYPES[q.dtype],
+        window, page_stride,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_prefill_attention_cuda.launches += 1
+    if entry == TC_ENTRY:
+        paged_prefill_attention_cuda.launches_tc += 1
     return (out, m, l) if with_stats else out
 
 
 paged_prefill_attention_cuda.launches = 0
+paged_prefill_attention_cuda.launches_tc = 0

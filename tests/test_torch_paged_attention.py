@@ -27,6 +27,7 @@ from dynamo_tpu.ops.pallas import (
 from dynamo_tpu_torch.ops import attention as t_attn
 from dynamo_tpu_torch.ops.kernels import paged_decode_attention as t_dec
 from dynamo_tpu_torch.ops.kernels import paged_prefill_attention as t_pre
+from dynamo_tpu_torch.ops.kernels._checks import MAX_GRID_YZ
 
 BS = 16
 F32_TOL = 1e-5
@@ -302,15 +303,30 @@ def test_wrappers_and_dispatch_run_the_plain_versions_on_cpu():
 
     pq, pk, pv, pt, ps, pl_ = _prefill_case(8, 2, 64)
     pargs = _t(pq, pk, pv, pt, ps, pl_)
-    before = t_pre.paged_prefill_attention_cuda.launches
-    want = t_attn.paged_prefill_attention(*pargs, BS, window=10)
-    np.testing.assert_array_equal(
-        t_pre.paged_prefill_attention_cuda(*pargs, BS, window=10).numpy(), want.numpy())
+    before = (t_pre.paged_prefill_attention_cuda.launches,
+              t_pre.paged_prefill_attention_cuda.launches_tc)
+    for dtype in (torch.float32, torch.bfloat16):
+        dargs = [a.to(dtype) if a.is_floating_point() else a for a in pargs]
+        want = t_attn.paged_prefill_attention(*dargs, BS, window=10)
+        got = t_pre.paged_prefill_attention_cuda(*dargs, BS, window=10)
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
     got = t_pre.paged_prefill_attention_cuda(*pargs, BS, window=10, with_stats=True)
     want = t_attn.paged_prefill_attention(*pargs, BS, window=10, with_stats=True)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
-    assert t_pre.paged_prefill_attention_cuda.launches == before
+    assert (t_pre.paged_prefill_attention_cuda.launches,
+            t_pre.paged_prefill_attention_cuda.launches_tc) == before
+
+
+def test_prefill_routing_is_a_dtype_choice():
+    """A CUDA call in bf16 launches the tensor-core entry, in float32 the
+    CUDA-core walk; anything else is refused before any launch."""
+    assert t_pre.kernel_entry(torch.bfloat16) == "paged_prefill_attention_tc"
+    assert t_pre.kernel_entry(torch.float32) == "paged_prefill_attention"
+    for dtype in (torch.float16, torch.int8):
+        with pytest.raises(TypeError):
+            t_pre.kernel_entry(dtype)
 
 
 def test_wrappers_refuse_other_devices():
@@ -322,6 +338,13 @@ def test_wrappers_refuse_other_devices():
         t_dec.paged_decode_attention_cuda(q, k, k, tables, meta, BS)
     with pytest.raises(ValueError, match="device"):
         t_pre.paged_prefill_attention_cuda(q[None], k, k, tables[:1], meta[:1], meta[:1], BS)
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor that starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)[1:]
+    return flat.view(x.shape).copy_(x)
 
 
 def _decode_args(**over):
@@ -347,7 +370,10 @@ def test_decode_kernel_args_accept_the_striped_shapes():
     lambda a: {"q": a["q"][:-1].contiguous()},
     lambda a: {"k_cache": a["k_cache"].float(), "v_cache": a["v_cache"].float()},
     lambda a: {"q": a["q"][None]},
-], ids=["offset_dtype", "offset_shape", "stride", "ctx_len", "lanes", "dtype", "rank"])
+    lambda a: {"block_tables": a["block_tables"][:, :0].contiguous()},
+    lambda a: {"q": _misaligned(a["q"])},
+], ids=["offset_dtype", "offset_shape", "stride", "ctx_len", "lanes", "dtype", "rank",
+        "no_columns", "q_misaligned"])
 def test_decode_kernel_args_refuse_what_the_kernel_does_not_take(over):
     args = _decode_args()
     args.update(over(args))
@@ -363,5 +389,15 @@ def test_prefill_kernel_args():
         t_pre.check_kernel_args(tq[0], tk, tv, tt, ts, tl, BS)
     with pytest.raises(TypeError):
         t_pre.check_kernel_args(tq, tk, tv, tt, ts.long(), tl, BS)
+    with pytest.raises(ValueError, match="column"):
+        t_pre.check_kernel_args(tq, tk, tv, tt[:, :0].contiguous(), ts, tl, BS)
+    with pytest.raises(ValueError, match="aligned"):
+        t_pre.check_kernel_args(_misaligned(tq), tk, tv, tt, ts, tl, BS)
+    lanes = MAX_GRID_YZ + 1
+    with pytest.raises(ValueError, match="lanes"):
+        t_pre.check_kernel_args(
+            torch.zeros(lanes, 1, 2, 16), torch.zeros(16, 1, 16), torch.zeros(16, 1, 16),
+            torch.zeros(lanes, 1, dtype=torch.int32), torch.zeros(lanes, dtype=torch.int32),
+            torch.zeros(lanes, dtype=torch.int32), BS)
     with pytest.raises(ValueError, match="q_tile"):
         t_pre.paged_prefill_attention_cuda(tq, tk, tv, tt, ts, tl, BS, q_tile=0)

@@ -11,11 +11,18 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 llama3.2-1b shapes (H=32, kvH=8, D=64, bs=16); the main
                 case of each is timed beside the plain version, one SDPA
                 call over the K/V gathered dense, and the bound:
-                ragged, caches in q's dtype: decode-only, prefill with a
-                prefix hit, a mixed T=256 batch, a 4-row spec-verify span,
-                a windowed batch, float32, the other head dims;
-                ragged, int8 caches: decode-only, mixed T=256, windowed,
-                spec-verify, float32 q, the other head dims;
+                ragged (SDPA over the spans padded, each span's keys
+                gathered once), caches in q's dtype: decode-only,
+                prefill with a prefix hit, a mixed T=256 batch,
+                spec-verify spans of 2, 4 and 8 rows, decode at the
+                longest context a 64-column table holds (many splits),
+                windows that leave whole splits and tile chunks behind,
+                spans that end mid-tile next to the next span's rows,
+                float32; ragged, int8 caches: the same kinds of case,
+                int8 + window + spec among them; both legs at block size
+                4 and every head-dim template (16-256, 96 with G = 1, 3,
+                16); each bf16 call must launch the tensor-core tile and
+                the split path, each f32 call the walk and the split path;
                 decode (split-KV + merge): the phase-split run's 4
                 lanes (phase 7) at its first, middle and last step,
                 timed at the middle one; 8 lanes (contexts 1–600) and an
@@ -41,15 +48,17 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 + decode_multi equal reference_forward too.
 4. serve      — the main path at full width: a llama3.2-1b TorchEngine in
                 bf16 (random weights from a seed) serves 8 concurrent
-                requests through generate(); the ragged kernel must have
-                launched num_layers times per unified dispatch; every
+                requests through generate(); the ragged wrapper must have
+                launched num_layers times per unified dispatch, each call
+                on the tensor-core tile and the split path; every
                 stream is fed back through the no-cache reference_forward
                 (finite logits of shape [T, V]; argmax agreement and the
                 log-probability gap of each disagreement reported).
 5. profile    — 8 more requests on the same engine under torch.profiler:
                 device time by kernel and the device's busy share.
 6. serve_int8 — the same 8 requests through an int8-KV engine: the int8
-                leg must have launched num_layers times per dispatch;
+                leg must have launched num_layers times per dispatch,
+                on the same paths;
                 then its own profile, as in 5.
 7. phases     — the phase-split entry points at full width on the serve's
                 weights: prefill_batch of 4 prompts (64–512 tokens), then
@@ -222,7 +231,7 @@ def ptxas_summary(reports: dict) -> dict:
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
-                m = re.search(r"\d+([a-z_]+_kernel|zero_unowned_rows)I(.*?)E+v", name)
+                m = re.search(r"\d+([a-z_]+_kernel)I(.*?)E+v", name)
                 entry = f"{m.group(1)}<{m.group(2)}>" if m else name
                 out[entry] = [0, 0]
             elif entry and "spill stores" in line:
@@ -287,9 +296,10 @@ def gather_dense(k, v, tables, L, bs=BS):
 
 # -- phase 2a: ragged ----------------------------------------------------------
 def make_case(rng, spans, T, dtype, num_blocks=1024, max_blocks=48,
-              dims=(H, KVH, D, BS), kv_dtype=None):
+              dims=(H, KVH, D, BS), kv_dtype=None, gap=0):
     """Random paged caches and a flat batch for spans [(q_start, q_len)],
-    packed from row 0; each span gets its own disjoint blocks."""
+    packed from row 0 with ``gap`` unowned rows before each span; each
+    span gets its own disjoint blocks."""
     h, kvh, d, bs = dims
     S = len(spans)
     c = make_cache(rng, num_blocks, kv_dtype or dtype, kvh, d, bs)
@@ -301,11 +311,13 @@ def make_case(rng, spans, T, dtype, num_blocks=1024, max_blocks=48,
     token_pos = np.full(T, -1, np.int32)
     cursor = 0
     for s, (qs, ql) in enumerate(spans):
+        cursor += gap
         row_start[s] = cursor
         token_seq[cursor:cursor + ql] = s
         token_pos[cursor:cursor + ql] = np.arange(qs, qs + ql)
         cursor += ql
     assert cursor <= T
+    assert max(qs + ql for qs, ql in spans) <= max_blocks * bs
     c.update(
         q=t_(rng.standard_normal((T, h, d))).to(dtype), tables=t_(tables),
         q_start=t_(q_start), q_len=t_(q_len), kv_len=t_(q_start + q_len),
@@ -316,15 +328,24 @@ def make_case(rng, spans, T, dtype, num_blocks=1024, max_blocks=48,
 
 
 def run_kernel(c, window=0):
+    """The wrapper's call; a bf16 call must launch the tensor-core tile and
+    the split path, an f32 call the walk and the split path."""
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
-        ragged_paged_attention_cuda,
+        ragged_paged_attention_cuda as fn,
     )
 
-    return ragged_paged_attention_cuda(
+    before = (fn.launches_tc, fn.launches_walk, fn.launches_split)
+    out = fn(
         c["q"], c["k"], c["v"], c["tables"], c["q_start"], c["q_len"],
         c["kv_len"], c["row_start"], c["bs"], window=window,
         k_scales=c.get("ks"), v_scales=c.get("vs"),
     )
+    bf16 = c["q"].dtype == torch.bfloat16
+    moved = tuple(b - a for a, b in zip(before, (fn.launches_tc, fn.launches_walk,
+                                                 fn.launches_split)))
+    if moved != (int(bf16), int(not bf16), 1):
+        raise SystemExit(f"ragged {c['q'].dtype} call launched the paths {moved}")
+    return out
 
 
 def run_plain(c, window=0):
@@ -357,28 +378,41 @@ def ragged_work(c, window=0):
     return kv_bytes + io, flops
 
 
-def ragged_library(c):
-    """One scaled_dot_product_attention call over the K/V each row sees,
-    gathered dense and masked — a yardstick only (the port never calls
-    it). Returns the call, giving (out, rows to compare); the gather
-    happens once, outside it. The decode and prefill yardsticks below
-    follow the same pattern."""
+def ragged_library(c, window=0):
+    """One scaled_dot_product_attention call over the spans padded — a
+    yardstick only (the port never calls it): q [S, H, Qmax, D]; each
+    span's visible keys gathered ONCE, [S, H, Lmax, D], the GQA heads
+    repeated outside the timed call; a boolean mask with each row's
+    causal, context and window bound (a row that sees nothing sees key 0,
+    and is not compared). Returns (the call, giving (out [S, Qmax, H, D],
+    owned rows [S, Qmax]), the flat rows [S, Qmax] its rows stand for)."""
     import torch.nn.functional as F
 
-    tables = c["tables"][c["token_seq"].long()]
-    pos = c["token_pos"].long()
-    L = int(c["kv_len"].max().item())
-    kd, vd = gather_dense(*dense_kv(c), tables, L)
+    T = c["q"].shape[0]
+    Qmax = max(ql for _, ql in c["spans"])
+    L = max(qs + ql for qs, ql in c["spans"])
+    i = torch.arange(Qmax, device=DEVICE)
+    rows = (c["row_start"].long()[:, None] + i).clamp(max=T - 1)          # [S, Qmax]
+    owned = i[None, :] < c["q_len"].long()[:, None]
+    qd = c["q"][rows].permute(0, 2, 1, 3).contiguous()                     # [S, H, Qmax, D]
+    kd, vd = gather_dense(*dense_kv(c), c["tables"], L, c["bs"])
     keys = torch.arange(L, device=DEVICE)
-    mask = (keys[None, :] <= pos[:, None])[:, None, None, :]     # [T,1,1,L]
-    mask = mask | (pos[:, None, None, None] < 0) & (keys == 0)[None, None, None, :]
-    qd = c["q"][:, :, None, :]                                   # [T, H, 1, D]
-    owned = pos >= 0
-    return lambda: (F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)[:, :, 0, :],
-                    owned)
+    pos = c["q_start"].long()[:, None] + i                                  # [S, Qmax]
+    mask = (keys <= pos[..., None]) & (keys < c["kv_len"].long()[:, None, None])
+    if window:
+        mask &= keys > pos[..., None] - window
+    mask = (mask | (~mask.any(-1, keepdim=True) & (keys == 0)))[:, None]   # [S, 1, Qmax, L]
+    return (lambda: (F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+                     .permute(0, 2, 1, 3), owned)), rows
 
 
 def phase_ragged() -> tuple[dict, dict]:
+    """Each case against the plain version, unowned rows exactly zero;
+    the mixed T=256 batch (the serve's budget: 8 decode spans at contexts
+    100–600, prefill spans of 64, 64 and 100 rows, an idle span) timed
+    for both legs beside the fair per-span SDPA call. Every bf16 call
+    must launch the tile and the split path, every f32 call the walk and
+    the split path."""
     rng = np.random.default_rng(0)
     bf16, f32, int8 = torch.bfloat16, torch.float32, torch.int8
     decode = [(c - 1, 1) for c in (64, 130, 257, 300, 411, 512, 600, 1)]
@@ -386,42 +420,74 @@ def phase_ragged() -> tuple[dict, dict]:
         (0, 64), (128, 64), (32, 100), (0, 0)
     ]
     spec = [(300, 4), (50, 1), (0, 10), (0, 0)]
+    # Spec-verify spans of 2, 4 and 8 rows (8 is past SPLIT_ROWS: the tile).
+    spec_rows = [(700, 2), (333, 4), (900, 8), (511, 1), (0, 3), (0, 0)]
+    # The longest context a 64-column table holds (many splits).
+    long_decode = [(1023, 1), (0, 0), (640, 1)]
+    # Spans that end mid-tile right before the next span's rows (37 and 45
+    # rows x G = 4: 20 and 52 vectors into their last tile).
+    trap = [(5, 37), (40, 3), (0, 45), (77, 1), (200, 130), (11, 5)]
+    # With window 100: decode spans whose early splits lie wholly behind
+    # it, a prefill span whose first chunks do, spec spans at long context.
+    behind = [(1023, 1), (600, 100), (899, 4), (300, 8), (960, 2), (0, 0)]
     main = (H, KVH, D, BS)
+    # (name, spans, T, q dtype, window, dims, kv dtype, make_case keywords)
     cases = [
-        ("decode_only", decode, 16, bf16, 0, main, None),
-        ("prefill_prefix_hit", [(0, 128), (64, 100)], 256, bf16, 0, main, None),
-        ("mixed_T256", mixed, 256, bf16, 0, main, None),
-        ("spec_verify_4rows", spec, 16, bf16, 0, main, None),
-        ("windowed_mixed", mixed, 256, bf16, 128, main, None),
-        ("mixed_f32", mixed, 256, f32, 0, main, None),
-        ("int8_decode_only", decode, 16, bf16, 0, main, int8),
-        ("int8_mixed_T256", mixed, 256, bf16, 0, main, int8),
-        ("int8_windowed_mixed", mixed, 256, bf16, 128, main, int8),
-        ("int8_spec_verify_4rows", spec, 16, bf16, 0, main, int8),
-        ("int8_mixed_f32", mixed, 256, f32, 0, main, int8),
+        ("decode_only", decode, 16, bf16, 0, main, None, {}),
+        ("prefill_prefix_hit", [(0, 128), (64, 100)], 256, bf16, 0, main, None, {}),
+        ("mixed_T256", mixed, 256, bf16, 0, main, None, {}),
+        ("spec_verify_4rows", spec, 16, bf16, 0, main, None, {}),
+        ("spec_2_4_8rows", spec_rows, 32, bf16, 0, main, None, dict(max_blocks=64)),
+        ("decode_ctx1024", long_decode, 8, bf16, 0, main, None, dict(max_blocks=64)),
+        ("decode_ctx1024_w100", long_decode, 8, bf16, 100, main, None,
+         dict(max_blocks=64)),
+        ("trap_mid_tile_gaps", trap, 256, bf16, 0, main, None, dict(gap=3)),
+        ("windowed_mixed", mixed, 256, bf16, 128, main, None, {}),
+        ("window_behind_w100", behind, 160, bf16, 100, main, None, dict(max_blocks=64)),
+        ("mixed_f32", mixed, 256, f32, 0, main, None, {}),
+        ("spec_window_f32", behind, 160, f32, 100, main, None, dict(max_blocks=64)),
+        ("int8_decode_only", decode, 16, bf16, 0, main, int8, {}),
+        ("int8_mixed_T256", mixed, 256, bf16, 0, main, int8, {}),
+        ("int8_windowed_mixed", mixed, 256, bf16, 128, main, int8, {}),
+        ("int8_spec_verify_4rows", spec, 16, bf16, 0, main, int8, {}),
+        ("int8_spec_2_4_8rows_w100", spec_rows, 32, bf16, 100, main, int8,
+         dict(max_blocks=64)),
+        ("int8_window_behind_w100", behind, 160, bf16, 100, main, int8,
+         dict(max_blocks=64)),
+        ("int8_trap_mid_tile_gaps", trap, 256, bf16, 0, main, int8, dict(gap=3)),
+        ("int8_mixed_f32", mixed, 256, f32, 0, main, int8, {}),
+        ("int8_spec_window_f32", behind, 160, f32, 100, main, int8, dict(max_blocks=64)),
     ]
-    # The kernel's other supported shapes — head dims 16..256 and block
-    # size 4, one per template instantiation — on a shorter mixed batch.
-    short = [(99, 1), (179, 1), (0, 64), (32, 100), (0, 0)]
-    for dims in [(4, 2, 16, 4), (32, 8, 128, 16), (16, 2, 256, 16)]:
+    # Block size 4, and every head-dim template of the tile (16..256, 96 on
+    # the 128 template) and of the walk, with G = 1, 2, 3, 4, 8, 16, on a
+    # shorter mixed batch with a spec span.
+    short = [(99, 1), (179, 1), (0, 64), (32, 100), (60, 3), (0, 0)]
+    cases += [("bs4" + kv, [(150, 1), (0, 40), (60, 3), (100, 70), (0, 0)], 128, dt, w,
+               (H, KVH, D, 4), kvd, dict(max_blocks=64))
+              for dt in (bf16, f32) for kvd, kv in ((None, ""), (int8, "_int8"))
+              for w in (0, 30)]
+    for dims in [(4, 2, 16, 4), (8, 4, 32, 16), (8, 8, 96, 16), (24, 8, 96, 16),
+                 (32, 2, 96, 16), (32, 8, 128, 16), (16, 2, 256, 16)]:
         for dt in (bf16, f32):
             for kv in (None, int8):
                 name = "shape_H%d_kvH%d_D%d_bs%d" % dims + ("_int8" if kv else "")
-                cases.append((name, short, 256, dt, 0, dims, kv))
+                mb = 64 if dims[3] == 4 else 48
+                cases.append((name, short, 256, dt, 0, dims, kv, dict(max_blocks=mb)))
     worst = {"plain": 0.0, "int8": 0.0}
     kept = {}
-    for name, spans, T, dtype, window, dims, kv in cases:
-        c = make_case(rng, spans, T, dtype, dims=dims, kv_dtype=kv)
+    for name, spans, T, dtype, window, dims, kv, kw in cases:
+        c = make_case(rng, spans, T, dtype, dims=dims, kv_dtype=kv, **kw)
         got = run_kernel(c, window)
         want = run_plain(c, window)
         torch.cuda.synchronize()
-        owned = sum(ql for _, ql in spans)
-        pad_zero = bool((got[owned:] == 0).all().item()) if owned < T else True
+        unowned = c["token_pos"] < 0
+        pad_zero = bool((got[unowned] == 0).all().item())
         err = check("kernel", "ragged_" + name, {"max_abs_err": max_err(got, want)},
                     KERNEL_TOL[dtype], ok=pad_zero, dtype=str(dtype).split(".")[-1],
                     kv_dtype=str(kv or dtype).split(".")[-1], T=T,
                     spans=len(spans), window=window, H_kvH_D_bs=list(dims),
-                    padding_rows_zero=pad_zero)
+                    splits_pages=ragged_plan(c, window),
+                    unowned_rows_zero=pad_zero)
         if dtype == bf16:
             leg = "int8" if kv else "plain"
             worst[leg] = max(worst[leg], err)
@@ -431,12 +497,21 @@ def phase_ragged() -> tuple[dict, dict]:
     for name in ("mixed_T256", "int8_mixed_T256"):
         c = kept[name]
         nbytes, flops = ragged_work(c)
+        library, rows = ragged_library(c)
         out.append(timing(
             "ragged_" + name, lambda c=c: run_kernel(c), lambda c=c: run_plain(c),
-            ragged_library(c), run_plain(c), nbytes, flops, torch.bfloat16,
+            library, run_plain(c)[rows], nbytes, flops, torch.bfloat16,
         ))
     out[0]["max_abs_err"], out[1]["max_abs_err"] = worst["plain"], worst["int8"]
     return out[0], out[1]
+
+
+def ragged_plan(c, window=0) -> list:
+    """The split path's (splits, pages per split) for this case, as its
+    wrapper computes it."""
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import call_split_plan
+
+    return list(call_split_plan(c["q"], c["k"], c["tables"], c["bs"], window))
 
 
 def contiguous_tables(lens, steps, max_blocks, bs=BS):
@@ -954,8 +1029,9 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm.protocols.common import FinishReason
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
-        ragged_paged_attention_cuda,
+        ragged_paged_attention_cuda as fn,
     )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
 
     cfg = ecfg.model
     # Random weights from torch.Generator(seed=ecfg.seed) on the card.
@@ -963,9 +1039,10 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
     await engine.start()
     profile = None
     try:
-        ragged_paged_attention_cuda.launches = 0
+        reset_counts()
         streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
-        launches = ragged_paged_attention_cuda.launches
+        launches = fn.launches
+        paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
         dispatches = engine.unified_dispatches
         prefill_tokens = engine.unified_prefill_tokens
         decode_tokens = engine.unified_decode_tokens
@@ -993,7 +1070,8 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         "ttft_max_ms": max(ttft) * 1e3,
         "unified_dispatches": dispatches,
         "prefill_tokens": prefill_tokens, "decode_tokens": decode_tokens,
-        "kernel_launches": launches, "num_layers": cfg.num_layers,
+        "kernel_launches": launches, "kernel_launches_by_path": paths,
+        "num_layers": cfg.num_layers,
         "streams_full_length": full, "tokens_in_vocab": in_vocab, **ref,
     }
     emit(result)
@@ -1004,6 +1082,10 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
             f"{phase}: kernel launched {launches} times for {dispatches} "
             f"dispatches x {cfg.num_layers} layers"
         )
+    # bf16 q: every call runs the multi-row spans on the tensor-core tile
+    # and the one-row spans on the split path; the f32 walk never runs.
+    if paths != {"tc": launches, "split": launches, "walk": 0}:
+        raise SystemExit(f"{phase}: ragged paths launched {paths} for {launches} calls")
     if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]):
         raise SystemExit(f"{phase}: served streams failed their checks")
     return result, engine, streams
@@ -1107,12 +1189,13 @@ def card_line() -> str:
     return out
 
 
-def kernel_entry(name, source, replaces, launches, t, design) -> dict:
+def kernel_entry(name, source, replaces, launches, t, design, **extra) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": t["max_abs_err"],
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "design": design,
+        **extra,
     }
 
 
@@ -1152,14 +1235,22 @@ def main() -> int:
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
-    walk = "CUDA-core span walk (paged_attention.cuh), 32-key f32 chunks"
+    ragged = ("3 launches: spans of <= 4 rows split-KV over table columns "
+              "(paged_split.cuh, cp.async ring) on a second stream beside the "
+              "longer spans' mma.sync m16n8k16 tile of 128 query vectors "
+              "(paged_attention_tc.cuh; the f32 walk for f32 q), then a merge pass "
+              "that also zeroes unowned rows")
     emit({"kernels": [
         kernel_entry("ragged_paged_attention", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:67",
-                     served["kernel_launches"], t_ragged, walk),
+                     served["kernel_launches"], t_ragged, ragged,
+                     launches_by_path=served["kernel_launches_by_path"]),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
-                     served_int8["kernel_launches"], t_int8, walk + ", int8 dequant"),
+                     served_int8["kernel_launches"], t_int8,
+                     ragged + "; int8 pages unscaled in bf16, k scale on the f32 "
+                     "scores, v scale on P", launches_by_path=served_int8[
+                         "kernel_launches_by_path"]),
         kernel_entry("paged_decode_attention",
                      "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:91",

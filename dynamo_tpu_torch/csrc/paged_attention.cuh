@@ -1,5 +1,5 @@
 // Shared core of the port's paged-attention kernels for Hopper (sm_90a):
-// ragged_attention.cu (both legs) and the f32 leg of
+// the f32 legs of ragged_attention.cu (its multi-row spans) and of
 // paged_prefill_attention.cu launch `attend_tile` from a kernel of their
 // own that maps blockIdx onto one SPAN of query rows:
 //   row0   flat row of the span's first query row in q / out
@@ -29,11 +29,12 @@
 // HBM once; the arithmetic (4 x rows x visible keys x H x D flops) sits
 // far below the tensor-core roof at the serving shapes. The walk itself
 // is serial: synchronous staging, scalar f32 products, one query vector
-// at a time per warp. Two kernels have left it: decode splits a lane's
-// keys over blocks and stages them by cp.async
-// (paged_decode_attention.cu), and bf16 prefill runs tensor-core tiles
-// with a cp.async ring (paged_attention_tc.cuh). The ragged kernel does
-// neither yet; none uses TMA or wgmma.
+// at a time per warp, so only the f32 legs keep it (a float32 product on
+// tensor cores would be TF32). Decode and the ragged kernel's short spans
+// split a span's keys over blocks and stage them by cp.async
+// (paged_split.cuh); bf16 prefill and the ragged kernel's longer bf16
+// spans run tensor-core tiles with a cp.async ring
+// (paged_attention_tc.cuh). None uses TMA or wgmma.
 
 #pragma once
 
@@ -92,6 +93,20 @@ template <> struct Vec<int8_t> {
     for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(b[i]);
   }
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared; src_bytes 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -1,11 +1,17 @@
-// Tensor-core tile of the port's bf16 paged prefill attention for Hopper
-// (sm_90a), a FlashAttention-2-style block over a paged KV cache.
+// Tensor-core tile of the port's bf16 paged attention for Hopper
+// (sm_90a), a FlashAttention-2-style block over a paged KV cache: the
+// body of the bf16 prefill kernel (paged_prefill_attention.cu, lane n is
+// the span of rows [n*T, (n+1)*T)) and of the ragged kernel's multi-row
+// spans (ragged_attention.cu, span s is rows [row_start, row_start +
+// q_len) of the flat batch; the tile neither reads nor writes a row past
+// its span, which belongs to the next span).
 //
 // Replaces, for bf16, the walk `attend_tile` (paged_attention.cuh) as the
-// body of `_prefill_kernel` in dynamo_tpu/ops/pallas/attention.py; the
-// f32 leg keeps that walk, since a float32 product on tensor cores would
-// be TF32 and break the f32 tolerance. The contract is the walk's, row
-// for row (paged_prefill_attention.cu).
+// body of `_prefill_kernel` in dynamo_tpu/ops/pallas/attention.py and of
+// `_ragged_kernel` in dynamo_tpu/ops/pallas/ragged_attention.py; the f32
+// legs keep that walk, since a float32 product on tensor cores would be
+// TF32 and break the f32 tolerance. The contract is the walk's, row for
+// row.
 //
 // Bound on this card. Causal prefill does 4 x rows x visible keys x H x D
 // flops: at the phase-split run's T=512 ~3.8 GFLOP, 0.0039 ms on the
@@ -49,6 +55,14 @@
 //   striped positions) runs only where a chunk crosses an edge of the
 //   warp's rows. Grid (lane, kv head, tile), tiles reversed: the
 //   heaviest tiles of every (lane, kv head) start first.
+// - int8 caches (the ragged kernel's int8 leg): pages are staged as int8
+//   by the same cp.async ring (16 values per copy) with each key's page
+//   scales (4-byte cp.async), converted to bf16 WITHOUT scaling (|x| <=
+//   127 is exact in bf16) into one bf16 chunk buffer, and the scales are
+//   folded into the f32 side of the products: S = (q.k_int) k_s column by
+//   column, and P v_s before P's two-term split (O += (P v_s) v_int).
+//   The products stay exact as the bf16 leg's do; dequantizing to bf16
+//   would round k*s to 8 bits.
 // - Head dims. Templated on DP, D rounded up to a power of two (16..256);
 //   k-steps and d-blocks at or past the true D are skipped, so nothing is
 //   zero-filled for D = 96. At DP = 256 the accumulators take ~220
@@ -79,41 +93,63 @@ template <int DP> struct Shape {
   static constexpr int kN = DP >= 256 ? 32 : 64;   // keys per chunk
 };
 
+// log2 of a power-of-two block size, or -1.
+inline int bs_log2(int bs) {
+  int lg = 0;
+  while ((1 << lg) < bs) ++lg;
+  return (1 << lg) == bs ? lg : -1;
+}
+
 inline int dp_for(int D) {
   int dp = 16;
   while (dp < D) dp *= 2;
   return dp;
 }
 
-template <int DP>
-inline size_t smem_bytes(int D) {
-  return (size_t)kStages * 2 * Shape<DP>::kN * (D + 8) * sizeof(bf16);
+template <typename C>
+constexpr bool kIsInt8 = std::is_same<C, int8_t>::value;
+
+// One ring stage: K rows [kN][D + VEC] and V rows in C (VEC = 16 bytes
+// of padding), then, for int8, the keys' k and v scales [kN] each.
+template <typename C, int DP>
+__host__ __device__ inline int stage_bytes(int D) {
+  constexpr int kN = Shape<DP>::kN;
+  return 2 * kN * (D + 16 / (int)sizeof(C)) * (int)sizeof(C) +
+         (kIsInt8<C> ? 2 * kN * (int)sizeof(float) : 0);
 }
 
-struct PrefillArgs {
-  const bf16* q;            // [N, T, H, D]
-  const bf16* k_cache;      // [slots, kvH, D]
-  const bf16* v_cache;
+// The ring, and for int8 the chunk converted to bf16 (K rows then V rows).
+template <typename C, int DP>
+inline size_t smem_bytes(int D) {
+  return (size_t)kStages * stage_bytes<C, DP>(D) +
+         (kIsInt8<C> ? (size_t)2 * Shape<DP>::kN * (D + 8) * sizeof(bf16) : 0);
+}
+
+template <typename C>
+struct TileArgs {
+  const bf16* q;            // [rows, H, D]
+  const C* k_cache;         // [slots, kvH, D], bf16 or int8
+  const C* v_cache;
+  const float* k_scales;    // [num_blocks, kvH] for an int8 cache, else null
+  const float* v_scales;
   void* out;                // bf16, or float with stats
-  float* m_out;             // [N, T, H] or null
+  float* m_out;             // [rows, H] or null
   float* l_out;
-  const int* block_tables;  // [N, max_blocks]
-  const int* q_start;       // [N]
-  const int* total_len;     // [N]
-  const int* page_offset;   // [1] or null
-  int T, H, kvH, D, max_blocks, block_size, bs_log, window, page_stride;
+  int H, kvH, D, max_blocks, block_size, bs_log, window, page_stride;
   float scale;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// The rows one tile serves: row i of the span is flat row row0 + i at
+// position q0 + i; keys < kv; table column j is logical page
+// page_off + j*stride.
+struct TileSpan {
+  int row0, nrows, q0, kv, page_off;
+  const int* table;
+};
 
-// 16 bytes global -> shared; src_bytes 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
+using paged::cp_async16;
+using paged::cp_async4;
+using paged::smem_addr;
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -173,27 +209,28 @@ __device__ __forceinline__ int tc_key_pos(int u, int bs_log, int off, int stride
   return ((off + lp * stride) << bs_log) + (u & ((1 << bs_log) - 1));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads, DP <= 64 ? 2 : 1)
-prefill_tc_kernel(const PrefillArgs a) {
+// One tile: kM query vectors [qv0, qv0 + kM) of span sp, kv head h.
+template <typename C, int DP>
+__device__ __forceinline__ void tc_tile(const TileArgs<C>& a, const TileSpan& sp, int h,
+                                        int qv0) {
   constexpr int kN = Shape<DP>::kN;
   constexpr int KS = DP / 16;      // k-steps of S = Q K^T
   constexpr int ND = DP / 8;       // 8-wide d blocks of O
   constexpr int NB = kN / 8;       // 8-key blocks of S
+  constexpr bool kInt8 = kIsInt8<C>;
+  constexpr int VEC = 16 / sizeof(C);
 
-  const int n = blockIdx.x;
-  const int h = blockIdx.y;
   const int G = a.H / a.kvH;
-  const int nvec = a.T * G;
-  const int qv0 = (gridDim.z - 1 - blockIdx.z) * kM;   // heaviest tiles first
+  const int nvec = sp.nrows * G;
+  if (qv0 >= nvec) return;
   const int D = a.D;
   const int bs = a.block_size;
   const int bs_log = a.bs_log;
   const int stride = a.page_stride;
-  const int off = a.page_offset != nullptr ? a.page_offset[0] : 0;
-  const int q0 = a.q_start[n];
-  const int kv = a.total_len[n];
-  const int* table = a.block_tables + (size_t)n * a.max_blocks;
+  const int off = sp.page_off;
+  const int q0 = sp.q0;
+  const int kv = sp.kv;
+  const int* table = sp.table;
 
   // The tile's scan, as attend_tile computes it.
   const int nqv = min(kM, nvec - qv0);
@@ -208,9 +245,12 @@ prefill_tc_kernel(const PrefillArgs a) {
   const int chunks = hi_u > lo_u ? (hi_u - lo_u + kN - 1) / kN : 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const kv_s = reinterpret_cast<bf16*>(smem_raw);
-  const int SD = D + 8;                               // padded row, elements
-  const int stage_elems = 2 * kN * SD;                // K rows then V rows
+  const int SD = D + 8;                               // bf16 row for ldmatrix, elements
+  const int SDc = D + VEC;                            // staged row, elements of C
+  const int sbytes = stage_bytes<C, DP>(D);
+  auto stage = [&](int c) { return reinterpret_cast<C*>(smem_raw + (c % kStages) * sbytes); };
+  // int8: the chunk being computed, converted to bf16 (K rows, then V rows).
+  bf16* const cv = reinterpret_cast<bf16*>(smem_raw + kStages * sbytes);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -219,22 +259,31 @@ prefill_tc_kernel(const PrefillArgs a) {
   // kTPK threads stage one key's K and V rows: one page lookup each.
   constexpr int kTPK = kThreads / kN;
   const int ld_j = tid / kTPK;
-  const int ld_d0 = (tid % kTPK) * 8;
+  const int ld_d0 = (tid % kTPK) * VEC;
   auto issue = [&](int c) {
-    bf16* ks = kv_s + (c % kStages) * stage_elems + ld_j * SD;
-    bf16* vs = ks + kN * SD;
+    C* ks = stage(c) + ld_j * SDc;
+    C* vs = ks + kN * SDc;
     const int u = lo_u + c * kN + ld_j;
     const int lp = u >> bs_log;
     const int pos = ((off + lp * stride) << bs_log) + (u & (bs - 1));
     const bool ok = u < hi_u && pos < hi;
+    int page = 0;
     size_t row = 0;
     if (ok) {
-      const int page = table[min(lp, a.max_blocks - 1)];
+      page = table[min(lp, a.max_blocks - 1)];
       row = ((size_t)(page * bs + (u & (bs - 1))) * a.kvH + h) * D;
     }
-    for (int d0 = ld_d0; d0 < D; d0 += kTPK * 8) {
+    for (int d0 = ld_d0; d0 < D; d0 += kTPK * VEC) {
       cp_async16(ks + d0, a.k_cache + row + d0, ok ? 16 : 0);
       cp_async16(vs + d0, a.v_cache + row + d0, ok ? 16 : 0);
+    }
+    if constexpr (kInt8) {
+      if (ld_d0 == 0) {
+        float* sc = reinterpret_cast<float*>(stage(c) + 2 * kN * SDc);
+        const size_t si = (size_t)page * a.kvH + h;
+        cp_async4(sc + ld_j, a.k_scales + si, ok ? 4 : 0);
+        cp_async4(sc + kN + ld_j, a.v_scales + si, ok ? 4 : 0);
+      }
     }
   };
 
@@ -260,11 +309,11 @@ prefill_tc_kernel(const PrefillArgs a) {
   const int wpos_hi = q0 + (min(wv0 + 15, nvec - 1)) / G;
 
   // Q fragments, once: a0 (vA, k 2t..), a1 (vB, k 2t..), a2 (vA, k 8+2t..),
-  // a3 (vB, k 8+2t..) of each k-step.
+  // a3 (vB, k 8+2t..) of each k-step. Vectors past the span read nothing.
   uint32_t qf[KS][4];
   {
-    const bf16* qa = a.q + (((size_t)n * a.T + vA / G) * a.H + h * G + vA % G) * D;
-    const bf16* qb = a.q + (((size_t)n * a.T + vB / G) * a.H + h * G + vB % G) * D;
+    const bf16* qa = a.q + (((size_t)sp.row0 + vA / G) * a.H + h * G + vA % G) * D;
+    const bf16* qb = a.q + (((size_t)sp.row0 + vB / G) * a.H + h * G + vB % G) * D;
     const bool okA = vA < nvec, okB = vB < nvec;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
@@ -299,9 +348,39 @@ prefill_tc_kernel(const PrefillArgs a) {
     if (c + kStages - 1 < chunks) issue(c + kStages - 1);
     cp_async_commit();
 
+    const bf16* ks;
+    const float* k_sc = nullptr;   // int8: the chunk's per-key scales
+    const float* v_sc = nullptr;
+    if constexpr (kInt8) {
+      // int8 -> bf16, unscaled and exact, 16 values per thread and step.
+      const int8_t* src = stage(c);
+      const int vecs = D / 16;
+      for (int e = tid; e < 2 * kN * vecs; e += kThreads) {
+        const int r = e / vecs;
+        const int d0 = (e - r * vecs) * 16;
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + r * SDc + d0);
+        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+        uint32_t w[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(static_cast<float>(b[2 * i]),
+                                                          static_cast<float>(b[2 * i + 1]));
+          w[i] = *reinterpret_cast<const uint32_t*>(&h2);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(cv + r * SD + d0);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      k_sc = reinterpret_cast<const float*>(src + 2 * kN * SDc);
+      v_sc = k_sc + kN;
+      ks = cv;
+      __syncthreads();
+    } else {
+      ks = stage(c);
+    }
+    const bf16* vs = ks + kN * SD;
+
     if (warp_live) {
-      const bf16* ks = kv_s + (c % kStages) * stage_elems;
-      const bf16* vs = ks + kN * SD;
       const int c0 = lo_u + c * kN;
 
       // Mask only where the chunk crosses an edge of this warp's rows.
@@ -322,6 +401,18 @@ prefill_tc_kernel(const PrefillArgs a) {
             ldmatrix_x4(b, ks + (nb * 8 + k_row) * SD + kk * 16 + k_col);
             mma_bf16(s[nb], qf[kk], b[0], b[1]);
             mma_bf16(s[nb + 1], qf[kk], b[2], b[3]);
+          }
+        }
+      }
+
+      if constexpr (kInt8) {   // S = (q.k_int) k_s, column by column
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float f = k_sc[nb * 8 + 2 * t4 + e];
+            s[nb][e] *= f;
+            s[nb][2 + e] *= f;
           }
         }
       }
@@ -377,6 +468,18 @@ prefill_tc_kernel(const PrefillArgs a) {
         }
       }
 
+      if constexpr (kInt8) {   // P v_s, before P's split into bf16 terms
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float f = v_sc[nb * 8 + 2 * t4 + e];
+            s[nb][e] *= f;
+            s[nb][2 + e] *= f;
+          }
+        }
+      }
+
       // O += P V: P's A fragments straight from the score registers, as
       // kPTerms bf16 terms (see split_bf16).
 #pragma unroll
@@ -419,7 +522,7 @@ prefill_tc_kernel(const PrefillArgs a) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int v = r == 0 ? vA : vB;
     if (v >= nvec) continue;
-    const size_t rh = ((size_t)n * a.T + v / G) * a.H + h * G + v % G;
+    const size_t rh = ((size_t)sp.row0 + v / G) * a.H + h * G + v % G;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
@@ -443,16 +546,40 @@ prefill_tc_kernel(const PrefillArgs a) {
   }
 }
 
+// Sets the tile kernel's dynamic shared memory (above the default 48 KB
+// at every head dim but 16).
+template <typename Kernel>
+cudaError_t set_tile_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Prefill: lane n is the span of rows [n*T, (n+1)*T) at q_start[n];
+// grid (lane, kv head, tile), tiles reversed: the heaviest tiles of
+// every (lane, kv head) start first.
 template <int DP>
-cudaError_t launch_prefill_tc(const PrefillArgs& a, int N, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>(a.D);
-  cudaError_t err = cudaFuncSetAttribute(prefill_tc_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(kThreads, DP <= 64 ? 2 : 1)
+prefill_tc_kernel(const TileArgs<bf16> a, const int* __restrict__ block_tables,
+                  const int* __restrict__ q_start, const int* __restrict__ total_len,
+                  const int* __restrict__ page_offset, int T) {
+  const int n = blockIdx.x;
+  const TileSpan sp{n * T, T, q_start[n], total_len[n],
+                    page_offset != nullptr ? page_offset[0] : 0,
+                    block_tables + (size_t)n * a.max_blocks};
+  tc_tile<bf16, DP>(a, sp, blockIdx.y, (gridDim.z - 1 - blockIdx.z) * kM);
+}
+
+template <int DP>
+cudaError_t launch_prefill_tc(const TileArgs<bf16>& a, const int* tables, const int* q_start,
+                              const int* total_len, const int* page_offset, int N, int T,
+                              cudaStream_t stream) {
+  const size_t smem = smem_bytes<bf16, DP>(a.D);
+  cudaError_t err = set_tile_smem(prefill_tc_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
   const int G = a.H / a.kvH;
-  const dim3 grid(N, a.kvH, (a.T * G + kM - 1) / kM);
+  const dim3 grid(N, a.kvH, (T * G + kM - 1) / kM);
   if (grid.x == 0 || grid.y == 0 || grid.z == 0) return cudaSuccess;
-  prefill_tc_kernel<DP><<<grid, kThreads, smem, stream>>>(a);
+  prefill_tc_kernel<DP><<<grid, kThreads, smem, stream>>>(a, tables, q_start, total_len,
+                                                          page_offset, T);
   return cudaGetLastError();
 }
 

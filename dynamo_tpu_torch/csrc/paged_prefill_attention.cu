@@ -59,12 +59,6 @@ cudaError_t launch(const Call<float, float>& a, const int* tables, const int* qs
                            T_rows, max_blocks);
 }
 
-int bs_log2(int bs) {
-  int lg = 0;
-  while ((1 << lg) < bs) ++lg;
-  return (1 << lg) == bs ? lg : -1;
-}
-
 }  // namespace
 
 extern "C" {
@@ -107,26 +101,28 @@ int paged_prefill_attention_tc(const void* q, const void* k_cache, const void* v
                                const void* page_offset, int N, int T_rows, int H, int kvH,
                                int D, int max_blocks, int block_size, int window,
                                int page_stride, void* stream) {
-  const int bs_log = bs_log2(block_size);
+  const int bs_log = paged_tc::bs_log2(block_size);
   if (!head_dim_ok(D, H, kvH) || page_stride < 1 || bs_log < 0 || max_blocks < 1)
     return cudaErrorInvalidValue;
   if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
   using paged_tc::bf16;
-  const paged_tc::PrefillArgs a{
+  const paged_tc::TileArgs<bf16> a{
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_cache),
-      static_cast<const bf16*>(v_cache), out, static_cast<float*>(m_out),
-      static_cast<float*>(l_out), static_cast<const int*>(block_tables),
-      static_cast<const int*>(q_start), static_cast<const int*>(total_len),
-      static_cast<const int*>(page_offset), T_rows, H, kvH, D, max_blocks, block_size, bs_log,
-      window, page_stride, 1.0f / sqrtf((float)D)};
+      static_cast<const bf16*>(v_cache), nullptr, nullptr, out, static_cast<float*>(m_out),
+      static_cast<float*>(l_out), H, kvH, D, max_blocks, block_size, bs_log, window,
+      page_stride, 1.0f / sqrtf((float)D)};
+  const int* tb = static_cast<const int*>(block_tables);
+  const int* qs = static_cast<const int*>(q_start);
+  const int* tl = static_cast<const int*>(total_len);
+  const int* off = static_cast<const int*>(page_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (paged_tc::dp_for(D)) {
-    case 16: err = paged_tc::launch_prefill_tc<16>(a, N, st); break;
-    case 32: err = paged_tc::launch_prefill_tc<32>(a, N, st); break;
-    case 64: err = paged_tc::launch_prefill_tc<64>(a, N, st); break;
-    case 128: err = paged_tc::launch_prefill_tc<128>(a, N, st); break;
-    case 256: err = paged_tc::launch_prefill_tc<256>(a, N, st); break;
+    case 16: err = paged_tc::launch_prefill_tc<16>(a, tb, qs, tl, off, N, T_rows, st); break;
+    case 32: err = paged_tc::launch_prefill_tc<32>(a, tb, qs, tl, off, N, T_rows, st); break;
+    case 64: err = paged_tc::launch_prefill_tc<64>(a, tb, qs, tl, off, N, T_rows, st); break;
+    case 128: err = paged_tc::launch_prefill_tc<128>(a, tb, qs, tl, off, N, T_rows, st); break;
+    case 256: err = paged_tc::launch_prefill_tc<256>(a, tb, qs, tl, off, N, T_rows, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

@@ -82,9 +82,10 @@ MAX_GRID_YZ = 65535
 
 
 def check_lane_args(q, block_tables) -> None:
-    """What the decode and prefill kernels add to ``check_paged_args``:
-    lanes map onto grid.y, the split plan divides the table's columns,
-    and q's fragments are read in whole words."""
+    """What the decode, prefill and ragged kernels add to
+    ``check_paged_args``: lanes (spans) map onto grid.y, the split plan
+    divides the table's columns, and q's fragments are read in whole
+    words."""
     if block_tables.shape[0] > MAX_GRID_YZ:
         raise ValueError(f"at most {MAX_GRID_YZ} lanes per call")
     if block_tables.shape[1] < 1:

@@ -55,22 +55,22 @@ def build() -> None:
 def decode_split_plan(
     batch: int, kv_heads: int, max_blocks: int, block_size: int,
     window: int = 0, page_stride: int = 1, num_sms: int = 132,
-    head_groups: int = 1,
+    head_groups: int = 1, blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> tuple[int, int]:
     """(num_splits, pages_per_split) for a decode call: split s owns the
     table's columns [s*P, (s+1)*P), and the splits together cover all
     ``max_blocks`` columns. Plain integers only, never ``context_lens``:
-    the plan must not read the card. It aims for BLOCKS_PER_SM blocks per
-    SM over the columns a lane can see (all of them, or with a window
+    the plan must not read the card. It aims for ``blocks_per_sm`` blocks
+    per SM over the columns a lane can see (all of them, or with a window
     the ceil(window / (bs*stride)) + 1 that the window can touch), with
     at least MIN_SPLIT_KEYS keys per split and at most MAX_SPLITS
     splits."""
     shape = (batch, kv_heads, max_blocks, block_size, window, page_stride,
-             num_sms, head_groups)
+             num_sms, head_groups, blocks_per_sm)
     if not all(isinstance(x, int) for x in shape):
         raise TypeError("decode_split_plan takes host integers only")
     pairs = max(batch * kv_heads * head_groups, 1)
-    target = max(1, -(-BLOCKS_PER_SM * num_sms // pairs))
+    target = max(1, -(-blocks_per_sm * num_sms // pairs))
     visible = max_blocks
     if window:
         visible = min(max_blocks, -(-window // (block_size * page_stride)) + 1)

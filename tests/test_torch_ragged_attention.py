@@ -256,8 +256,16 @@ def test_kernel_args_accept_the_main_path_shapes():
     (lambda a: {"window": -1}, ValueError),
     (lambda a: {name: a[name].flatten()[1:1 + 1008 * 128].view(1008, 2, 64)
                 for name in ("k_cache", "v_cache")}, ValueError),
+    # Spans map onto grid.y (at most 65535), and q's fragments are read
+    # in whole 16-byte-aligned words.
+    (lambda a: {"block_tables": torch.zeros(65536, 4, dtype=torch.int32),
+                **{name: torch.zeros(65536, dtype=torch.int32)
+                   for name in ("q_start", "q_len", "kv_len", "row_start")}},
+     ValueError),
+    (lambda a: {"q": torch.cat([a["q"].new_zeros(1), a["q"].flatten()])[1:]
+                .view(a["q"].shape)}, ValueError),
 ], ids=["head_dim", "block_size", "dtype", "int64_meta", "strided",
-        "heads", "window", "misaligned"])
+        "heads", "window", "misaligned", "spans_past_grid", "q_misaligned"])
 def test_kernel_args_refuse_what_the_kernel_does_not_take(over, err):
     args = _kernel_args()
     args.update(over(args))

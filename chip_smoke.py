@@ -60,7 +60,24 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 leg must have launched num_layers times per dispatch,
                 on the same paths;
                 then its own profile, as in 5.
-7. phases     — the phase-split entry points at full width on the serve's
+7. http       — the OpenAI server at full width, built in process through
+                the CLI's own path (``run --out torch --model-path
+                preset:llama3.2-1b``, the serve's engine settings) with a
+                Tap on each request's engine token ids: 8 concurrent
+                streaming /v1/completions of the serve's prompts (token
+                ids, 32 tokens, greedy, ignore_eos), 2 aggregated chat
+                completions, /v1/models, /health, /metrics. Every reply
+                200; usage and the Tap count 32 tokens with finish
+                "length"; the streamed text is the toy tokenizer's
+                incremental decode of the tapped ids; the ragged wrapper
+                launched num_layers times per dispatch on the tile and
+                split paths; the tapped streams pass the teacher-forced
+                gates of phase 8. Client-side TTFT, ITL (from SSE arrival
+                times) and tokens/s beside the serve's. Then a drain with
+                one request in flight (it completes; a new request gets
+                503), and one ``run --in batch:FILE`` subprocess whose
+                JSON report is parsed.
+8. phases     — the phase-split entry points at full width on the serve's
                 weights: prefill_batch of 4 prompts (64–512 tokens), then
                 decode_multi of 32 steps; the prefill kernel launches
                 num_layers times per call, all on the tensor-core entry,
@@ -80,10 +97,13 @@ of the JAX package. Needs one CUDA device.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1117,6 +1137,226 @@ async def profile_serve(engine, prompts, max_tokens) -> dict:
     }
 
 
+HTTP_ARGS = [
+    "run", "--out", "torch", "--model-path", "preset:llama3.2-1b",
+    "--num-blocks", "1024", "--max-num-seqs", "8", "--max-model-len", "1024",
+    "--prefill-batch", "4", "--unified-token-budget", "256",
+    "--unified-prefill-quantum", "64",
+]
+
+
+async def http_stream(port, path, body):
+    """POST a streaming request; (response, [(seconds since send, event)])
+    for every SSE event, timed as its chunk arrived."""
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.llm.protocols.sse import decode_stream
+
+    timed = []
+    t0 = time.perf_counter()
+
+    def got(piece: bytes) -> None:
+        t = time.perf_counter() - t0
+        timed.extend((t, ev) for ev in decode_stream(piece.decode()))
+
+    resp = await fetch("127.0.0.1", port, "POST", path, body, on_chunk=got)
+    return resp, timed
+
+
+def stream_summary(timed) -> dict:
+    """Text, finish, usage and the token events' arrival times of a
+    streamed completion."""
+    text, finish, usage, times = "", None, None, []
+    for t, ev in timed:
+        if ev.data == "[DONE]":
+            continue
+        chunk = json.loads(ev.data)
+        if "error" in chunk:
+            raise SystemExit(f"http: stream error {chunk}")
+        for ch in chunk.get("choices", []):
+            times.append(t)
+            text += ch.get("text") or ""
+            finish = ch.get("finish_reason") or finish
+        usage = chunk.get("usage") or usage
+    return {"text": text, "finish": finish, "usage": usage, "times": times}
+
+
+async def phase_http(prompts, serve_streams, max_tokens, served) -> dict:
+    """The main path through the OpenAI server: see the module docstring
+    (phase 7)."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.llm.tokenizer import (
+        ToyTokenizer,
+        render_default_chat_template,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+    from dynamo_tpu_torch.runtime.pipeline import Tap
+
+    args = cli.build_parser().parse_args(
+        HTTP_ARGS + ["--http-host", "127.0.0.1", "--http-port", "0"])
+    cli.refuse_unserved(args)
+    tapped: dict[tuple, list[int]] = {}   # prompt token ids -> engine tokens
+    tap = Tap(
+        on_request=lambda ctx: tapped.setdefault(tuple(ctx.payload["token_ids"]), []),
+        on_response=lambda ctx, item: tapped[tuple(ctx.payload["token_ids"])].extend(
+            item["token_ids"]),
+    )
+    rng = np.random.default_rng(2)
+    words = ["alpha", "beta", "gamma", "delta", "kernel", "cache", "token", "page"]
+    chats = [[{"role": "user", "content": " ".join(rng.choice(words, 12))}]
+             for _ in range(2)]
+    greedy = {"temperature": 0, "max_tokens": max_tokens, "nvext": {"ignore_eos": True}}
+    async with contextlib.AsyncExitStack() as stack:
+        t_start = time.monotonic()
+        service, engine = await cli.start_http(args, stack, engine_ops=(tap,))
+        startup_s = time.monotonic() - t_start
+        port = service.port
+        cfg = engine.cfg.model
+        reset_counts()
+        d0 = engine.unified_dispatches
+        t0 = time.perf_counter()
+        streamed = await asyncio.gather(*[
+            http_stream(port, "/v1/completions",
+                        {"model": cfg.name, "prompt": p, "stream": True, **greedy})
+            for p in prompts])
+        wall = time.perf_counter() - t0
+        aggregated = await asyncio.gather(*[
+            fetch("127.0.0.1", port, "POST", "/v1/chat/completions",
+                  {"model": cfg.name, "messages": m, **greedy}) for m in chats])
+        launches = fn.launches
+        paths = {"tc": fn.launches_tc, "split": fn.launches_split,
+                 "walk": fn.launches_walk}
+        dispatches = engine.unified_dispatches - d0
+        gets = {path: await fetch("127.0.0.1", port, "GET", path)
+                for path in ("/v1/models", "/health", "/metrics")}
+
+        # Drain with one request in flight: it completes, a new one is
+        # refused with 503, as the CLI drains on SIGTERM.
+        inflight = asyncio.create_task(http_stream(
+            port, "/v1/completions",
+            {"model": cfg.name, "prompt": prompts[0], "stream": True, **greedy}))
+        while not tapped.get(tuple(prompts[0])) or len(
+                tapped[tuple(prompts[0])]) <= max_tokens:
+            await asyncio.sleep(0.005)
+        drain = asyncio.create_task(service.drain(60.0))
+        await asyncio.sleep(0)
+        refused = await fetch("127.0.0.1", port, "POST", "/v1/completions",
+                              {"model": cfg.name, "prompt": [1, 2, 3], **greedy})
+        drained_resp, drained_timed = await inflight
+        service_drained = await drain
+        engine.begin_drain()
+        engine_drained = await engine.wait_drained(60.0)
+        params = engine.runner.params
+
+    statuses = ([r.status for r, _ in streamed] + [r.status for r in aggregated]
+                + [r.status for r in gets.values()])
+    summaries = [stream_summary(timed) for _, timed in streamed]
+    tok = ToyTokenizer()
+    http_streams, texts_ok = [], True
+    for p, summ in zip(prompts, summaries):
+        ids = tapped[tuple(p)][:max_tokens]
+        http_streams.append(ids)
+        stepper = tok.decode_stream()
+        incremental = "".join(piece for piece in map(stepper.step, ids) if piece)
+        texts_ok &= summ["text"] == incremental
+    chat_prompts = [tok.encode(render_default_chat_template(
+        [{"role": m[0]["role"], "content": m[0]["content"]}])) for m in chats]
+    chat_streams = [tapped[tuple(p)] for p in chat_prompts]
+    counts_ok = (
+        all(s["usage"]["completion_tokens"] == max_tokens and s["finish"] == "length"
+            and len(s["times"]) == max_tokens for s in summaries)
+        and all(r.json()["usage"]["completion_tokens"] == max_tokens
+                and r.json()["choices"][0]["finish_reason"] == "length"
+                for r in aggregated)
+        and all(len(s) == max_tokens for s in http_streams + chat_streams)
+    )
+    ref = teacher_forced(cfg, params, list(prompts) + chat_prompts,
+                         http_streams + chat_streams)
+    ref.pop("first_token_ref_logprob")
+    ttft = [s["times"][0] for s in summaries]
+    itl = [b - a for s in summaries for a, b in zip(s["times"], s["times"][1:])]
+    drained = stream_summary(drained_timed)
+    metrics_text = gets["/metrics"].body.decode()
+    result = {
+        "phase": "http", "model": cfg.name, "dtype": engine.cfg.dtype,
+        "server_startup_s": startup_s, "requests_streamed": len(prompts),
+        "requests_aggregated": len(chats), "max_tokens": max_tokens,
+        "statuses": statuses, "wall_s": wall,
+        "tokens_per_s": len(prompts) * max_tokens / wall,
+        "client_ttft_p50_ms": float(np.median(ttft)) * 1e3,
+        "client_ttft_max_ms": max(ttft) * 1e3,
+        "client_itl_p50_ms": float(np.percentile(itl, 50)) * 1e3,
+        "client_itl_p95_ms": float(np.percentile(itl, 95)) * 1e3,
+        "in_process_serve": {"ttft_p50_ms": served["ttft_p50_ms"],
+                             "ttft_max_ms": served["ttft_max_ms"],
+                             "wall_s": served["wall_s"],
+                             "tokens_per_s": served["tokens_per_s"]},
+        "http_minus_in_process_ttft_p50_ms":
+            float(np.median(ttft)) * 1e3 - served["ttft_p50_ms"],
+        "http_minus_in_process_wall_ms_per_request":
+            (wall - served["wall_s"]) * 1e3 / len(prompts),
+        "unified_dispatches": dispatches, "kernel_launches": launches,
+        "kernel_launches_by_path": paths, "num_layers": cfg.num_layers,
+        "counts_ok": counts_ok, "streamed_text_is_incremental_toy_decode": texts_ok,
+        "greedy_match_rate_vs_serve": match_rate(http_streams, serve_streams),
+        **ref, "gates": {"agreement_min": PHASES_AGREEMENT, "gap_max": NEAR_TIE_NATS},
+        "models": [m["id"] for m in gets["/v1/models"].json()["data"]],
+        "metrics_has_requests_total":
+            "dyntpu_http_service_requests_total" in metrics_text,
+        "drain": {"inflight_status": drained_resp.status,
+                  "inflight_tokens": drained["usage"]["completion_tokens"],
+                  "refused_status": refused.status,
+                  "service_drained": service_drained,
+                  "engine_drained": engine_drained},
+    }
+    result["batch_cli"] = batch_cli(max_tokens=16)
+    emit(result)
+    if any(code != 200 for code in statuses) or result["models"] != [cfg.name]:
+        raise SystemExit(f"http: statuses {statuses}, models {result['models']}")
+    if not (counts_ok and texts_ok and result["metrics_has_requests_total"]):
+        raise SystemExit("http: token counts, finish reasons or streamed text wrong")
+    if launches != cfg.num_layers * dispatches or dispatches == 0:
+        raise SystemExit(f"http: kernel launched {launches} times for {dispatches} "
+                         f"dispatches x {cfg.num_layers} layers")
+    if paths != {"tc": launches, "split": launches, "walk": 0}:
+        raise SystemExit(f"http: ragged paths launched {paths} for {launches} calls")
+    if not (ref["logits_finite"] and ref["logits_shape_ok"]
+            and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+            and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
+        raise SystemExit("http: streams disagree with the no-cache reference")
+    d = result["drain"]
+    if (d["inflight_status"], d["inflight_tokens"], d["refused_status"]) != (
+            200, max_tokens, 503) or not (d["service_drained"] and d["engine_drained"]):
+        raise SystemExit(f"http: drain {d}")
+    return result
+
+
+def batch_cli(max_tokens: int) -> dict:
+    """``python -m dynamo_tpu_torch run --in batch:FILE --out torch`` in a
+    subprocess, 4 prompts; returns its JSON report."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prompts.txt")
+        with open(path, "w") as f:
+            f.write("hello there\nwhat is a kernel\npaged attention\nthe end\n")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch", *HTTP_ARGS, "--in",
+             f"batch:{path}", "--max-tokens", str(max_tokens)],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"batch CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    report = json.loads(lines[-1])
+    if report["requests"] != 4 or not report["tokens_out_per_s"] > 0:
+        raise SystemExit(f"batch CLI report {report}")
+    return {"report": report, "process_s": time.monotonic() - t0}
+
+
 def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
     """The phase-split entry points at full width on the serve's weights,
     each kernel's launches counted over exactly this run."""
@@ -1230,6 +1470,7 @@ def main() -> int:
         profile_prompts=more))
     emit({"phase": "serve_int8_vs_bf16",
           "greedy_match_rate": match_rate(streams_int8, streams)})
+    asyncio.run(phase_http(prompts, streams, max_tokens, served))
     phases = phase_phases(engine.runner.params, prompts[:PHASE_LANES],
                           streams[:PHASE_LANES], max_tokens)
 

@@ -13,10 +13,14 @@ asyncio callers talk to it through thread-safe queues. Implements the
 AsyncEngine contract: ``generate(Context)`` streams ``EngineOutput``
 wire dicts.
 
+Graceful drain: ``begin_drain`` refuses new requests with ``ShedError``
+while every submitted sequence runs to completion; ``readiness()`` is
+the snapshot ``/health``, ``/metrics`` and the admission gate read.
+
 Not in this slice: KVBM tiers, disaggregation, peers, speculative
-decoding, penalties/logprobs, multimodal, drain, shape manifests, the
-flight recorder, tracing and deadlines (ROADMAP queue A). Requests that
-ask for any of them are refused with ``RequestError``.
+decoding, penalties/logprobs, multimodal, shape manifests, the flight
+recorder, tracing and deadlines (ROADMAP queue A). Requests that ask for
+any of them are refused with ``RequestError``.
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ from dynamo_tpu_torch.llm.protocols.common import (
     FinishReason,
     PreprocessedRequest,
     RequestError,
+    ShedError,
 )
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.utils.overload import OVERLOAD
 
 logger = logging.getLogger(__name__)
 
@@ -82,6 +88,10 @@ class TorchEngine:
         self._dead: Exception | None = None
         self._prefix_hits = 0
         self._prefix_lookups = 0
+        self._draining = False
+        # Un-prefilled prompt tokens, refreshed by the engine thread (the
+        # only place it may walk the waiting deque).
+        self._prefill_backlog_tokens = 0
         # Dispatch counters (engine thread writes, readers after stop).
         self.unified_dispatches = 0
         self.unified_decode_tokens = 0
@@ -118,6 +128,59 @@ class TorchEngine:
             if self._thread.is_alive():
                 raise RuntimeError("engine thread did not stop within 30 s")
 
+    # -- graceful drain -----------------------------------------------------
+    def begin_drain(self) -> None:
+        """Refuse new requests (``generate`` raises ShedError) while every
+        submitted sequence runs to completion; readiness() reports
+        "draining"."""
+        if not self._draining:
+            self._draining = True
+            logger.info("engine draining: refusing new work")
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        """True when nothing is left in flight: no scheduled work, no
+        issued-but-unprocessed dispatches, no queued submissions."""
+        return (
+            self.scheduler is not None
+            and not self.scheduler.has_work
+            and not self._inflight
+            and self._submit_q.empty()
+        )
+
+    async def wait_drained(self, timeout_s: float = 30.0) -> bool:
+        """Await in-flight completion after begin_drain(); True if the
+        engine drained within ``timeout_s``."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if self._dead or self.drained:
+                return self._dead is None
+            await asyncio.sleep(0.02)
+        return self.drained
+
+    def readiness(self) -> dict:
+        """Snapshot for /health, /metrics and the admission watermarks,
+        with the reference's names for the fields this engine has."""
+        d = {
+            "state": "draining" if self._draining else "ready",
+            "draining": self._draining,
+            "shed_requests_total": OVERLOAD.shed_total,
+            "gpu_prefix_cache_hit_rate": self.prefix_hit_rate,
+        }
+        if self.scheduler is not None:
+            # len() reads off the engine thread are atomic.
+            d["num_requests_waiting"] = len(self.scheduler.waiting)
+            usable = max(self.allocator.num_blocks - 1, 1)
+            d["gpu_cache_usage_perc"] = (usable - self.allocator.num_free) / usable
+            d["prefill_backlog_tokens"] = self._prefill_backlog_tokens
+        d["unified_step_tokens_decode_total"] = self.unified_decode_tokens
+        d["unified_step_tokens_prefill_total"] = self.unified_prefill_tokens
+        return d
+
     @staticmethod
     def _validate_request(pre: PreprocessedRequest) -> None:
         """Refuse what this slice does not serve, loudly (RequestError →
@@ -145,6 +208,11 @@ class TorchEngine:
     async def generate(self, request: Context) -> AsyncIterator[dict]:
         if self._dead:
             raise RuntimeError(f"engine dead: {self._dead}")
+        if self._draining:
+            OVERLOAD.note_shed("engine.draining")
+            raise ShedError(
+                "engine draining — retry another instance", draining=True
+            )
         pre = (
             PreprocessedRequest.from_wire(request.payload)
             if isinstance(request.payload, dict)
@@ -202,7 +270,15 @@ class TorchEngine:
     def _engine_loop(self) -> None:
         try:
             while not self._stop.is_set():
-                if not self._step_unified():
+                busy = self._step_unified()
+                self._prefill_backlog_tokens = sum(
+                    len(s.prompt_tokens) for s in self.scheduler.waiting
+                ) + sum(
+                    len(s.prompt_tokens) - s.prefill_cursor
+                    for s in self._prefilling
+                    if s.status is SeqStatus.PREFILLING
+                )
+                if not busy:
                     self._wakeup.wait(timeout=0.01)
                     self._wakeup.clear()
         except Exception as exc:  # top of the thread: fail every request loudly

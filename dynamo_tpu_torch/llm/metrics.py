@@ -1,0 +1,107 @@
+"""HTTP-service Prometheus metrics (port of dynamo_tpu/llm/metrics.py):
+request counts, a duration histogram and an in-flight guard, under the
+same names (prefix ``dyntpu_http_service``), buckets and text format.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+
+_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+
+class Metrics:
+    def __init__(self, prefix: str = "dyntpu_http_service") -> None:
+        self.prefix = prefix
+        self.requests: dict[tuple, int] = defaultdict(int)
+        self.inflight: dict[tuple, int] = defaultdict(int)
+        self.hist_counts: dict[tuple, list[int]] = {}
+        self.hist_sum: dict[tuple, float] = defaultdict(float)
+        # Free-form gauges set by the service (engine readiness +
+        # compile-stall counters; names ending in _total render as
+        # counters).
+        self.gauges: dict[str, float] = {}
+
+    def set_gauge(self, name: str, value: float) -> None:
+        self.gauges[name] = value
+
+    def observe(self, model: str, endpoint: str, status: str, seconds: float) -> None:
+        self.requests[(model, endpoint, status)] += 1
+        key = (model, endpoint)
+        buckets = self.hist_counts.setdefault(key, [0] * (len(_BUCKETS) + 1))
+        for i, ub in enumerate(_BUCKETS):
+            if seconds <= ub:
+                buckets[i] += 1
+                break
+        else:
+            buckets[-1] += 1
+        self.hist_sum[key] += seconds
+
+    def guard(self, model: str, endpoint: str) -> "InflightGuard":
+        return InflightGuard(self, model, endpoint)
+
+    def render(self) -> str:
+        p = self.prefix
+        lines = [
+            f"# TYPE {p}_requests_total counter",
+        ]
+        for (model, endpoint, status), count in sorted(self.requests.items()):
+            lines.append(
+                f'{p}_requests_total{{model="{model}",endpoint="{endpoint}",status="{status}"}} {count}'
+            )
+        lines.append(f"# TYPE {p}_inflight_requests gauge")
+        for (model, endpoint), count in sorted(self.inflight.items()):
+            lines.append(
+                f'{p}_inflight_requests{{model="{model}",endpoint="{endpoint}"}} {count}'
+            )
+        lines.append(f"# TYPE {p}_request_duration_seconds histogram")
+        for (model, endpoint), buckets in sorted(self.hist_counts.items()):
+            cum = 0
+            for i, ub in enumerate(_BUCKETS):
+                cum += buckets[i]
+                lines.append(
+                    f'{p}_request_duration_seconds_bucket{{model="{model}",endpoint="{endpoint}",le="{ub}"}} {cum}'
+                )
+            cum += buckets[-1]
+            lines.append(
+                f'{p}_request_duration_seconds_bucket{{model="{model}",endpoint="{endpoint}",le="+Inf"}} {cum}'
+            )
+            lines.append(
+                f'{p}_request_duration_seconds_sum{{model="{model}",endpoint="{endpoint}"}} {self.hist_sum[(model, endpoint)]}'
+            )
+            lines.append(
+                f'{p}_request_duration_seconds_count{{model="{model}",endpoint="{endpoint}"}} {cum}'
+            )
+        for name, value in sorted(self.gauges.items()):
+            kind = "counter" if name.endswith("_total") else "gauge"
+            lines.append(f"# TYPE {p}_{name} {kind}")
+            lines.append(f"{p}_{name} {value}")
+        return "\n".join(lines) + "\n"
+
+
+class InflightGuard:
+    """Context manager: inflight gauge + duration/status on exit."""
+
+    def __init__(self, metrics: Metrics, model: str, endpoint: str) -> None:
+        self._m = metrics
+        self._key = (model, endpoint)
+        self._model = model
+        self._endpoint = endpoint
+        self._start = time.monotonic()
+        self.status = "error"
+
+    def __enter__(self) -> "InflightGuard":
+        self._m.inflight[self._key] += 1
+        return self
+
+    def success(self) -> None:
+        self.status = "success"
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._m.inflight[self._key] -= 1
+        if exc_type is not None:
+            self.status = "error"
+        self._m.observe(
+            self._model, self._endpoint, self.status, time.monotonic() - self._start
+        )

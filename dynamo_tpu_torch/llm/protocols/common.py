@@ -23,6 +23,22 @@ class RequestError(ValueError):
     value). The HTTP layer maps this to 400."""
 
 
+class ShedError(RuntimeError):
+    """The request was refused to protect the serving system (a draining
+    engine). Retryable by the client: the HTTP layer maps it to 429
+    (capacity) or 503 (draining) with ``Retry-After``."""
+
+    def __init__(
+        self,
+        message: str,
+        retry_after_s: float = 1.0,
+        draining: bool = False,
+    ) -> None:
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+        self.draining = draining
+
+
 class FinishReason(str, enum.Enum):
     STOP = "stop"            # eos or stop sequence
     LENGTH = "length"        # hit max_tokens / context limit

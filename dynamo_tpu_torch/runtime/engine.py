@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import asyncio
 import uuid
-from typing import Any, Generic, TypeVar
+from typing import Any, AsyncIterator, Generic, Protocol, TypeVar, runtime_checkable
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -82,3 +82,11 @@ class Context(Generic[T]):
     @property
     def is_killed(self) -> bool:
         return self._kill.is_cancelled()
+
+
+@runtime_checkable
+class AsyncEngine(Protocol):
+    """Anything that turns one request into a stream of responses."""
+
+    def generate(self, request: Context) -> AsyncIterator[Any]:
+        ...

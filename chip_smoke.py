@@ -47,19 +47,38 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 match rate >= 0.7 against them; ModelRunner.prefill_batch
                 + decode_multi equal reference_forward too.
 4. serve      — the main path at full width: a llama3.2-1b TorchEngine in
-                bf16 (random weights from a seed) serves 8 concurrent
-                requests through generate(); the ragged wrapper must have
-                launched num_layers times per unified dispatch, each call
-                on the tensor-core tile and the split path; every
+                bf16 (random weights from a seed) warms up — one CUDA
+                graph per program of the warmup plan, 5 budget rungs and
+                the extras program, each greedy and sampled; graphs,
+                capture seconds and pool bytes reported — then serves 8
+                concurrent requests through generate(), every dispatch a
+                replay, none captured mid-traffic; the ragged wrapper
+                must have launched num_layers times per unified dispatch
+                (a replay adds its graph's launches), each call on the
+                tensor-core tile and the split path; every
                 stream is fed back through the no-cache reference_forward
                 (finite logits of shape [T, V]; argmax agreement and the
                 log-probability gap of each disagreement reported).
 5. profile    — 8 more requests on the same engine under torch.profiler:
                 device time by kernel and the device's busy share.
+   graphs     — the serve's dispatches (recorded) through two fresh
+                runners on its weights: one replays its graphs, one runs
+                the eager step body; the sampled tokens of every dispatch
+                and, at the end, the K/V bytes outside trash block 0 must
+                be identical; then wall, host and device ms per dispatch
+                and the busy share of each, pipelined two deep, in turns.
 6. serve_int8 — the same 8 requests through an int8-KV engine: the int8
                 leg must have launched num_layers times per dispatch,
                 on the same paths;
-                then its own profile, as in 5.
+                then its own profile, as in 5, and graphs_int8 (scales
+                compared too).
+   spec       — speculative_k=4 against 0 on the 8 prompts and 2 of
+                repeated n-grams, in float32 (streams byte-identical) and
+                in bf16 (both engines' streams held to the no-cache
+                reference: greedy batching differs, so bf16 ties may fall
+                either way); drafts and accepted drafts (> 0), tokens per
+                step, verify spans of 2-5 rows, every ragged call on its
+                dtype's paths.
 7. http       — the OpenAI server at full width, built in process through
                 the CLI's own path (``run --out torch --model-path
                 preset:llama3.2-1b``, the serve's engine settings) with a
@@ -73,7 +92,14 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 launched num_layers times per dispatch on the tile and
                 split paths; the tapped streams pass the teacher-forced
                 gates of phase 8. Client-side TTFT, ITL (from SSE arrival
-                times) and tokens/s beside the serve's. Then a drain with
+                times) and tokens/s beside the serve's; /metrics carries
+                the capture gauges. Then extras: for 2 more prompts a
+                completion with logprobs and the same with penalties, and
+                a chat with top_logprobs (the top-rung extras program):
+                each chosen-token logprob within FIRST_LOGPROB_TOL of the
+                no-cache reference's (penalized reference for the
+                penalized ones), the streams through its teacher-forced
+                gates, a penalized stream unlike its plain one. Then a drain with
                 one request in flight (it completes; a new request gets
                 503), and one ``run --in batch:FILE`` subprocess whose
                 JSON report is parsed.
@@ -1036,11 +1062,12 @@ def full_width_config(**kw):
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.models.config import ModelConfig
 
-    return EngineConfig(
-        model=ModelConfig.llama32_1b(), dtype="bfloat16", block_size=16,
-        num_blocks=1024, max_num_seqs=8, max_model_len=1024, prefill_batch=4,
-        unified_token_budget=256, unified_prefill_quantum=64, seed=0, **kw,
-    )
+    return EngineConfig(**{
+        "model": ModelConfig.llama32_1b(), "dtype": "bfloat16", "block_size": 16,
+        "num_blocks": 1024, "max_num_seqs": 8, "max_model_len": 1024,
+        "prefill_batch": 4, "unified_token_budget": 256,
+        "unified_prefill_quantum": 64, "seed": 0, **kw,
+    })
 
 
 async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
@@ -1059,8 +1086,12 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
     await engine.start()
     profile = None
     try:
+        capture = await warm_up(engine)
+        recorded = record_dispatches(engine.runner)
         reset_counts()
         streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
+        recorded.stop()
+        capture["mid_traffic_compiles_total"] = mid_traffic(engine)
         launches = fn.launches
         paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
         dispatches = engine.unified_dispatches
@@ -1091,12 +1122,13 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         "unified_dispatches": dispatches,
         "prefill_tokens": prefill_tokens, "decode_tokens": decode_tokens,
         "kernel_launches": launches, "kernel_launches_by_path": paths,
-        "num_layers": cfg.num_layers,
+        "num_layers": cfg.num_layers, "capture": capture,
         "streams_full_length": full, "tokens_in_vocab": in_vocab, **ref,
     }
     emit(result)
     if profile is not None:
         emit(profile)
+    check_capture(phase, capture)
     if launches != cfg.num_layers * dispatches or dispatches == 0:
         raise SystemExit(
             f"{phase}: kernel launched {launches} times for {dispatches} "
@@ -1108,7 +1140,61 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         raise SystemExit(f"{phase}: ragged paths launched {paths} for {launches} calls")
     if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]):
         raise SystemExit(f"{phase}: served streams failed their checks")
+    result["recorded"] = recorded.calls
     return result, engine, streams
+
+
+async def warm_up(engine) -> dict:
+    """``engine.warmup()`` (one CUDA graph per program of the plan) and
+    what it made: graphs, the seconds of their warm passes and captures,
+    the pool's bytes."""
+    t0 = time.monotonic()
+    programs = await engine.warmup()
+    wall = time.monotonic() - t0
+    return {"warmup_programs": programs, "warmup_wall_s": wall,
+            **engine.runner.compile_stats.capture_snapshot()}
+
+
+def mid_traffic(engine) -> int:
+    return engine.runner.compile_stats.snapshot()["mid_traffic_compiles_total"]
+
+
+def check_capture(phase: str, capture: dict) -> None:
+    """After a full warmup every dispatch replays a graph captured ahead
+    of traffic: none is captured mid-traffic."""
+    if capture["graphs_captured"] != capture["warmup_programs"] or not capture[
+            "graphs_captured"]:
+        raise SystemExit(f"{phase}: {capture['graphs_captured']} graphs captured "
+                         f"for {capture['warmup_programs']} warmup programs")
+    if capture["mid_traffic_compiles_total"]:
+        raise SystemExit(f"{phase}: {capture['mid_traffic_compiles_total']} "
+                         f"mid-traffic captures after warmup: "
+                         f"{capture['mid_traffic_keys']}")
+
+
+class record_dispatches:
+    """Records every ``unified_step`` call of a runner (copies of its
+    lanes, feed rows, drafts and extras) until ``stop()``; the ``graphs``
+    and ``spec`` phases replay and inspect them."""
+
+    def __init__(self, runner) -> None:
+        self.runner, self.calls = runner, []
+        step = runner.unified_step
+
+        def recording(lanes, feed=None, draft_lens=None, extras=None):
+            fed = None if feed is None else (
+                feed[0] is not None, np.array(feed[1]), np.array(feed[2]))
+            self.calls.append((
+                [(list(t), list(b), p, tuple(smp)) for t, b, p, smp in lanes],
+                fed, None if draft_lens is None else list(draft_lens),
+                None if extras is None else {k: list(v) for k, v in extras.items()},
+            ))
+            return step(lanes, feed=feed, draft_lens=draft_lens, extras=extras)
+
+        runner.unified_step = recording
+
+    def stop(self) -> None:
+        del self.runner.unified_step
 
 
 async def profile_serve(engine, prompts, max_tokens) -> dict:
@@ -1135,6 +1221,364 @@ async def profile_serve(engine, prompts, max_tokens) -> dict:
         "device_ms_per_dispatch": busy / n,
         "top_kernels_ms": [[k, v, v / busy] for k, v in top],
     }
+
+
+def cache_difference(a, b, bs: int) -> str | None:
+    """Where two runners' KV caches (bytes) or int8 scales differ outside
+    trash block 0, or None."""
+    for li, ((ka, va), (kb, vb)) in enumerate(zip(a.kv_caches, b.kv_caches)):
+        for name, x, y in (("k", ka, kb), ("v", va, vb)):
+            if x.dtype != torch.int8:
+                x, y = x.view(torch.int16), y.view(torch.int16)
+            rows = (x[bs:] != y[bs:]).reshape(x.shape[0] - bs, -1).any(dim=1)
+            if bool(rows.any()):
+                slot = int(rows.nonzero()[0]) + bs
+                return f"layer {li} {name} cache, slot {slot} (block {slot // bs})"
+    if a.kv_scales is not None:
+        ne = a.kv_scales[:, :, 1:] != b.kv_scales[:, :, 1:]
+        if bool(ne.any()):
+            li, kv, blk, h = (int(x) for x in ne.nonzero()[0])
+            return f"scales layer {li} {'kv'[kv]}, block {blk + 1} head {h}"
+    return None
+
+
+def replay_recorded(runner, step, recorded, depth: int = 2):
+    """Issue the recorded dispatches through ``step`` pipelined ``depth``
+    deep, each fed by the previous one's device tokens; returns (tokens
+    per dispatch, wall s, host s spent inside ``step``)."""
+    torch.cuda.synchronize()
+    prev, inflight, toks, host = None, [], [], 0.0
+    t0 = time.perf_counter()
+    for lanes, fed, draft_lens, extras in recorded:
+        h0 = time.perf_counter()
+        feed = None if fed is None else (prev if fed[0] else None, fed[1], fed[2])
+        out = step(lanes, feed=feed, draft_lens=draft_lens, extras=extras)
+        host += time.perf_counter() - h0
+        prev = out.last
+        inflight.append(out)
+        if len(inflight) >= depth:
+            toks.append(inflight.pop(0).tokens().copy())
+    while inflight:
+        toks.append(inflight.pop(0).tokens().copy())
+    return toks, time.perf_counter() - t0, host
+
+
+def profiled_device_ms(fn) -> float:
+    """Sum of the card's kernel and copy times while ``fn`` runs
+    (torch.profiler; kernels inside graph replays included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if str(e.device_type).endswith("CUDA"))
+
+
+def phase_graphs(params, recorded, kv_quant, phase) -> dict:
+    """The serve's dispatches through two runners on the serve's weights
+    with caches that start equal: one replays its captured graphs, the
+    other runs the eager step body. Every dispatch's sampled tokens, and
+    in the end the K/V bytes and int8 scales outside trash block 0, must
+    be identical; then wall, host and device ms per dispatch of each,
+    in turns (graph, eager, eager, graph), and the device's busy share."""
+    from dynamo_tpu_torch.engine.runner import ModelRunner
+
+    ecfg = full_width_config(kv_quant=kv_quant)
+    graph = ModelRunner(ecfg, params=params, device=DEVICE)
+    eager = ModelRunner(ecfg, params=params, device=DEVICE)
+    graph.warmup()
+    programs = graph.compile_stats.capture_snapshot()["graphs_captured"]
+    got = replay_recorded(graph, graph.unified_step, recorded, depth=1)[0]
+    want = replay_recorded(eager, eager.unified_step_eager, recorded, depth=1)[0]
+    torch.cuda.synchronize()
+    token_mismatch = [i for i, (a, b) in enumerate(zip(got, want))
+                      if not np.array_equal(a, b)]
+    where = cache_difference(graph, eager, ecfg.block_size)
+    legs = {"graph": (graph, graph.unified_step), "eager": (eager, eager.unified_step_eager)}
+    timed: dict[str, dict[str, list]] = {k: {} for k in legs}
+    for name in ("graph", "eager", "eager", "graph"):
+        runner, step = legs[name]
+        _, wall, host = replay_recorded(runner, step, recorded)
+        n = len(recorded)
+        timed[name].setdefault("wall_ms_per_dispatch", []).append(wall * 1e3 / n)
+        timed[name].setdefault("host_ms_per_dispatch", []).append(host * 1e3 / n)
+    for name, (runner, step) in legs.items():
+        holder = {}
+
+        def run(runner=runner, step=step):
+            holder["wall"] = replay_recorded(runner, step, recorded)[1]
+
+        dev = profiled_device_ms(run)
+        n = len(recorded)
+        timed[name]["device_ms_per_dispatch"] = dev / n
+        timed[name]["profiled_wall_ms_per_dispatch"] = holder["wall"] * 1e3 / n
+        timed[name]["device_busy_share"] = dev / (holder["wall"] * 1e3)
+    summary = {
+        name: {k: (float(np.median(v)) if isinstance(v, list) else v)
+               for k, v in t.items()} for name, t in timed.items()}
+    result = {
+        "phase": phase, "model": ecfg.model.name, "dtype": ecfg.dtype,
+        "kv_quant": kv_quant, "dispatches": len(recorded),
+        "graphs_captured": programs,
+        "tokens_identical": not token_mismatch,
+        "dispatches_with_token_mismatch": token_mismatch[:8],
+        "kv_bytes_and_scales_identical_outside_trash_block": where is None,
+        "first_difference": where, **summary,
+        "runs": timed,
+    }
+    emit(result)
+    if token_mismatch or where is not None:
+        raise SystemExit(f"{phase}: replays differ from the eager body "
+                         f"(dispatches {token_mismatch[:8]}; {where})")
+    del graph, eager
+    torch.cuda.empty_cache()
+    return result
+
+
+def repeated_prompts(rng, vocab) -> list[list[int]]:
+    """Two prompts built of repeated n-grams, so prompt lookup drafts."""
+    a = rng.integers(0, vocab, 6).tolist()
+    b = rng.integers(0, vocab, 11).tolist()
+    return [a * 16, b * 9]
+
+
+async def spec_leg(dtype, k, prompts, max_tokens) -> dict:
+    """One llama3.2-1b engine in ``dtype`` with ``speculative_k=k``, warmed
+    up, serving ``prompts``: its streams, launches by path, capture and
+    the draft-verify spans it issued."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+
+    engine = TorchEngine(full_width_config(speculative_k=k, dtype=dtype), device=DEVICE)
+    await engine.start()
+    try:
+        capture = await warm_up(engine)
+        recorded = record_dispatches(engine.runner)
+        reset_counts()
+        d0 = engine.unified_dispatches
+        streams, _, _, wall = await serve(engine, prompts, max_tokens)
+        recorded.stop()
+        capture["mid_traffic_compiles_total"] = mid_traffic(engine)
+        ready = engine.readiness()
+        return {
+            "streams": streams, "params": engine.runner.params,
+            "dispatches": engine.unified_dispatches - d0, "wall_s": wall,
+            "kernel_launches": fn.launches,
+            "paths": {"tc": fn.launches_tc, "split": fn.launches_split,
+                      "walk": fn.launches_walk},
+            "capture": capture,
+            "verify_rows": [1 + dl for _, _, dls, _ in recorded.calls
+                            for dl in (dls or []) if dl],
+            "drafted_tokens": ready["spec_drafted_tokens_total"],
+            "accepted_tokens": ready["spec_accepted_tokens_total"],
+            "tokens_per_step": ready["spec_tokens_per_step"],
+            "spec_active_at_end": ready["spec_active"],
+        }
+    finally:
+        await engine.stop()
+
+
+async def phase_spec(prompts, max_tokens) -> dict:
+    """A speculative_k=4 engine against a speculative_k=0 one on the same
+    weights and prompts, in float32 and in bf16. Greedy decoding is
+    batch-invariant only up to rounding: speculation changes how tokens
+    are batched (the verify rows, pipeline depth 1), so a near tie in the
+    logits can fall either way. In float32 a tie within rounding is rare
+    enough that the streams must be byte-identical; in bf16 (ulp 0.0039
+    at these logits, median top-two gap 0.023 nats) both engines' streams
+    are held to the no-cache reference instead: agreement >=
+    PHASES_AGREEMENT, every disagreement a near tie. Both legs: drafts
+    accepted, every ragged call launched on its dtype's paths (bf16: tile
+    and split; float32: walk and split), verify spans of 2-5 rows."""
+    k = 4
+    cfg = full_width_config().model
+    L = cfg.num_layers
+    result = {"phase": "spec", "model": cfg.name, "speculative_k": k,
+              "requests": len(prompts), "max_tokens": max_tokens}
+    failures = []
+    for dtype, long_path in (("float32", "walk"), ("bfloat16", "tc")):
+        legs = {kk: await spec_leg(dtype, kk, prompts, max_tokens) for kk in (0, k)}
+        spec, plain = legs[k], legs[0]
+        rows = spec.pop("verify_rows")
+        plain.pop("verify_rows")
+        identical = spec["streams"] == plain["streams"]
+        first_diff = next(((i, j) for i, (a, b) in enumerate(
+            zip(spec["streams"], plain["streams"])) for j, (x, y) in enumerate(zip(a, b))
+            if x != y), None)
+        leg = {
+            "streams_identical_to_speculative_k_0": identical,
+            "token_match_rate_vs_speculative_k_0": match_rate(spec["streams"],
+                                                              plain["streams"]),
+            "first_difference": first_diff,
+            "verify_span_rows": {str(r): rows.count(r) for r in sorted(set(rows))},
+            **{key: spec[key] for key in ("drafted_tokens", "accepted_tokens",
+                                          "tokens_per_step", "spec_active_at_end")},
+        }
+        params = spec.pop("params")
+        plain.pop("params")
+        if dtype == "bfloat16":
+            for name, run in (("spec", spec), ("plain", plain)):
+                ref = teacher_forced(cfg, params, prompts, run["streams"])
+                leg[f"reference_{name}"] = {key: ref[key] for key in (
+                    "greedy_agreement_vs_no_cache_reference",
+                    "max_logprob_gap_at_disagreement")}
+                if (ref["greedy_agreement_vs_no_cache_reference"] < PHASES_AGREEMENT
+                        or ref["max_logprob_gap_at_disagreement"] > NEAR_TIE_NATS):
+                    failures.append(f"{dtype} {name} streams vs the reference {ref}")
+        elif not identical:
+            failures.append(f"{dtype}: streams differ from speculative_k=0 at {first_diff}")
+        for name, run in (("spec", spec), ("plain", plain)):
+            run.pop("streams")
+            leg[name] = run
+            n = run["dispatches"]
+            want = {"tc": 0, "split": L * n, "walk": 0, long_path: L * n}
+            if run["kernel_launches"] != L * n or run["paths"] != want:
+                failures.append(f"{dtype} {name}: ragged launches {run['kernel_launches']}, "
+                                f"paths {run['paths']} for {n} dispatches")
+            try:
+                check_capture(f"spec {dtype} {name}", run["capture"])
+            except SystemExit as exc:
+                failures.append(str(exc))
+        if not leg["accepted_tokens"] > 0 or not rows or not all(
+                2 <= r <= k + 1 for r in rows):
+            failures.append(f"{dtype}: accepted {leg['accepted_tokens']}, "
+                            f"verify spans {rows[:16]}")
+        result[dtype] = leg
+    result["gates"] = {"float32": "streams byte-identical",
+                       "bfloat16": {"agreement_min": PHASES_AGREEMENT,
+                                    "gap_max": NEAR_TIE_NATS}}
+    emit(result)
+    if failures:
+        raise SystemExit("spec: " + "; ".join(failures))
+    return result
+
+
+def reference_logprobs(cfg, params, prompt, stream, freq=0.0, pres=0.0) -> dict:
+    """The no-cache reference fed ``stream``: at each generated position
+    the log-softmax of its logits after the penalties over the tokens
+    generated before it; its log-probability of each stream token, its
+    argmax agreement, and the widest gap at a disagreement."""
+    from dynamo_tpu_torch.models import llama
+
+    seq = torch.tensor(prompt + stream, device=DEVICE)
+    logits = llama.reference_forward(cfg, params, seq)[len(prompt) - 1:-1].float()
+    want = seq[len(prompt):].long()
+    onehot = torch.nn.functional.one_hot(want, cfg.vocab_size).float()
+    before = torch.cumsum(onehot, dim=0) - onehot             # counts before i
+    lp = torch.log_softmax(logits - freq * before - pres * (before > 0).float(), -1)
+    chosen = lp[torch.arange(len(stream), device=DEVICE), want]
+    best, arg = lp.max(dim=-1)
+    hit = arg == want
+    return {"logprobs": chosen.tolist(), "agreement": float(hit.float().mean()),
+            "max_gap": float((best - chosen)[~hit].max()) if bool((~hit).any()) else 0.0}
+
+
+async def phase_extras(port, engine, tapped, prompts, max_tokens) -> dict:
+    """Sampling extras through the OpenAI server, for two of the serve's
+    prompts: a completion with ``logprobs``, the completion again with
+    frequency/presence penalties (``logprobs`` too), and one chat with
+    ``top_logprobs``. Every chosen-token logprob must match the no-cache
+    reference's within FIRST_LOGPROB_TOL (bf16 logits); the plain streams,
+    and apart from them the penalized ones against the penalized
+    reference, must pass the teacher-forced gate of the serves (pooled
+    agreement >= PHASES_AGREEMENT, every disagreement a near tie); a
+    penalized stream must differ from its plain one."""
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+
+    cfg, params = engine.cfg.model, engine.runner.params
+    greedy = {"model": cfg.name, "temperature": 0, "max_tokens": max_tokens,
+              "nvext": {"ignore_eos": True}}
+    freq, pres = 1.5, 0.5
+    chat = [{"role": "user", "content": "Paged attention keeps each sequence's keys "
+             "and values in fixed blocks; a block table maps positions to blocks, "
+             "so prefix caching can share the blocks of a common prompt."}]
+    requests = []
+    for i, p in enumerate(prompts):
+        requests += [(f"logprobs_{i}", "/v1/completions", {"prompt": p, "logprobs": 5}),
+                     (f"penalized_{i}", "/v1/completions", {
+                         "prompt": p, "logprobs": 1, "frequency_penalty": freq,
+                         "presence_penalty": pres})]
+    requests.append(("chat_top_logprobs", "/v1/chat/completions",
+                     {"messages": chat, "logprobs": True, "top_logprobs": 3}))
+    saved = dict(tapped)
+    reset_counts()
+    d0 = engine.unified_dispatches
+    runs, pooled = {}, {"plain": [0, 0, 0.0], "penalized": [0, 0, 0.0]}
+    for name, path, body in requests:
+        tapped.clear()
+        resp = await fetch("127.0.0.1", port, "POST", path, {**greedy, **body})
+        if resp.status != 200:
+            raise SystemExit(f"extras: {name} answered {resp.status}: {resp.body[:300]}")
+        (prompt_ids, ids), = tapped.items()
+        lp = resp.json()["choices"][0]["logprobs"]
+        if path.endswith("chat/completions"):
+            got = [e["logprob"] for e in lp["content"]]
+            tops = [[t["logprob"] for t in e["top_logprobs"]] for e in lp["content"]]
+        else:
+            got = lp["token_logprobs"]
+            tops = [list(t.values()) if t else [] for t in lp["top_logprobs"]]
+        penalized = name.startswith("penalized")
+        ref = reference_logprobs(cfg, params, list(prompt_ids), ids,
+                                 *((freq, pres) if penalized else (0.0, 0.0)))
+        err = max(abs(a - b) for a, b in zip(got, ref["logprobs"]))
+        pool = pooled["penalized" if penalized else "plain"]
+        pool[0] += round(ref["agreement"] * len(ids))
+        pool[1] += len(ids)
+        pool[2] = max(pool[2], ref["max_gap"])
+        runs[name] = {"stream": ids, "tokens": len(ids), "logprobs_returned": len(got),
+                      "top_per_token": sorted({len(t) for t in tops}),
+                      "max_logprob_err_vs_reference": err,
+                      "agreement_vs_reference": ref["agreement"],
+                      "max_gap_at_disagreement": ref["max_gap"]}
+    launches, dispatches = fn.launches, engine.unified_dispatches - d0
+    tapped.clear()
+    tapped.update(saved)
+    differs = [runs[f"penalized_{i}"]["stream"] != runs[f"logprobs_{i}"]["stream"]
+               for i in range(len(prompts))]
+    agreement = {k: {"agreement": hit / n, "tokens": n, "max_gap": gap}
+                 for k, (hit, n, gap) in pooled.items()}
+    result = {
+        "phase": "extras", "model": cfg.name, "max_tokens": max_tokens,
+        "frequency_penalty": freq, "presence_penalty": pres,
+        "penalized_streams_differ": differs, "pooled_vs_reference": agreement,
+        "unified_dispatches": dispatches, "kernel_launches": launches,
+        "mid_traffic_compiles_total": mid_traffic(engine),
+        "gates": {"logprob_err_max": FIRST_LOGPROB_TOL, "agreement_min": PHASES_AGREEMENT,
+                  "gap_max": NEAR_TIE_NATS},
+        **{name: {k: v for k, v in r.items() if k != "stream"} for name, r in runs.items()},
+    }
+    emit(result)
+    # Completions key their alternatives by token text, and the toy
+    # tokenizer decodes many ids to "", so up to k entries there.
+    for name, r in runs.items():
+        want_top = ([3] if name.startswith("chat") else [1] if name.startswith("pen")
+                    else range(1, 6))
+        if (r["tokens"] != max_tokens or r["logprobs_returned"] != max_tokens
+                or not set(r["top_per_token"]) <= set(want_top)
+                or r["max_logprob_err_vs_reference"] > FIRST_LOGPROB_TOL):
+            raise SystemExit(f"extras: {name} failed its gates: "
+                             f"{ {k: v for k, v in r.items() if k != 'stream'} }")
+    for kind, a in agreement.items():
+        if a["agreement"] < PHASES_AGREEMENT or a["max_gap"] > NEAR_TIE_NATS:
+            raise SystemExit(f"extras: {kind} streams vs the reference {a}")
+    # A stream with no repeated token is left as it was by the penalties;
+    # one at least must show them at work.
+    if not any(differs):
+        raise SystemExit(f"extras: the penalized streams equal the plain ones {differs}")
+    if launches != cfg.num_layers * dispatches or not dispatches:
+        raise SystemExit(f"extras: kernel launched {launches} times for "
+                         f"{dispatches} dispatches")
+    if result["mid_traffic_compiles_total"]:
+        raise SystemExit("extras: a program was captured mid-traffic")
+    return result
 
 
 HTTP_ARGS = [
@@ -1180,7 +1624,7 @@ def stream_summary(timed) -> dict:
     return {"text": text, "finish": finish, "usage": usage, "times": times}
 
 
-async def phase_http(prompts, serve_streams, max_tokens, served) -> dict:
+async def phase_http(prompts, serve_streams, max_tokens, served, more_prompts) -> dict:
     """The main path through the OpenAI server: see the module docstring
     (phase 7)."""
     from dynamo_tpu_torch import cli
@@ -1232,6 +1676,7 @@ async def phase_http(prompts, serve_streams, max_tokens, served) -> dict:
         dispatches = engine.unified_dispatches - d0
         gets = {path: await fetch("127.0.0.1", port, "GET", path)
                 for path in ("/v1/models", "/health", "/metrics")}
+        await phase_extras(port, engine, tapped, more_prompts, max_tokens)
 
         # Drain with one request in flight: it completes, a new one is
         # refused with 503, as the CLI drains on SIGTERM.
@@ -1306,6 +1751,11 @@ async def phase_http(prompts, serve_streams, max_tokens, served) -> dict:
         "models": [m["id"] for m in gets["/v1/models"].json()["data"]],
         "metrics_has_requests_total":
             "dyntpu_http_service_requests_total" in metrics_text,
+        "metrics_has_capture_gauges": all(
+            f"dyntpu_http_service_{k}" in metrics_text
+            for k in ("warmed_programs", "mid_traffic_compiles_total")),
+        "capture": {**engine.runner.compile_stats.capture_snapshot(),
+                    "mid_traffic_compiles_total": mid_traffic(engine)},
         "drain": {"inflight_status": drained_resp.status,
                   "inflight_tokens": drained["usage"]["completion_tokens"],
                   "refused_status": refused.status,
@@ -1316,8 +1766,13 @@ async def phase_http(prompts, serve_streams, max_tokens, served) -> dict:
     emit(result)
     if any(code != 200 for code in statuses) or result["models"] != [cfg.name]:
         raise SystemExit(f"http: statuses {statuses}, models {result['models']}")
-    if not (counts_ok and texts_ok and result["metrics_has_requests_total"]):
-        raise SystemExit("http: token counts, finish reasons or streamed text wrong")
+    if not (counts_ok and texts_ok and result["metrics_has_requests_total"]
+            and result["metrics_has_capture_gauges"]):
+        raise SystemExit("http: token counts, finish reasons, streamed text or "
+                         "/metrics wrong")
+    if result["capture"]["mid_traffic_compiles_total"] or not result["capture"][
+            "graphs_captured"]:
+        raise SystemExit(f"http: capture {result['capture']}")
     if launches != cfg.num_layers * dispatches or dispatches == 0:
         raise SystemExit(f"http: kernel launched {launches} times for {dispatches} "
                          f"dispatches x {cfg.num_layers} layers")
@@ -1465,12 +1920,16 @@ def main() -> int:
 
     served, engine, streams = asyncio.run(serve_full(
         full_width_config(), prompts, max_tokens, "serve", profile_prompts=more))
+    phase_graphs(engine.runner.params, served.pop("recorded"), None, "graphs")
     served_int8, _, streams_int8 = asyncio.run(serve_full(
         full_width_config(kv_quant="int8"), prompts, max_tokens, "serve_int8",
         profile_prompts=more))
     emit({"phase": "serve_int8_vs_bf16",
           "greedy_match_rate": match_rate(streams_int8, streams)})
-    asyncio.run(phase_http(prompts, streams, max_tokens, served))
+    phase_graphs(engine.runner.params, served_int8.pop("recorded"), "int8",
+                 "graphs_int8")
+    asyncio.run(phase_spec(prompts + repeated_prompts(rng, vocab), max_tokens))
+    asyncio.run(phase_http(prompts, streams, max_tokens, served, more[:2]))
     phases = phase_phases(engine.runner.params, prompts[:PHASE_LANES],
                           streams[:PHASE_LANES], max_tokens)
 

@@ -16,16 +16,25 @@ dynamo_tpu/cli.py): launch the port from a shell.
                        asked for); ``echo_core``/``echo_full`` echo the
                        prompt's tokens / text
 
-The flags the slice serves keep the reference's names, destinations and
+With ``--out torch`` the engine warms up before it serves: it makes the
+unified step's program set (on the card, one CUDA graph per budget rung,
+greedy and sampled, plus the spec-verify or extras variants configured)
+and prints ``warmup: N programs in S s``, holding admission meanwhile;
+``--no-warmup`` serves at once and captures each program at its first
+use (``warmup_gate="degraded"``). ``--shape-manifest FILE`` records the
+shapes serving executed and orders the next warmup by them;
+``--speculative-k K`` turns on prompt-lookup speculative decoding.
+
+The flags the port serves keep the reference's names, destinations and
 defaults. Flags that need what the port does not have yet — the runtime
 plane (``dyn://`` inputs, ``--out dyn``, control planes, routers), meshes
-and multi-host, weight quantization, speculative decoding, embeddings,
-layered configs, deadlines, SLO classes, the adaptive co-location
-controller — are refused with an error that names them, never ignored.
-Flags of the reference that configure something the port has no
-counterpart for (the XLA compile cache and shape manifests, the engine's
-bounded waiting list, worker health ports, profiling windows) are absent
-and rejected by the parser.
+and multi-host, weight quantization, embeddings, layered configs,
+deadlines, SLO classes, the adaptive co-location controller — are
+refused with an error that names them, never ignored. Flags of the
+reference that configure something the port has no counterpart for (the
+persistent XLA compile cache: a CUDA graph cannot outlive its process;
+the engine's bounded waiting list, worker health ports, profiling
+windows) are absent and rejected by the parser.
 """
 
 from __future__ import annotations
@@ -102,8 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--context-length", type=int, default=None,
                      help="override the card/engine context limit")
     run.add_argument("--no-warmup", action="store_true",
-                     help="skip building the CUDA kernels ahead of traffic "
-                          "(the first request then builds them)")
+                     help="serve at once: each step program is captured at "
+                          "its first use (counted in "
+                          "mid_traffic_compiles_total)")
+    run.add_argument("--shape-manifest", default=None, metavar="FILE.json",
+                     help="shape-manifest path (records the shapes serving "
+                          "executes; warmup makes that set first)")
     run.add_argument("--max-inflight", type=int, default=256,
                      help="HTTP admission gate: max concurrently admitted "
                           "requests; excess gets 429 + Retry-After")
@@ -149,8 +162,7 @@ def refuse_unserved(args) -> None:
         (args.quant is not None, "--quant: weight quantization is not served yet"),
         (args.weight_quant is not None,
          "--weight-quant: weight quantization is not served yet"),
-        (args.speculative_k != 0,
-         "--speculative-k: speculative decoding is not served yet"),
+        (args.speculative_k < 0, "--speculative-k must be >= 0"),
         (args.model_type != "chat",
          f"--model-type {args.model_type}: only chat models are served"),
         (args.default_deadline_s > 0,
@@ -238,6 +250,11 @@ def _local_and_cfg(args):
         unified_token_budget=args.unified_token_budget,
         unified_prefill_quantum=args.unified_prefill_quantum,
         kv_quant=args.kv_quant,
+        speculative_k=args.speculative_k,
+        shape_manifest_path=args.shape_manifest,
+        # With warmup on, hold admission until the hot program set is
+        # made; --no-warmup serves at once, degraded.
+        warmup_gate="degraded" if args.no_warmup else "hold",
     )
     try:
         ecfg.validate()
@@ -248,8 +265,9 @@ def _local_and_cfg(args):
 
 async def _start_engine(args, stack):
     """The local engine (torch or echo) and its card. The TorchEngine is
-    started (weights built off the event loop) and, on cuda, its kernel
-    built, before this returns."""
+    started (weights built off the event loop) and, unless --no-warmup,
+    warmed up (its programs made: CUDA graphs captured on the card)
+    before this returns."""
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 
     if args.output in ("echo_core", "echo_full"):
@@ -268,13 +286,16 @@ async def _start_engine(args, stack):
     engine = TorchEngine(ecfg, device=args.device)
     await engine.start()
     stack.push_async_callback(engine.stop)
-    if engine.device.type == "cuda" and not args.no_warmup:
-        from dynamo_tpu_torch.ops.kernels import ragged_attention
-
+    if not args.no_warmup:
         t0 = time.monotonic()
-        await asyncio.to_thread(ragged_attention.build)
-        print(f"warmup: ragged attention kernel built in "
-              f"{time.monotonic() - t0:.1f}s — engine ready", flush=True)
+        n = await engine.warmup()
+        tail = engine.warm_tail_pending
+        print(
+            f"warmup: {n} programs in {time.monotonic() - t0:.1f}s"
+            + (f" ({tail} deferred to background)" if tail else "")
+            + " — engine ready",
+            flush=True,
+        )
     return engine, local.card, engine
 
 

@@ -1,6 +1,6 @@
 """Engine configuration (port of dynamo_tpu/engine/config.py).
 
-The fields this slice serves keep the reference's names and defaults.
+The fields the port serves keep the reference's names and defaults.
 The reference's other serving features are fields too, so that
 ``validate()`` can refuse them by name instead of ignoring them; each
 arrives with a later slice (ROADMAP queue A).
@@ -46,11 +46,34 @@ class EngineConfig:
     # int8 KV blocks with per-(block, kv head) float32 scales (ops/quant.py
     # quantize_kv_write); served by the unified step only.
     kv_quant: str | None = None
+    # Prompt-lookup speculative decoding on the unified step: each greedy
+    # decode lane drafts up to this many tokens from its own history and
+    # verifies them as a draft-verify span of the same step program (the
+    # accept-prefix law and the bonus sample run inside it). 0 = off.
+    speculative_k: int = 0
+    # Auto-gate: below this many delivered tokens per spec step over a
+    # window, fall back to plain decode; re-probe after
+    # speculative_probe_steps plain steps with a short probe window.
+    speculative_break_even: float = 1.4
+    speculative_window: int = 128
+    speculative_probe_steps: int = 1024
+    speculative_probe_window: int = 16
+    # Frequency/presence penalties and per-token logprobs run through the
+    # unified_full variant (one program at the top budget rung), taken
+    # only by batches that need it. False refuses such requests.
+    sampling_extras: bool = True
+    # Where the shape manifest (the shapes serving executed) is saved on
+    # stop and read by warmup; None = no manifest.
+    shape_manifest_path: str | None = None
+    # Readiness while the hot program set is captured: "hold" parks
+    # admission until warmup has made it; "degraded" serves at once and
+    # flags it (served_unwarmed; each program then captures at first use,
+    # counted in mid_traffic_compiles_total).
+    warmup_gate: str = "degraded"
 
-    # -- reference features this slice refuses (validate) ------------------
+    # -- reference features the port refuses (validate) --------------------
     quant: str | None = None
     weight_quant: str | None = None
-    speculative_k: int = 0
     mesh_shape: dict[str, int] = field(default_factory=dict)
     kv_sp: bool = False
     multimodal: bool = False
@@ -64,8 +87,24 @@ class EngineConfig:
         return DTYPES[self.dtype]
 
     _KV_QUANT_MODES = (None, "int8")
+    _WARMUP_GATES = ("hold", "degraded")
 
     def validate(self) -> None:
+        if self.speculative_k < 0 or self.speculative_k > self.block_size:
+            raise ValueError(
+                f"speculative_k={self.speculative_k} must be in "
+                f"[0, block_size={self.block_size}]"
+            )
+        if self.warmup_gate not in self._WARMUP_GATES:
+            raise ValueError(
+                f"warmup_gate={self.warmup_gate!r} not in "
+                f"{self._WARMUP_GATES}"
+            )
+        if self.speculative_probe_window < 1:
+            raise ValueError(
+                f"speculative_probe_window={self.speculative_probe_window} "
+                f"must be >= 1"
+            )
         if self.kv_quant not in self._KV_QUANT_MODES:
             raise ValueError(
                 f"kv_quant={self.kv_quant!r} is not served: the modes are "
@@ -78,7 +117,6 @@ class EngineConfig:
             )
         refused = [
             (self.quant or self.weight_quant, "weight quantization"),
-            (self.speculative_k > 0, "speculative decoding"),
             (self.mesh_shape, "a device mesh"),
             (self.kv_sp, "kv_sp"),
             (self.multimodal, "multimodal"),
@@ -137,4 +175,13 @@ class EngineConfig:
             self.unified_token_budget = clamped
             self.unified_prefill_quantum = min(
                 self.unified_prefill_quantum, self.unified_token_budget
+            )
+        if self.speculative_k + 1 > self.unified_token_budget // 2:
+            # compose_unified keeps decode at least half the budget; a
+            # k+1-row verify span must fit inside that share.
+            raise ValueError(
+                f"speculative_k={self.speculative_k} needs "
+                f"unified_token_budget >= {2 * (self.speculative_k + 1)} "
+                f"(a k+1-row verify span must fit in decode's half of "
+                f"the budget)"
             )

@@ -2,11 +2,27 @@
 dynamo_tpu/engine/engine.py's TpuEngine).
 
 Continuous batching over a paged KV cache with prefix caching. Every
-engine step is ONE ragged dispatch mixing decode lanes with chunked-
-prefill quanta (``_step_unified``); dispatches are pipelined
-``pipeline_depth`` deep, each decode lane reading its previous token on
-the device (the runner's feed), so the host never waits on a fetch to
-issue the next step.
+engine step is ONE ragged dispatch mixing decode lanes (draft-verify
+spans under speculative decoding) with chunked-prefill quanta
+(``_step_unified``); dispatches are pipelined ``pipeline_depth`` deep
+(1 while speculation is active), each decode lane reading its previous
+token on the device (the runner's feed), so the host never waits on a
+fetch to issue the next step. On the card every dispatch replays a
+captured CUDA graph (engine/runner.py).
+
+Compile lifecycle: ``warmup()`` makes the hot program set on the engine
+thread (the shape manifest's observed rungs first) while the engine is
+``warming``; the rest of the plan, when a manifest defers it, is made one
+program per idle step. ``warmup_gate="hold"`` holds admission until
+then; ``"degraded"`` serves at once, flags ``served_unwarmed`` and
+captures each program at first use (``mid_traffic_compiles_total``).
+
+Speculative decoding (``speculative_k``): greedy decode lanes draft by
+prompt lookup over their host token history and verify the drafts in
+the same dispatch; an auto-gate falls back to plain decode below
+break-even and re-probes later. Sampling extras (penalties, logprobs)
+run through the top-rung extras program, taken only by dispatches that
+carry such a request.
 
 Threading model: model dispatch runs on a dedicated engine thread;
 asyncio callers talk to it through thread-safe queues. Implements the
@@ -17,10 +33,9 @@ Graceful drain: ``begin_drain`` refuses new requests with ``ShedError``
 while every submitted sequence runs to completion; ``readiness()`` is
 the snapshot ``/health``, ``/metrics`` and the admission gate read.
 
-Not in this slice: KVBM tiers, disaggregation, peers, speculative
-decoding, penalties/logprobs, multimodal, shape manifests, the flight
-recorder, tracing and deadlines (ROADMAP queue A). Requests that ask for
-any of them are refused with ``RequestError``.
+Not in this port yet: KVBM tiers, disaggregation, peers, multimodal, the
+flight recorder, tracing and deadlines (ROADMAP queue A). Requests that
+ask for any of them are refused with ``RequestError``.
 """
 
 from __future__ import annotations
@@ -36,12 +51,18 @@ from typing import AsyncIterator
 import numpy as np
 
 from dynamo_tpu_torch import resolve_device
+from dynamo_tpu_torch.engine.compile_cache import (
+    ShapeManifest,
+    engine_fingerprint,
+    fingerprint_key,
+)
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_cache import BlockAllocator
 from dynamo_tpu_torch.engine.runner import ModelRunner
 from dynamo_tpu_torch.engine.scheduler import Scheduler, compose_unified
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
 from dynamo_tpu_torch.llm.protocols.common import (
+    MAX_LOGPROBS,
     EngineOutput,
     FinishReason,
     PreprocessedRequest,
@@ -96,6 +117,24 @@ class TorchEngine:
         self.unified_dispatches = 0
         self.unified_decode_tokens = 0
         self.unified_prefill_tokens = 0
+        # Speculative decode: delivered tokens vs decode lane-steps run
+        # under speculation, drafted/accepted draft tokens, and the
+        # auto-gate's rolling window (cfg.speculative_break_even).
+        self._spec_tokens = 0
+        self._spec_steps = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_enabled = True
+        self._spec_win_tokens = 0
+        self._spec_win_steps = 0
+        self._plain_steps_since_disable = 0
+        self.spec_probe_count = 0
+        self._spec_probing = False
+        # Compile lifecycle: init -> warming -> ready; the deferred warm
+        # tail (made one per idle step); the degraded-serving flag.
+        self._state = "init"
+        self._warm_tail: deque = deque()
+        self._served_unwarmed = False
 
     # -- lifecycle ----------------------------------------------------------
     async def start(self) -> None:
@@ -108,6 +147,7 @@ class TorchEngine:
         self.scheduler = Scheduler(self.cfg, self.allocator)
         # Weight init / upload happens off the event loop.
         await asyncio.to_thread(self._build_runner)
+        self._state = "warming"
         self._thread = threading.Thread(
             target=self._engine_loop, name="torch-engine", daemon=True
         )
@@ -127,6 +167,110 @@ class TorchEngine:
             await asyncio.to_thread(self._thread.join, 30.0)
             if self._thread.is_alive():
                 raise RuntimeError("engine thread did not stop within 30 s")
+        self._save_manifest()
+
+    # -- compile lifecycle ----------------------------------------------------
+    def _save_manifest(self) -> None:
+        """Persist the shapes serving executed, so the next launch's
+        warmup makes exactly that set first."""
+        path = self.cfg.shape_manifest_path
+        if path is None or self.runner is None:
+            return
+        if not self.runner.compile_stats.manifest.shapes:
+            return
+        try:
+            self.runner.save_manifest(path)
+        except OSError:
+            logger.exception("shape manifest save failed")
+
+    def _load_manifest(self) -> ShapeManifest | None:
+        path = self.cfg.shape_manifest_path
+        if path is None:
+            return None
+        return ShapeManifest.load(
+            path, fingerprint_key(engine_fingerprint(self.cfg))
+        )
+
+    async def warmup(self) -> int:
+        """Make the serving program set before taking traffic (on the
+        engine thread; see ModelRunner.warmup): on the card, capture one
+        CUDA graph per program. Returns the number of programs made; the
+        engine is "ready" when it returns."""
+        if self._dead:
+            raise RuntimeError(f"engine dead: {self._dead}")
+        fut: asyncio.Future = self._loop.create_future()
+        self._submit_q.put(("warmup", fut))
+        self._wakeup.set()
+        return await fut
+
+    def _run_warmup(self, fut) -> None:
+        """Make the HOT program set synchronously (the future resolves
+        when it is made and the engine is ready); the tail — grid shapes
+        a loaded manifest says serving did not execute — is made one
+        program per idle engine step afterwards."""
+        loop = self._loop
+
+        def resolve(action, value):
+            loop.call_soon_threadsafe(
+                lambda: action(value) if not fut.done() else None
+            )
+
+        try:
+            manifest = self._load_manifest()
+            hot, tail = self.runner.warmup_plan(manifest)
+            if manifest is not None:
+                logger.info(
+                    "shape-manifest warmup: %d hot shapes (observed set), "
+                    "%d deferred to background", len(hot), len(tail),
+                )
+            n = self.runner.run_warm_ops(hot)
+            self._warm_tail.extend(tail)
+            self._state = "ready"
+            resolve(fut.set_result, n)
+        except Exception as exc:  # the warmup future re-raises on the caller
+            resolve(fut.set_exception, exc)
+
+    def _warm_one_tail(self) -> None:
+        """Make ONE deferred program shape between engine steps. A
+        failure raises: the engine loop dies loudly, as it does for a
+        failed capture at first use."""
+        _key, op = self._warm_tail.popleft()
+        self.runner.run_warm_ops([(_key, op)])
+
+    def _admission_held(self) -> bool:
+        """warmup_gate="hold": no new work starts until the hot program
+        set is made; requests queue in the scheduler meanwhile."""
+        return self.cfg.warmup_gate == "hold" and self._state != "ready"
+
+    def _note_unwarmed_traffic(self) -> None:
+        """Degraded mode: an engine that takes traffic before warmup
+        serves it (each program captured at first use, counted) and says
+        so."""
+        if self._state == "warming":
+            self._state = "ready"
+            self._served_unwarmed = True
+            logger.warning(
+                "serving before warmup completed — each program is captured "
+                "at its first use (degraded; see mid_traffic_compiles_total)"
+            )
+
+    @property
+    def state(self) -> str:
+        """"init" (not started), "warming" (hot program set not made
+        yet), "ready" (made, or degraded serving acknowledged)."""
+        return self._state
+
+    @property
+    def is_ready(self) -> bool:
+        return self._state == "ready"
+
+    @property
+    def served_unwarmed(self) -> bool:
+        return self._served_unwarmed
+
+    @property
+    def warm_tail_pending(self) -> int:
+        return len(self._warm_tail)
 
     # -- graceful drain -----------------------------------------------------
     def begin_drain(self) -> None:
@@ -166,10 +310,16 @@ class TorchEngine:
         """Snapshot for /health, /metrics and the admission watermarks,
         with the reference's names for the fields this engine has."""
         d = {
-            "state": "draining" if self._draining else "ready",
+            "state": "draining" if self._draining else self._state,
+            "served_unwarmed": self._served_unwarmed,
+            "warm_tail_pending": len(self._warm_tail),
             "draining": self._draining,
             "shed_requests_total": OVERLOAD.shed_total,
             "gpu_prefix_cache_hit_rate": self.prefix_hit_rate,
+            "spec_tokens_per_step": self.spec_tokens_per_step,
+            "spec_active": int(self._spec_active),
+            "spec_drafted_tokens_total": self._spec_drafted,
+            "spec_accepted_tokens_total": self._spec_accepted,
         }
         if self.scheduler is not None:
             # len() reads off the engine thread are atomic.
@@ -179,17 +329,49 @@ class TorchEngine:
             d["prefill_backlog_tokens"] = self._prefill_backlog_tokens
         d["unified_step_tokens_decode_total"] = self.unified_decode_tokens
         d["unified_step_tokens_prefill_total"] = self.unified_prefill_tokens
+        if self.runner is not None:
+            d.update(self.runner.compile_stats.snapshot())
         return d
 
-    @staticmethod
-    def _validate_request(pre: PreprocessedRequest) -> None:
-        """Refuse what this slice does not serve, loudly (RequestError →
+    @property
+    def spec_tokens_per_step(self) -> float:
+        """Mean delivered tokens per speculative decode step (>= 1.0)."""
+        return self._spec_tokens / max(self._spec_steps, 1)
+
+    @property
+    def _spec_active(self) -> bool:
+        return bool(self.cfg.speculative_k and self._spec_enabled)
+
+    @property
+    def spec_active(self) -> bool:
+        """Whether speculation drives decode now (False = auto-gated off
+        below cfg.speculative_break_even)."""
+        return self._spec_active
+
+    def _validate_request(self, pre: PreprocessedRequest) -> None:
+        """Refuse what this engine does not serve, loudly (RequestError →
         HTTP 400), instead of serving it wrong."""
         s = pre.sampling
+        if pre.logprobs is not None and pre.logprobs > MAX_LOGPROBS:
+            raise RequestError(
+                f"top_logprobs={pre.logprobs} exceeds the supported "
+                f"maximum of {MAX_LOGPROBS}"
+            )
+        extras = bool(
+            s.frequency_penalty or s.presence_penalty
+            or pre.logprobs is not None
+        )
+        if extras and not self.cfg.sampling_extras:
+            raise RequestError(
+                "frequency_penalty/presence_penalty/logprobs are disabled "
+                "on this engine (sampling_extras=False)"
+            )
+        if extras and self.cfg.speculative_k:
+            raise RequestError(
+                "frequency_penalty/presence_penalty/logprobs are not "
+                "supported with speculative decoding"
+            )
         refused = [
-            (pre.logprobs is not None, "logprobs"),
-            (s.frequency_penalty or s.presence_penalty,
-             "frequency/presence penalties"),
             (pre.mm_segments, "multimodal segments"),
             (pre.remote_prefill, "remote prefill"),
             (pre.deadline_ms is not None, "request deadlines"),
@@ -224,8 +406,8 @@ class TorchEngine:
         if loop is None:
             raise RuntimeError("engine not started")
 
-        def emit(token: int | None, finish: FinishReason | None) -> None:
-            loop.call_soon_threadsafe(out_q.put_nowait, (token, finish))
+        def emit(token: int | None, finish: FinishReason | None, lp=None) -> None:
+            loop.call_soon_threadsafe(out_q.put_nowait, (token, finish, lp))
 
         seq = Sequence(
             request_id=request.id,
@@ -233,6 +415,7 @@ class TorchEngine:
             sampling=pre.sampling,
             stop=pre.stop,
             emit=emit,
+            logprobs=pre.logprobs,
         )
         self._submit_q.put(("add", seq))
         self._wakeup.set()
@@ -245,10 +428,13 @@ class TorchEngine:
         count = 0
         try:
             while True:
-                token, finish = await out_q.get()
+                token, finish, lp = await out_q.get()
                 if token is not None:
                     count += 1
-                    yield EngineOutput(token_ids=[token], cum_tokens=count).to_wire()
+                    yield EngineOutput(
+                        token_ids=[token], cum_tokens=count,
+                        logprobs=[lp] if lp is not None else None,
+                    ).to_wire()
                 if finish is not None:
                     yield EngineOutput(
                         token_ids=[], finish_reason=finish, cum_tokens=count
@@ -271,6 +457,11 @@ class TorchEngine:
         try:
             while not self._stop.is_set():
                 busy = self._step_unified()
+                if not busy and self._warm_tail:
+                    # Idle step: make one deferred program, between
+                    # traffic rather than under it.
+                    self._warm_one_tail()
+                    busy = True
                 self._prefill_backlog_tokens = sum(
                     len(s.prompt_tokens) for s in self.scheduler.waiting
                 ) + sum(
@@ -297,6 +488,12 @@ class TorchEngine:
                 if op == "add":
                     arg.status = SeqStatus.FINISHED
                     arg.emit(None, FinishReason.ERROR)
+                elif op == "warmup" and not arg.done():
+                    self._loop.call_soon_threadsafe(
+                        lambda f=arg, e=exc: f.done() or f.set_exception(
+                            RuntimeError(f"engine dead: {e}")
+                        )
+                    )
 
     def _drain_submissions(self) -> None:
         while True:
@@ -308,6 +505,8 @@ class TorchEngine:
                 self.scheduler.add(arg)
             elif op == "abort":
                 self.scheduler.abort(arg)
+            elif op == "warmup":
+                self._run_warmup(arg)
 
     def _step_unified(self) -> bool:
         """One engine iteration: retire ready dispatches, admit prefills,
@@ -315,9 +514,12 @@ class TorchEngine:
         prefill quanta, dispatch it."""
         self._drain_submissions()
         did = False
-        depth = self.cfg.pipeline_depth
         # 1. Retire in-flight dispatches: device-ready ones, plus the
-        #    oldest when the pipeline is at depth.
+        #    oldest when the pipeline is at depth. Speculation runs
+        #    depth 1: each dispatch's variable progress, and the host
+        #    history prompt lookup drafts from, must be host-known before
+        #    the next issue.
+        depth = 1 if self._spec_active else self.cfg.pipeline_depth
         while self._inflight and (
             len(self._inflight) >= depth or self._inflight[0][1].ready()
         ):
@@ -335,13 +537,59 @@ class TorchEngine:
             return True
         return did
 
-    def _issue_unified(self) -> bool:
-        """Compose one token-budget batch (decode lanes first, then
-        prefill quanta) and dispatch it through
-        ModelRunner.unified_step. Returns True if anything was issued."""
+    # Tokens of trailing history the prompt-lookup bigram scan walks per
+    # lane per dispatch (bounded so a match-less long context cannot
+    # stall the engine thread).
+    DRAFT_SCAN_WINDOW = 512
+
+    def _draft_tokens(self, seq: Sequence) -> list[int]:
+        """Prompt-lookup drafts for one greedy decode lane: the latest
+        earlier occurrence of the trailing bigram in the host token
+        history supplies up to speculative_k continuation tokens."""
         cfg = self.cfg
+        limit = min(
+            cfg.speculative_k,
+            # Every draft position's KV write stays inside max_model_len.
+            seq.context_cap(cfg.max_model_len) - 1,
+            # A spec span never exceeds decode's half of the budget.
+            max(1, cfg.unified_token_budget // 2) - 1,
+        )
+        if seq.stop.max_tokens is not None:
+            # Drafts past the request's remaining budget would be
+            # delivered, then discarded.
+            limit = min(
+                limit,
+                seq.stop.max_tokens - seq.folded_output
+                - len(seq.output_tokens) - 1,
+            )
+        if limit <= 0:
+            return []
+        prompt, out = seq.prompt_tokens, seq.output_tokens
+        P = len(prompt)
+        n = P + len(out)
+        if n < 3:
+            return []
+
+        def tok(i: int) -> int:
+            return prompt[i] if i < P else out[i - P]
+
+        a, b = tok(n - 2), tok(n - 1)
+        floor = max(0, n - 3 - self.DRAFT_SCAN_WINDOW)
+        for j in range(n - 3, floor - 1, -1):
+            if tok(j) == a and tok(j + 1) == b:
+                return [tok(i) for i in range(j + 2, min(j + 2 + limit, n))]
+        return []
+
+    def _issue_unified(self) -> bool:
+        """Compose one token-budget batch (decode lanes first — draft-
+        verify spans while speculation is active — then prefill quanta)
+        and dispatch it through ModelRunner.unified_step. Returns True if
+        anything was issued."""
+        cfg = self.cfg
+        spec_on = self._spec_active
+        lookahead = (cfg.speculative_k if spec_on else 0) + 1
         decode_ready = [
-            seq for seq in self.scheduler.decode_batch()
+            seq for seq in self.scheduler.decode_batch(lookahead=lookahead)
             # A lane whose newest token lives in a dispatch older than
             # the one the row map describes waits until that retires.
             if seq.inflight_chunks == 0 or id(seq) in self._prev_unified_rows
@@ -351,8 +599,29 @@ class TorchEngine:
             for s in self._prefilling
             if s.status is SeqStatus.PREFILLING
         ]
+        # Draft rows ride only the budget-ladder program; a step that
+        # needs the extras program composes plain decode spans (extras
+        # requests are refused on a speculative engine anyway).
+        has_extras = cfg.sampling_extras and (
+            any(s.needs_extras for s in decode_ready)
+            or any(s.needs_extras for s, _ in prefill_items)
+        )
+        draft_map: dict[int, list[int]] = {}
+        if spec_on and not has_extras:
+            for seq in decode_ready:
+                if seq.inflight_chunks > 0:
+                    continue  # token not host-known yet
+                t = seq.sampling.temperature
+                if t is not None and t > 0.0:
+                    continue  # sampled lanes accept no drafts by law
+                drafts = self._draft_tokens(seq)
+                if drafts:
+                    draft_map[id(seq)] = drafts
+        decode_items = [
+            (seq, 1 + len(draft_map.get(id(seq), []))) for seq in decode_ready
+        ]
         decode_take, prefill_take = compose_unified(
-            decode_ready, prefill_items, cfg.unified_token_budget,
+            decode_items, prefill_items, cfg.unified_token_budget,
             cfg.unified_prefill_quantum, rotation=self._unified_rotation,
         )
         if not decode_take and not prefill_take:
@@ -363,10 +632,24 @@ class TorchEngine:
         use_prev = np.zeros(S, bool)
         prev_row = np.zeros(S, np.int32)
         lanes = []
+        draft_lens: list[int] = []
         roles: list[tuple] = []  # (seq, kind, start, n, deliver)
-        for seq in decode_take:
+        n_drafted = 0
+        for seq, width in decode_take:
             s = len(lanes)
             n = seq.device_len
+            drafts = draft_map.get(id(seq), []) if width > 1 else []
+            if drafts:
+                # Draft-verify span: the host-known last token plus the
+                # drafts, verified inside the dispatch.
+                lanes.append(([seq.last_token] + drafts, seq.block_ids, n - 1,
+                              self._lane_sampling(seq)))
+                draft_lens.append(len(drafts))
+                roles.append((seq, "spec", n - 1, len(drafts), True))
+                n_drafted += len(drafts)
+                seq.inflight_chunks += 1
+                seq.sched_len = seq.total_len  # reconciled at process time
+                continue
             if seq.inflight_chunks > 0:
                 use_prev[s] = True
                 prev_row[s] = self._prev_unified_rows[id(seq)]
@@ -374,6 +657,7 @@ class TorchEngine:
             else:
                 tok = seq.last_token
             lanes.append(([tok], seq.block_ids, n - 1, self._lane_sampling(seq)))
+            draft_lens.append(0)
             roles.append((seq, "decode", n - 1, 1, True))
             seq.inflight_chunks += 1
             seq.sched_len = n + 1
@@ -381,6 +665,7 @@ class TorchEngine:
             start = seq.prefill_cursor
             toks = seq.prompt_tokens[start : start + n]
             lanes.append((toks, seq.block_ids, start, self._lane_sampling(seq)))
+            draft_lens.append(0)
             seq.prefill_cursor = start + n
             done = seq.prefill_cursor >= len(seq.prompt_tokens)
             roles.append((seq, "prefill", start, n, done))
@@ -392,8 +677,24 @@ class TorchEngine:
                 seq.status = SeqStatus.RUNNING
                 seq.sched_len = seq.total_len + 1
 
+        extras = None
+        if has_extras:
+            extras = {
+                "slots": [(q.slot if q.slot is not None else -1) for q, *_r in roles],
+                # Each decode span's FED token is counted; prefill quanta
+                # never are.
+                "counts_add": [kind == "decode" for _, kind, *_r in roles],
+                "reset": [], "freq": [], "pres": [],
+            }
+            for q, *_r in roles:
+                extras["reset"].append(q.counts_reset_pending)
+                q.counts_reset_pending = False
+                extras["freq"].append(q.sampling.frequency_penalty or 0.0)
+                extras["pres"].append(q.sampling.presence_penalty or 0.0)
+
         out = self.runner.unified_step(
-            lanes, feed=(self._prev_unified_out, prev_row, use_prev)
+            lanes, feed=(self._prev_unified_out, prev_row, use_prev),
+            draft_lens=draft_lens if n_drafted else None, extras=extras,
         )
         self._prev_unified_out = out.last
         self._prev_unified_rows = {
@@ -402,37 +703,131 @@ class TorchEngine:
         self.unified_dispatches += 1
         self.unified_decode_tokens += len(decode_take)
         self.unified_prefill_tokens += sum(n for _, n in prefill_take)
-        self._inflight.append((roles, out))
+        self._spec_drafted += n_drafted
+        # Whether this dispatch's decode lanes feed the auto-gate's window
+        # is fixed AT ISSUE: plain dispatches in flight when a re-probe
+        # turns the gate on must not count as spec steps.
+        spec_counted = spec_on and not has_extras
+        self._inflight.append((roles, out, spec_counted))
+        # Auto-gate re-probe: after speculative_probe_steps plain decode
+        # steps, run a short probe window and re-judge.
+        if cfg.speculative_k and not self._spec_enabled and decode_take:
+            self._plain_steps_since_disable += 1
+            if self._plain_steps_since_disable >= cfg.speculative_probe_steps:
+                self._spec_enabled = True
+                self._spec_probing = True
+                self._spec_win_tokens = 0
+                self._spec_win_steps = 0
+                self.spec_probe_count += 1
+                logger.info("speculative decode re-probing")
         return True
 
     def _process_unified_chunk(self, record) -> None:
         """Force one unified dispatch's tokens and run the host-side
-        bookkeeping: decode lanes deliver their token, completed prefill
-        lanes the prompt's first token, every lane registers the blocks
-        its KV writes filled."""
-        roles, out = record
+        bookkeeping: decode lanes deliver their token, draft-verify spans
+        their accepted drafts and bonus, completed prefill lanes the
+        prompt's first token, every lane registers the blocks its KV
+        writes filled."""
+        roles, out, spec_counted = record
         toks = out.tokens()
+        spec = out.spec()
+        lp = None
+        if any(seq.logprobs is not None for seq, *_r in roles):
+            lp = out.logprobs()
         for seq, *_rest in roles:
             seq.inflight_chunks -= 1
+        n_drafted = n_accepted = 0
         for i, (seq, kind, start, n, deliver) in enumerate(roles):
-            if kind == "decode":
+            if kind in ("decode", "spec"):
                 if seq.status is not SeqStatus.RUNNING:
                     continue  # stopped while in flight; token discarded
+                if spec_counted:
+                    # Every decode lane-step of a dispatch issued with
+                    # speculation active is one spec step; delivered
+                    # tokens are the numerator.
+                    self._spec_steps += 1
+                    self._spec_win_steps += 1
+                if kind == "spec":
+                    emitted, counts = spec
+                    c = int(counts[i])
+                    n_drafted += n
+                    n_accepted += max(0, c - 1)
+                    for j in range(c):
+                        if seq.status is not SeqStatus.RUNNING:
+                            break
+                        # The step fed seq.last_token (and the accepted
+                        # drafts): their KV is in the cache now.
+                        if seq.hashes is not None:
+                            seq.hashes.append(seq.last_token)
+                        self.scheduler.register_filled_blocks(seq, seq.total_len)
+                        self._deliver(seq, int(emitted[i, j]))
+                        self._spec_tokens += 1
+                        self._spec_win_tokens += 1
+                    seq.sched_len = seq.total_len
+                    continue
                 # The step fed seq.last_token — its KV is now in cache.
                 if seq.hashes is not None:
                     seq.hashes.append(seq.last_token)
                 self.scheduler.register_filled_blocks(seq, seq.total_len)
-                self._deliver(seq, int(toks[i]))
+                tok = int(toks[i])
+                self._deliver(seq, tok, self._lp_at(lp, seq, i, tok))
+                if spec_counted:
+                    self._spec_tokens += 1
+                    self._spec_win_tokens += 1
             else:
                 if seq.status not in (SeqStatus.PREFILLING, SeqStatus.RUNNING):
                     continue  # aborted mid-prompt; KV writes were harmless
                 self.scheduler.register_filled_blocks(seq, start + n)
                 if deliver and seq.status is SeqStatus.RUNNING:
-                    self._deliver(seq, int(toks[i]))
+                    tok = int(toks[i])
+                    self._deliver(seq, tok, self._lp_at(lp, seq, i, tok))
         for seq, *_rest in roles:
             if seq.defer_release and seq.inflight_chunks == 0:
                 seq.defer_release = False
                 self.scheduler._release(seq)
+        self._spec_accepted += n_accepted
+        if self.cfg.speculative_k:
+            self._maybe_gate_speculation()
+
+    @staticmethod
+    def _lp_at(lp, seq: Sequence, lane: int, token: int) -> dict | None:
+        """One lane's logprob entry from the extras program's outputs
+        (None when the dispatch carried none or the request did not ask)."""
+        if lp is None or seq.logprobs is None:
+            return None
+        clp, tids, tlps = lp
+        k = seq.logprobs
+        return {
+            "id": token,
+            "logprob": float(clp[lane]),
+            "top": [[int(i), float(v)] for i, v in zip(tids[lane][:k], tlps[lane][:k])],
+        }
+
+    def _maybe_gate_speculation(self) -> None:
+        """Auto-gate: below break-even delivered tokens per step over a
+        window, speculation costs verify rows for less than one extra
+        token — fall back to plain decode, and re-probe after
+        cfg.speculative_probe_steps plain steps. A re-probe judges after
+        only speculative_probe_window steps."""
+        window = (
+            self.cfg.speculative_probe_window
+            if self._spec_probing
+            else self.cfg.speculative_window
+        )
+        if self._spec_win_steps < window:
+            return
+        rate = self._spec_win_tokens / self._spec_win_steps
+        self._spec_probing = False
+        if rate < self.cfg.speculative_break_even:
+            self._spec_enabled = False
+            self._plain_steps_since_disable = 0
+            logger.info(
+                "speculative decode disabled: %.2f tok/step < break-even "
+                "%.2f over %d steps",
+                rate, self.cfg.speculative_break_even, self._spec_win_steps,
+            )
+        self._spec_win_tokens = 0
+        self._spec_win_steps = 0
 
     @staticmethod
     def _lane_sampling(seq: Sequence) -> tuple[float, int, float, int]:
@@ -453,10 +848,14 @@ class TorchEngine:
         self._prefilling = [
             s for s in self._prefilling if s.status is SeqStatus.PREFILLING
         ]
-        while len(self._prefilling) < self.cfg.prefill_batch:
+        while (
+            not self._admission_held()
+            and len(self._prefilling) < self.cfg.prefill_batch
+        ):
             seq = sched.next_prefill()
             if seq is None:
                 break
+            self._note_unwarmed_traffic()
             self._prefix_lookups += 1
             if seq.num_cached_prefix:
                 self._prefix_hits += 1
@@ -464,13 +863,13 @@ class TorchEngine:
             seq.prefill_cursor = seq.num_cached_prefix
             self._prefilling.append(seq)
 
-    def _deliver(self, seq: Sequence, token: int) -> None:
+    def _deliver(self, seq: Sequence, token: int, lp: dict | None = None) -> None:
         seq.output_tokens.append(token)
         if seq.first_token_s is None:
             seq.first_token_s = time.monotonic()
         reason = seq.should_stop()
         if reason is None and seq.total_len >= self.cfg.max_model_len:
             reason = FinishReason.LENGTH
-        seq.emit(token, None)
+        seq.emit(token, None, lp)
         if reason is not None:
             self.scheduler.finish(seq, reason)

@@ -1,15 +1,42 @@
-"""ModelRunner: device state, the unified step and the phase-split
-entry points (port of dynamo_tpu/engine/runner.py: the plain ``unified``
-variant, ``prefill``, ``prefill_batch``, ``decode``, ``decode_multi``).
+"""ModelRunner: device state, the unified step's program family and the
+phase-split entry points (port of dynamo_tpu/engine/runner.py: the
+``unified``, spec-verify and ``unified_full`` variants, their warmup,
+``prefill``, ``prefill_batch``, ``decode``, ``decode_multi``).
 
 Owns the params and the paged KV cache on the device. ``unified_step``
-runs ONE ragged dispatch mixing decode lanes and chunked-prefill quanta
-in a flat token batch, with sampling in the same step, so only the
-sampled token ids leave the device. The KV cache is allocated at the
-model's TRUE head dim (the TPU package pads it to 128 lanes for its
-kernels; the CUDA kernels need no padding) and updated in place. With
-``kv_quant="int8"`` it holds int8 blocks and the runner keeps their
-per-(layer, K/V, block, kv head) scales as state beside it.
+runs ONE ragged dispatch mixing decode lanes, chunked-prefill quanta and
+speculative draft-verify spans in a flat token batch, with sampling in
+the same step, so only the sampled token ids leave the device. The KV
+cache is allocated at the model's TRUE head dim (the TPU package pads it
+to 128 lanes for its kernels; the CUDA kernels need no padding) and
+updated in place. With ``kv_quant="int8"`` it holds int8 blocks and the
+runner keeps their per-(layer, K/V, block, kv head) scales beside it.
+
+The step's program family, one program per (variant, budget rung,
+greedy | sampled):
+
+- **unified** on every rung of the budget ladder. On a speculative
+  engine (``speculative_k > 0``) the same ladder is the spec-verify
+  program: per-span verify logits, the greedy accept-prefix law and the
+  bonus sample all run inside it.
+- **unified_full**, one program at the top rung: frequency/presence
+  penalties over the per-slot ``[max_num_seqs, vocab]`` count buffer,
+  with logprob outputs. Taken only by batches that need it.
+
+Every per-dispatch input lives in static buffers, one set per (variant,
+rung): one int32 block holding the metadata, the sampling parameters
+(floats viewed in place), the step's sampling key, drafts and extras
+rows, plus the feed buffer the previous dispatch's tokens are copied
+into. The host fills a pinned staging copy and enqueues one copy into
+the block before each dispatch. On the card each program is a CUDA graph
+of the step body (``_body``) captured over those buffers, and every
+dispatch replays one: ``warmup`` captures the plan of
+engine/compile_cache.py ahead of traffic, after an eager warm pass of the
+body that writes only trash block 0 (so lazy kernel setup happens outside
+the capture); a program not captured yet is captured at its first use and
+counted as a mid-traffic compile. A capture that fails raises. The eager
+body is what the CPU runs, what the warm pass runs, and what
+``unified_step_eager`` runs for comparison with the replays.
 
 The phase-split entry points run the prefill and decode kernels; the
 serving engine does not use them (it serves through ``unified_step``),
@@ -17,8 +44,8 @@ they serve parity tests, bring-up tools and the parallel slice. Like the
 reference's phase programs they read the cache in its compute dtype, so
 they refuse an int8 cache.
 
-Not in this slice: the spec/extras/multimodal program variants, weight
-quantization, meshes, and block IO for KVBM/disagg (ROADMAP queue A).
+Not in this port yet: the multimodal variant, weight quantization,
+meshes, and block IO for KVBM/disagg (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -29,30 +56,69 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch import resolve_device
-from dynamo_tpu_torch.engine.compile_cache import _bucket, token_budget
+from dynamo_tpu_torch.engine.compile_cache import (
+    CompileStats,
+    WarmupPlanMixin,
+    _bucket,
+    graph_key,
+    token_budget,
+)
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.models import llama
-from dynamo_tpu_torch.ops.sampling import sample_tokens, token_logprobs
+from dynamo_tpu_torch.ops import kernels
+from dynamo_tpu_torch.ops.sampling import (
+    apply_penalties,
+    sample_tokens,
+    token_logprobs,
+)
 
 
 class UnifiedOut:
     """One unified dispatch's outputs. ``last`` [S] int32 stays on the
-    device — span s's sampled token, the next dispatch's device feed. A
-    copy to host memory is enqueued behind the step; ``ready()`` polls
-    it and ``tokens()`` waits for it."""
+    device — span s's (final) sampled token, the next dispatch's device
+    feed; on the card it is the program's output buffer, which its next
+    replay overwrites, so its reader (the next dispatch's feed copy) is
+    enqueued before that. A copy of every output to host memory is
+    enqueued behind the step; ``ready()`` polls it, the readers wait for
+    it. ``spec()`` gives the spec contract (emitted [S, K+1], counts
+    [S]) on a speculative engine's ladder, ``logprobs()`` the extras
+    variant's (chosen [S], top ids [S, MAX_LOGPROBS], top logprobs)."""
 
-    def __init__(self, last: torch.Tensor, host: torch.Tensor, event) -> None:
+    def __init__(self, last, ints, floats, event, spec_k: int) -> None:
         self.last = last
-        self._host = host
+        self._ints = ints
+        self._floats = floats
         self._event = event
+        self._spec_k = spec_k
+        self._S = last.shape[0]
 
     def ready(self) -> bool:
         return self._event is None or self._event.query()
 
-    def tokens(self) -> np.ndarray:
+    def _wait(self) -> None:
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+
+    def tokens(self) -> np.ndarray:
+        self._wait()
+        return self._ints[: self._S].numpy()
+
+    def spec(self) -> tuple[np.ndarray, np.ndarray] | None:
+        if not self._spec_k:
+            return None
+        self._wait()
+        S, R = self._S, self._spec_k + 1
+        ints = self._ints.numpy()
+        return ints[S : S + S * R].reshape(S, R), ints[S + S * R : S + S * R + S]
+
+    def logprobs(self) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+        if self._floats is None:
+            return None
+        self._wait()
+        S = self._S
+        floats = self._floats.numpy()
+        ids = self._ints.numpy()[S:].reshape(S, -1)
+        return floats[:S], ids, floats[S:].reshape(S, -1)
 
 
 def _params_to(params: Any, device: torch.device, dtype: torch.dtype):
@@ -63,7 +129,86 @@ def _params_to(params: Any, device: torch.device, dtype: torch.dtype):
     return params.to(device=device, dtype=dtype)
 
 
-class ModelRunner:
+def _unified_warm_lanes(
+    t: int, max_lanes: int, max_model_len: int, trash_table, sampling,
+) -> list[tuple]:
+    """Spans that fill a warm dispatch to exactly budget ``t``, split into
+    model-length-bounded spans across the metadata rows; every write
+    lands in trash block 0. [] when S spans cannot fill the rung (it is
+    unreachable at run time too)."""
+    lanes = []
+    remaining = t
+    while remaining > 0 and len(lanes) < max_lanes:
+        n = min(remaining, max_model_len - 1)
+        lanes.append(([1] * n, trash_table, 0, sampling))
+        remaining -= n
+    if remaining > 0:
+        return []
+    return lanes
+
+
+class _StepBuffers:
+    """The static inputs of one (variant, rung) program: ONE int32 block
+    (metadata, sampling rows with the floats viewed in place, the key,
+    drafts, extras rows), copied from the host once per dispatch, and
+    the feed buffer ``prev`` the previous dispatch's tokens are copied
+    into on the device."""
+
+    def __init__(self, kind: str, T: int, S: int, MB: int, K: int,
+                 device: torch.device) -> None:
+        ints = [("token_ids", T), ("token_pos", T), ("slot_mapping", T),
+                ("token_seq", T), ("block_tables", S * MB), ("q_start", S),
+                ("q_len", S), ("kv_len", S), ("row_start", S), ("top_k", S),
+                ("seed", S), ("prev_row", S), ("use_prev", S), ("key", 2)]
+        floats = [("temp", S), ("top_p", S)]
+        if kind == "unified" and K:
+            ints += [("draft_len", S), ("drafts", S * K)]
+        if kind == "unified_full":
+            ints += [("span_slot", S), ("counts_add", S), ("reset", S)]
+            floats += [("freq", S), ("pres", S)]
+        self.kind, self.T, self.S, self.MB, self.K = kind, T, S, MB, K
+        self.fields: dict[str, tuple[int, int, bool]] = {}
+        o = 0
+        for group, is_float in ((ints, False), (floats, True)):
+            for name, n in group:
+                self.fields[name] = (o, n, is_float)
+                o += n
+        self.size = o
+        self.block = torch.zeros(o, dtype=torch.int32, device=device)
+        self.prev = torch.zeros(S, dtype=torch.int32, device=device)
+        self.dev = self._views(self.block)
+
+    def _views(self, block) -> dict:
+        """Named views into an int32 block (a tensor or its numpy twin),
+        the float rows viewed as float32 in place."""
+        f32 = torch.float32 if isinstance(block, torch.Tensor) else np.float32
+        return {name: block[o:o + n].view(f32) if is_float else block[o:o + n]
+                for name, (o, n, is_float) in self.fields.items()}
+
+    def host(self, pinned: bool) -> tuple[torch.Tensor, dict]:
+        """A zeroed staging block and its numpy views, with the padding
+        defaults: position -1, unseeded, top_p 1, no count-buffer slot."""
+        staged = torch.zeros(self.size, dtype=torch.int32, pin_memory=pinned)
+        view = self._views(staged.numpy())
+        view["token_pos"][:] = -1
+        view["seed"][:] = -1
+        view["top_p"][:] = 1.0
+        if "span_slot" in view:
+            view["span_slot"][:] = -1
+        return staged, view
+
+
+class _Program:
+    """One step program: on the card its CUDA graph, the output buffers
+    the graph writes, and the kernel launches it makes per replay."""
+
+    def __init__(self, graph=None, outs=None, launches=None) -> None:
+        self.graph = graph
+        self.outs = outs
+        self.launches = launches or {}
+
+
+class ModelRunner(WarmupPlanMixin):
     def __init__(
         self,
         cfg: EngineConfig,
@@ -95,7 +240,9 @@ class ModelRunner:
             for _ in range(m.num_layers)
         ]
         # Per-(layer, K/V, block, head) scales; zero = empty block (the
-        # write law resets a block's scale when its first slot is written).
+        # write law resets a block's scale when its first slot is
+        # written). Updated IN PLACE by the step body, so every captured
+        # graph reads and writes the same storage.
         self.kv_scales = None
         if cfg.kv_quant == "int8":
             self.kv_scales = torch.zeros(
@@ -104,6 +251,15 @@ class ModelRunner:
             )
         self.last_logprobs = None
         self._step = 0
+        self.compile_stats = CompileStats()
+        self._buffers: dict[tuple[str, int], _StepBuffers] = {}
+        self._programs: dict[str, _Program] = {}
+        # Penalty count buffer ([max_num_seqs, vocab] output-token
+        # counts), made with the first unified_full program.
+        self._counts = None
+        self._graph_pool = None
+        self._side_stream = None
+        self._cuda = self.device.type == "cuda"
 
     @property
     def unified_slots(self) -> int:
@@ -121,59 +277,52 @@ class ModelRunner:
         """One host→device copy; staged through pinned memory on CUDA so
         the copy is asynchronous (the caching host allocator keeps the
         staging buffer alive until the copy has run)."""
-        if self.device.type != "cuda":
+        if not self._cuda:
             return torch.from_numpy(arr)
         staged = torch.empty(arr.shape, dtype=torch.from_numpy(arr).dtype,
                              pin_memory=True)
         staged.numpy()[...] = arr
         return staged.to(self.device, non_blocking=True)
 
-    def unified_step(
-        self,
-        lanes: list[tuple[list[int], list[int], int, tuple]],
-        feed: tuple | None = None,
-    ) -> UnifiedOut:
-        """ONE ragged dispatch for a mixed prefill+decode batch.
+    def ensure_counts(self) -> torch.Tensor:
+        """The [max_num_seqs, vocab] output-token count buffer of the
+        penalties path."""
+        if self._counts is None:
+            self._counts = torch.zeros(
+                (self.cfg.max_num_seqs, self.cfg.model.vocab_size),
+                dtype=torch.int32, device=self.device,
+            )
+        return self._counts
 
-        ``lanes``: [(new_tokens, block_ids, prefix_len, sampling), ...] —
-        span s of the flat batch is lane s's tokens; a decode lane is a
-        single token, a prefill quantum its chunk. Total tokens snap UP to
-        the budget ladder (compile_cache.token_budget).
-
-        ``feed``: optional (prev_toks [S] device tensor, prev_row [S],
-        use_prev [S]) — decode lanes whose token was sampled by the
-        previous dispatch read it on the DEVICE from its old metadata row
-        instead of a host round trip."""
+    # -- the unified step -----------------------------------------------------
+    def _variant(self, total: int, extras) -> tuple[str, int]:
         cfg = self.cfg
-        S = self.unified_slots
-        MB = cfg.max_blocks_per_seq
+        if extras is not None:
+            # One program at the TOP rung: extras batches pad there.
+            return "unified_full", _bucket(cfg.unified_token_budget)
+        return "unified", token_budget(total, cfg.unified_token_budget)
+
+    def _step_buffers(self, kind: str, T: int) -> _StepBuffers:
+        b = self._buffers.get((kind, T))
+        if b is None:
+            b = _StepBuffers(kind, T, self.unified_slots,
+                             self.cfg.max_blocks_per_seq,
+                             self.cfg.speculative_k, self.device)
+            self._buffers[(kind, T)] = b
+        return b
+
+    def _stage(
+        self, b: _StepBuffers, lanes, key, draft_lens=None, extras=None,
+        feed_rows=None,
+    ) -> tuple[torch.Tensor, bool]:
+        """Fill a staging block for ``lanes``; returns it and whether
+        every lane is greedy (the host-side branch of the step body)."""
+        cfg = self.cfg
+        S, MB, bs = b.S, b.MB, cfg.block_size
         if len(lanes) > S:
             raise ValueError(f"{len(lanes)} lanes > {S} metadata rows")
-        total = sum(len(t) for t, _, _, _ in lanes)
-        T = token_budget(total, cfg.unified_token_budget)
-        if total > T:
-            raise ValueError(
-                f"{total} tokens exceed the unified budget "
-                f"{cfg.unified_token_budget}"
-            )
-
-        # All int32 metadata in ONE buffer, one host→device copy.
-        sizes = [("token_ids", T), ("token_pos", T), ("slot_mapping", T),
-                 ("token_seq", T), ("block_tables", S * MB), ("q_start", S),
-                 ("q_len", S), ("kv_len", S), ("row_start", S),
-                 ("top_k", S), ("seed", S), ("prev_row", S), ("use_prev", S)]
-        meta = np.zeros(sum(n for _, n in sizes), np.int32)
-        view, o = {}, 0
-        for name, n in sizes:
-            view[name] = meta[o:o + n]
-            o += n
-        view["token_pos"][:] = -1                  # -1 = padding row
-        view["seed"][:] = -1                       # -1 = unseeded
+        staged, view = b.host(self._cuda)
         block_tables = view["block_tables"].reshape(S, MB)
-        fmeta = np.zeros(2 * S, np.float32)        # temperature, top_p
-        temp, top_p = fmeta[:S], fmeta[S:]
-        top_p[:] = 1.0
-        bs = cfg.block_size
         cursor = 0
         for s, (new_tokens, block_ids, prefix, sampling) in enumerate(lanes):
             n = len(new_tokens)
@@ -188,49 +337,292 @@ class ModelRunner:
             view["token_pos"][rows] = pos
             view["token_seq"][rows] = s
             view["slot_mapping"][rows] = block_tables[s, pos // bs] * bs + pos % bs
-            # (temperature, top_k, top_p, seed); seed -1 = unseeded
-            temp[s], view["top_k"][s], top_p[s], view["seed"][s] = sampling
+            (view["temp"][s], view["top_k"][s], view["top_p"][s],
+             view["seed"][s]) = _norm_sampling(sampling)
             cursor += n
-        prev_toks = None
+        if feed_rows is not None:
+            view["prev_row"][:], view["use_prev"][:] = feed_rows
+        view["key"][:] = np.array(key, np.uint32).view(np.int32)
+        if draft_lens is not None:
+            if "draft_len" not in view:
+                raise ValueError("draft_lens need cfg.speculative_k > 0")
+            drafts = view["drafts"].reshape(S, b.K)
+            for s, dl in enumerate(draft_lens):
+                if dl:
+                    view["draft_len"][s] = dl
+                    drafts[s, :dl] = lanes[s][0][-dl:]
+        if extras is not None:
+            n = len(lanes)
+            view["span_slot"][:n] = extras["slots"]
+            view["counts_add"][:n] = extras["counts_add"]
+            view["reset"][:n] = extras["reset"]
+            view["freq"][:n] = extras["freq"]
+            view["pres"][:n] = extras["pres"]
+        return staged, bool((view["temp"] <= 0.0).all())
+
+    def _load(self, b: _StepBuffers, staged: torch.Tensor, prev_toks=None) -> None:
+        """Enqueue the staged block's copy into the static buffers, and
+        the feed's device tokens into ``prev`` (stream-ordered, so the
+        producing dispatch has written them and no later replay has
+        overwritten them yet)."""
+        b.block.copy_(staged, non_blocking=True)
+        if prev_toks is not None:
+            b.prev.copy_(prev_toks, non_blocking=True)
+
+    def _body(self, b: _StepBuffers, greedy: bool):
+        """The step program over the static buffers ``b``: feed, forward,
+        K/V writes (int8 scales written back in place), sampling, and the
+        variant's laws. Returns (ints, floats): every output packed into
+        one int32 and one float32 (or None) tensor, so a dispatch copies
+        them out in one or two copies."""
+        cfg, d = self.cfg, b.dev
+        S = b.S
+        token_ids = _feed_tokens(
+            d["token_ids"], d["row_start"], d["use_prev"], d["prev_row"], b.prev,
+        )
+        spec = b.kind == "unified" and b.K > 0
+        out = llama.unified(
+            cfg.model, self.params, self.kv_caches, token_ids, d["token_pos"],
+            d["slot_mapping"], d["token_seq"], d["block_tables"].view(S, b.MB),
+            d["q_start"], d["q_len"], d["kv_len"], d["row_start"],
+            cfg.block_size, kv_scales=self.kv_scales,
+            draft_len=d["draft_len"] if spec else None,
+            verify_rows=b.K + 1 if spec else 1,
+        )
+        logits = out
+        if self.kv_scales is not None:
+            logits, new_scales = out
+            self.kv_scales.copy_(new_scales)
+        samp = dict(key=d["key"], temperature=d["temp"], top_k=d["top_k"],
+                    top_p=d["top_p"], seed=d["seed"], all_greedy=greedy)
+        if spec:
+            return self._spec_law(b, logits, samp), None
+        if b.kind == "unified_full":
+            return self._extras_law(b, logits, token_ids, samp)
+        toks = sample_tokens(logits, sample_pos=d["kv_len"], **samp)
+        return torch.where(d["q_len"] > 0, toks, 0).to(torch.int32), None
+
+    def _spec_law(self, b, logits, samp) -> torch.Tensor:
+        """Greedy accept-prefix over [S, K+1, V] verify logits: only
+        greedy lanes with real drafts accept; the bonus token samples at
+        row ``acc``, position ``kv_len - draft_len + acc``. Plain spans
+        (draft_len 0) reduce exactly to the plain program. Packs (bonus
+        [S], emitted [S, K+1], counts [S])."""
+        d, K = b.dev, b.K
+        q_len, dlen = d["q_len"], d["draft_len"]
+        drafts = d["drafts"].view(b.S, K)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)        # [S, K+1]
+        offs_k = torch.arange(K, device=logits.device)
+        matches = (drafts == greedy[:, :K]) & (offs_k[None, :] < dlen[:, None])
+        lead = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1)
+        eligible = (q_len > 0) & (dlen > 0) & (samp["temperature"] <= 0.0)
+        acc = torch.where(eligible, lead, 0)                         # [S]
+        at_acc = torch.gather(
+            logits, 1, acc.long()[:, None, None].expand(-1, 1, logits.shape[-1])
+        )[:, 0]                                                      # [S, V]
+        bonus = sample_tokens(at_acc, sample_pos=d["kv_len"] - dlen + acc, **samp)
+        bonus = torch.where(q_len > 0, bonus, 0).to(torch.int32)
+        offs = torch.arange(K + 1, device=logits.device)[None, :]
+        dpad = torch.cat([drafts, drafts.new_zeros(b.S, 1)], dim=1)  # [S, K+1]
+        emitted = torch.where(
+            offs < acc[:, None], dpad,
+            torch.where(offs == acc[:, None], bonus[:, None], 0),
+        )
+        counts = torch.where(q_len > 0, acc + 1, 0)
+        return torch.cat([bonus, emitted.reshape(-1), counts]).to(torch.int32)
+
+    def _extras_law(self, b, logits, token_ids, samp):
+        """Penalties over the per-slot count buffer, then sampling and
+        logprobs. Reset first (a re-slotted sequence inherits a stale
+        row), then count each decode span's FED token. Packs (toks [S],
+        top ids [S, MAX_LOGPROBS]) and (chosen [S], top logprobs)."""
+        d = b.dev
+        counts = self.ensure_counts()
+        B, V = counts.shape
+        T = token_ids.shape[0]
+        q_len, span_slot = d["q_len"], d["span_slot"]
+        slot_clip = torch.clamp(span_slot, 0, B - 1).long()
+        valid = (span_slot >= 0) & (span_slot < B) & (q_len > 0)
+        rs = torch.zeros(B, dtype=torch.int32, device=counts.device)
+        rs.scatter_add_(0, slot_clip, ((d["reset"] > 0) & valid).to(torch.int32))
+        counts.masked_fill_((rs > 0)[:, None], 0)
+        fed = token_ids[torch.clamp(d["row_start"], 0, T - 1).long()].long()
+        add = (d["counts_add"] > 0) & valid
+        counts.view(-1).scatter_add_(0, slot_clip * V + fed, add.to(torch.int32))
+        pen = apply_penalties(logits, counts[slot_clip], d["freq"], d["pres"])
+        toks = sample_tokens(pen, sample_pos=d["kv_len"], **samp)
+        clp, tids, tlps = token_logprobs(pen, toks)
+        toks = torch.where(q_len > 0, toks, 0).to(torch.int32)
+        return (torch.cat([toks, tids.reshape(-1)]).to(torch.int32),
+                torch.cat([clp, tlps.reshape(-1)]).float())
+
+    def _program(self, kind: str, T: int, greedy: bool) -> _Program:
+        """The (kind, T, greedy) program, made at first need: an eager
+        warm pass of the body over warm lanes (trash block 0 only), then,
+        on the card, the capture of the body into a CUDA graph. Counted
+        as warmed inside warmup, as a mid-traffic compile outside it."""
+        key = graph_key(kind, T, greedy)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        cfg = self.cfg
+        b = self._step_buffers(kind, T)
+        sampling = (0.0, 0, 1.0, -1) if greedy else (1.0, 0, 1.0, -1)
+        lanes = _unified_warm_lanes(
+            T, self.unified_slots, cfg.max_model_len,
+            [0] * cfg.max_blocks_per_seq, sampling,
+        )
+        extras = None
+        if kind == "unified_full":
+            self.ensure_counts()
+            n = len(lanes)
+            extras = {"slots": [0] * n, "counts_add": [False] * n,
+                      "reset": [False] * n, "freq": [0.0] * n, "pres": [0.0] * n}
+        staged, _ = self._stage(b, lanes, (cfg.seed, 0), extras=extras)
+        with self.compile_stats.program(key):
+            if not self._cuda:
+                self._load(b, staged)
+                self._body(b, greedy)
+                prog = _Program()
+            else:
+                prog = self._capture(b, staged, greedy)
+        self._programs[key] = prog
+        return prog
+
+    def _capture(self, b: _StepBuffers, staged, greedy: bool) -> _Program:
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side, main = self._side_stream, torch.cuda.current_stream(self.device)
+        # The warm pass on the capture stream, after every dispatch already
+        # enqueued (it writes trash block 0 and the int8 scales): the
+        # kernel library's first-use setup (its second stream, its
+        # shared-memory attributes) and cuBLAS's workspace for this stream
+        # happen here, outside the capture.
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._load(b, staged)
+            self._body(b, greedy)
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
+                              capture_error_mode="thread_local"):
+            outs = self._body(b, greedy)
+        after = kernels.launch_counts()
+        # Nothing ran during the capture: the wrappers' counts move to the
+        # graph, which adds them back once per replay.
+        kernels.set_launch_counts(before)
+        self.compile_stats.graphs_captured += 1
+        self.compile_stats.graph_pool_bytes += max(
+            torch.cuda.memory_reserved(self.device) - reserved, 0)
+        return _Program(graph, outs, {k: after[k] - before[k] for k in after})
+
+    def unified_step(
+        self,
+        lanes: list[tuple[list[int], list[int], int, tuple]],
+        feed: tuple | None = None,
+        draft_lens: list[int] | None = None,
+        extras: dict | None = None,
+    ) -> UnifiedOut:
+        """ONE ragged dispatch for a mixed prefill+decode batch; on the
+        card it replays the program's captured graph.
+
+        ``lanes``: [(new_tokens, block_ids, prefix_len, sampling), ...] —
+        span s of the flat batch is lane s's tokens; a decode lane is a
+        single token, a prefill quantum its chunk, a draft-verify span
+        the fed token plus its drafts. Total tokens snap UP to the
+        budget ladder (compile_cache.token_budget).
+
+        ``feed``: optional (prev_toks [S] device tensor, prev_row [S],
+        use_prev [S]) — decode lanes whose token was sampled by the
+        previous dispatch read it on the DEVICE from its old metadata row
+        instead of a host round trip.
+
+        ``draft_lens``: per-lane count of DRAFT tokens in the lane's tail
+        (needs cfg.speculative_k > 0); ``UnifiedOut.spec()`` carries the
+        accepted drafts and bonus.
+
+        ``extras``: {"slots", "counts_add", "reset", "freq", "pres"}
+        per-lane lists — the unified_full variant at the top rung;
+        ``UnifiedOut.logprobs()`` carries its logprobs."""
+        return self._dispatch(lanes, feed, draft_lens, extras, program=True)
+
+    def unified_step_eager(self, lanes, feed=None, draft_lens=None, extras=None):
+        """``unified_step`` through the eager body, never a replay and
+        never counted as a program: the reference the replays are held
+        against. The serving engine never calls it."""
+        return self._dispatch(lanes, feed, draft_lens, extras, program=False)
+
+    def _dispatch(self, lanes, feed, draft_lens, extras, program: bool) -> UnifiedOut:
+        total = sum(len(t) for t, _, _, _ in lanes)
+        kind, T = self._variant(total, extras)
+        if total > T:
+            raise ValueError(
+                f"{total} tokens exceed the unified budget "
+                f"{self.cfg.unified_token_budget}"
+            )
+        b = self._step_buffers(kind, T)
+        prev_toks = feed_rows = None
         if feed is not None:
             prev_toks, prev_row, use_prev = feed
-            view["prev_row"][:] = prev_row
-            view["use_prev"][:] = use_prev
-        all_greedy = bool((temp <= 0.0).all())
-
-        dmeta = self._to_device(meta)
-        dfloat = self._to_device(fmeta)
-        d, o = {}, 0
-        for name, n in sizes:
-            d[name] = dmeta[o:o + n]
-            o += n
-        d_tables = d["block_tables"].view(S, MB)
-        token_ids = d["token_ids"]
-        if prev_toks is not None and isinstance(prev_toks, torch.Tensor):
-            token_ids = _feed_tokens(
-                token_ids, d["row_start"], d["use_prev"], d["prev_row"],
-                prev_toks,
-            )
-        logits = llama.unified(
-            cfg.model, self.params, self.kv_caches, token_ids, d["token_pos"],
-            d["slot_mapping"], d["token_seq"], d_tables, d["q_start"],
-            d["q_len"], d["kv_len"], d["row_start"], cfg.block_size,
-            kv_scales=self.kv_scales,
+            feed_rows = (prev_row, use_prev)
+        staged, greedy = self._stage(
+            b, lanes, self._next_key(), draft_lens, extras, feed_rows,
         )
-        if self.kv_scales is not None:
-            logits, self.kv_scales = logits
-        toks = sample_tokens(
-            logits, self._next_key(), dfloat[:S], d["top_k"], dfloat[S:],
-            seed=d["seed"], sample_pos=d["kv_len"], all_greedy=all_greedy,
-        )
-        toks = torch.where(d["q_len"] > 0, toks, 0).to(torch.int32)
-        if self.device.type != "cuda":
-            return UnifiedOut(toks, toks, None)
-        host = torch.empty(S, dtype=torch.int32, pin_memory=True)
-        host.copy_(toks, non_blocking=True)
+        prog = self._program(kind, T, greedy) if program else None
+        self._load(b, staged, prev_toks)
+        self.compile_stats.record_serving(kind, T)
+        if prog is not None and prog.graph is not None:
+            prog.graph.replay()
+            kernels.add_launch_counts(prog.launches)
+            ints, floats = prog.outs
+        else:
+            ints, floats = self._body(b, greedy)
+        spec_k = b.K if kind == "unified" else 0
+        if not self._cuda:
+            return UnifiedOut(ints[: b.S], ints, floats, None, spec_k)
+        # Replays copy their outputs out in stream order: the next replay
+        # of this graph is enqueued after these copies.
+        ints_host = torch.empty(ints.shape, dtype=torch.int32, pin_memory=True)
+        ints_host.copy_(ints, non_blocking=True)
+        floats_host = None
+        if floats is not None:
+            floats_host = torch.empty(floats.shape, dtype=torch.float32,
+                                      pin_memory=True)
+            floats_host.copy_(floats, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return UnifiedOut(toks, host, event)
+        return UnifiedOut(ints[: b.S], ints_host, floats_host, event, spec_k)
+
+    # -- warmup ---------------------------------------------------------------
+    def warmup(self, manifest=None) -> int:
+        """Make the serving program set off the clock, in the order of
+        ``warmup_plan``: every budget rung (the spec-verify program on a
+        speculative engine) and the extras program at the top rung, each
+        greedy and sampled. Writes land in trash block 0 only; the real
+        cache entries and the allocator are untouched. Returns the number
+        of programs made (graphs captured on the card)."""
+        hot, tail = self.warmup_plan(manifest)
+        return self.run_warm_ops(hot + tail)
+
+    def _warm_op(self, spec):
+        """One shape spec → the call that makes its two programs (greedy
+        and sampled), or None for a variant this engine does not serve or
+        a rung S spans cannot fill."""
+        cfg = self.cfg
+        kind, t = spec[0], spec[1]
+        if kind not in ("unified", "unified_full"):
+            return None
+        if kind == "unified_full" and not cfg.sampling_extras:
+            return None
+        if not _unified_warm_lanes(t, self.unified_slots, cfg.max_model_len,
+                                   [0], (0.0, 0, 1.0)):
+            return None
+        return lambda: [self._program(kind, t, g) for g in (True, False)]
 
     # -- phase-split entry points ---------------------------------------------
     def _phase_program(self, name: str) -> None:

@@ -243,6 +243,9 @@ class Scheduler:
         seq.hashes = None
         seq.num_cached_prefix = 0
         seq.sched_len = 0
+        # Re-admission may land in a slot whose count-buffer row holds
+        # another sequence's history: re-arm the reset.
+        seq.counts_reset_pending = True
         seq.status = SeqStatus.WAITING
         self.waiting.appendleft(seq)
 

@@ -30,7 +30,8 @@ class Sequence:
     prompt_tokens: list[int]
     sampling: SamplingOptions
     stop: StopConditions
-    # Called from the engine thread with (token_id | None, finish | None).
+    # Called from the engine thread with (token_id | None, finish | None,
+    # logprob entry | None).
     emit: Callable[..., None]
 
     status: SeqStatus = SeqStatus.WAITING
@@ -45,6 +46,12 @@ class Sequence:
     # Chunked prefill: prompt tokens whose KV is already computed
     # (includes any prefix-cache hit). Meaningful while PREFILLING.
     prefill_cursor: int = 0
+    # OpenAI logprobs: None = not requested; N = the chosen token's
+    # logprob plus the top-N alternatives per generated token.
+    logprobs: int | None = None
+    # Penalties path: the slot's [vocab] row of the count buffer is zeroed
+    # before this sequence's first extras dispatch (slots are reused).
+    counts_reset_pending: bool = True
     # Pipelined dispatch: chunks issued to the device but not yet
     # processed. While > 0 the sequence's blocks are pinned (in-flight KV
     # writes) and its device-side length runs ahead of total_len.
@@ -76,6 +83,16 @@ class Sequence:
         decode steps or block growth — the sequence finishes when its
         in-flight chunks are processed)."""
         return max_model_len - self.device_len + 1
+
+    @property
+    def needs_extras(self) -> bool:
+        """True when dispatches carrying this sequence must run the
+        extras program (penalties and/or logprob outputs)."""
+        s = self.sampling
+        return bool(
+            s.frequency_penalty or s.presence_penalty
+            or self.logprobs is not None
+        )
 
     def should_stop(self) -> FinishReason | None:
         if not self.output_tokens:

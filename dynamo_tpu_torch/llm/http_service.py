@@ -17,15 +17,21 @@ The reference serves through aiohttp; this port speaks HTTP/1.1 itself on
 - streamed responses in ``Transfer-Encoding: chunked``, one chunk per
   SSE event, ending in the zero chunk so that the connection can carry
   the next request;
-- a method a route does not serve (HEAD included) gets 405, an unknown
-  path 404, both in aiohttp's plain-text form.
+- HEAD on a GET route answers as aiohttp's ``web.get`` does: the GET's
+  status and headers (its ``Content-Length`` included), no body; any
+  other method a route does not serve gets 405, an unknown path 404, both
+  in aiohttp's plain-text form.
 
 A client that goes away mid-request — its connection reaches EOF or is
 lost, whether the handler is waiting for the next token or writing one —
 cancels the handler: the request's context is killed and the engine
 aborts the sequence and frees its blocks.
 
-Not in this slice, refused rather than ignored: /v1/embeddings and
+/health answers 503 "warming" until the engine has made its hot program
+set (the CUDA graphs it captures before traffic), and /metrics carries
+the capture gauges under the reference's names.
+
+Not in this port yet, refused rather than ignored: /v1/embeddings and
 /debug/* (404 with the reference's error body), deadlines
 (``X-Request-Timeout-Ms``) and SLO classes other than the default
 (``X-Request-Class``), both a 400.
@@ -343,7 +349,8 @@ class HttpService:
             await self._write(writer, _text_response(404, "404: Not Found"), keep_alive)
             return keep_alive
         method, name = route
-        if req.method != method:
+        head = req.method == "HEAD" and method == "GET"
+        if req.method != method and not head:
             # A HEAD response carries no body.
             text = "" if req.method == "HEAD" else "405: Method Not Allowed"
             resp = _text_response(405, text, {"Allow": method})
@@ -365,14 +372,16 @@ class HttpService:
             return False
         resp = handler.result()
         if resp is not None:
-            await self._write(writer, resp, keep_alive)
+            await self._write(writer, resp, keep_alive, head_only=head)
         return keep_alive
 
     @staticmethod
-    async def _write(writer, resp: _Response, keep_alive: bool) -> None:
+    async def _write(writer, resp: _Response, keep_alive: bool,
+                     head_only: bool = False) -> None:
         headers = {"Content-Type": resp.content_type,
                    "Content-Length": str(len(resp.body)), **resp.headers}
-        writer.write(_head(resp.status, headers, keep_alive) + resp.body)
+        body = b"" if head_only else resp.body
+        writer.write(_head(resp.status, headers, keep_alive) + body)
         await writer.drain()
 
     # -- handlers -----------------------------------------------------------
@@ -393,6 +402,11 @@ class HttpService:
         eng = self._engine_readiness()
         if eng is not None:
             info["engine"] = eng
+            if eng.get("state") == "warming":
+                # Readiness probes hold traffic until the hot program set
+                # is captured: no request lands on an uncaptured program.
+                info["status"] = "warming"
+                return _json_response(info, status=503)
             if eng.get("state") == "draining":
                 info["status"] = "draining"
                 return _json_response(info, status=503)
@@ -408,7 +422,16 @@ class HttpService:
                 "engine_ready", 1.0 if eng.get("state") == "ready" else 0.0
             )
             for key in (
+                "mid_traffic_compiles_total",
+                "compile_stall_ms_total",
+                "warm_tail_pending",
+                "warmed_programs",
+                "warmup_programs_total",
                 "gpu_prefix_cache_hit_rate",
+                "spec_tokens_per_step",
+                "spec_active",
+                "spec_drafted_tokens_total",
+                "spec_accepted_tokens_total",
                 "unified_step_tokens_decode_total",
                 "unified_step_tokens_prefill_total",
                 "prefill_backlog_tokens",
@@ -539,6 +562,8 @@ class HttpService:
         """Fold the stream into one response."""
         text_parts: list[str] = []
         tool_calls: list[dict] = []
+        lp_content: list[dict] = []      # chat logprob entries
+        lp_lists: dict[str, list] = {}   # completions parallel lists
         finish = None
         usage = Usage()
         rid = None
@@ -553,6 +578,8 @@ class HttpService:
                         text_parts.append(choice.delta.content)
                     if choice.delta.tool_calls:
                         tool_calls.extend(choice.delta.tool_calls)
+                    if choice.logprobs and choice.logprobs.get("content"):
+                        lp_content.extend(choice.logprobs["content"])
                     if choice.finish_reason:
                         finish = choice.finish_reason
                 if chunk.usage:
@@ -562,6 +589,9 @@ class HttpService:
                 for choice in chunk.get("choices", []):
                     if choice.get("text"):
                         text_parts.append(choice["text"])
+                    if choice.get("logprobs"):
+                        for k, v in choice["logprobs"].items():
+                            lp_lists.setdefault(k, []).extend(v)
                     if choice.get("finish_reason"):
                         finish = choice["finish_reason"]
                 if chunk.get("usage"):
@@ -580,6 +610,7 @@ class HttpService:
                             content=text if (text or not tool_calls) else None,
                             tool_calls=tool_calls or None,
                         ),
+                        logprobs={"content": lp_content} if lp_content else None,
                         finish_reason=finish,
                     )
                 ],
@@ -589,7 +620,8 @@ class HttpService:
             full = CompletionResponse(
                 id=rid or "cmpl-0",
                 model=oai.model,
-                choices=[CompletionChoice(text=text, finish_reason=finish)],
+                choices=[CompletionChoice(text=text, logprobs=lp_lists or None,
+                                          finish_reason=finish)],
                 usage=usage,
             )
         return _json_response(full.model_dump())

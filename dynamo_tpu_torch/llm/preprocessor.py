@@ -4,11 +4,11 @@ Forward path: OpenAI chat/completion request → prompt templating →
 tokenization → ``PreprocessedRequest`` wire dict. Backward path:
 detokenized EngineOutput deltas → OpenAI stream chunks, with a final
 usage-bearing chunk; requested annotations (``formatted_prompt``,
-``token_ids``) ride ahead of the first delta, and with ``tools`` the
-text is matched for tool calls.
+``token_ids``) ride ahead of the first delta, with ``tools`` the text
+is matched for tool calls, and the engine's logprob entries render in
+the OpenAI chat and legacy completions shapes.
 
-Not in this slice: logprob formatting (the engine refuses logprobs with
-a RequestError, a 400), request tracing, deadlines and SLO classes
+Not in this port yet: request tracing, deadlines and SLO classes
 (ROADMAP queue A).
 """
 
@@ -122,6 +122,56 @@ class OpenAIPreprocessor(Operator):
             pre.annotations[ANNOTATION_FORMATTED_PROMPT] = prompt
         return pre
 
+    # -- logprob rendering ---------------------------------------------------
+    def _tok_str(self, token_id: int) -> str:
+        return self.tokenizer.decode([token_id])
+
+    def _chat_logprobs(self, entries: list[dict]) -> dict:
+        """OpenAI chat shape: {"content": [{token, logprob, bytes,
+        top_logprobs: [...]}, ...]}."""
+        content = []
+        for e in entries:
+            tok = self._tok_str(e["id"])
+            content.append({
+                "token": tok,
+                "logprob": e["logprob"],
+                "bytes": list(tok.encode("utf-8")),
+                "top_logprobs": [
+                    {
+                        "token": (t := self._tok_str(i)),
+                        "logprob": lp,
+                        "bytes": list(t.encode("utf-8")),
+                    }
+                    for i, lp in e.get("top", [])
+                ],
+            })
+        return {"content": content}
+
+    def _completion_logprobs(
+        self, entries: list[dict], text_offset: int
+    ) -> tuple[dict, int]:
+        """Legacy completions shape: parallel lists tokens /
+        token_logprobs / top_logprobs / text_offset."""
+        tokens, token_lps, top, offsets = [], [], [], []
+        for e in entries:
+            tok = self._tok_str(e["id"])
+            tokens.append(tok)
+            token_lps.append(e["logprob"])
+            top.append(
+                {self._tok_str(i): lp for i, lp in e.get("top", [])} or None
+            )
+            offsets.append(text_offset)
+            text_offset += len(tok)
+        return (
+            {
+                "tokens": tokens,
+                "token_logprobs": token_lps,
+                "top_logprobs": top,
+                "text_offset": offsets,
+            },
+            text_offset,
+        )
+
     # -- operator -----------------------------------------------------------
     async def generate(
         self, request: Context, downstream: AsyncEngine
@@ -147,10 +197,13 @@ class OpenAIPreprocessor(Operator):
             m = ToolCallMatcher(oai.tool_choice or "auto")
             matcher = m if m.enabled else None
         buffered: list[str] = []
+        buffered_lp: list[dict] = []  # logprob entries held with the text
+        text_offset = 0  # completions logprobs: offset in the generated text
 
         def tool_chunk(fallback_finish: str | None) -> ChatCompletionChunk:
             text = "".join(buffered)
             calls = matcher.match(text)
+            lp = None
             if calls:
                 delta = ChatDelta(role="assistant", tool_calls=calls)
                 reason = "tool_calls"
@@ -162,9 +215,11 @@ class OpenAIPreprocessor(Operator):
                     )
                 delta = ChatDelta(role="assistant", content=text)
                 reason = fallback_finish
+                if buffered_lp:
+                    lp = self._chat_logprobs(buffered_lp)
             return ChatCompletionChunk(
                 id=rid, model=oai.model,
-                choices=[StreamChoice(delta=delta, finish_reason=reason)],
+                choices=[StreamChoice(delta=delta, logprobs=lp, finish_reason=reason)],
             )
 
         completion_tokens = 0
@@ -181,6 +236,8 @@ class OpenAIPreprocessor(Operator):
             if matcher is not None:
                 if out.text:
                     buffered.append(out.text)
+                if out.logprobs:
+                    buffered_lp.extend(out.logprobs)
                 lead = "".join(buffered).lstrip()
                 if (
                     not matcher.required
@@ -191,6 +248,11 @@ class OpenAIPreprocessor(Operator):
                     matcher = None
                     out.text = "".join(buffered)
                     buffered.clear()
+                    if buffered_lp:
+                        # Every entry held while buffering goes with the
+                        # flushed text.
+                        out.logprobs = list(buffered_lp)
+                        buffered_lp.clear()
                 else:
                     if finish is None:
                         continue
@@ -201,11 +263,18 @@ class OpenAIPreprocessor(Operator):
             )
             first = False
             if is_chat:
+                lp = self._chat_logprobs(out.logprobs) if out.logprobs else None
                 yield ChatCompletionChunk(
                     id=rid, model=oai.model,
-                    choices=[StreamChoice(delta=delta, finish_reason=finish)],
+                    choices=[StreamChoice(delta=delta, logprobs=lp,
+                                          finish_reason=finish)],
                 )
             else:
+                lp = None
+                if out.logprobs:
+                    lp, text_offset = self._completion_logprobs(
+                        out.logprobs, text_offset
+                    )
                 yield {
                     "id": rid,
                     "object": "text_completion",
@@ -214,7 +283,7 @@ class OpenAIPreprocessor(Operator):
                         {
                             "index": 0,
                             "text": out.text or "",
-                            "logprobs": None,
+                            "logprobs": lp,
                             "finish_reason": finish,
                         }
                     ],

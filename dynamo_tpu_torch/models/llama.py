@@ -219,13 +219,23 @@ def unified(
     row_start: torch.Tensor,     # [S] span's first flat row
     block_size: int,
     kv_scales: torch.Tensor | None = None,  # [L, 2, num_blocks, kvH] f32
+    draft_len: torch.Tensor | None = None,  # [S] draft rows in each span tail
+    verify_rows: int = 1,                   # logit rows per span (static)
 ):
     """ONE forward for a mixed prefill+decode token batch (the unified
     step): embed, RoPE at ``token_pos``, K/V scatter at ``slot_mapping``,
     ragged paged attention, MLP. Decode lanes are spans of length 1,
-    prefill quanta their chunk's rows. Returns per-span logits ``[S, V]``
-    from each span's LAST row (mid-prompt quanta's samples are discarded
-    by the engine).
+    prefill quanta their chunk's rows, a speculative draft-verify span
+    ``q_len = draft_len + 1`` rows (the fed token plus its drafts).
+
+    Returns per-span logits: ``verify_rows == 1`` gives ``[S, V]`` from
+    each span's LAST row (mid-prompt quanta's samples are discarded by
+    the engine). ``verify_rows = R > 1`` gives ``[S, R, V]``: row ``j``
+    of span ``s`` is the logits at span row ``q_len - 1 - draft_len + j``
+    clamped into the span — for a draft-verify span row 0 scores the
+    first draft and row ``draft_len`` is the bonus position; shorter
+    spans repeat their last row, and idle spans (``q_len = 0``) read row
+    0 of the batch, both masked by the caller.
 
     With ``kv_scales`` (int8 caches) the K/V scatter goes through the
     write law (ops/quant.py ``quantize_kv_write``), attention dequantizes
@@ -252,8 +262,18 @@ def unified(
         )
 
     x = _layers(cfg, params, token_ids, torch.clamp(token_pos, min=0), attend)
-    last = torch.clamp(row_start + q_len - 1, 0, T - 1).long()
-    logits = _logits(params, cfg, x[last])
+    if verify_rows == 1:
+        last = torch.clamp(row_start + q_len - 1, 0, T - 1).long()
+        logits = _logits(params, cfg, x[last])
+    else:
+        dl = draft_len if draft_len is not None else torch.zeros_like(q_len)
+        offs = torch.arange(verify_rows, device=q_len.device)
+        span_row = torch.minimum(
+            torch.clamp((q_len - 1 - dl)[:, None] + offs[None, :], min=0),
+            torch.clamp(q_len - 1, min=0)[:, None],
+        )                                                       # [S, R]
+        rows = torch.clamp(row_start[:, None] + span_row, 0, T - 1).long()
+        logits = _logits(params, cfg, x[rows])                  # [S, R, V]
     if kv_scales is not None:
         return logits, torch.stack(new_scales)
     return logits

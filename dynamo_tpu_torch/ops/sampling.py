@@ -8,6 +8,11 @@ uniforms from a counter-based hash. The reference's threefry streams
 cannot be reproduced in PyTorch, so what carries over is the contract of
 ``lane_keys``: a seeded lane's draw depends only on ``(seed,
 sample_pos)``, whatever else shares the batch.
+
+The engine stream's key is device data: the unified step reads it from
+its metadata block, written on the host before each dispatch, so a
+captured CUDA graph draws a new stream on every replay. The phase-split
+entry points pass it as a host pair.
 """
 
 from __future__ import annotations
@@ -43,24 +48,33 @@ def _mix(a: torch.Tensor, b: torch.Tensor | int) -> torch.Tensor:
     return _fmix32(a ^ _fmix32((b + 0x9E3779B9) & _M32))
 
 
+Key = tuple[int, int] | torch.Tensor
+
+
 def lane_keys(
-    key: tuple[int, int],        # (engine seed, step) — the engine stream
+    key: Key,                    # (engine seed, step) — the engine stream
     seed: torch.Tensor,          # [B] int; < 0 means unseeded
     sample_pos: torch.Tensor,    # [B] int — index of the token being sampled
 ) -> torch.Tensor:
     """Per-lane 32-bit sampling keys [B] (int64 holding uint32).
 
-    A seeded lane's key depends ONLY on (seed, token index), so a request
-    with ``seed`` set reproduces its samples regardless of what other
-    traffic it was batched with or which engine step picked it up.
-    Unseeded lanes draw from the engine's step stream, decorrelated per
-    lane."""
+    ``key`` is the engine stream's (seed, step) pair: host integers, or a
+    device tensor of two int32/int64 words (the unified step's metadata
+    row, read as uint32); both give the same keys. A seeded lane's key
+    depends ONLY on (seed, token index), so a request with ``seed`` set
+    reproduces its samples regardless of what other traffic it was
+    batched with or which engine step picked it up. Unseeded lanes draw
+    from the engine's step stream, decorrelated per lane."""
     B = seed.shape[0]
     dev = seed.device
     seed = seed.long()
     seeded = _mix(_mix(torch.clamp(seed, min=0), 0x5EED), sample_pos.long())
-    k0 = torch.full((B,), key[0] & _M32, dtype=torch.long, device=dev)
-    stream = _mix(k0, key[1] & _M32)
+    if isinstance(key, torch.Tensor):
+        words = key.long() & _M32
+        stream = _mix(words[0].expand(B), words[1])
+    else:
+        k0 = torch.full((B,), key[0] & _M32, dtype=torch.long, device=dev)
+        stream = _mix(k0, key[1] & _M32)
     unseeded = _mix(stream, torch.arange(B, device=dev))
     return torch.where(seed >= 0, seeded, unseeded)
 
@@ -71,6 +85,22 @@ def _uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
     c = torch.arange(n, device=keys.device)
     bits = _mix(keys[:, None], c[None, :]) >> 8          # 24 random bits
     return (bits.float() + 0.5) * (1.0 / (1 << 24))
+
+
+def apply_penalties(
+    logits: torch.Tensor,             # [B, V]
+    counts: torch.Tensor,             # [B, V] int — output-token counts
+    frequency_penalty: torch.Tensor,  # [B] float32
+    presence_penalty: torch.Tensor,   # [B] float32
+) -> torch.Tensor:
+    """OpenAI-style penalties over the generated-token counts:
+    ``logit[t] -= freq * count[t] + pres * (count[t] > 0)``."""
+    c = counts.to(logits.dtype)
+    return (
+        logits
+        - frequency_penalty[:, None] * c
+        - presence_penalty[:, None] * (c > 0)
+    )
 
 
 def token_logprobs(
@@ -88,7 +118,7 @@ def token_logprobs(
 
 def sample_tokens(
     logits: torch.Tensor,        # [B, V] float32
-    key: tuple[int, int],        # engine stream key (see lane_keys)
+    key: Key,                    # engine stream key (see lane_keys)
     temperature: torch.Tensor,   # [B] float32; <=0 means greedy
     top_k: torch.Tensor,         # [B] int32; 0 means disabled
     top_p: torch.Tensor,         # [B] float32; >=1 means disabled

@@ -10,9 +10,11 @@ process from its own directory: a ``TorchEngine`` for llama3.2-1b in
 bf16 at ``chip_smoke.py``'s full-width config (random weights from seed
 0), with caches in bf16 and then in int8, serves ``chip_smoke.py``'s 8
 prompts (32 tokens each, all submitted at once) through ``generate``:
-a warm-up serve, N timed serves (wall ms per unified dispatch, tokens/s,
-median TTFT), then one serve under ``torch.profiler`` (device ms per
-dispatch: the sum of the card's kernels and copies over the dispatches).
+``engine.warmup()`` where the checkout has it (it captures the step's
+CUDA graphs), a warm-up serve, N timed serves (wall ms per unified
+dispatch, tokens/s, median TTFT), then one serve under ``torch.profiler``
+(device ms per dispatch: the sum of the card's kernels and copies over
+the dispatches).
 Prints one JSON line per process, then the card's name and power limit
 and a summary line: the median of each number per checkout and cache
 dtype over its processes. Needs one CUDA device.
@@ -52,6 +54,8 @@ async def leg(kv_quant):
     await engine.start()
     got = {}
     try:
+        if hasattr(engine, "warmup"):
+            await engine.warmup()
         await cs.serve(engine, prompts, max_tokens)                 # warm-up
         for _ in range(reps):
             d0 = engine.unified_dispatches

@@ -183,19 +183,22 @@ def test_oversized_prompt_errors():
     assert asyncio.run(main()) == ([], "error")
 
 
-@pytest.mark.parametrize("change", [
-    {"logprobs": 2},
-    {"sampling": t_proto.SamplingOptions(frequency_penalty=0.5)},
-    {"deadline_ms": 100.0},
-    {"remote_prefill": True},
+@pytest.mark.parametrize("change,engine_kw,match", [
+    # Served by the extras program; refused where it is turned off, as
+    # the JAX engine refuses them.
+    ({"logprobs": 2}, {"sampling_extras": False}, "sampling_extras=False"),
+    ({"sampling": t_proto.SamplingOptions(frequency_penalty=0.5)},
+     {"sampling_extras": False}, "sampling_extras=False"),
+    ({"deadline_ms": 100.0}, {}, "not served"),
+    ({"remote_prefill": True}, {}, "not served"),
 ], ids=["logprobs", "penalty", "deadline", "remote_prefill"])
-def test_unserved_requests_are_refused(change):
+def test_unserved_requests_are_refused(change, engine_kw, match):
     async def main():
-        engine = _engine()
+        engine = _engine(**engine_kw)
         await engine.start()
         try:
             pre = t_proto.PreprocessedRequest(token_ids=[1, 2], **change)
-            with pytest.raises(t_proto.RequestError, match="not served"):
+            with pytest.raises(t_proto.RequestError, match=match):
                 async for _ in engine.generate(Context(pre.to_wire())):
                     pass
         finally:

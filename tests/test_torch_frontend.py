@@ -515,7 +515,7 @@ REFUSED = {
     "--num-nodes": ["--num-nodes", "2"],
     "--quant": ["--quant", "int8"],
     "--weight-quant": ["--weight-quant", "int8"],
-    "--speculative-k": ["--speculative-k", "2"],
+    "--speculative-k": ["--speculative-k", "-1"],
     "--control-plane": ["--control-plane", "h:1"],
     "--spawn-control-plane": ["--spawn-control-plane"],
     "--router-mode kv": ["--router-mode", "kv"],

@@ -362,8 +362,31 @@ def test_expect_100_continue_chunked_bodies_and_methods():
     assert interim == b"HTTP/1.1 100 Continue\r\n"
     assert final.startswith(b"HTTP/1.1 200 OK") and b'"text": "ab"' in final
     assert chunked.startswith(b"HTTP/1.1 411 ")
-    assert head.startswith(b"HTTP/1.1 405 ") and head.endswith(b"\r\n\r\n")
     assert bad.startswith(b"HTTP/1.1 400 ")
+
+    # HEAD on a GET route answers as the JAX server's aiohttp web.get
+    # does: the GET's status line, content type and length, no body.
+    async def head_scenario(service):
+        return _head_view(await _raw(
+            service.port, b"HEAD /health HTTP/1.1\r\nHost: x\r\n"
+            b"Connection: close\r\n\r\n"))
+
+    # _both holds the port's answer equal to the JAX server's.
+    port_head = _both(head_scenario)
+    assert _head_view(head) == port_head
+    assert port_head[0] == "HTTP/1.1 200 OK" and port_head[3] == b""
+
+
+def _head_view(raw: bytes):
+    """(status line, content type, content length, body) of a raw
+    response read to the connection's close."""
+    head, _, body = raw.partition(b"\r\n\r\n")
+    status, *lines = head.decode("latin-1").split("\r\n")
+    headers = dict(
+        (k.strip().lower(), v.strip())
+        for k, _, v in (line.partition(":") for line in lines)
+    )
+    return status, headers.get("content-type"), headers.get("content-length"), body
 
 
 def test_unserved_headers_and_routes_are_refused():
@@ -474,11 +497,17 @@ def test_tiny_test_readiness_uses_jax_names(tiny_servers):
     assert set(t_ready) == {
         "state", "draining", "shed_requests_total", "num_requests_waiting",
         "gpu_cache_usage_perc", "prefill_backlog_tokens", "gpu_prefix_cache_hit_rate",
-        "unified_step_tokens_decode_total", "unified_step_tokens_prefill_total"}
+        "unified_step_tokens_decode_total", "unified_step_tokens_prefill_total",
+        # the compile lifecycle and speculative decoding
+        "served_unwarmed", "warm_tail_pending", "mid_traffic_compiles_total",
+        "compile_stall_ms_total", "warmed_programs", "warmup_programs_total",
+        "spec_tokens_per_step", "spec_active", "spec_drafted_tokens_total",
+        "spec_accepted_tokens_total"}
     # Decode lanes issued depend on when requests arrived and how deep the
     # pipeline ran; the prompt tokens prefilled do not.
     for key in ("unified_step_tokens_prefill_total", "num_requests_waiting",
-                "prefill_backlog_tokens", "state", "draining"):
+                "prefill_backlog_tokens", "state", "draining", "served_unwarmed",
+                "warm_tail_pending", "warmed_programs", "spec_active"):
         assert t_ready[key] == j_ready[key], key
     assert t_ready["unified_step_tokens_decode_total"] >= sum([8, 6, 7, 9]) - 4
     assert t_health["status"] == j_health["status"] == "healthy"
@@ -563,7 +592,11 @@ def test_draining_engine_refuses_new_requests_and_finishes_admitted_ones():
 
 # -- the CLI in a subprocess ------------------------------------------------
 async def _spawn(*argv, ready=r"OpenAI server on http://127\.0\.0\.1:(\d+)"):
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    # One intra-op thread: the tiny model gains nothing from more, and the
+    # server's OpenMP threads would otherwise spin against the other test
+    # workers on shared cores, slowing each CPU dispatch about a
+    # hundredfold (a drained stream then outlasts the drain grace).
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     proc = await asyncio.create_subprocess_exec(
         sys.executable, "-m", "dynamo_tpu_torch", "run", *argv,
         stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,

@@ -368,14 +368,21 @@ def test_token_block_sequence_chains_hashes():
         [4, 5, 6, 7], block_size=4).blocks[0].block_hash
 
 
-@pytest.mark.parametrize("field,value", [
-    ("kv_quant", "fp8"), ("quant", "int8"), ("weight_quant", "int8"),
-    ("speculative_k", 2), ("mesh_shape", {"tp": 2}), ("kv_sp", True),
-    ("multimodal", True),
-])
-def test_engine_config_refuses_unserved_features(field, value):
-    cfg = EngineConfig(model=ModelConfig.tiny_test(), **{field: value})
-    with pytest.raises(ValueError, match="not served"):
+@pytest.mark.parametrize("field,value,extra,match", [
+    ("kv_quant", "fp8", {}, "not served"),
+    ("quant", "int8", {}, "not served"),
+    ("weight_quant", "int8", {}, "not served"),
+    # Speculative decoding is served; a k past the block size is refused
+    # with the JAX config's rule.
+    ("speculative_k", 2, {"block_size": 1, "num_blocks": 1024}, "block_size=1"),
+    ("mesh_shape", {"tp": 2}, {}, "not served"),
+    ("kv_sp", True, {}, "not served"),
+    ("multimodal", True, {}, "not served"),
+], ids=["kv_quant-fp8", "quant-int8", "weight_quant-int8", "speculative_k-2",
+        "mesh_shape-value4", "kv_sp-True", "multimodal-True"])
+def test_engine_config_refuses_unserved_features(field, value, extra, match):
+    cfg = EngineConfig(model=ModelConfig.tiny_test(), **{field: value}, **extra)
+    with pytest.raises(ValueError, match=match):
         cfg.validate()
 
 

@@ -113,6 +113,44 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 do not, as near ties), and prefill_batch's first-token
                 log-probabilities must match it; token-match rate
                 against the unified serve.
+9. fleet      — the runtime plane at full width, through the CLI's own
+                paths: a ``control-plane --port 0`` process; the frontend
+                ``run --in http --out dyn --control-plane ADDR`` built in
+                this process (as the http phase builds its server) with a
+                Tap on the token ids and serving worker the router
+                delivers; worker processes ``run --in
+                dyn://dynamo.torch.generate --out torch --model-path
+                preset:llama3.2-1b`` with the serve's engine settings and
+                a ``--health-port``, each warmed up (its CUDA graphs
+                captured) before it serves and registers. Legs: serve — two
+                bf16 workers; 8 concurrent streaming /v1/completions of
+                the serve's prompts (token ids, 32 greedy tokens,
+                ignore_eos): every reply 200, usage and the Tap count 32
+                tokens with finish "length", round robin splits them 4
+                and 4 (each worker's /metrics), the streams pass phase
+                8's teacher-forced gates; token-match rate against the
+                http phase's streams; drain verb — one 256-token stream in
+                flight on a worker, ``request_drain`` on its lease: the
+                stream completes, the instance key is deleted, the next
+                request is served by the other worker, the drained worker
+                prints "drain complete" and exits 0; SIGTERM — the same on
+                the last worker (the request after it finds no worker:
+                404 or 503); each drained worker's report line: its ragged
+                wrapper launched num_layers times per dispatch, every call
+                on the tile and split paths, and its peak device memory;
+                failover — two float32 workers: one 4-token prompt for 64
+                greedy tokens served uninterrupted, then again, SIGKILL
+                to the serving worker once 8 tokens reached the client:
+                the stream ends with 64 tokens, finish "length",
+                byte-identical to the uninterrupted one, FailoverStats
+                counts one WorkerDiedError success, the survivor drains
+                on SIGTERM (walk and split paths) and exits 0. Reported:
+                worker startup (spawn → "worker serving") and discovery
+                (spawn → the instance key's PUT at a watch), client TTFT,
+                ITL (p50, p95, and per serving worker) and tok/s beside
+                the http phase's, the gap at the client across the kill.
+                Every process has its own timeouts and is killed at the
+                end of the phase, whatever happened.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Then the card's name and power limit, the kernels line, and the
@@ -125,7 +163,9 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -1589,9 +1629,10 @@ HTTP_ARGS = [
 ]
 
 
-async def http_stream(port, path, body):
+async def http_stream(port, path, body, on_event=None):
     """POST a streaming request; (response, [(seconds since send, event)])
-    for every SSE event, timed as its chunk arrived."""
+    for every SSE event, timed as its chunk arrived. ``on_event(t, event)``
+    sees each event as it arrives."""
     from dynamo_tpu_torch.llm.http_client import fetch
     from dynamo_tpu_torch.llm.protocols.sse import decode_stream
 
@@ -1600,7 +1641,10 @@ async def http_stream(port, path, body):
 
     def got(piece: bytes) -> None:
         t = time.perf_counter() - t0
-        timed.extend((t, ev) for ev in decode_stream(piece.decode()))
+        for ev in decode_stream(piece.decode()):
+            timed.append((t, ev))
+            if on_event is not None:
+                on_event(t, ev)
 
     resp = await fetch("127.0.0.1", port, "POST", path, body, on_chunk=got)
     return resp, timed
@@ -1764,6 +1808,7 @@ async def phase_http(prompts, serve_streams, max_tokens, served, more_prompts) -
     }
     result["batch_cli"] = batch_cli(max_tokens=16)
     emit(result)
+    result["streams"] = http_streams
     if any(code != 200 for code in statuses) or result["models"] != [cfg.name]:
         raise SystemExit(f"http: statuses {statuses}, models {result['models']}")
     if not (counts_ok and texts_ok and result["metrics_has_requests_total"]
@@ -1873,6 +1918,536 @@ def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
     return result
 
 
+FLEET_ENDPOINT = "dyn://dynamo.torch.generate"
+FLEET_WAIT_S = 240.0          # a worker's spawn → "worker serving" bound
+
+
+class Child:
+    """One subprocess of the fleet phase (``python -m dynamo_tpu_torch
+    ...``): stdout and stderr merged, read line by line as they come,
+    each line kept with its arrival time."""
+
+    def __init__(self, name: str, argv: list[str]) -> None:
+        self.name = name
+        self.argv = argv
+        self.proc = None
+        self.lines: list[tuple[float, str]] = []
+        self.t_spawn = 0.0
+        self._more = asyncio.Event()
+        self._reader = None
+
+    async def start(self) -> "Child":
+        self.t_spawn = time.monotonic()
+        self.proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "dynamo_tpu_torch", *self.argv,
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        self._reader = asyncio.ensure_future(self._read())
+        return self
+
+    async def _read(self) -> None:
+        while True:
+            line = await self.proc.stdout.readline()
+            if not line:
+                break
+            self.lines.append((time.monotonic(), line.decode(errors="replace")))
+            self._more.set()
+        self._more.set()
+
+    def tail(self, n: int = 30) -> str:
+        return "".join(text for _, text in self.lines[-n:])
+
+    async def wait_for(self, pattern: str, timeout: float):
+        """(match, arrival time) of the first line matching ``pattern``;
+        fails the phase if the process ends or the time runs out first."""
+        import re
+
+        pat = re.compile(pattern)
+        deadline = time.monotonic() + timeout
+        seen = 0
+        while True:
+            for t, text in self.lines[seen:]:
+                m = pat.search(text)
+                if m:
+                    return m, t
+            seen = len(self.lines)
+            if self._reader.done():
+                raise SystemExit(f"fleet: {self.name} ended (rc {self.proc.returncode}) "
+                                 f"before {pattern!r}:\n{self.tail()}")
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise SystemExit(f"fleet: {self.name} gave no {pattern!r} in "
+                                 f"{timeout:.0f} s:\n{self.tail()}")
+            self._more.clear()
+            try:
+                await asyncio.wait_for(self._more.wait(), left)
+            except asyncio.TimeoutError:
+                pass
+
+    async def exit_code(self, timeout: float) -> int:
+        try:
+            await asyncio.wait_for(self.proc.wait(), timeout)
+        except asyncio.TimeoutError:
+            raise SystemExit(f"fleet: {self.name} did not exit in {timeout:.0f} s:\n"
+                             f"{self.tail()}") from None
+        await self._reader
+        return self.proc.returncode
+
+    def signal(self, sig) -> None:
+        if self.proc.returncode is None:
+            self.proc.send_signal(sig)
+
+    async def kill(self) -> None:
+        if self.proc is not None and self.proc.returncode is None:
+            self.proc.kill()
+            await self.proc.wait()
+        if self._reader is not None:
+            await self._reader
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def spawn_workers(addr: str, n: int, dtype: str, tag: str) -> list:
+    """n workers serving FLEET_ENDPOINT with the serve's engine settings,
+    each with a health port; waits until each is warmed up and serving.
+    Returns [(Child, lease id, health port, startup seconds)]."""
+    workers = []
+    for i in range(n):
+        port = free_port()
+        argv = [*HTTP_ARGS, "--in", FLEET_ENDPOINT, "--control-plane", addr,
+                "--health-port", str(port), "--dtype", dtype]
+        workers.append((await Child(f"worker {tag}{i}", argv).start(), port))
+    out = []
+    for child, port in workers:
+        lease = int((await child.wait_for(r"\(lease (0x[0-9a-f]+)\)", FLEET_WAIT_S))[0]
+                    .group(1), 16)
+        _, t_serving = await child.wait_for(r"worker serving ", FLEET_WAIT_S)
+        out.append((child, lease, port, t_serving - child.t_spawn))
+    return out
+
+
+async def instance_leases(drt) -> set[int]:
+    keys = await drt.store.get_prefix("instances/dynamo/torch/generate:")
+    return {int(k.rsplit(":", 1)[1], 16) for k in keys}
+
+
+async def wait_leases(drt, want: set[int], timeout: float = 30.0) -> float:
+    """Seconds until the discovery store holds exactly ``want``."""
+    t0 = time.monotonic()
+    while await instance_leases(drt) != want:
+        if time.monotonic() - t0 > timeout:
+            raise SystemExit(f"fleet: instances {await instance_leases(drt)} != {want}")
+        await asyncio.sleep(0.02)
+    return time.monotonic() - t0
+
+
+async def worker_requests(port: int) -> float:
+    import re
+
+    from dynamo_tpu_torch.llm.http_client import fetch
+
+    body = (await fetch("127.0.0.1", port, "GET", "/metrics")).body.decode()
+    m = re.search(r"^dyntpu_worker_ingress_requests_total (\S+)$", body, re.M)
+    return float(m.group(1)) if m else -1.0
+
+
+async def worker_exit(child, timeout: float = 120.0) -> dict:
+    """A drained worker's end: "drain complete", exit code 0, and its
+    ``worker report`` line (requests, dispatches, launch counts, memory)."""
+    import re
+
+    _, t_done = await child.wait_for(r"^drain complete", timeout)
+    rc = await child.exit_code(timeout)
+    m, _ = await child.wait_for(r"^worker report (\{.*\})", 5)
+    if rc != 0:
+        raise SystemExit(f"fleet: {child.name} exited {rc}:\n{child.tail()}")
+    report = json.loads(m.group(1))
+    report["exit_code"] = rc
+    report["drain_complete_s"] = t_done - child.t_spawn
+    return report
+
+
+def launches_ok(report: dict, walk_path: bool) -> bool:
+    """The worker's ragged wrapper launched num_layers times per dispatch,
+    every call on the split path and on the tile (bf16) or walk (f32)."""
+    k = report["kernel_launches"]
+    n = k["ragged_paged_attention_cuda.launches"]
+    tile = k["ragged_paged_attention_cuda.launches_walk" if walk_path
+             else "ragged_paged_attention_cuda.launches_tc"]
+    other = k["ragged_paged_attention_cuda.launches_tc" if walk_path
+              else "ragged_paged_attention_cuda.launches_walk"]
+    return (report["unified_dispatches"] > 0 and report["device"] == "cuda"
+            and n == report["num_layers"] * report["unified_dispatches"]
+            and tile == n and k["ragged_paged_attention_cuda.launches_split"] == n
+            and other == 0)
+
+
+async def serve_prompts(port, model, prompts, max_tokens, tapped, greedy) -> dict:
+    """The prompts as concurrent streaming /v1/completions through the
+    frontend; the client's numbers, the tapped streams and their workers,
+    and whether every count is right."""
+    t0 = time.perf_counter()
+    streamed = await asyncio.gather(*[
+        http_stream(port, "/v1/completions",
+                    {"model": model, "prompt": p, "stream": True,
+                     "max_tokens": max_tokens, **greedy}) for p in prompts])
+    wall = time.perf_counter() - t0
+    summaries = [stream_summary(timed) for _, timed in streamed]
+    served_by = [tapped[tuple(p)]["workers"] for p in prompts]
+    counts_ok = (
+        all(r.status == 200 for r, _ in streamed)
+        and all(s["usage"]["completion_tokens"] == max_tokens and s["finish"] == "length"
+                and len(s["times"]) == max_tokens for s in summaries)
+        and all(len(tapped[tuple(p)]["tokens"]) == max_tokens for p in prompts))
+    ttft = [s["times"][0] for s in summaries]
+    itl = [b - a for s in summaries for a, b in zip(s["times"], s["times"][1:])]
+    by_worker: dict[str, list[float]] = {}
+    for s, w in zip(summaries, served_by):
+        by_worker.setdefault(f"{w[0]:#x}", []).extend(
+            b - a for a, b in zip(s["times"], s["times"][1:]))
+    return {
+        "wall_s": wall, "tokens_per_s": len(prompts) * max_tokens / wall,
+        "client_ttft_p50_ms": float(np.median(ttft)) * 1e3,
+        "client_ttft_p95_ms": float(np.percentile(ttft, 95)) * 1e3,
+        "client_itl_p50_ms": float(np.percentile(itl, 50)) * 1e3,
+        "client_itl_p95_ms": float(np.percentile(itl, 95)) * 1e3,
+        "client_itl_by_worker_ms": {
+            w: {"p50": float(np.percentile(g, 50)) * 1e3,
+                "p95": float(np.percentile(g, 95)) * 1e3}
+            for w, g in by_worker.items()},
+        "counts_ok": counts_ok,
+        "streams": [tapped[tuple(p)]["tokens"][:max_tokens] for p in prompts],
+    }
+
+
+class _LogTimes(logging.Handler):
+    """Arrival time (perf_counter) of each record of one logger: when
+    the frontend saw a worker die, when it re-dispatched."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.times: list[tuple[float, str]] = []
+
+    def emit(self, record) -> None:
+        self.times.append((time.perf_counter(), record.getMessage()))
+
+
+def choice_events(timed) -> list[float]:
+    out = []
+    for t, ev in timed:
+        if ev.data != "[DONE]" and json.loads(ev.data).get("choices"):
+            out.append(t)
+    return out
+
+
+async def phase_fleet(prompts, max_tokens, http, params) -> dict:
+    """The runtime plane on the card: see the module docstring (phase 9).
+    Legs run serve, drain verb, SIGTERM (the two bf16 workers), then the
+    float32 failover pair."""
+    import signal
+
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.drain import request_drain
+    from dynamo_tpu_torch.runtime.failover import FAILOVER
+    from dynamo_tpu_torch.runtime.pipeline import Tap
+
+    cfg = ModelConfig.llama32_1b()
+    tapped: dict[tuple, dict] = {}   # prompt token ids -> tokens, workers
+
+    def on_request(ctx):
+        tapped[tuple(ctx.payload["token_ids"])] = {"tokens": [], "workers": []}
+
+    def on_response(ctx, item):
+        rec = tapped[tuple(ctx.payload["token_ids"])]
+        wid = ctx.annotations.get("worker_id")
+        if not rec["workers"] or rec["workers"][-1] != wid:
+            rec["workers"].append(wid)
+        rec["tokens"].extend(item["token_ids"])
+
+    greedy = {"temperature": 0, "nvext": {"ignore_eos": True}}
+    children: list = []
+    result: dict = {"phase": "fleet", "model": cfg.name}
+    cp = Child("control plane", ["control-plane", "--host", "127.0.0.1", "--port", "0"])
+    children.append(cp)
+    obs = None
+    try:
+        await cp.start()
+        addr = (await cp.wait_for(r"control plane on (\S+)", 120))[0].group(1)
+        obs = await DistributedRuntime.connect(addr)
+        async with contextlib.AsyncExitStack() as stack:
+            args = cli.build_parser().parse_args([
+                "run", "--in", "http", "--out", "dyn", "--control-plane", addr,
+                "--http-host", "127.0.0.1", "--http-port", "0"])
+            cli.refuse_unserved(args)
+            service, _ = await cli.start_http(args, stack, engine_ops=(Tap(on_request, on_response),))
+            port = service.port
+
+            # -- leg 1: serve through two bf16 workers ----------------------------
+            puts = await watch_puts(obs, stack)
+            bf16 = await spawn_workers(addr, 2, "bfloat16", "bf16-")
+            children += [w[0] for w in bf16]
+            await wait_leases(obs, {w[1] for w in bf16})
+            discovery = [puts[lease] - child.t_spawn for child, lease, *_ in bf16]
+            await wait_model(port, cfg.name)
+            served = await serve_prompts(port, cfg.name, prompts, max_tokens, tapped, greedy)
+            split = [await worker_requests(w[2]) for w in bf16]
+            streams = served.pop("streams")
+            ref = teacher_forced(cfg, params, list(prompts), streams)
+            ref.pop("first_token_ref_logprob")
+            result["serve"] = {
+                "workers": [{"lease": f"{lease:#x}", "startup_s": up,
+                             "discovery_s": d, "requests": n}
+                            for (_, lease, _, up), d, n in zip(bf16, discovery, split)],
+                "requests": len(prompts), "max_tokens": max_tokens, **served,
+                "http_phase": {k: http[k] for k in (
+                    "tokens_per_s", "client_ttft_p50_ms", "client_itl_p50_ms",
+                    "client_itl_p95_ms")},
+                **ref,
+                "greedy_match_rate_vs_http": match_rate(streams, http["streams"]),
+                "gates": {"agreement_min": PHASES_AGREEMENT, "gap_max": NEAR_TIE_NATS},
+            }
+            counts_ok = served["counts_ok"]
+            emit({"phase": "fleet_serve", **result["serve"]})
+            if not counts_ok or sorted(split) != [4.0, 4.0]:
+                raise SystemExit(f"fleet: serve counts {counts_ok}, split {split}")
+            if not (ref["logits_finite"] and ref["logits_shape_ok"]
+                    and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+                    and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
+                raise SystemExit("fleet: streams disagree with the no-cache reference")
+
+            # -- legs 3 and 4: the drain verb, then SIGTERM on the last ----------
+            by_lease = {w[1]: w for w in bf16}
+            reports = {}
+            legs = {}
+            for how in ("drain_verb", "sigterm"):
+                live = await instance_leases(obs)
+                prompt = prompts[0 if how == "drain_verb" else 1]
+                nxt = prompts[2 if how == "drain_verb" else 3]
+                tapped.pop(tuple(prompt), None)
+                tapped.pop(tuple(nxt), None)
+                long_tokens = 256
+                inflight = asyncio.ensure_future(http_stream(
+                    port, "/v1/completions",
+                    {"model": cfg.name, "prompt": prompt, "stream": True,
+                     "max_tokens": long_tokens, **greedy}))
+                await until(lambda: len(tapped.get(tuple(prompt), {}).get("tokens", [])) >= 8
+                            or inflight.done(), 60, f"{how}: 8 tokens in flight")
+                if inflight.done():
+                    raise SystemExit(f"fleet: {how} stream ended early: {inflight.result()[0].status}")
+                lease = tapped[tuple(prompt)]["workers"][0]
+                child = by_lease[lease][0]
+                if how == "drain_verb":
+                    await request_drain(obs, "dynamo", "torch", lease_id=lease)
+                else:
+                    child.signal(signal.SIGTERM)
+                deregistered = asyncio.ensure_future(wait_leases(obs, live - {lease}))
+                resp, timed = await inflight
+                t_stream_done = time.monotonic()
+                summ = stream_summary(timed)
+                report = await worker_exit(child)
+                reports[f"{lease:#x}"] = report
+                leg = {"lease": f"{lease:#x}", "inflight_status": resp.status,
+                       "inflight_tokens": summ["usage"]["completion_tokens"],
+                       "inflight_finish": summ["finish"],
+                       "deregistered_after_s": await deregistered,
+                       "exit_after_stream_s": time.monotonic() - t_stream_done,
+                       "exit_code": report["exit_code"]}
+                r = await fetch("127.0.0.1", port, "POST", "/v1/completions",
+                                {"model": cfg.name, "prompt": nxt, "max_tokens": 8, **greedy})
+                leg["next_status"] = r.status
+                if how == "drain_verb":
+                    leg["next_served_by"] = f"{tapped[tuple(nxt)]['workers'][0]:#x}"
+                legs[how] = leg
+                ok = (resp.status == 200 and leg["inflight_tokens"] == long_tokens
+                      and summ["finish"] == "length")
+                if how == "drain_verb":
+                    ok &= r.status == 200 and tapped[tuple(nxt)]["workers"][0] != lease
+                else:
+                    # No instance left: the model is gone (404) or the
+                    # router finds no live instance (503).
+                    ok &= r.status in (404, 503)
+                if not ok:
+                    raise SystemExit(f"fleet: {how} leg {leg}")
+                if how == "drain_verb":
+                    # The same 8 requests through the one worker left: the
+                    # hop's cost beside the http phase's in-process serve,
+                    # without a second process on the card.
+                    for p in prompts:
+                        tapped.pop(tuple(p), None)
+                    one = await serve_prompts(port, cfg.name, prompts, max_tokens,
+                                              tapped, greedy)
+                    one_streams = one.pop("streams")
+                    one_ref = teacher_forced(cfg, params, list(prompts), one_streams)
+                    one_ref.pop("first_token_ref_logprob")
+                    result["serve_one_worker"] = {**one, **one_ref}
+                    emit({"phase": "fleet_serve_one_worker", **result["serve_one_worker"]})
+                    if not (one["counts_ok"] and one_ref["logits_finite"]
+                            and one_ref["greedy_agreement_vs_no_cache_reference"]
+                            >= PHASES_AGREEMENT
+                            and one_ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
+                        raise SystemExit("fleet: one-worker serve failed its gates")
+            launches = {w: launches_ok(rep, walk_path=False) for w, rep in reports.items()}
+            result["drain"] = legs
+            result["bf16_workers"] = reports
+            emit({"phase": "fleet_drain", "legs": legs, "worker_reports": reports,
+                  "launches_ok": launches})
+            if not all(launches.values()):
+                raise SystemExit(f"fleet: bf16 worker launches {launches}")
+
+            # -- leg 2: failover between two float32 workers -------------------
+            f32 = await spawn_workers(addr, 2, "float32", "f32-")
+            children += [w[0] for w in f32]
+            await wait_leases(obs, {w[1] for w in f32})
+            await wait_model(port, cfg.name)
+            fo_prompt, fo_tokens = [11, 22, 33, 44], 64
+            body = {"model": cfg.name, "prompt": fo_prompt, "stream": True,
+                    "max_tokens": fo_tokens, **greedy}
+            ref_resp, ref_timed = await http_stream(port, "/v1/completions", body)
+            ref_stream = list(tapped[tuple(fo_prompt)]["tokens"])
+            ref_worker = tapped[tuple(fo_prompt)]["workers"]
+            before = dict(FAILOVER.success_by_reason), FAILOVER.total
+            eighth = asyncio.Event()
+            arrivals: list[float] = []
+
+            def on_event(t, ev):
+                if ev.data != "[DONE]" and json.loads(ev.data).get("choices"):
+                    arrivals.append(time.perf_counter())
+                    if len(arrivals) == 8:
+                        eighth.set()
+
+            tapped.pop(tuple(fo_prompt))
+            seen = _LogTimes()
+            logging.getLogger("dynamo_tpu_torch.runtime.failover").addHandler(seen)
+            run = asyncio.ensure_future(http_stream(port, "/v1/completions", body, on_event))
+            await asyncio.wait_for(eighth.wait(), 60)
+            victim_lease = tapped[tuple(fo_prompt)]["workers"][0]
+            victim = next(w[0] for w in f32 if w[1] == victim_lease)
+            t_kill = time.perf_counter()
+            victim.signal(signal.SIGKILL)
+            got_resp, got_timed = await run
+            summ = stream_summary(got_timed)
+            got_stream = tapped[tuple(fo_prompt)]["tokens"]
+            workers_seen = tapped[tuple(fo_prompt)]["workers"]
+            logging.getLogger("dynamo_tpu_torch.runtime.failover").removeHandler(seen)
+            t_detect = next((t for t, msg in seen.times if "died mid-stream" in msg), None)
+            before_kill = [t for t in arrivals if t <= t_kill]
+            after_kill = [t for t in arrivals if t > t_kill]
+            gap = (after_kill[0] - before_kill[-1]) if after_kill and before_kill else None
+            succ = FAILOVER.success_by_reason.get("WorkerDiedError", 0) - before[0].get(
+                "WorkerDiedError", 0)
+            survivor = next(w for w in f32 if w[1] != victim_lease)
+            survivor[0].signal(signal.SIGTERM)
+            f32_report = await worker_exit(survivor[0])
+            await victim.exit_code(30)
+            result["failover"] = {
+                "prompt": fo_prompt, "max_tokens": fo_tokens, "dtype": "float32",
+                "workers": [{"lease": f"{lease:#x}", "startup_s": up}
+                            for _, lease, _, up in f32],
+                "reference_served_by": [f"{w:#x}" for w in ref_worker],
+                "killed": f"{victim_lease:#x}", "tokens_before_kill": len(before_kill),
+                "served_by": [f"{w:#x}" for w in workers_seen],
+                "status": got_resp.status, "tokens": summ["usage"]["completion_tokens"],
+                "finish": summ["finish"],
+                "byte_identical_to_uninterrupted": got_stream == ref_stream,
+                "failover_successes_worker_died": succ,
+                "failover_attempts": FAILOVER.total - before[1],
+                "gap_at_client_ms": gap * 1e3 if gap is not None else None,
+                "kill_to_death_seen_ms": (t_detect - t_kill) * 1e3 if t_detect else None,
+                "death_seen_to_next_token_ms": (after_kill[0] - t_detect) * 1e3
+                if t_detect and after_kill else None,
+                "reference_itl_p50_ms": float(np.median(np.diff(choice_events(ref_timed)))) * 1e3,
+                "survivor_report": f32_report,
+                "survivor_launches_ok": launches_ok(f32_report, walk_path=True),
+            }
+            emit({"phase": "fleet_failover", **result["failover"]})
+            fo = result["failover"]
+            sv = result["serve"]
+            result["summary"] = {
+                "worker_startup_s": [w["startup_s"] for w in sv["workers"]]
+                + [w["startup_s"] for w in fo["workers"]],
+                "worker_discovery_s": [w["discovery_s"] for w in sv["workers"]],
+                "client_ttft_ms": {"p50": sv["client_ttft_p50_ms"],
+                                   "p95": sv["client_ttft_p95_ms"],
+                                   "http_phase_p50": http["client_ttft_p50_ms"]},
+                "client_itl_ms": {"p50": sv["client_itl_p50_ms"],
+                                  "p95": sv["client_itl_p95_ms"],
+                                  "http_phase_p50": http["client_itl_p50_ms"],
+                                  "http_phase_p95": http["client_itl_p95_ms"]},
+                "tokens_per_s": sv["tokens_per_s"],
+                "http_phase_tokens_per_s": http["tokens_per_s"],
+                "one_worker": {k: result["serve_one_worker"][k] for k in (
+                    "tokens_per_s", "client_ttft_p50_ms", "client_itl_p50_ms",
+                    "client_itl_p95_ms")},
+                "failover_gap_ms": fo["gap_at_client_ms"],
+                "failover_kill_to_death_seen_ms": fo["kill_to_death_seen_ms"],
+                "failover_death_seen_to_next_token_ms": fo["death_seen_to_next_token_ms"],
+                "worker_cuda_max_allocated_gb": {
+                    w: r.get("cuda_max_allocated_bytes", 0) / 1e9
+                    for w, r in {**reports, f"{survivor[1]:#x}": f32_report}.items()},
+            }
+            emit({"phase": "fleet", **result["summary"]})
+            if not (ref_resp.status == 200 and len(ref_stream) == fo_tokens
+                    and fo["status"] == 200 and fo["tokens"] == fo_tokens
+                    and fo["finish"] == "length" and fo["byte_identical_to_uninterrupted"]
+                    and succ == 1 and len(workers_seen) == 2 and gap is not None
+                    and fo["survivor_launches_ok"]):
+                raise SystemExit(f"fleet: failover leg {fo}")
+    finally:
+        if obs is not None:
+            await obs.shutdown()
+        for child in children:
+            await child.kill()
+    return result
+
+
+async def until(cond, timeout: float, what: str) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise SystemExit(f"fleet: timed out waiting for {what}")
+        await asyncio.sleep(0.002)
+
+
+async def watch_puts(drt, stack) -> dict[int, float]:
+    """{lease: arrival time of its instance key's PUT} from a watch on the
+    endpoint's instances, as the frontend's router watches them."""
+    from dynamo_tpu_torch.runtime.transports.store import EventKind
+
+    watch = await drt.store.watch_prefix("instances/dynamo/torch/generate:")
+    puts: dict[int, float] = {}
+
+    async def pump():
+        async for ev in watch:
+            if ev.kind is EventKind.PUT:
+                puts.setdefault(int(ev.key.rsplit(":", 1)[1], 16), time.monotonic())
+
+    task = asyncio.ensure_future(pump())
+    stack.callback(task.cancel)
+    stack.callback(watch.cancel)
+    return puts
+
+
+async def wait_model(port: int, name: str, timeout: float = 30.0) -> None:
+    from dynamo_tpu_torch.llm.http_client import fetch
+
+    t0 = time.monotonic()
+    while name not in [m["id"] for m in (await fetch(
+            "127.0.0.1", port, "GET", "/v1/models")).json()["data"]]:
+        if time.monotonic() - t0 > timeout:
+            raise SystemExit(f"fleet: the frontend never listed {name}")
+        await asyncio.sleep(0.05)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1929,9 +2504,17 @@ def main() -> int:
     phase_graphs(engine.runner.params, served_int8.pop("recorded"), "int8",
                  "graphs_int8")
     asyncio.run(phase_spec(prompts + repeated_prompts(rng, vocab), max_tokens))
-    asyncio.run(phase_http(prompts, streams, max_tokens, served, more[:2]))
+    http = asyncio.run(phase_http(prompts, streams, max_tokens, served, more[:2]))
     phases = phase_phases(engine.runner.params, prompts[:PHASE_LANES],
                           streams[:PHASE_LANES], max_tokens)
+    # The fleet's workers are processes of their own on this card: free
+    # this process's engines first, keeping the serve's weights (the
+    # workers make the same ones from the same seed) for the gates.
+    params = engine.runner.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = asyncio.run(phase_fleet(prompts, max_tokens, http, params))
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
@@ -1944,7 +2527,10 @@ def main() -> int:
         kernel_entry("ragged_paged_attention", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:67",
                      served["kernel_launches"], t_ragged, ragged,
-                     launches_by_path=served["kernel_launches_by_path"]),
+                     launches_by_path=served["kernel_launches_by_path"],
+                     fleet_worker_launches={
+                         w: r["kernel_launches"]["ragged_paged_attention_cuda.launches"]
+                         for w, r in fleet["bf16_workers"].items()}),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
                      served_int8["kernel_launches"], t_int8,

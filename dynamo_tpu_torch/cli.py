@@ -1,40 +1,59 @@
-"""dynamo-tpu-torch CLI (port of the ``run`` subcommand of
-dynamo_tpu/cli.py): launch the port from a shell.
+"""dynamo-tpu-torch CLI (port of the ``run`` and ``control-plane``
+subcommands of dynamo_tpu/cli.py): launch the port from a shell.
 
-  python -m dynamo_tpu_torch run [--in {http,text,batch:FILE}]
-                                 [--out {torch,echo_core,echo_full}]
+  python -m dynamo_tpu_torch run [--in {http,text,batch:FILE,dyn://ns.comp.ep}]
+                                 [--out {torch,echo_core,echo_full,dyn}]
                                  [--model-path preset:NAME] [--device {cuda,cpu}] ...
+  python -m dynamo_tpu_torch control-plane [--host H] [--port P] [--token T]
 
-- ``--in http``        one-process OpenAI server on the local engine;
-                       SIGINT/SIGTERM drains it (new requests 503, the
-                       admitted ones finish) and exits
+- ``--in http``        OpenAI server; SIGINT/SIGTERM drains it (new
+                       requests 503, the admitted ones finish) and exits
 - ``--in text``        interactive chat against the same pipeline
 - ``--in batch:FILE``  run a prompt file, print a JSON report of TTFT and
                        token rates
+- ``--in dyn://ns.c.e`` worker mode: serve the engine at that endpoint,
+                       register its model, then wait for SIGTERM or the
+                       control-plane drain verb and drain (stop
+                       admitting, deregister, finish the in-flight
+                       streams): prints ``worker serving ...``,
+                       ``draining``, ``drain complete``
 - ``--out torch``      the port's TorchEngine (the reference's
                        ``--out tpu``), on ``--device`` (cuda unless cpu is
                        asked for); ``echo_core``/``echo_full`` echo the
                        prompt's tokens / text
+- ``--out dyn``        frontend only: discover workers through the
+                       control plane (``--control-plane ADDR``) and route
+                       to them (``--router-mode round_robin|random``),
+                       failing a stream over to a sibling when its worker
+                       dies mid-stream
+- ``control-plane``    the standalone discovery/messaging server
 
-With ``--out torch`` the engine warms up before it serves: it makes the
-unified step's program set (on the card, one CUDA graph per budget rung,
-greedy and sampled, plus the spec-verify or extras variants configured)
-and prints ``warmup: N programs in S s``, holding admission meanwhile;
-``--no-warmup`` serves at once and captures each program at its first
-use (``warmup_gate="degraded"``). ``--shape-manifest FILE`` records the
-shapes serving executed and orders the next warmup by them;
-``--speculative-k K`` turns on prompt-lookup speculative decoding.
+Without a control plane (``--control-plane``/``--spawn-control-plane``),
+``--in http|text|batch`` with a local engine serves it in process, with
+no runtime plane between the front and the engine. With one, the local
+engine (unless ``--out dyn``) is served at ``--endpoint`` and registered,
+and the front discovers it and every other worker through the plane.
+
+With ``--out torch`` the engine warms up before it serves — and, as a
+worker, before it registers: it makes the unified step's program set (on
+the card, one CUDA graph per budget rung, greedy and sampled, plus the
+spec-verify or extras variants configured) and prints ``warmup: N
+programs in S s``, holding admission meanwhile; ``--no-warmup`` serves
+at once and captures each program at its first use. A worker that cannot
+build or launch its kernels exits non-zero and never registers.
+``--max-waiting``/``--max-queue-delay-s`` bound the engine's waiting
+list (the oldest waiter is shed). ``--health-port`` gives a worker a
+``/health`` and ``/metrics`` endpoint.
 
 The flags the port serves keep the reference's names, destinations and
-defaults. Flags that need what the port does not have yet — the runtime
-plane (``dyn://`` inputs, ``--out dyn``, control planes, routers), meshes
-and multi-host, weight quantization, embeddings, layered configs,
-deadlines, SLO classes, the adaptive co-location controller — are
-refused with an error that names them, never ignored. Flags of the
+defaults, except ``--endpoint`` (``dyn://dynamo.torch.generate``). Flags
+that need what the port does not have yet — the KV-aware router (ROADMAP
+A5), meshes and multi-host, weight quantization, embeddings, layered
+configs, deadlines, SLO classes, the adaptive co-location controller —
+are refused with an error that names them, never ignored. Flags of the
 reference that configure something the port has no counterpart for (the
 persistent XLA compile cache: a CUDA graph cannot outlive its process;
-the engine's bounded waiting list, worker health ports, profiling
-windows) are absent and rejected by the parser.
+profiling windows) are absent and rejected by the parser.
 """
 
 from __future__ import annotations
@@ -50,6 +69,8 @@ import time
 
 logger = logging.getLogger(__name__)
 
+DEFAULT_ENDPOINT = "dyn://dynamo.torch.generate"
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dynamo-tpu-torch")
@@ -57,9 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     run = sub.add_parser("run", help="serve / chat / batch")
     run.add_argument("--in", dest="input", default="http",
-                     help="http | text | batch:FILE")
+                     help="http | text | batch:FILE | dyn://ns.component.endpoint")
     run.add_argument("--out", dest="output", default="torch",
-                     help="torch | echo_core | echo_full")
+                     help="torch | echo_core | echo_full | dyn")
     run.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                      help="device of --out torch: cuda unless the CPU is "
                           "asked for (the plain PyTorch path)")
@@ -68,12 +89,15 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--model-name", default=None)
     run.add_argument("--model-type", default="chat",
                      choices=["chat", "embeddings"])
+    run.add_argument("--endpoint", default=DEFAULT_ENDPOINT,
+                     help="endpoint a local engine serves at")
     run.add_argument("--http-host", default="0.0.0.0")
     run.add_argument("--http-port", type=int, default=8080)
-    # Refused when set (the runtime plane arrives with its own slice).
-    run.add_argument("--control-plane", default=None, metavar="HOST:PORT")
+    run.add_argument("--control-plane", default=None, metavar="HOST:PORT",
+                     help="join an existing control-plane server")
     run.add_argument("--spawn-control-plane", nargs="?", const="0",
-                     default=None, metavar="PORT")
+                     default=None, metavar="PORT",
+                     help="host a control-plane server in this process")
     run.add_argument("--router-mode", default="round_robin",
                      choices=["round_robin", "random", "kv"])
     run.add_argument("--mesh", default=None)
@@ -127,9 +151,20 @@ def build_parser() -> argparse.ArgumentParser:
                      choices=["interactive", "batch"])
     run.add_argument("--batch-watermark-scale", type=float, default=0.5)
     run.add_argument("--default-deadline-s", type=float, default=0.0)
+    run.add_argument("--max-waiting", type=int, default=128,
+                     help="engine waiting-list depth bound: over it the "
+                          "OLDEST waiter is shed with a typed error "
+                          "(0 = unbounded)")
+    run.add_argument("--max-queue-delay-s", type=float, default=0.0,
+                     help="engine waiting-list age bound: waiters older "
+                          "than this are shed (0 = unbounded)")
     run.add_argument("--drain-grace-s", type=float, default=30.0,
-                     help="graceful-drain budget on SIGTERM: in-flight "
-                          "requests get this long to finish before exit")
+                     help="graceful-drain budget on SIGTERM / the "
+                          "control-plane drain verb: in-flight requests "
+                          "get this long to finish before exit")
+    run.add_argument("--health-port", type=int, default=0,
+                     help="worker-mode health/metrics HTTP port (0 = off): "
+                          "/health answers 503 while warming or draining")
     run.add_argument("--concurrency", type=int, default=32,
                      help="batch mode: in-flight request cap")
     run.add_argument("--max-tokens", type=int, default=128,
@@ -138,22 +173,26 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--set", dest="overrides", action="append", default=[],
                      metavar="Component.key=value")
     run.add_argument("-v", "--verbose", action="store_true")
+
+    cp = sub.add_parser("control-plane", help="standalone control plane")
+    cp.add_argument("--host", default="0.0.0.0")
+    cp.add_argument("--port", type=int, default=6380)
+    cp.add_argument("--token", default=None)
+    cp.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
 def refuse_unserved(args) -> None:
     """SystemExit naming the first flag this slice does not serve."""
-    runtime = "needs the runtime plane, which this slice of the port does not have"
+    from dynamo_tpu_torch.runtime.egress import KV_REFUSAL
+
     refusals = [
         (args.output == "tpu", "--out tpu is the JAX engine; the port's is --out torch"),
-        (args.output == "dyn", f"--out dyn {runtime}"),
         (args.output not in ("torch", "echo_core", "echo_full", "tpu", "dyn"),
-         f"bad --out {args.output!r} (torch | echo_core | echo_full)"),
-        (args.input.startswith("dyn://"), f"--in dyn://... {runtime}"),
-        (args.control_plane is not None, f"--control-plane {runtime}"),
-        (args.spawn_control_plane is not None, f"--spawn-control-plane {runtime}"),
-        (args.router_mode != "round_robin",
-         f"--router-mode {args.router_mode} {runtime}: one local engine serves"),
+         f"bad --out {args.output!r} (torch | echo_core | echo_full | dyn)"),
+        (args.input.startswith("dyn://") and args.output == "dyn",
+         "--in dyn://... serves a local engine: --out dyn has none"),
+        (args.router_mode == "kv", KV_REFUSAL),
         (args.mesh is not None, "--mesh: device meshes are not served yet"),
         (args.kv_sp, "--kv-sp: the striped KV cache is not served yet"),
         (args.coordinator is not None or args.num_nodes != 1 or args.node_rank != 0,
@@ -189,12 +228,32 @@ def main(argv: list[str] | None = None) -> None:
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname).1s %(name)s: %(message)s",
     )
+    if args.cmd == "control-plane":
+        asyncio.run(_control_plane(args))
+        return
     refuse_unserved(args)
     asyncio.run(_run(args))
 
 
+async def _control_plane(args) -> None:
+    from dynamo_tpu_torch.runtime.transports.control_plane import ControlPlaneServer
+
+    server = await ControlPlaneServer(
+        host=args.host, port=args.port, token=args.token
+    ).start()
+    print(f"control plane on {server.address}", flush=True)
+    await _wait_for_signal()
+    await server.stop()
+
+
 async def _run(args) -> None:
     async with contextlib.AsyncExitStack() as stack:
+        if args.input.startswith("dyn://"):
+            drt = await start_runtime(args, stack)
+            endpoint_path, engine, served = await start_worker(args, drt, stack)
+            print(f"worker serving {endpoint_path}", flush=True)
+            await _worker_until_drain(args, drt, endpoint_path, engine, served, stack)
+            return
         if args.input == "http":
             service, engine = await start_http(args, stack)
             await _wait_for_signal()
@@ -212,6 +271,166 @@ async def _run(args) -> None:
             await _text_chat(args, manager)
         else:
             await _batch(args, manager, args.input.split(":", 1)[1])
+
+
+def _push_logged(stack, fn) -> None:
+    """A cleanup step whose failure is logged, not raised: teardown of
+    the runtime must not turn a clean drain into a failed exit."""
+    async def run() -> None:
+        try:
+            await fn()
+        except Exception:  # noqa: BLE001 — cleanup boundary
+            logger.exception("cleanup failed")
+
+    stack.push_async_callback(run)
+
+
+async def start_runtime(args, stack):
+    """Step 1 of a run: the DistributedRuntime — joined to
+    ``--control-plane``, to the plane ``--spawn-control-plane`` hosts in
+    this process, or in process when neither is named. None when the
+    run needs no runtime: a local engine behind a local front."""
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    needed = (
+        args.input.startswith("dyn://") or args.output == "dyn"
+        or args.control_plane is not None or args.spawn_control_plane is not None
+    )
+    if not needed:
+        return None
+    if args.spawn_control_plane is not None:
+        from dynamo_tpu_torch.runtime.transports.control_plane import (
+            ControlPlaneServer,
+        )
+
+        server = await ControlPlaneServer(port=int(args.spawn_control_plane)).start()
+        _push_logged(stack, server.stop)
+        print(f"control plane on {server.address}", flush=True)
+        args.control_plane = server.address
+    if args.control_plane:
+        drt = await DistributedRuntime.connect(args.control_plane)
+    else:
+        drt = await DistributedRuntime.in_process()
+    _push_logged(stack, drt.shutdown)
+    return drt
+
+
+async def start_worker(args, drt, stack):
+    """Step 2 of a run: build the local engine (warmed up), serve it at
+    the endpoint and register its model — only then, so no router ever
+    picks a warming worker. Returns (endpoint path, the TorchEngine or
+    None for echo outputs, the ServedInstance)."""
+    from dynamo_tpu_torch.llm.discovery import register_llm
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.runtime.component import EndpointId
+
+    endpoint_path = args.input if args.input.startswith("dyn://") else args.endpoint
+    eid = EndpointId.parse(endpoint_path)
+    endpoint = drt.namespace(eid.namespace).component(eid.component).endpoint(eid.name)
+    engine, card, torch_engine = await _start_engine(args, stack)
+    if torch_engine is not None and torch_engine.device.type == "cuda":
+        if args.no_warmup:
+            # Warmup launched every kernel; without it, build and load
+            # them now: a worker that cannot exits before it registers.
+            from dynamo_tpu_torch.ops.kernels import _build
+
+            for name in kernels.KERNEL_SOURCES:
+                await asyncio.to_thread(_build.load, name)
+        # The served path's launch counts start here (worker_report).
+        kernels.set_launch_counts({k: 0 for k in kernels.launch_counts()})
+    served = await endpoint.serve(engine)
+    await register_llm(drt, endpoint, card, model_type=card.model_type)
+    print(f"model {card.name!r} registered at {endpoint_path}", flush=True)
+    return endpoint_path, torch_engine, served
+
+
+async def _worker_until_drain(args, drt, endpoint_path, engine, served, stack) -> None:
+    """Worker mode's main loop: wait for SIGTERM/SIGINT or the
+    control-plane drain verb, then drain (``_graceful_drain``) and
+    return; the unwind revokes the lease. Prints the worker's kernel
+    launch counts last (``worker_report``)."""
+    from dynamo_tpu_torch.runtime.component import EndpointId
+    from dynamo_tpu_torch.runtime.drain import watch_drain
+
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    eid = EndpointId.parse(endpoint_path)
+    watch = await watch_drain(drt, eid.namespace, eid.component, stop.set)
+    if args.health_port and engine is not None:
+        from dynamo_tpu_torch.llm.http_service import HealthServer
+
+        health = HealthServer(
+            engine.readiness, host="0.0.0.0", port=args.health_port,
+            gauges=lambda: {"ingress_requests_total": served.requests_total},
+        )
+        await health.start()
+        _push_logged(stack, health.stop)
+        print(f"worker health on http://0.0.0.0:{health.port}", flush=True)
+    await stop.wait()
+    watch.close()
+    print("draining", flush=True)
+    await _graceful_drain(engine, served, args.drain_grace_s)
+    if engine is not None:
+        print("worker report " + json.dumps(worker_report(engine, served)), flush=True)
+
+
+def worker_report(engine, served) -> dict:
+    """What a worker served: requests, unified dispatches, layers, every
+    kernel launch counter since it registered and, on the card, its peak
+    and reserved device memory."""
+    import torch
+
+    from dynamo_tpu_torch.ops import kernels
+
+    report = {
+        "requests": served.requests_total,
+        "unified_dispatches": engine.unified_dispatches,
+        "num_layers": engine.cfg.model.num_layers,
+        "device": engine.device.type,
+        "kernel_launches": kernels.launch_counts(),
+    }
+    if engine.device.type == "cuda":
+        report["cuda_max_allocated_bytes"] = torch.cuda.max_memory_allocated(engine.device)
+        report["cuda_reserved_bytes"] = torch.cuda.memory_reserved(engine.device)
+    return report
+
+
+async def _graceful_drain(engine, served, grace_s: float) -> bool:
+    """The drain's in-process half: the engine stops admitting (readiness
+    flips), the served instance deregisters first — routers evict now —
+    then awaits its in-flight handlers, and the engine gets the rest of
+    the grace to finish what is left."""
+    t0 = time.monotonic()
+    ok = True
+    if engine is not None:
+        engine.begin_drain()
+    if served is not None:
+        ok = await served.drain(grace_s)
+    if engine is not None:
+        remaining = max(1.0, grace_s - (time.monotonic() - t0))
+        ok = await engine.wait_drained(remaining) and ok
+    print("drain complete" if ok else "drain grace expired", flush=True)
+    return ok
+
+
+async def _start_frontend(args, drt, engine_ops=()):
+    """ModelWatcher + ModelManager over the runtime's discovery plane;
+    waits up to 5 s for the first model to appear."""
+    from dynamo_tpu_torch.llm.discovery import ModelManager, ModelWatcher
+    from dynamo_tpu_torch.runtime.egress import RouterMode
+
+    manager = ModelManager()
+    watcher = ModelWatcher(
+        drt, manager, router_mode=RouterMode(args.router_mode), engine_ops=engine_ops
+    )
+    await watcher.start()
+    for _ in range(50):
+        if manager.models():
+            break
+        await asyncio.sleep(0.1)
+    return manager
 
 
 async def _wait_for_signal() -> None:
@@ -255,6 +474,8 @@ def _local_and_cfg(args):
         # With warmup on, hold admission until the hot program set is
         # made; --no-warmup serves at once, degraded.
         warmup_gate="degraded" if args.no_warmup else "hold",
+        max_waiting=args.max_waiting,
+        max_queue_delay_s=args.max_queue_delay_s,
     )
     try:
         ecfg.validate()
@@ -300,15 +521,24 @@ async def _start_engine(args, stack):
 
 
 async def start_pipeline(args, stack, engine_ops=()):
-    """(ModelManager serving the one local model, the TorchEngine or
-    None for echo outputs). ``engine_ops`` are linked between the
-    detokenizer and the engine (a ``Tap``, for one)."""
+    """(ModelManager, the local TorchEngine or None). Without a runtime
+    the manager serves the local engine in process; with one (a control
+    plane, or ``--out dyn``) the local engine — unless ``--out dyn`` —
+    is served at ``--endpoint`` and registered, and the manager routes
+    to every discovered worker. ``engine_ops`` are linked between the
+    detokenizer and the engine or router (a ``Tap``, for one)."""
     from dynamo_tpu_torch.llm.discovery import ModelManager, build_serving_pipeline
 
-    engine, card, torch_engine = await _start_engine(args, stack)
-    manager = ModelManager()
-    manager.add_model(card.name, build_serving_pipeline(card, engine, engine_ops))
-    return manager, torch_engine
+    drt = await start_runtime(args, stack)
+    if drt is None:
+        engine, card, torch_engine = await _start_engine(args, stack)
+        manager = ModelManager()
+        manager.add_model(card.name, build_serving_pipeline(card, engine, engine_ops))
+        return manager, torch_engine
+    torch_engine = None
+    if args.output != "dyn":
+        _path, torch_engine, _served = await start_worker(args, drt, stack)
+    return await _start_frontend(args, drt, engine_ops), torch_engine
 
 
 async def start_http(args, stack, engine_ops=()):
@@ -336,7 +566,7 @@ async def start_http(args, stack, engine_ops=()):
     stack.push_async_callback(service.stop)
     print(
         f"OpenAI server on http://{args.http_host}:{service.port} "
-        f"(models: {manager.models()})",
+        f"(models: {manager.models() or '<awaiting workers>'})",
         flush=True,
     )
     return service, engine

@@ -70,6 +70,11 @@ class EngineConfig:
     # flags it (served_unwarmed; each program then captures at first use,
     # counted in mid_traffic_compiles_total).
     warmup_gate: str = "degraded"
+    # Overload bounds on the engine waiting list (0 = unbounded): past
+    # max_waiting the oldest waiter finishes with FinishReason.SHED;
+    # waiters older than max_queue_delay_s seconds finish the same way.
+    max_waiting: int = 0
+    max_queue_delay_s: float = 0.0
 
     # -- reference features the port refuses (validate) --------------------
     quant: str | None = None
@@ -131,6 +136,11 @@ class EngineConfig:
             raise ValueError(
                 f"model {self.model.name}: {', '.join(missing)} not served "
                 "by this slice of the port"
+            )
+        if self.max_waiting < 0 or self.max_queue_delay_s < 0:
+            raise ValueError(
+                "max_waiting and max_queue_delay_s must be >= 0 "
+                "(0 = unbounded)"
             )
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype={self.dtype!r} not in {list(DTYPES)}")

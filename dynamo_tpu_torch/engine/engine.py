@@ -514,6 +514,8 @@ class TorchEngine:
         prefill quanta, dispatch it."""
         self._drain_submissions()
         did = False
+        if self.scheduler.waiting:
+            self.scheduler.expire_waiting()
         # 1. Retire in-flight dispatches: device-ready ones, plus the
         #    oldest when the pipeline is at depth. Speculation runs
         #    depth 1: each dispatch's variable progress, and the host

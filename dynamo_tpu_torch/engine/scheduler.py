@@ -10,6 +10,7 @@ tokens, so a block is registered exactly when its KV is fully written.
 from __future__ import annotations
 
 import logging
+import time
 from collections import deque
 
 from dynamo_tpu_torch.engine.config import EngineConfig
@@ -17,6 +18,7 @@ from dynamo_tpu_torch.engine.kv_cache import BlockAllocator
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
 from dynamo_tpu_torch.llm.protocols.common import FinishReason
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+from dynamo_tpu_torch.utils.overload import OVERLOAD
 
 logger = logging.getLogger(__name__)
 
@@ -95,6 +97,48 @@ class Scheduler:
             seq.emit(None, FinishReason.ERROR)
             return
         self.waiting.append(seq)
+        if self.cfg.max_waiting and len(self.waiting) > self.cfg.max_waiting:
+            # Depth bound: shed the head of the queue — it has waited
+            # longest and is the likeliest to be abandoned by its client.
+            # A typed finish, never a silent drop.
+            victim = self._shed_victim()
+            self.waiting.remove(victim)
+            OVERLOAD.note_shed("engine.waiting")
+            logger.warning(
+                "waiting list over bound (%d): shedding oldest %s",
+                self.cfg.max_waiting, victim.request_id,
+            )
+            victim.status = SeqStatus.FINISHED
+            victim.emit(None, FinishReason.SHED)
+
+    def _shed_victim(self) -> Sequence:
+        """The depth bound's victim: the head of the waiting list. Every
+        request of the port is interactive; the reference's batch-class
+        victims first arrive with SLO classes (ROADMAP A4)."""
+        return self.waiting[0]
+
+    def expire_waiting(self) -> int:
+        """Sweep the waiting list: sequences older than
+        ``max_queue_delay_s`` finish with SHED. Called once per engine
+        step while anything waits. Returns the number removed. (The
+        reference's deadline branch arrives with deadlines, ROADMAP A4.)"""
+        age_bound = self.cfg.max_queue_delay_s
+        if not self.waiting or not age_bound:
+            return 0
+        now = time.monotonic()
+        kept: deque[Sequence] = deque()
+        removed = 0
+        for seq in self.waiting:
+            if now - seq.arrival_s > age_bound:
+                OVERLOAD.note_shed("engine.waiting_age")
+                seq.status = SeqStatus.FINISHED
+                seq.emit(None, FinishReason.SHED)
+                removed += 1
+            else:
+                kept.append(seq)
+        if removed:
+            self.waiting = kept
+        return removed
 
     def abort(
         self, seq: Sequence, reason: FinishReason = FinishReason.CANCELLED

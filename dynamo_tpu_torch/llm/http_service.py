@@ -49,7 +49,13 @@ from dynamo_tpu_torch.llm.admission import AdmissionController, AdmissionRejecte
 from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.metrics import Metrics
 from dynamo_tpu_torch.llm.protocols.annotated import Annotated
-from dynamo_tpu_torch.llm.protocols.common import RequestError, ShedError
+from dynamo_tpu_torch.llm.protocols.common import (
+    DeadlineError,
+    FailoverExhausted,
+    RequestError,
+    ShedError,
+    WorkerDiedError,
+)
 from dynamo_tpu_torch.llm.protocols.openai import (
     ChatCompletionChunk,
     ChatCompletionRequest,
@@ -515,6 +521,12 @@ class HttpService:
                 return _error(400, str(exc))
             except ShedError as exc:
                 return _shed_response(str(exc), exc.retry_after_s, exc.draining)
+            except DeadlineError as exc:
+                return _error(504, str(exc), kind="deadline_exceeded")
+            except (WorkerDiedError, FailoverExhausted) as exc:
+                # The serving worker died and failover could not complete
+                # the request elsewhere: a typed 502, never a 500.
+                return _error(502, str(exc), kind="worker_died")
             except Exception as exc:  # noqa: BLE001
                 logger.exception("%s failed", endpoint)
                 return _error(500, str(exc))
@@ -536,6 +548,10 @@ class HttpService:
                 await w.write(SseEvent.data_json(obj).encode())
             await w.write(SseEvent.done().encode())
             guard.success()
+        except (WorkerDiedError, FailoverExhausted) as exc:
+            # A worker death the failover plane could not absorb (a
+            # ConnectionError, but not the client's): reported in-band.
+            await self._stream_error(w, exc, "worker_died")
         except (ConnectionError, asyncio.CancelledError):
             ctx.kill()
             await stream.aclose()
@@ -548,15 +564,21 @@ class HttpService:
                 kind = "overloaded_error"
             elif isinstance(exc, RequestError):
                 kind = "invalid_request_error"
+            elif isinstance(exc, DeadlineError):
+                kind = "deadline_exceeded"
             else:
                 logger.exception("stream failed")
                 kind = "internal_error"
-            await w.write(SseEvent.data_json(
-                {"error": {"message": str(exc), "type": kind}}
-            ).encode())
-            await w.write(SseEvent.done().encode())
+            await self._stream_error(w, exc, kind)
         await w.write_eof()
         return None
+
+    @staticmethod
+    async def _stream_error(w: _StreamWriter, exc: Exception, kind: str) -> None:
+        await w.write(SseEvent.data_json(
+            {"error": {"message": str(exc), "type": kind}}
+        ).encode())
+        await w.write(SseEvent.done().encode())
 
     async def _aggregate(self, engine, ctx: Context, oai, guard) -> _Response:
         """Fold the stream into one response."""
@@ -625,3 +647,53 @@ class HttpService:
                 usage=usage,
             )
         return _json_response(full.model_dump())
+
+
+class HealthServer(HttpService):
+    """The worker's health and metrics endpoint (``--health-port``): no
+    OpenAI surface. ``/health`` answers 503 while the engine warms or
+    drains (the readiness probe's target); ``/metrics`` exports every
+    numeric field of the engine's readiness snapshot, the process-wide
+    shed/fault/retry/failover counters and ``gauges()`` (the served
+    endpoint's request count), under the prefix ``dyntpu_worker``."""
+
+    _ROUTES = {
+        "/health": ("GET", "_health"),
+        "/live": ("GET", "_live"),
+        "/metrics": ("GET", "_metrics"),
+    }
+
+    def __init__(self, readiness, host: str = "0.0.0.0", port: int = 8081,
+                 gauges=None) -> None:
+        super().__init__(ModelManager(), host=host, port=port, readiness=readiness)
+        self.metrics = Metrics(prefix="dyntpu_worker")
+        self._gauges = gauges
+
+    async def _health(self, _req, _w) -> _Response:
+        eng = self._engine_readiness() or {}
+        state = eng.get("state", "ready")
+        if state in ("warming", "draining"):
+            return _json_response({"status": state, "engine": eng}, status=503)
+        return _json_response({"status": "healthy", "engine": eng})
+
+    async def _metrics(self, _req, _w) -> _Response:
+        from dynamo_tpu_torch.runtime.failover import FAILOVER
+        from dynamo_tpu_torch.utils.faults import FAULTS
+        from dynamo_tpu_torch.utils.retry import RETRIES
+
+        eng = self._engine_readiness() or {}
+        values = {k: v for k, v in eng.items() if isinstance(v, (int, float))}
+        values.update({
+            "engine_ready": eng.get("state") == "ready",
+            "shed_requests_total": OVERLOAD.shed_total,
+            "faults_injected_total": FAULTS.total_injected,
+            "retries_total": RETRIES.total,
+            "failover_total": FAILOVER.total,
+            "failover_success_total": FAILOVER.success_total,
+            "workers_marked_dead_total": FAILOVER.marked_dead_total,
+        })
+        if self._gauges is not None:
+            values.update(self._gauges())
+        for key, val in values.items():
+            self.metrics.set_gauge(key, float(val))
+        return _text_response(200, self.metrics.render())

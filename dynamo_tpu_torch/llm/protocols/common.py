@@ -39,6 +39,38 @@ class ShedError(RuntimeError):
         self.draining = draining
 
 
+class DeadlineError(RuntimeError):
+    """The request's deadline expired before it finished. Maps to HTTP
+    504. The port serves no deadlines yet (ROADMAP A4); the class exists
+    so a worker's error frame keeps its type across the wire."""
+
+
+class WorkerDiedError(ConnectionError):
+    """The worker serving this request died: the response stream closed
+    without a terminal frame, the dispatch found a dead subject, or the
+    engine faulted mid-stream. A ConnectionError, so transport filters
+    (retry policies, the failover plane) classify it as peer death, never
+    as a request fault: this class, and only this one, is eligible for
+    mid-stream failover. Maps to HTTP 502 when failover is unavailable or
+    exhausted.
+
+    ``transport_dead`` is set by the transport layer when the evidence is
+    the socket itself (no terminal frame, connect refused or timed out);
+    a worker-reported error frame leaves it False. Both fail over; only
+    the former evicts the worker from the router's view."""
+
+    transport_dead: bool = False
+
+
+class FailoverExhausted(RuntimeError):
+    """Mid-stream failover ran out of attempts or healthy capacity: a
+    terminal state that nothing upstream retries. Maps to HTTP 502."""
+
+    def __init__(self, message: str, attempts: int = 0) -> None:
+        super().__init__(message)
+        self.attempts = attempts
+
+
 class FinishReason(str, enum.Enum):
     STOP = "stop"            # eos or stop sequence
     LENGTH = "length"        # hit max_tokens / context limit

@@ -1,0 +1,202 @@
+"""DistributedRuntime: the per-process handle to the control/data planes
+(port of dynamo_tpu/runtime/distributed.py).
+
+Mirrors the reference (reference: lib/runtime/src/distributed.rs:34-77): a
+Runtime plus a discovery store client with a *primary lease* kept alive by a
+background task — if the lease dies the runtime shuts down, and if the
+runtime shuts down the lease is revoked (reference:
+lib/runtime/src/transports/etcd.rs:100-131) — plus the message bus and a lazy
+TCP response-stream server.
+
+Construction modes:
+- ``DistributedRuntime.in_process()`` — MemoryStore + InProcBus, single
+  process (reference analogue: from_settings_without_discovery,
+  distributed.rs:85).
+- ``DistributedRuntime.connect(addr)`` — client of the framework's own
+  control-plane server (multi-process / multi-host).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Optional
+
+from dynamo_tpu_torch.runtime.component import Namespace
+from dynamo_tpu_torch.runtime.runtime import Runtime
+from dynamo_tpu_torch.runtime.transports.bus import InProcBus
+from dynamo_tpu_torch.runtime.transports.store import KeyValueStore, MemoryStore
+from dynamo_tpu_torch.runtime.transports.tcp import TcpStreamServer
+from dynamo_tpu_torch.runtime.engine import CancellationToken
+from dynamo_tpu_torch.utils.task import CriticalTask, spawn_tracked
+
+logger = logging.getLogger(__name__)
+
+LEASE_TTL_S = 10.0
+
+
+class DistributedRuntime:
+    def __init__(
+        self,
+        runtime: Runtime,
+        store: KeyValueStore,
+        bus,
+        lease_id: int,
+        keepalive: Optional[CriticalTask] = None,
+    ) -> None:
+        self.runtime = runtime
+        self.store = store
+        self.bus = bus
+        self.primary_lease_id = lease_id
+        self.lease_ttl_s = LEASE_TTL_S
+        self._keepalive = keepalive
+        self._tcp_server: TcpStreamServer | None = None
+        self._tcp_lock = asyncio.Lock()
+        runtime.token.on_cancel(self._on_shutdown)
+
+    # -- constructors -------------------------------------------------------
+    @staticmethod
+    async def in_process(
+        runtime: Runtime | None = None,
+        store: KeyValueStore | None = None,
+        bus=None,
+    ) -> "DistributedRuntime":
+        """In-process runtime. Pass another runtime's `store`/`bus` to create
+        a second logical worker sharing one control plane (the test pattern
+        for multi-worker behavior without processes — reference analogue:
+        lib/runtime/tests/common/mock.rs)."""
+        runtime = runtime or Runtime()
+        store = store if store is not None else MemoryStore()
+        bus = bus if bus is not None else InProcBus()
+        lease_id = await store.grant_lease(LEASE_TTL_S)
+        drt = DistributedRuntime(runtime, store, bus, lease_id)
+        drt._start_keepalive()
+        return drt
+
+    @staticmethod
+    async def connect(
+        addr: str,
+        runtime: Runtime | None = None,
+        token: str | None = None,
+        lease_ttl_s: float = LEASE_TTL_S,
+    ) -> "DistributedRuntime":
+        """Join a deployment via its control-plane server
+        (transports/control_plane.py). The client implements both the store
+        and bus protocols over one multiplexed TCP connection. Connection
+        establishment retries under the shared backoff policy — workers
+        routinely start before the control plane finishes binding (k8s
+        rollout ordering), and a refused first dial must not kill them."""
+        from dynamo_tpu_torch.runtime.transports.control_client import ControlPlaneClient
+        from dynamo_tpu_torch.utils.retry import CONTROL_CONNECT, retry_async
+
+        runtime = runtime or Runtime()
+
+        async def dial() -> tuple[ControlPlaneClient, int]:
+            # Dial + first RPC as ONE retried unit: a server that accepts
+            # the socket but dies before granting the lease re-dials too.
+            c = await ControlPlaneClient.connect(addr, token=token)
+            try:
+                return c, await c.grant_lease(lease_ttl_s)
+            except BaseException:
+                await c.close()
+                raise
+
+        client, lease_id = await retry_async(
+            dial, CONTROL_CONNECT, seam="control.connect"
+        )
+        drt = DistributedRuntime(runtime, client, client, lease_id)
+        drt.lease_ttl_s = lease_ttl_s
+        drt._start_keepalive()
+        return drt
+
+    # -- lease lifecycle ----------------------------------------------------
+    def _start_keepalive(self) -> None:
+        from dynamo_tpu_torch.utils.retry import RetryPolicy, retry_async
+
+        async def keepalive(token: CancellationToken) -> None:
+            while not token.is_cancelled():
+                await asyncio.sleep(self.lease_ttl_s / 3)
+                if token.is_cancelled():
+                    break  # shutting down — the revoked lease is expected
+                # Flap hardening: a TRANSIENT control-plane blip must not
+                # take a healthy worker down — the lease tolerates missed
+                # renewals up to its TTL, so the renewal does too. Retries
+                # are budgeted to ~ttl/2 of wall (sleep ttl/3 + retries
+                # stays under the TTL); only a partition that outlives
+                # that budget — i.e. one the lease itself cannot survive —
+                # escalates to the lease-death ⇒ shutdown coupling.
+                ttl = self.lease_ttl_s
+                policy = RetryPolicy(
+                    attempts=6,
+                    base_delay_s=ttl / 30,
+                    max_delay_s=ttl / 6,
+                    deadline_s=ttl / 2,
+                    jitter=0.25,
+                )
+                try:
+                    ok = await retry_async(
+                        lambda: self.store.keep_alive(self.primary_lease_id),
+                        policy,
+                        seam="control.keepalive",
+                    )
+                except asyncio.CancelledError:
+                    raise
+                except Exception as exc:  # noqa: BLE001 — budget spent, lease is gone
+                    raise RuntimeError(
+                        f"primary lease {self.primary_lease_id:#x} lost: "
+                        f"keepalive failed past the TTL budget ({exc!r})"
+                    ) from exc
+                if not ok:
+                    # The server answered and said NO — authoritative,
+                    # no retry: the lease already expired server-side.
+                    raise RuntimeError(
+                        f"primary lease {self.primary_lease_id:#x} lost"
+                    )
+
+        self._keepalive = CriticalTask(
+            keepalive, self.runtime.token, name="primary-lease-keepalive"
+        )
+
+    def _on_shutdown(self) -> None:
+        # Best-effort lease revoke so instance keys vanish promptly (a
+        # runtime cancelled by a failed keepalive never reaches shutdown()).
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+        spawn_tracked(loop.create_task(self._revoke_quietly()), name="lease-revoke")
+
+    async def _revoke_quietly(self) -> None:
+        try:
+            await self.store.revoke_lease(self.primary_lease_id)
+        except (ConnectionError, RuntimeError, OSError):
+            # The plane is gone or shutdown() closed the connection first:
+            # the lease then expires by its TTL.
+            logger.debug("lease revoke on shutdown failed", exc_info=True)
+
+    async def shutdown(self) -> None:
+        self.runtime.shutdown()
+        await self.store.revoke_lease(self.primary_lease_id)
+        if self._tcp_server is not None:
+            await self._tcp_server.stop()
+        # A remote control-plane client holds a live TCP connection; close
+        # it so the server's handler (and wait_closed) can finish.
+        closer = getattr(self.store, "close", None)
+        if closer is not None:
+            await closer()
+
+    # -- accessors ----------------------------------------------------------
+    def namespace(self, name: str) -> Namespace:
+        return Namespace(self, name)
+
+    async def tcp_server(self) -> TcpStreamServer:
+        """Lazy caller-side response-stream server. Guarded: a concurrent
+        caller must never see a constructed-but-unbound server (it would
+        hand out ConnectionInfo with port 0)."""
+        if self._tcp_server is None:
+            async with self._tcp_lock:
+                if self._tcp_server is None:
+                    server = TcpStreamServer()
+                    await server.start()
+                    self._tcp_server = server
+        return self._tcp_server

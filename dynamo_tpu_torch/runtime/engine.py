@@ -8,8 +8,17 @@ wraps the payload, the request id and the stop/kill signals.
 from __future__ import annotations
 
 import asyncio
+import logging
 import uuid
-from typing import Any, AsyncIterator, Generic, Protocol, TypeVar, runtime_checkable
+from typing import (
+    Any,
+    AsyncIterator,
+    Callable,
+    Generic,
+    Protocol,
+    TypeVar,
+    runtime_checkable,
+)
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -22,6 +31,7 @@ class CancellationToken:
     def __init__(self, parent: "CancellationToken | None" = None) -> None:
         self._event = asyncio.Event()
         self._children: list[CancellationToken] = []
+        self._callbacks: list[Callable[[], None]] = []
         if parent is not None:
             parent._children.append(self)
             if parent.is_cancelled():
@@ -37,8 +47,21 @@ class CancellationToken:
         if self._event.is_set():
             return
         self._event.set()
+        for cb in self._callbacks:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — one callback must not stop the cascade
+                logging.getLogger(__name__).exception("cancel callback failed")
         for child in self._children:
             child.cancel()
+
+    def on_cancel(self, cb: Callable[[], None]) -> None:
+        """Register a synchronous callback run once on cancellation (at
+        once if already cancelled)."""
+        if self.is_cancelled():
+            cb()
+        else:
+            self._callbacks.append(cb)
 
 
 class Context(Generic[T]):

@@ -289,8 +289,8 @@ def _port_files():
 
 # The JAX stack, and the third-party packages the JAX package's serving
 # front uses that the machine with the card does not have.
-BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "httpx",
-           "jinja2", "tokenizers", "transformers", "uvicorn")
+BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "aiohttp", "pydantic",
+           "httpx", "jinja2", "tokenizers", "transformers", "uvicorn")
 THIRD_PARTY_ALLOWED = ("torch", "numpy")
 
 

@@ -500,6 +500,8 @@ def test_cli_flags_keep_the_reference_defaults():
     td = vars(t_cli.build_parser().parse_args(["run"]))
     assert td.pop("device") == "cuda"
     assert td.pop("output") == "torch" and jd["output"] == "tpu"
+    assert td.pop("endpoint") == "dyn://dynamo.torch.generate"
+    assert jd["endpoint"] == "dyn://dynamo.tpu.generate"
     missing = [k for k in td if k not in jd]
     assert not missing, missing
     assert {k: td[k] for k in td} == {k: jd[k] for k in td}
@@ -507,8 +509,6 @@ def test_cli_flags_keep_the_reference_defaults():
 
 REFUSED = {
     "--out tpu": ["--out", "tpu"],
-    "--out dyn": ["--out", "dyn"],
-    "--in dyn://": ["--in", "dyn://a.b.c"],
     "--mesh": ["--mesh", "tp=2"],
     "--kv-sp": ["--kv-sp"],
     "--coordinator": ["--coordinator", "h:1"],
@@ -516,8 +516,6 @@ REFUSED = {
     "--quant": ["--quant", "int8"],
     "--weight-quant": ["--weight-quant", "int8"],
     "--speculative-k": ["--speculative-k", "-1"],
-    "--control-plane": ["--control-plane", "h:1"],
-    "--spawn-control-plane": ["--spawn-control-plane"],
     "--router-mode kv": ["--router-mode", "kv"],
     "--model-type embeddings": ["--model-type", "embeddings"],
     "--default-deadline-s": ["--default-deadline-s", "2"],
@@ -536,6 +534,26 @@ def test_cli_refuses_unserved_flags_by_name(flag):
     assert isinstance(exc.value.code, str) and flag.split()[0] in exc.value.code
 
 
+# The runtime plane's flags, refused until the runtime slice, are served.
+SERVED = {
+    "--out dyn": ["--out", "dyn"],
+    "--in dyn://": ["--in", "dyn://a.b.c"],
+    "--control-plane": ["--control-plane", "h:1"],
+    "--spawn-control-plane": ["--spawn-control-plane"],
+    "--router-mode random": ["--router-mode", "random"],
+}
+
+
+@pytest.mark.parametrize("flag", sorted(SERVED))
+def test_cli_serves_the_runtime_plane_flags(flag):
+    t_cli.refuse_unserved(t_cli.build_parser().parse_args(["run", *SERVED[flag]]))
+
+
+def test_cli_router_mode_kv_refusal_names_roadmap_a5():
+    with pytest.raises(SystemExit, match="ROADMAP A5"):
+        t_cli.main(["run", "--router-mode", "kv"])
+
+
 def test_cli_refuses_non_preset_models_and_bad_dtypes():
     for argv, words in ((["--model-path", "hf://a/b"], "preset:NAME"),
                         (["--dtype", "float16"], "dtype")):
@@ -545,7 +563,7 @@ def test_cli_refuses_non_preset_models_and_bad_dtypes():
 
 
 def test_cli_parser_rejects_flags_without_a_counterpart():
-    for flag in ("--max-waiting", "--compile-cache-dir", "--health-port"):
+    for flag in ("--compile-cache-dir", "--profile-dir", "--coloc-min-quantum"):
         with pytest.raises(SystemExit) as exc:
             t_cli.build_parser().parse_args(["run", flag, "1"])
         assert exc.value.code == 2

@@ -103,6 +103,36 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 one request in flight (it completes; a new request gets
                 503), and one ``run --in batch:FILE`` subprocess whose
                 JSON report is parsed.
+   observe    — the OpenAI server again (the CLI's own path, the serve's
+                settings, quantum 256), with the tracer writing a JSONL
+                capture, the flight recorder on and a profile directory.
+                Server A, ``--coloc static``: 4 interactive streams (64-token
+                prompts, 192 greedy tokens) give the decode ITL p50 at the
+                client; itl_slo_ms = 1.5 × that, printed; the same streams
+                again with a burst of 4 batch prompts of 896 tokens (8
+                tokens each) sent mid-decode; then the serve profile's wall
+                ms per dispatch with the tracer and the flight recorder on
+                and swapped for no-op stand-ins, in turns. Server B,
+                ``--coloc adaptive --itl-slo-ms`` that SLO: the same burst
+                leg. Server C, an SLO 10% above the decode-only EMA (at
+                1.5× the H100's 256-row dispatch may never pressure the
+                controller; this one does): the same leg; then, under the
+                same traffic, a request with
+                ``X-Request-Timeout-Ms: 1`` sent while the burst holds every
+                slot, and a /debug/profile?seconds=1 window. Reported: client
+                ITL p50/p95 over each burst, the quantum trajectory from
+                /debug/steps, itl_slo_violations_total. Gates: every reply
+                200, full-length streams held to the no-cache reference as
+                in phase 8; no capture mid-traffic; on every leg the
+                quantum starts at 256, never goes below 16, and goes down
+                where (and only where) the controller's EMA crossed its
+                SLO, which the tight leg's must; one flight
+                record per unified dispatch; the 1 ms request answers 504
+                and deadline_exceeded_total grows by one; the profile's
+                Chrome trace names the ragged kernel; /metrics carries the
+                new counters and the trace histograms; the port's
+                trace_merge --assert-complete passes on the capture; the
+                ragged wrapper launched 16 × the phase's dispatches.
 8. phases     — the phase-split entry points at full width on the serve's
                 weights: prefill_batch of 4 prompts (64–512 tokens), then
                 decode_multi of 32 steps; the prefill kernel launches
@@ -164,9 +194,11 @@ import asyncio
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1857,6 +1889,452 @@ def batch_cli(max_tokens: int) -> dict:
     return {"report": report, "process_s": time.monotonic() - t0}
 
 
+# -- phase 7b: observe ---------------------------------------------------------
+OBSERVE_STREAMS = 4          # interactive streams per leg
+OBSERVE_PROMPT = 64          # their prompt tokens
+OBSERVE_TOKENS = 192         # their greedy tokens
+OBSERVE_BURST = (4, 896, 8)  # batch prompts mid-decode: count, tokens, output
+OBSERVE_QUANTUM = 256        # the static leg's quantum, the adaptive leg's start
+OBSERVE_SLO_X = 1.5          # itl_slo_ms = this × the measured decode ITL p50
+OBSERVE_TIGHT_X = 1.1        # the tight leg's SLO = this × the decode-only EMA
+RAGGED_SYMBOLS = (b"ragged_tc_kernel", b"ragged_split_kernel")
+
+
+class NullTracer:
+    """Stands in for the process tracer while the A/B measures the serve
+    with tracing off: every call the engine makes is a no-op."""
+
+    abandoned_total = 0
+
+    def __getattr__(self, name):
+        return lambda *a, **kw: None
+
+    @contextlib.contextmanager
+    def span(self, *_a):
+        yield
+
+
+class NullFlight:
+    """Stands in for the engine's flight recorder in the same A/B."""
+
+    total_steps = 0
+
+    def note_step(self, *_a, **_kw) -> None:
+        pass
+
+
+async def observe_stream(port, body, headers, events):
+    """POST a streaming /v1/completions; each SSE token event is appended
+    to ``events`` as (perf_counter seconds, text) as it arrives. Returns
+    the response."""
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.llm.protocols.sse import decode_stream
+
+    def got(piece: bytes) -> None:
+        t = time.perf_counter()
+        for ev in decode_stream(piece.decode()):
+            if ev.data == "[DONE]":
+                continue
+            chunk = json.loads(ev.data)
+            if "error" in chunk:
+                raise SystemExit(f"observe: stream error {chunk}")
+            for ch in chunk.get("choices", []):
+                events.append((t, ch.get("finish_reason")))
+
+    return await fetch("127.0.0.1", port, "POST", "/v1/completions", body, headers,
+                       on_chunk=got)
+
+
+async def observe_leg(port, model, prompts, burst, tapped, tokens=None,
+                      during_burst=None) -> dict:
+    """One leg: OBSERVE_STREAMS interactive streams; once each has 32
+    tokens, the batch burst (if any) is sent and ``during_burst()``
+    (if any) runs beside it. Client ITL of the streams over the whole
+    leg and over the burst window (burst sent → last burst response)."""
+    tapped.clear()
+    tokens = tokens or OBSERVE_TOKENS
+    greedy = {"temperature": 0, "stream": True, "nvext": {"ignore_eos": True}}
+    events = [[] for _ in prompts]
+    interactive = {"X-Request-Class": "interactive"}
+    streams = [asyncio.create_task(observe_stream(
+        port, {"model": model, "prompt": p, "max_tokens": tokens, **greedy},
+        interactive, ev)) for p, ev in zip(prompts, events)]
+    extra = None
+    t_burst = t_done = None
+    if burst:
+        while min(len(ev) for ev in events) < 32:
+            if any(s.done() for s in streams):
+                raise SystemExit("observe: a stream ended before the burst")
+            await asyncio.sleep(0.001)
+        t_burst = time.perf_counter()
+        burst_events = [[] for _ in burst]
+        sent = [observe_stream(
+            port, {"model": model, "prompt": p, "max_tokens": OBSERVE_BURST[2], **greedy},
+            {"X-Request-Class": "batch"}, ev) for p, ev in zip(burst, burst_events)]
+        side = [during_burst()] if during_burst is not None else []
+        *burst_resps, extra = await asyncio.gather(*sent, *(side or [_none()]))
+        t_done = time.perf_counter()
+    resps = await asyncio.gather(*streams)
+    statuses = [r.status for r in resps] + ([r.status for r in burst_resps] if burst else [])
+    if any(c != 200 for c in statuses):
+        raise SystemExit(f"observe: statuses {statuses}")
+    gaps_all, gaps_burst = [], []
+    for ev in events:
+        times = [t for t, _ in ev]
+        for a, b in zip(times, times[1:]):
+            gaps_all.append(b - a)
+            if burst and t_burst <= b <= t_done:
+                gaps_burst.append(b - a)
+    out = {
+        "statuses": statuses,
+        "tokens": [len(ev) for ev in events],
+        "itl_p50_ms": float(np.percentile(gaps_all, 50)) * 1e3,
+        "itl_p95_ms": float(np.percentile(gaps_all, 95)) * 1e3,
+        "streams": [list(tapped.get(tuple(p), [])) for p in prompts],
+    }
+    if burst:
+        out.update({
+            "burst_window_ms": (t_done - t_burst) * 1e3,
+            "burst_itl_p50_ms": float(np.percentile(gaps_burst, 50)) * 1e3,
+            "burst_itl_p95_ms": float(np.percentile(gaps_burst, 95)) * 1e3,
+            "burst_itl_max_ms": max(gaps_burst) * 1e3,
+            "burst_gaps": len(gaps_burst),
+            "burst_streams": [list(tapped.get(tuple(p), [])) for p in burst],
+            "burst_tokens": [len(ev) for ev in burst_events],
+        })
+    return out, extra
+
+
+async def _none():
+    return None
+
+
+def quantum_trajectory(steps: list) -> list:
+    """Run-length form of the flight records' quantum: [quantum, steps]."""
+    out = []
+    for rec in steps:
+        if rec.get("kind") not in ("unified", "spec"):
+            continue
+        if out and out[-1][0] == rec["quantum"]:
+            out[-1][1] += 1
+        else:
+            out.append([rec["quantum"], 1])
+    return out
+
+
+async def tracing_ab(engine, prompts, max_tokens) -> dict:
+    """The serve profile's wall ms per dispatch with the tracer and the
+    flight recorder on, and with both swapped for no-op stand-ins, in
+    turns (on, off, on, off) on one engine."""
+    from dynamo_tpu_torch.utils import tracing
+
+    runs = []
+    for on in (True, False, True, False):
+        saved_tracer, saved_flight = tracing._default, engine.flight
+        if not on:
+            tracing._default, engine.flight = NullTracer(), NullFlight()
+        try:
+            prof = await profile_serve(engine, prompts, max_tokens)
+        finally:
+            tracing._default, engine.flight = saved_tracer, saved_flight
+        runs.append({"on": on, "wall_ms_per_dispatch": prof["wall_ms_per_dispatch"],
+                     "device_ms_per_dispatch": prof["device_ms_per_dispatch"],
+                     "dispatches": prof["dispatches"]})
+    on_ms = [r["wall_ms_per_dispatch"] for r in runs if r["on"]]
+    off_ms = [r["wall_ms_per_dispatch"] for r in runs if not r["on"]]
+    return {"runs": runs, "on_mean_ms": float(np.mean(on_ms)),
+            "off_mean_ms": float(np.mean(off_ms)),
+            "tracing_cost_ms_per_dispatch": float(np.mean(on_ms) - np.mean(off_ms))}
+
+
+def scan_trace(path: str, engine_tid: int) -> dict:
+    """The profile window's Chrome trace: bytes, the ragged kernel's
+    symbols found, device kernel events, and CPU ops on the engine
+    thread."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    doc = json.loads(raw)
+    events = doc.get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ragged = [e for e in kernels if e.get("name", "").find("ragged_") >= 0]
+    engine_ops = [e for e in events if e.get("cat") == "cpu_op"
+                  and e.get("tid") == engine_tid]
+    return {"trace_bytes": len(raw),
+            "ragged_symbols": [s.decode() for s in RAGGED_SYMBOLS if s in raw],
+            "kernel_events": len(kernels), "ragged_kernel_events": len(ragged),
+            "cpu_op_events": sum(1 for e in events if e.get("cat") == "cpu_op"),
+            "engine_thread_cpu_ops": len(engine_ops),
+            "engine_thread_op_names": sorted({e["name"] for e in engine_ops})[:6]}
+
+
+def metric_value(text: str, name: str) -> float | None:
+    """One gauge of the OpenAI server's /metrics text."""
+    for line in text.splitlines():
+        if line.startswith(f"dyntpu_http_service_{name} "):
+            return float(line.split()[1])
+    return None
+
+
+async def observe_adaptive_leg(port, engine, model, prompts, burst, tapped, slo,
+                               name) -> dict:
+    """The burst leg on an adaptive server; its flight records give the
+    quantum trajectory and whether the controller's EMA crossed the SLO."""
+    from dynamo_tpu_torch.llm.http_client import fetch
+
+    last = engine.debug_steps(1)
+    seq0 = last[-1]["seq"] if last else 0
+    leg, _ = await observe_leg(port, model, prompts, burst, tapped)
+    steps = (await fetch("127.0.0.1", port, "GET", "/debug/steps?n=1024")).json()["steps"]
+    recs = [r for r in steps if r["seq"] > seq0 and r["kind"] in ("unified", "spec")]
+    ready = engine.readiness()
+    leg.update({
+        "itl_slo_ms": slo,
+        "quantum_trajectory": quantum_trajectory(recs),
+        "flight_records": len(recs),
+        "ema_first_ms": recs[0]["itl_ema_ms"],
+        "ema_peak_ms": max(r["itl_ema_ms"] for r in recs),
+        "ema_crossed_slo": any(r["itl_ema_ms"] > slo for r in recs),
+        "coloc": {k: ready[k] for k in (
+            "coloc_quantum", "itl_ema_ms", "itl_p95_ms", "itl_slo_violations_total",
+            "coloc_prefill_deferrals_total")},
+    })
+    emit({"phase": "observe_leg", "leg": name, **{
+        k: v for k, v in leg.items() if "streams" not in k}})
+    return leg
+
+
+async def phase_observe(vocab: int) -> dict:
+    """Tracing, the flight recorder, deadlines, SLO classes, the
+    adaptive co-location controller and the profile window on the OpenAI
+    server at full width: see the module docstring (phase 7b)."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+    from dynamo_tpu_torch.runtime.pipeline import Tap
+    from dynamo_tpu_torch.tools import trace_merge
+    from dynamo_tpu_torch.utils.tracing import reset_tracer
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, vocab, OBSERVE_PROMPT).tolist()
+               for _ in range(OBSERVE_STREAMS)]
+    burst = [rng.integers(0, vocab, OBSERVE_BURST[1]).tolist()
+             for _ in range(OBSERVE_BURST[0])]
+    ab_prompts = [rng.integers(0, vocab, n).tolist() for n in rng.integers(64, 513, 8)]
+    tapped: dict[tuple, list[int]] = {}
+    tap = Tap(
+        on_request=lambda ctx: tapped.setdefault(tuple(ctx.payload["token_ids"]), []),
+        on_response=lambda ctx, item: tapped[tuple(ctx.payload["token_ids"])].extend(
+            item["token_ids"]),
+    )
+    base = HTTP_ARGS[:-1] + [str(OBSERVE_QUANTUM), "--http-host", "127.0.0.1",
+                             "--http-port", "0"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    capture = os.path.join(tmp, "trace.jsonl")
+    profile_dir = os.path.join(tmp, "profiles")
+    reset_tracer(capture)
+    result: dict = {"phase": "observe"}
+    legs: dict = {}
+    checks = []                    # (server, flight records, dispatches)
+    launches = dispatches = 0
+    mid = {}
+
+    async def start(extra, stack):
+        args = cli.build_parser().parse_args(base + extra)
+        cli.refuse_unserved(args)
+        service, engine = await cli.start_http(args, stack, engine_ops=(tap,))
+        reset_counts()
+        return service.port, engine, engine.unified_dispatches, engine.flight.total_steps
+
+    try:
+        # Server A, --coloc static (quantum 256): step 1 measures the
+        # decode ITL the SLO is set from; the burst leg is the control;
+        # step 4's A/B runs on the same engine.
+        async with contextlib.AsyncExitStack() as stack:
+            port, engine, d0, f0 = await start(["--coloc", "static"], stack)
+            model, cfg, params = engine.cfg.model.name, engine.cfg.model, engine.runner.params
+            legs["decode_only"], _ = await observe_leg(port, model, prompts, None, tapped)
+            emit({"phase": "observe_leg", "leg": "decode_only", **{
+                k: v for k, v in legs["decode_only"].items() if "streams" not in k}})
+            decode_p50 = legs["decode_only"]["itl_p50_ms"]
+            slo = OBSERVE_SLO_X * decode_p50
+            # From here the static controller measures against that SLO,
+            # as `--coloc static --itl-slo-ms` would have from the start
+            # (a static quantum never moves).
+            engine.coloc.slo_ms = slo
+            legs["static"] = await observe_adaptive_leg(
+                port, engine, model, prompts, burst, tapped, slo, "static")
+            mid["static"] = mid_traffic(engine)
+            checks.append(("static", engine.flight.total_steps - f0,
+                           engine.unified_dispatches - d0))
+            # Step 4 (its "off" runs swap the flight recorder out, so the
+            # record-per-dispatch check is taken before it).
+            result["tracing_ab"] = await tracing_ab(engine, ab_prompts, 32)
+            launches += fn.launches
+            dispatches += engine.unified_dispatches - d0
+        # A tight SLO in the controller's own units: 10% above its EMA of
+        # the decode-only leg (where the static burst leg began). At 1.5 x
+        # the decode ITL a 256-row dispatch may never pressure the SLO;
+        # a burst of them pressures this one and steady decode does not,
+        # so this leg shows the controller under pressure either way.
+        slo_tight = OBSERVE_TIGHT_X * legs["static"]["ema_first_ms"]
+        emit({"phase": "observe_slo", "decode_itl_p50_ms": decode_p50, "itl_slo_ms": slo,
+              "decode_ema_ms": legs["static"]["ema_first_ms"],
+              "static_ema_peak_ms": legs["static"]["ema_peak_ms"],
+              "itl_slo_tight_ms": slo_tight})
+        # Server B, --coloc adaptive --itl-slo-ms 1.5 x decode ITL.
+        async with contextlib.AsyncExitStack() as stack:
+            port, engine, d0, f0 = await start(
+                ["--coloc", "adaptive", "--itl-slo-ms", f"{slo:.4f}"], stack)
+            legs["adaptive"] = await observe_adaptive_leg(
+                port, engine, model, prompts, burst, tapped, slo, "adaptive")
+            mid["adaptive"] = mid_traffic(engine)
+            checks.append(("adaptive", engine.flight.total_steps - f0,
+                           engine.unified_dispatches - d0))
+            launches += fn.launches
+            dispatches += engine.unified_dispatches - d0
+        # Server C, --coloc adaptive at the tighter SLO, with the profile
+        # directory; then step 3 under the same traffic.
+        async with contextlib.AsyncExitStack() as stack:
+            port, engine, d0, f0 = await start(
+                ["--coloc", "adaptive", "--itl-slo-ms", f"{slo_tight:.4f}",
+                 "--profile-dir", profile_dir], stack)
+            legs["adaptive_tight"] = await observe_adaptive_leg(
+                port, engine, model, prompts, burst, tapped, slo_tight, "adaptive_tight")
+            m0 = (await fetch("127.0.0.1", port, "GET", "/metrics")).body.decode()
+
+            async def during_burst():
+                # Send once the running and waiting sequences fill every
+                # slot and none of the running ones is within 3 tokens of
+                # its end: the 1 ms request then waits for a slot that
+                # frees 2+ dispatches later, and expires in the waiting
+                # list before any output.
+                t0 = time.monotonic()
+                while True:
+                    running = list(engine.scheduler.running.values())
+                    queued = len(engine.scheduler.waiting)
+                    if (len(running) + queued >= engine.cfg.max_num_seqs
+                            and all(len(q.output_tokens) + 3 <= q.stop.max_tokens
+                                    for q in running)):
+                        break
+                    if time.monotonic() - t0 > 10.0:
+                        raise SystemExit("observe: the burst never filled the slots")
+                    await asyncio.sleep(0.0002)
+                prof = asyncio.create_task(fetch(
+                    "127.0.0.1", port, "GET", "/debug/profile?seconds=1"))
+                late = await fetch("127.0.0.1", port, "POST", "/v1/completions", {
+                    "model": model, "prompt": prompts[0][::-1], "max_tokens": 8,
+                    "temperature": 0}, {"X-Request-Timeout-Ms": "1"})
+                return late, await prof
+
+            legs["deadline_profile"], (late, prof) = await observe_leg(
+                port, model, prompts, burst, tapped, tokens=96,
+                during_burst=during_burst)
+            m1 = (await fetch("127.0.0.1", port, "GET", "/metrics")).body.decode()
+            result["deadline"] = {
+                "status": late.status,
+                "error_type": (late.json().get("error") or {}).get("type"),
+                "deadline_exceeded_total_delta":
+                    metric_value(m1, "deadline_exceeded_total")
+                    - metric_value(m0, "deadline_exceeded_total"),
+            }
+            result["metrics_has"] = {k: metric_value(m1, k) is not None for k in (
+                "itl_slo_violations_total", "deadline_exceeded_total",
+                "shed_interactive_total", "shed_batch_total", "coloc_quantum",
+                "flight_steps_total")} | {
+                "trace_histograms": "dyntpu_trace_itl_ms_bucket" in m1}
+            profile = prof.json()
+            result["profile"] = {"status": prof.status, **{
+                k: profile.get(k) for k in ("seconds", "device_events")}}
+            if prof.status == 200:
+                result["profile"].update(scan_trace(profile["trace"],
+                                                    engine._thread.native_id))
+            mid["adaptive_tight"] = mid_traffic(engine)
+            checks.append(("adaptive_tight", engine.flight.total_steps - f0,
+                           engine.unified_dispatches - d0))
+            launches += fn.launches
+            dispatches += engine.unified_dispatches - d0
+        reset_tracer(None)
+        merged = trace_merge.merge_report(trace_merge.load_captures([capture]))
+        result["trace_merge"] = {
+            "completed_requests": merged["completed_requests"],
+            "orphan_traces": len(merged["orphan_traces"]),
+            "incomplete": len(merged["incomplete"]),
+            "ttft_decomposition_p50_ms": {
+                k: v["p50_ms"] for k, v in merged["ttft_decomposition_ms"].items()},
+        }
+        with contextlib.redirect_stdout(io.StringIO()):   # its report, printed in full
+            result["trace_merge"]["assert_complete_exit"] = trace_merge.main(
+                [capture, "--assert-complete"])
+    finally:
+        reset_tracer(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # Every burst leg's streams held to the no-cache reference (the same
+    # seed gives the three servers the same weights).
+    ref_prompts, ref_streams = [], []
+    full = True
+    for name in ("decode_only", "static", "adaptive", "adaptive_tight"):
+        leg = legs[name]
+        ref_prompts += prompts
+        ref_streams += leg["streams"]
+        full &= all(len(s) == OBSERVE_TOKENS for s in leg["streams"])
+        if "burst_streams" in leg:
+            ref_prompts += burst
+            ref_streams += leg["burst_streams"]
+            full &= all(len(s) == OBSERVE_BURST[2] for s in leg["burst_streams"])
+    ref = teacher_forced(cfg, params, ref_prompts, ref_streams)
+    ref.pop("first_token_ref_logprob")
+    for leg in legs.values():
+        leg.pop("streams")
+        leg.pop("burst_streams", None)
+    result.update({
+        "legs": legs, "streams_full_length": full, **ref,
+        "mid_traffic_compiles_total": mid, "kernel_launches": launches,
+        "unified_dispatches": dispatches, "flight_checks": checks,
+        "num_layers": cfg.num_layers, "wall_s": time.monotonic() - t_phase,
+    })
+    emit(result)
+    if not (full and ref["logits_finite"] and ref["logits_shape_ok"]
+            and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+            and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
+        raise SystemExit("observe: streams short or disagreeing with the reference")
+    if any(mid.values()):
+        raise SystemExit(f"observe: graphs captured mid-traffic {mid}")
+    # The controller's contract on every leg: the quantum starts at 256,
+    # never goes below the floor, and goes down where (and only where) its
+    # EMA crossed the SLO; the tight leg must have crossed it.
+    for name in ("static", "adaptive", "adaptive_tight"):
+        leg = legs[name]
+        traj = [q for q, _ in leg["quantum_trajectory"]]
+        moved = min(traj) < OBSERVE_QUANTUM
+        want_moved = leg["ema_crossed_slo"] and name != "static"
+        if not traj or traj[0] != OBSERVE_QUANTUM or min(traj) < 16 or moved != want_moved:
+            raise SystemExit(f"observe: {name} quantum trajectory {leg['quantum_trajectory']} "
+                             f"(EMA crossed the SLO: {leg['ema_crossed_slo']})")
+    if not legs["adaptive_tight"]["ema_crossed_slo"]:
+        raise SystemExit("observe: the tight SLO was never pressured")
+    if any(f != d for _, f, d in checks) or not dispatches:
+        raise SystemExit(f"observe: flight records vs dispatches {checks}")
+    if result["trace_merge"]["assert_complete_exit"] != 0 or result["trace_merge"][
+            "orphan_traces"]:
+        raise SystemExit(f"observe: trace merge {result['trace_merge']}")
+    d = result["deadline"]
+    if (d["status"], d["error_type"], d["deadline_exceeded_total_delta"]) != (
+            504, "deadline_exceeded", 1.0):
+        raise SystemExit(f"observe: deadline {d}")
+    if result["profile"]["status"] != 200 or not result["profile"].get("ragged_symbols"):
+        raise SystemExit(f"observe: profile {result['profile']}")
+    if not all(result["metrics_has"].values()):
+        raise SystemExit(f"observe: /metrics {result['metrics_has']}")
+    if launches != cfg.num_layers * dispatches:
+        raise SystemExit(f"observe: kernel launched {launches} times for "
+                         f"{dispatches} dispatches x {cfg.num_layers} layers")
+    return result
+
+
 def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
     """The phase-split entry points at full width on the serve's weights,
     each kernel's launches counted over exactly this run."""
@@ -2505,6 +2983,7 @@ def main() -> int:
                  "graphs_int8")
     asyncio.run(phase_spec(prompts + repeated_prompts(rng, vocab), max_tokens))
     http = asyncio.run(phase_http(prompts, streams, max_tokens, served, more[:2]))
+    observe = asyncio.run(phase_observe(vocab))
     phases = phase_phases(engine.runner.params, prompts[:PHASE_LANES],
                           streams[:PHASE_LANES], max_tokens)
     # The fleet's workers are processes of their own on this card: free
@@ -2528,6 +3007,7 @@ def main() -> int:
                      "dynamo_tpu/ops/pallas/ragged_attention.py:67",
                      served["kernel_launches"], t_ragged, ragged,
                      launches_by_path=served["kernel_launches_by_path"],
+                     observe_launches=observe["kernel_launches"],
                      fleet_worker_launches={
                          w: r["kernel_launches"]["ragged_paged_attention_cuda.launches"]
                          for w, r in fleet["bf16_workers"].items()}),

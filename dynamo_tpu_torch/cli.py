@@ -42,18 +42,29 @@ programs in S s``, holding admission meanwhile; ``--no-warmup`` serves
 at once and captures each program at its first use. A worker that cannot
 build or launch its kernels exits non-zero and never registers.
 ``--max-waiting``/``--max-queue-delay-s`` bound the engine's waiting
-list (the oldest waiter is shed). ``--health-port`` gives a worker a
-``/health`` and ``/metrics`` endpoint.
+list (the oldest waiter is shed, batch class first). ``--health-port``
+gives a worker a ``/health``, ``/metrics`` and ``/debug/*`` endpoint.
+
+SLOs and observability: ``--coloc adaptive --itl-slo-ms X`` lets the
+co-location controller move the prefill quantum against a decode ITL
+target (floor ``--coloc-min-quantum``); ``--default-deadline-s`` and
+``--default-request-class`` apply when a client sends no
+``X-Request-Timeout-Ms`` / ``X-Request-Class``, and
+``--batch-watermark-scale`` makes batch requests 429 first;
+``--profile-dir`` enables ``/debug/profile`` (and, on a worker, the
+control-plane profile verb): ``torch.profiler`` windows exported as
+Chrome traces under that directory. ``DYNTPU_TRACE=/path.jsonl`` writes
+the span capture (``<path>.<pid>``) that
+``python -m dynamo_tpu_torch.tools.trace_merge`` joins.
 
 The flags the port serves keep the reference's names, destinations and
 defaults, except ``--endpoint`` (``dyn://dynamo.torch.generate``). Flags
 that need what the port does not have yet — the KV-aware router (ROADMAP
 A5), meshes and multi-host, weight quantization, embeddings, layered
-configs, deadlines, SLO classes, the adaptive co-location controller —
-are refused with an error that names them, never ignored. Flags of the
-reference that configure something the port has no counterpart for (the
-persistent XLA compile cache: a CUDA graph cannot outlive its process;
-profiling windows) are absent and rejected by the parser.
+configs — are refused with an error that names them, never ignored. The
+reference's persistent XLA compile cache has no counterpart (a CUDA
+graph cannot outlive its process): its flag is absent and rejected by
+the parser.
 """
 
 from __future__ import annotations
@@ -125,9 +136,26 @@ def build_parser() -> argparse.ArgumentParser:
                           "power-of-two ladder)")
     run.add_argument("--unified-prefill-quantum", type=int, default=64,
                      help="prefill tokens per sequence per unified step "
-                          "while decode lanes share the batch")
-    run.add_argument("--itl-slo-ms", type=float, default=0.0)
-    run.add_argument("--coloc", choices=["static", "adaptive"], default="static")
+                          "while decode lanes share the batch (decode-ITL "
+                          "bound); also the budget reserved for prefill; "
+                          "with --coloc adaptive this is only the STARTING "
+                          "quantum — the controller owns it from there")
+    run.add_argument("--itl-slo-ms", type=float, default=0.0,
+                     help="decode inter-token-latency target in ms the "
+                          "co-location controller measures each unified "
+                          "dispatch against (0 = no SLO: no violation "
+                          "accounting, no adaptation)")
+    run.add_argument("--coloc", choices=["static", "adaptive"], default="static",
+                     help="unified-step prefill-quantum policy: static "
+                          "keeps --unified-prefill-quantum hand-tuned; "
+                          "adaptive runs the AIMD feedback loop against "
+                          "--itl-slo-ms (grow on headroom, shrink on SLO "
+                          "pressure, floor at --coloc-min-quantum) plus "
+                          "phase-aware prefill admission")
+    run.add_argument("--coloc-min-quantum", type=int, default=16,
+                     help="adaptive-quantum floor: minimum prefill tokens "
+                          "per unified step, so prefill TTFT progress never "
+                          "fully starves under decode SLO pressure")
     run.add_argument("--max-prefill-backlog-tokens", type=int, default=0,
                      help="HTTP admission watermark: 429 while the engine's "
                           "un-prefilled backlog exceeds this many prompt "
@@ -148,9 +176,18 @@ def build_parser() -> argparse.ArgumentParser:
                      help="HTTP admission watermark: 429 while the engine "
                           "has this many requests queued (0 = off)")
     run.add_argument("--default-request-class", default="interactive",
-                     choices=["interactive", "batch"])
-    run.add_argument("--batch-watermark-scale", type=float, default=0.5)
-    run.add_argument("--default-deadline-s", type=float, default=0.0)
+                     choices=["interactive", "batch"],
+                     help="SLO class assumed when the client sends no "
+                          "X-Request-Class header")
+    run.add_argument("--batch-watermark-scale", type=float, default=0.5,
+                     help="batch-class admission watermark scale: batch "
+                          "requests 429 at this fraction of every "
+                          "configured watermark/cap (cheapest-first "
+                          "degradation; 1.0 = class-blind)")
+    run.add_argument("--default-deadline-s", type=float, default=0.0,
+                     help="per-request deadline applied when the client "
+                          "sends no X-Request-Timeout-Ms header (0 = "
+                          "none); expired work is cancelled at every hop")
     run.add_argument("--max-waiting", type=int, default=128,
                      help="engine waiting-list depth bound: over it the "
                           "OLDEST waiter is shed with a typed error "
@@ -164,7 +201,15 @@ def build_parser() -> argparse.ArgumentParser:
                           "get this long to finish before exit")
     run.add_argument("--health-port", type=int, default=0,
                      help="worker-mode health/metrics HTTP port (0 = off): "
-                          "/health answers 503 while warming or draining")
+                          "/health answers 503 while warming or draining "
+                          "(also serves the /debug/steps|trace|profile "
+                          "surface)")
+    run.add_argument("--profile-dir", default=None, metavar="DIR",
+                     help="enable on-demand profiling: /debug/profile"
+                          "?seconds=N and the control-plane profile verb "
+                          "capture torch.profiler windows (Chrome traces) "
+                          "under DIR without a restart (default "
+                          "$DYNTPU_PROFILE_DIR; unset = endpoint disabled)")
     run.add_argument("--concurrency", type=int, default=32,
                      help="batch mode: in-flight request cap")
     run.add_argument("--max-tokens", type=int, default=128,
@@ -204,18 +249,8 @@ def refuse_unserved(args) -> None:
         (args.speculative_k < 0, "--speculative-k must be >= 0"),
         (args.model_type != "chat",
          f"--model-type {args.model_type}: only chat models are served"),
-        (args.default_deadline_s > 0,
-         "--default-deadline-s: request deadlines are not served yet"),
-        (args.default_request_class != "interactive"
-         or args.batch_watermark_scale != 0.5,
-         "--default-request-class/--batch-watermark-scale: SLO request "
-         "classes are not served yet"),
         (args.config is not None or args.overrides,
          "--config/--set: layered configs are not served yet"),
-        (args.coloc != "static",
-         "--coloc adaptive: the adaptive co-location controller is not "
-         "served yet"),
-        (args.itl_slo_ms != 0, "--itl-slo-ms: ITL SLO accounting is not served yet"),
     ]
     for refused, message in refusals:
         if refused:
@@ -351,6 +386,7 @@ async def _worker_until_drain(args, drt, endpoint_path, engine, served, stack) -
     launch counts last (``worker_report``)."""
     from dynamo_tpu_torch.runtime.component import EndpointId
     from dynamo_tpu_torch.runtime.drain import watch_drain
+    from dynamo_tpu_torch.utils.profiling import Profiler
 
     loop = asyncio.get_running_loop()
     stop = asyncio.Event()
@@ -358,12 +394,21 @@ async def _worker_until_drain(args, drt, endpoint_path, engine, served, stack) -
         loop.add_signal_handler(sig, stop.set)
     eid = EndpointId.parse(endpoint_path)
     watch = await watch_drain(drt, eid.namespace, eid.component, stop.set)
+    profiler = Profiler(base_dir=args.profile_dir)
+    if profiler.configured:
+        # The control-plane profile verb: a window on this worker without
+        # reaching its debug endpoint (runtime/debug.py).
+        from dynamo_tpu_torch.runtime.debug import watch_profile
+
+        pwatch = await watch_profile(drt, eid.namespace, eid.component, profiler)
+        stack.callback(pwatch.close)
     if args.health_port and engine is not None:
         from dynamo_tpu_torch.llm.http_service import HealthServer
 
         health = HealthServer(
             engine.readiness, host="0.0.0.0", port=args.health_port,
             gauges=lambda: {"ingress_requests_total": served.requests_total},
+            debug=engine, profiler=profiler,
         )
         await health.start()
         _push_logged(stack, health.stop)
@@ -468,6 +513,9 @@ def _local_and_cfg(args):
         prefill_batch=args.prefill_batch,
         unified_token_budget=args.unified_token_budget,
         unified_prefill_quantum=args.unified_prefill_quantum,
+        itl_slo_ms=args.itl_slo_ms,
+        coloc=args.coloc,
+        coloc_min_quantum=args.coloc_min_quantum,
         kv_quant=args.kv_quant,
         speculative_k=args.speculative_k,
         shape_manifest_path=args.shape_manifest,
@@ -547,6 +595,7 @@ async def start_http(args, stack, engine_ops=()):
     the TorchEngine or None). Prints the ready line once both serve."""
     from dynamo_tpu_torch.llm.admission import AdmissionConfig, AdmissionController
     from dynamo_tpu_torch.llm.http_service import HttpService
+    from dynamo_tpu_torch.utils.profiling import Profiler
 
     manager, engine = await start_pipeline(args, stack, engine_ops)
     readiness = engine.readiness if engine is not None else None
@@ -558,9 +607,18 @@ async def start_http(args, stack, engine_ops=()):
                 max_inflight=args.max_inflight,
                 max_engine_waiting=args.max_engine_waiting,
                 max_prefill_backlog_tokens=args.max_prefill_backlog_tokens,
+                default_deadline_s=args.default_deadline_s,
+                default_request_class=args.default_request_class,
+                class_watermark_scale={
+                    "interactive": 1.0, "batch": args.batch_watermark_scale,
+                },
             ),
             engine_stats=readiness,
         ),
+        # /debug/steps reads the local engine's flight recorder;
+        # /debug/profile runs torch.profiler windows under --profile-dir.
+        debug=engine,
+        profiler=Profiler(base_dir=args.profile_dir),
     )
     await service.start()
     stack.push_async_callback(service.stop)

@@ -40,9 +40,17 @@ class EngineConfig:
     unified_token_budget: int = 256
     # Prefill tokens one sequence may take per step while decode lanes
     # share it — and the budget slice reserved for prefill when prompts
-    # wait. Fixed here: the reference's adaptive co-location controller
-    # is not part of this slice.
+    # wait. With coloc="adaptive" only the starting quantum.
     unified_prefill_quantum: int = 64
+    # SLO-aware co-location (engine/coloc.py). itl_slo_ms is the decode
+    # inter-token-latency target each retired unified dispatch is
+    # measured against (0 = no target: no violation accounting, no
+    # adaptation). coloc="static" keeps unified_prefill_quantum;
+    # "adaptive" runs the AIMD loop, floored at coloc_min_quantum.
+    # Adaptation is pure composition: no graph is keyed by the quantum.
+    itl_slo_ms: float = 0.0
+    coloc: str = "static"
+    coloc_min_quantum: int = 16
     # int8 KV blocks with per-(block, kv head) float32 scales (ops/quant.py
     # quantize_kv_write); served by the unified step only.
     kv_quant: str | None = None
@@ -75,6 +83,12 @@ class EngineConfig:
     # waiters older than max_queue_delay_s seconds finish the same way.
     max_waiting: int = 0
     max_queue_delay_s: float = 0.0
+    # Flight recorder (engine/flight_recorder.py): bounded ring of
+    # per-dispatch records served by /debug/steps and dumped to
+    # flight_record_dir (or $DYNTPU_FLIGHT_DIR) when the engine loop
+    # faults.
+    flight_record_capacity: int = 512
+    flight_record_dir: str | None = None
 
     # -- reference features the port refuses (validate) --------------------
     quant: str | None = None
@@ -93,6 +107,7 @@ class EngineConfig:
 
     _KV_QUANT_MODES = (None, "int8")
     _WARMUP_GATES = ("hold", "degraded")
+    _COLOC_MODES = ("static", "adaptive")
 
     def validate(self) -> None:
         if self.speculative_k < 0 or self.speculative_k > self.block_size:
@@ -110,6 +125,25 @@ class EngineConfig:
                 f"speculative_probe_window={self.speculative_probe_window} "
                 f"must be >= 1"
             )
+        if self.coloc not in self._COLOC_MODES:
+            raise ValueError(
+                f"coloc={self.coloc!r} not in {self._COLOC_MODES}"
+            )
+        if self.itl_slo_ms < 0:
+            raise ValueError(
+                f"itl_slo_ms={self.itl_slo_ms} must be >= 0 (0 = no SLO)"
+            )
+        if self.coloc == "adaptive":
+            if self.itl_slo_ms <= 0:
+                raise ValueError(
+                    "coloc='adaptive' requires itl_slo_ms > 0 — the "
+                    "feedback loop needs a decode ITL target to hold"
+                )
+            if not 1 <= self.coloc_min_quantum <= self.unified_token_budget:
+                raise ValueError(
+                    f"coloc_min_quantum={self.coloc_min_quantum} must "
+                    f"be in [1, unified_token_budget]"
+                )
         if self.kv_quant not in self._KV_QUANT_MODES:
             raise ValueError(
                 f"kv_quant={self.kv_quant!r} is not served: the modes are "

@@ -33,9 +33,20 @@ Graceful drain: ``begin_drain`` refuses new requests with ``ShedError``
 while every submitted sequence runs to completion; ``readiness()`` is
 the snapshot ``/health``, ``/metrics`` and the admission gate read.
 
-Not in this port yet: KVBM tiers, disaggregation, peers, multimodal, the
-flight recorder, tracing and deadlines (ROADMAP queue A). Requests that
-ask for any of them are refused with ``RequestError``.
+Observability and SLOs: every request's trace (utils/tracing.py) gets
+the ``engine_queued`` mark, the ``queue_wait``, ``prefill``,
+``decode_first`` and ``decode`` spans and a per-token ITL observation;
+every dispatch leaves one flight record (engine/flight_recorder.py,
+``debug_steps``), dumped to disk when the engine loop faults. Requests
+may carry a deadline (expired ones finish with ``DEADLINE`` on arrival,
+while waiting, or at their next token) and an SLO class (batch is shed
+and preempted first). The prefill quantum of each dispatch is the
+co-location controller's (engine/coloc.py), fed one ITL sample per
+retired dispatch that carried decode lanes.
+
+Not in this port yet: KVBM tiers, disaggregation, peers and multimodal
+(ROADMAP queue A). Requests that ask for any of them are refused with
+``RequestError``.
 """
 
 from __future__ import annotations
@@ -51,18 +62,24 @@ from typing import AsyncIterator
 import numpy as np
 
 from dynamo_tpu_torch import resolve_device
+from dynamo_tpu_torch.engine.coloc import ColocController
 from dynamo_tpu_torch.engine.compile_cache import (
     ShapeManifest,
+    _bucket,
     engine_fingerprint,
     fingerprint_key,
+    token_budget,
 )
 from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.flight_recorder import FlightRecorder
 from dynamo_tpu_torch.engine.kv_cache import BlockAllocator
 from dynamo_tpu_torch.engine.runner import ModelRunner
 from dynamo_tpu_torch.engine.scheduler import Scheduler, compose_unified
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
+from dynamo_tpu_torch.llm import slo
 from dynamo_tpu_torch.llm.protocols.common import (
     MAX_LOGPROBS,
+    DeadlineError,
     EngineOutput,
     FinishReason,
     PreprocessedRequest,
@@ -70,7 +87,8 @@ from dynamo_tpu_torch.llm.protocols.common import (
     ShedError,
 )
 from dynamo_tpu_torch.runtime.engine import Context
-from dynamo_tpu_torch.utils.overload import OVERLOAD
+from dynamo_tpu_torch.utils.deadline import OVERLOAD
+from dynamo_tpu_torch.utils.tracing import tracer
 
 logger = logging.getLogger(__name__)
 
@@ -135,6 +153,21 @@ class TorchEngine:
         self._state = "init"
         self._warm_tail: deque = deque()
         self._served_unwarmed = False
+        # SLO-aware co-location: owns the prefill quantum of every
+        # dispatch; fed one ITL sample per retired dispatch with decode
+        # lanes, timed on an injectable clock (the mocker charges its
+        # simulated cost to it).
+        self.coloc = ColocController(cfg)
+        self._clock = time.monotonic
+        self._last_unified_retire: float | None = None
+        self._unified_fill_ratio = 0.0
+        # Per-class waiting depth, refreshed by the engine thread.
+        self._waiting_by_class = {slo.INTERACTIVE: 0, slo.BATCH: 0}
+        # Step flight recorder: one record per dispatch, served by
+        # /debug/steps, dumped to disk when the engine loop faults.
+        self.flight = FlightRecorder(
+            cfg.flight_record_capacity, cfg.flight_record_dir
+        )
 
     # -- lifecycle ----------------------------------------------------------
     async def start(self) -> None:
@@ -315,6 +348,11 @@ class TorchEngine:
             "warm_tail_pending": len(self._warm_tail),
             "draining": self._draining,
             "shed_requests_total": OVERLOAD.shed_total,
+            "shed_interactive_total": OVERLOAD.shed_class_total(slo.INTERACTIVE),
+            "shed_batch_total": OVERLOAD.shed_class_total(slo.BATCH),
+            "deadline_exceeded_total": OVERLOAD.deadline_total,
+            "abandoned_traces_total": tracer().abandoned_total,
+            "flight_steps_total": self.flight.total_steps,
             "gpu_prefix_cache_hit_rate": self.prefix_hit_rate,
             "spec_tokens_per_step": self.spec_tokens_per_step,
             "spec_active": int(self._spec_active),
@@ -327,8 +365,13 @@ class TorchEngine:
             usable = max(self.allocator.num_blocks - 1, 1)
             d["gpu_cache_usage_perc"] = (usable - self.allocator.num_free) / usable
             d["prefill_backlog_tokens"] = self._prefill_backlog_tokens
+            # Engine-thread-refreshed per-class split of the waiting depth.
+            d["num_waiting_interactive"] = self._waiting_by_class[slo.INTERACTIVE]
+            d["num_waiting_batch"] = self._waiting_by_class[slo.BATCH]
         d["unified_step_tokens_decode_total"] = self.unified_decode_tokens
         d["unified_step_tokens_prefill_total"] = self.unified_prefill_tokens
+        d["batch_fill_ratio"] = round(self._unified_fill_ratio, 4)
+        d.update(self.coloc.snapshot())
         if self.runner is not None:
             d.update(self.runner.compile_stats.snapshot())
         return d
@@ -374,7 +417,6 @@ class TorchEngine:
         refused = [
             (pre.mm_segments, "multimodal segments"),
             (pre.remote_prefill, "remote prefill"),
-            (pre.deadline_ms is not None, "request deadlines"),
         ]
         for on, what in refused:
             if on:
@@ -391,7 +433,11 @@ class TorchEngine:
         if self._dead:
             raise RuntimeError(f"engine dead: {self._dead}")
         if self._draining:
-            OVERLOAD.note_shed("engine.draining")
+            # Class-tagged so the per-class shed split never diverges
+            # from the total.
+            OVERLOAD.note_shed(
+                "engine.draining", request_class=_payload_class(request.payload)
+            )
             raise ShedError(
                 "engine draining — retry another instance", draining=True
             )
@@ -400,6 +446,9 @@ class TorchEngine:
             if isinstance(request.payload, dict)
             else request.payload
         )
+        if pre.deadline is not None and pre.deadline.expired:
+            OVERLOAD.note_deadline("engine.arrival")
+            raise DeadlineError("request deadline expired before admission")
         self._validate_request(pre)
         out_q: asyncio.Queue = asyncio.Queue()
         loop = self._loop
@@ -416,7 +465,11 @@ class TorchEngine:
             stop=pre.stop,
             emit=emit,
             logprobs=pre.logprobs,
+            deadline=pre.deadline,
+            slo_class=_request_class(pre),
         )
+        tracer().adopt(request.id, pre.trace)
+        tracer().mark(request.id, "engine_queued")
         self._submit_q.put(("add", seq))
         self._wakeup.set()
         async for item in self._stream(request, seq, out_q):
@@ -426,16 +479,34 @@ class TorchEngine:
         self, request: Context, seq: Sequence, out_q: asyncio.Queue
     ) -> AsyncIterator[dict]:
         count = 0
+        last_tok_s: float | None = None
         try:
             while True:
                 token, finish, lp = await out_q.get()
                 if token is not None:
                     count += 1
+                    now = time.monotonic()
+                    if count == 1:
+                        tracer().mark(request.id, "first_token")
+                        # Token computed → on the stream closes the TTFT
+                        # decomposition; steady decode is its own span.
+                        tracer().span_end(request.id, "decode_first")
+                        tracer().span_begin(request.id, "decode")
+                    else:
+                        # Per-token ITL: the aggregate decode interval
+                        # hides a single stalled gap.
+                        tracer().observe_itl(1000.0 * (now - last_tok_s), request.id)
+                    last_tok_s = now
                     yield EngineOutput(
                         token_ids=[token], cum_tokens=count,
                         logprobs=[lp] if lp is not None else None,
                     ).to_wire()
                 if finish is not None:
+                    if finish is FinishReason.ERROR:
+                        # An engine fault ends the stream normally with an
+                        # ERROR frame: record it, or the capture shows a
+                        # clean completion for a request that died.
+                        tracer().mark_if_active(request.id, "error")
                     yield EngineOutput(
                         token_ids=[], finish_reason=finish, cum_tokens=count
                     ).to_wire()
@@ -447,7 +518,13 @@ class TorchEngine:
                         cum_tokens=count,
                     ).to_wire()
                     return
+        except Exception:
+            # The finally below pops the trace before the consumer's own
+            # except clause could mark it: mark the error here.
+            tracer().mark_if_active(request.id, "error")
+            raise
         finally:
+            tracer().finish(request.id)
             if seq.status is not SeqStatus.FINISHED:
                 self._submit_q.put(("abort", seq))
                 self._wakeup.set()
@@ -469,12 +546,16 @@ class TorchEngine:
                     for s in self._prefilling
                     if s.status is SeqStatus.PREFILLING
                 )
+                self._waiting_by_class = self.scheduler.waiting_by_class()
                 if not busy:
                     self._wakeup.wait(timeout=0.01)
                     self._wakeup.clear()
         except Exception as exc:  # top of the thread: fail every request loudly
             logger.exception("engine loop died")
             self._dead = exc
+            # The black box first: the steps leading into the fault are
+            # the postmortem evidence (best-effort, never raises).
+            self.flight.dump_fault(f"{type(exc).__name__}: {exc}")
             for seq in list(self.scheduler.running.values()) + list(
                 self.scheduler.waiting
             ):
@@ -587,6 +668,7 @@ class TorchEngine:
         verify spans while speculation is active — then prefill quanta)
         and dispatch it through ModelRunner.unified_step. Returns True if
         anything was issued."""
+        t_compose = time.monotonic()
         cfg = self.cfg
         spec_on = self._spec_active
         lookahead = (cfg.speculative_k if spec_on else 0) + 1
@@ -624,7 +706,7 @@ class TorchEngine:
         ]
         decode_take, prefill_take = compose_unified(
             decode_items, prefill_items, cfg.unified_token_budget,
-            cfg.unified_prefill_quantum, rotation=self._unified_rotation,
+            self.coloc.quantum, rotation=self._unified_rotation,
         )
         if not decode_take and not prefill_take:
             return False
@@ -694,23 +776,49 @@ class TorchEngine:
                 extras["freq"].append(q.sampling.frequency_penalty or 0.0)
                 extras["pres"].append(q.sampling.presence_penalty or 0.0)
 
+        # Dispatch start, paired with the retire time for the coloc ITL
+        # sample (the runner issues asynchronously: the device time shows
+        # up as the inter-retire interval).
+        t_dispatch = self._clock()
         out = self.runner.unified_step(
             lanes, feed=(self._prev_unified_out, prev_row, use_prev),
             draft_lens=draft_lens if n_drafted else None, extras=extras,
         )
+        t_issue = self._clock()
         self._prev_unified_out = out.last
         self._prev_unified_rows = {
             id(seq): i for i, (seq, *_r) in enumerate(roles)
         }
+        n_dec = len(decode_take)
+        n_pre = sum(n for _, n in prefill_take)
         self.unified_dispatches += 1
-        self.unified_decode_tokens += len(decode_take)
-        self.unified_prefill_tokens += sum(n for _, n in prefill_take)
+        self.unified_decode_tokens += n_dec
+        self.unified_prefill_tokens += n_pre
         self._spec_drafted += n_drafted
+        # Fill against the rung actually run: an extras dispatch pads to
+        # the top rung.
+        total_toks = n_dec + n_pre + n_drafted
+        padded = (
+            _bucket(cfg.unified_token_budget) if extras is not None
+            else token_budget(total_toks, cfg.unified_token_budget)
+        )
+        self._unified_fill_ratio = total_toks / padded
         # Whether this dispatch's decode lanes feed the auto-gate's window
         # is fixed AT ISSUE: plain dispatches in flight when a re-probe
         # turns the gate on must not count as spec steps.
         spec_counted = spec_on and not has_extras
-        self._inflight.append((roles, out, spec_counted))
+        compose_ms = 1000.0 * (time.monotonic() - t_compose)
+        stats = (n_dec, n_pre, t_issue, t_dispatch, n_drafted, compose_ms,
+                 self._unified_fill_ratio)
+        self._inflight.append((roles, out, spec_counted, stats))
+        if n_drafted == 0:
+            # Spec dispatches record at retire (their accepted counts are
+            # on the device until then); every other dispatch at issue.
+            self._note_step(
+                "unified", decode_tokens=n_dec, prefill_tokens=n_pre,
+                fill=self._unified_fill_ratio, dispatch_ms=compose_ms,
+                lanes=len(roles),
+            )
         # Auto-gate re-probe: after speculative_probe_steps plain decode
         # steps, run a short probe window and re-judge.
         if cfg.speculative_k and not self._spec_enabled and decode_take:
@@ -730,12 +838,32 @@ class TorchEngine:
         their accepted drafts and bonus, completed prefill lanes the
         prompt's first token, every lane registers the blocks its KV
         writes filled."""
-        roles, out, spec_counted = record
+        roles, out, spec_counted, stats = record
+        n_dec, n_pre, t_issue, t_dispatch, drafted, compose_ms, fill = stats
         toks = out.tokens()
         spec = out.spec()
         lp = None
         if any(seq.logprobs is not None for seq, *_r in roles):
             lp = out.logprobs()
+        now = self._clock()
+        if n_dec:
+            # The coloc ITL sample, taken once the dispatch's tokens are
+            # ready: a dispatch issued before the previous one retired
+            # (pipelined) kept its lanes waiting the inter-retire
+            # interval; otherwise dispatch start → retire. The max with
+            # the issue-side time covers a runner that pays its cost
+            # inside the issue call (the mocker). Draft rows stretch the
+            # dispatch as prefill rows do: they count as prefill evidence.
+            last = self._last_unified_retire
+            if last is not None and last >= t_dispatch:
+                gap_ms = 1000.0 * (now - last)
+            else:
+                gap_ms = 1000.0 * (now - t_dispatch)
+            self.coloc.observe(
+                max(gap_ms, 1000.0 * (t_issue - t_dispatch)),
+                n_dec, n_pre + drafted,
+            )
+        self._last_unified_retire = now
         for seq, *_rest in roles:
             seq.inflight_chunks -= 1
         n_drafted = n_accepted = 0
@@ -788,8 +916,59 @@ class TorchEngine:
                 seq.defer_release = False
                 self.scheduler._release(seq)
         self._spec_accepted += n_accepted
+        if drafted:
+            # dispatch_ms stays the issue-side compose time, as on every
+            # other record.
+            self._note_step(
+                "spec", decode_tokens=n_dec, prefill_tokens=n_pre, fill=fill,
+                dispatch_ms=compose_ms, lanes=len(roles), drafted=drafted,
+                accepted=n_accepted,
+            )
         if self.cfg.speculative_k:
             self._maybe_gate_speculation()
+
+    def _note_step(
+        self,
+        kind: str,
+        *,
+        decode_tokens: int = 0,
+        prefill_tokens: int = 0,
+        fill: float = 0.0,
+        dispatch_ms: float = 0.0,
+        lanes: int = 0,
+        drafted: int = 0,
+        accepted: int = 0,
+    ) -> None:
+        """One dispatch's flight record (engine thread). Counter fields
+        are snapshots, so a reader diffs adjacent records to attribute a
+        stall, a shed or a quantum change to the step that paid it."""
+        cs = self.runner.compile_stats
+        sched = self.scheduler
+        self.flight.note_step(
+            kind,
+            decode_tokens=decode_tokens,
+            prefill_tokens=prefill_tokens,
+            batch_fill_ratio=fill,
+            dispatch_ms=dispatch_ms,
+            lanes=lanes,
+            drafted=drafted,
+            accepted=accepted,
+            inflight_depth=len(self._inflight),
+            waiting=len(sched.waiting),
+            running=len(sched.running),
+            compile_stall_ms_total=cs.compile_stall_ms_total,
+            mid_traffic_compiles_total=cs.mid_traffic_compiles,
+            shed_total=OVERLOAD.shed_total,
+            deadline_total=OVERLOAD.deadline_total,
+            quantum=self.coloc.quantum,
+            itl_ema_ms=self.coloc.itl_ema_ms,
+            headroom_ms=self.coloc.headroom_ms,
+        )
+
+    def debug_steps(self, n: int | None = None) -> list[dict]:
+        """The flight recorder's last ``n`` step records — the
+        /debug/steps payload (llm/http_service.py)."""
+        return self.flight.snapshot(n)
 
     @staticmethod
     def _lp_at(lp, seq: Sequence, lane: int, token: int) -> dict | None:
@@ -850,6 +1029,17 @@ class TorchEngine:
         self._prefilling = [
             s for s in self._prefilling if s.status is SeqStatus.PREFILLING
         ]
+        if (
+            sched.waiting
+            and len(self._prefilling) < self.cfg.prefill_batch
+            and not self._admission_held()
+            and not self.coloc.admit_prefill()
+        ):
+            # Per-phase admission: decode is over its ITL SLO, so new
+            # prompts stay queued this step (bounded by the controller's
+            # anti-starvation streak; PREFILLING sequences keep making
+            # floor-quantum progress).
+            return
         while (
             not self._admission_held()
             and len(self._prefilling) < self.cfg.prefill_batch
@@ -858,6 +1048,16 @@ class TorchEngine:
             if seq is None:
                 break
             self._note_unwarmed_traffic()
+            if seq.first_token_s is None:
+                # Admission: the waiting time becomes a queue_wait span
+                # and the prefill span opens (closed at the first token).
+                # A preempted sequence re-admitted after its first token
+                # opens neither.
+                if not tracer().has_span(seq.request_id, "queue_wait"):
+                    tracer().add_span(
+                        seq.request_id, "queue_wait", start_mono=seq.arrival_s
+                    )
+                tracer().span_begin(seq.request_id, "prefill")
             self._prefix_lookups += 1
             if seq.num_cached_prefix:
                 self._prefix_hits += 1
@@ -869,9 +1069,36 @@ class TorchEngine:
         seq.output_tokens.append(token)
         if seq.first_token_s is None:
             seq.first_token_s = time.monotonic()
+            # First token computed: the prefill span ends, decode_first
+            # covers the hop until _stream puts it on the wire.
+            tracer().span_end(seq.request_id, "prefill")
+            tracer().span_begin(seq.request_id, "decode_first")
         reason = seq.should_stop()
         if reason is None and seq.total_len >= self.cfg.max_model_len:
             reason = FinishReason.LENGTH
+        if reason is None and seq.deadline is not None and seq.deadline.expired:
+            # Mid-generation expiry: the delivered tokens stream out with
+            # a DEADLINE finish; further decode work is cancelled (blocks
+            # free once no dispatch carrying the sequence is in flight).
+            OVERLOAD.note_deadline("engine.decode")
+            reason = FinishReason.DEADLINE
         seq.emit(token, None, lp)
         if reason is not None:
             self.scheduler.finish(seq, reason)
+
+
+def _request_class(pre: PreprocessedRequest) -> str:
+    """The request's SLO class from the annotations wire; unlabeled
+    requests are interactive."""
+    return slo.normalize_class((pre.annotations or {}).get(slo.ANNOTATION_KEY))
+
+
+def _payload_class(payload) -> str:
+    """The class straight off a raw payload (wire dict or parsed request),
+    for refusal paths that run before the wire is parsed."""
+    ann = (
+        payload.get("annotations")
+        if isinstance(payload, dict)
+        else getattr(payload, "annotations", None)
+    )
+    return slo.normalize_class((ann or {}).get(slo.ANNOTATION_KEY))

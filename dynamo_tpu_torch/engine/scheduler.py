@@ -18,7 +18,7 @@ from dynamo_tpu_torch.engine.kv_cache import BlockAllocator
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
 from dynamo_tpu_torch.llm.protocols.common import FinishReason
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
-from dynamo_tpu_torch.utils.overload import OVERLOAD
+from dynamo_tpu_torch.utils.deadline import OVERLOAD
 
 logger = logging.getLogger(__name__)
 
@@ -96,41 +96,64 @@ class Scheduler:
             seq.status = SeqStatus.FINISHED
             seq.emit(None, FinishReason.ERROR)
             return
+        if seq.deadline is not None and seq.deadline.expired:
+            # Already expired on arrival: executing it would only waste
+            # prefill compute nobody reads.
+            OVERLOAD.note_deadline("engine.arrival")
+            seq.status = SeqStatus.FINISHED
+            seq.emit(None, FinishReason.DEADLINE)
+            return
         self.waiting.append(seq)
         if self.cfg.max_waiting and len(self.waiting) > self.cfg.max_waiting:
-            # Depth bound: shed the head of the queue — it has waited
-            # longest and is the likeliest to be abandoned by its client.
-            # A typed finish, never a silent drop.
+            # Depth bound: shed cheapest-first, then oldest-first
+            # (llm/slo.py) — any waiting batch request is a cheaper victim
+            # than every interactive one, and within the class the head
+            # has waited longest. A typed finish, never a silent drop.
             victim = self._shed_victim()
             self.waiting.remove(victim)
-            OVERLOAD.note_shed("engine.waiting")
+            OVERLOAD.note_shed("engine.waiting", request_class=victim.slo_class)
             logger.warning(
-                "waiting list over bound (%d): shedding oldest %s",
-                self.cfg.max_waiting, victim.request_id,
+                "waiting list over bound (%d): shedding oldest %s %s",
+                self.cfg.max_waiting, victim.slo_class, victim.request_id,
             )
             victim.status = SeqStatus.FINISHED
             victim.emit(None, FinishReason.SHED)
 
     def _shed_victim(self) -> Sequence:
-        """The depth bound's victim: the head of the waiting list. Every
-        request of the port is interactive; the reference's batch-class
-        victims first arrive with SLO classes (ROADMAP A4)."""
-        return self.waiting[0]
+        """Cheapest-first victim over the waiting list: the oldest
+        batch-class entry when any batch work waits, else the head (a
+        min-scan, not the head: requeue_for_recompute puts recomputed
+        work at the front, so deque order is not arrival order)."""
+        victim: Sequence | None = None
+        for s in self.waiting:
+            if s.slo_class == "batch" and (
+                victim is None or s.arrival_s < victim.arrival_s
+            ):
+                victim = s
+        return victim if victim is not None else self.waiting[0]
 
     def expire_waiting(self) -> int:
-        """Sweep the waiting list: sequences older than
+        """Sweep the waiting list for expired work: deadline-expired
+        sequences finish with DEADLINE; sequences older than
         ``max_queue_delay_s`` finish with SHED. Called once per engine
-        step while anything waits. Returns the number removed. (The
-        reference's deadline branch arrives with deadlines, ROADMAP A4.)"""
-        age_bound = self.cfg.max_queue_delay_s
-        if not self.waiting or not age_bound:
+        step while anything waits — a queued prefill past its deadline is
+        shed, not executed. Returns the number removed."""
+        if not self.waiting:
             return 0
-        now = time.monotonic()
+        age_bound = self.cfg.max_queue_delay_s
+        now = time.monotonic() if age_bound else 0.0
         kept: deque[Sequence] = deque()
         removed = 0
         for seq in self.waiting:
-            if now - seq.arrival_s > age_bound:
-                OVERLOAD.note_shed("engine.waiting_age")
+            if seq.deadline is not None and seq.deadline.expired:
+                OVERLOAD.note_deadline("engine.queued")
+                seq.status = SeqStatus.FINISHED
+                seq.emit(None, FinishReason.DEADLINE)
+                removed += 1
+            elif age_bound and now - seq.arrival_s > age_bound:
+                OVERLOAD.note_shed(
+                    "engine.waiting_age", request_class=seq.slo_class
+                )
                 seq.status = SeqStatus.FINISHED
                 seq.emit(None, FinishReason.SHED)
                 removed += 1
@@ -270,8 +293,12 @@ class Scheduler:
         ]
         if not candidates:
             return None
-        # The newest arrival pays: it has made the least progress.
-        return max(candidates, key=lambda s: s.arrival_s)
+        # Cheapest-first preemption (llm/slo.py): any batch sequence before
+        # every interactive one; within the class the newest arrival pays
+        # (it has made the least progress).
+        return max(
+            candidates, key=lambda s: (s.slo_class == "batch", s.arrival_s)
+        )
 
     def _preempt(self, seq: Sequence) -> None:
         logger.info("preempting %s (blocks exhausted)", seq.request_id)
@@ -303,6 +330,14 @@ class Scheduler:
             seq.defer_release = True
         else:
             self._release(seq)
+
+    def waiting_by_class(self) -> dict[str, int]:
+        """Waiting-list depth split by SLO class (engine thread only: it
+        iterates the deque the engine mutates)."""
+        out = {"interactive": 0, "batch": 0}
+        for s in self.waiting:
+            out[s.slo_class if s.slo_class in out else "interactive"] += 1
+        return out
 
     def _release(self, seq: Sequence) -> None:
         for b in seq.block_ids:

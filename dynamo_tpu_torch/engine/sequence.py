@@ -62,6 +62,12 @@ class Sequence:
     # (Scheduler.requeue_for_recompute): they still count toward
     # max_tokens / min_tokens.
     folded_output: int = 0
+    # Absolute request deadline (utils/deadline.Deadline) or None: checked
+    # on arrival, while waiting, and at every delivered token.
+    deadline: object = None
+    # SLO class (llm/slo.py): "batch" sequences are the cheapest shed and
+    # preemption victims.
+    slo_class: str = "interactive"
 
     @property
     def total_len(self) -> int:

@@ -1,9 +1,10 @@
 """OpenAI-compatible HTTP service (port of dynamo_tpu/llm/http_service.py).
 
 Routes: POST /v1/chat/completions, POST /v1/completions, GET /v1/models,
-GET /health, GET /live, GET /metrics — SSE streaming with a usage-final
-chunk, aggregated responses, per-request metrics, admission control and
-graceful drain, with the reference's status codes and bodies.
+GET /health, GET /live, GET /metrics, GET /debug/steps|trace|profile —
+SSE streaming with a usage-final chunk, aggregated responses,
+per-request metrics, admission control and graceful drain, with the
+reference's status codes and bodies.
 
 The reference serves through aiohttp; this port speaks HTTP/1.1 itself on
 ``asyncio`` streams, standard library only:
@@ -29,12 +30,25 @@ aborts the sequence and frees its blocks.
 
 /health answers 503 "warming" until the engine has made its hot program
 set (the CUDA graphs it captures before traffic), and /metrics carries
-the capture gauges under the reference's names.
+the capture gauges, the co-location controller's fields, the shed and
+deadline counters (per SLO class) and the tracer's histograms under the
+reference's names.
+
+Deadlines and classes: ``X-Request-Timeout-Ms`` (else the admission
+config's default) becomes the request's deadline, 504 when it expires
+before any output; ``X-Request-Class`` (interactive | batch, else the
+configured default) scales the admission watermarks and rides the wire
+to the scheduler. Each request is traced: ``received``, the
+``admission`` span, then the pipeline's own spans.
+
+Debug surface: /debug/steps?n= (the engine's flight recorder),
+/debug/trace?n= (the tracer's live snapshot), /debug/profile?seconds=
+(a ``torch.profiler`` window; 503 unless a profile directory is
+configured, 409 while one runs).
 
 Not in this port yet, refused rather than ignored: /v1/embeddings and
-/debug/* (404 with the reference's error body), deadlines
-(``X-Request-Timeout-Ms``) and SLO classes other than the default
-(``X-Request-Class``), both a 400.
+/debug/routes (the KV router's audit, ROADMAP A5), 404 with the
+reference's error body.
 """
 
 from __future__ import annotations
@@ -44,7 +58,9 @@ import contextlib
 import email.utils
 import json
 import logging
+from urllib.parse import parse_qsl
 
+from dynamo_tpu_torch.llm import slo
 from dynamo_tpu_torch.llm.admission import AdmissionController, AdmissionRejected
 from dynamo_tpu_torch.llm.discovery import ModelManager
 from dynamo_tpu_torch.llm.metrics import Metrics
@@ -72,7 +88,10 @@ from dynamo_tpu_torch.llm.protocols.openai import (
 )
 from dynamo_tpu_torch.llm.protocols.sse import SseEvent
 from dynamo_tpu_torch.runtime.engine import Context
-from dynamo_tpu_torch.utils.overload import OVERLOAD
+from dynamo_tpu_torch.utils.deadline import OVERLOAD, Deadline, parse_timeout_ms
+from dynamo_tpu_torch.utils.logging import request_scope
+from dynamo_tpu_torch.utils.profiling import ProfileError, Profiler
+from dynamo_tpu_torch.utils.tracing import tracer
 
 logger = logging.getLogger(__name__)
 
@@ -82,14 +101,42 @@ MAX_HEADERS = 128
 KEEPALIVE_S = 75.0           # aiohttp's keepalive_timeout
 
 DEADLINE_HEADER = "x-request-timeout-ms"
-REQUEST_CLASS_HEADER = "x-request-class"
-SERVED_REQUEST_CLASS = "interactive"
+REQUEST_CLASS_HEADER = slo.REQUEST_CLASS_HEADER.lower()
 
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found",
-    405: "Method Not Allowed", 411: "Length Required", 429: "Too Many Requests",
-    500: "Internal Server Error", 503: "Service Unavailable",
+    405: "Method Not Allowed", 409: "Conflict", 411: "Length Required",
+    429: "Too Many Requests", 500: "Internal Server Error", 502: "Bad Gateway",
+    503: "Service Unavailable", 504: "Gateway Timeout",
 }
+
+#: The engine readiness fields /metrics exports as gauges.
+_ENGINE_GAUGES = (
+    "mid_traffic_compiles_total",
+    "compile_stall_ms_total",
+    "warm_tail_pending",
+    "warmed_programs",
+    "warmup_programs_total",
+    "gpu_prefix_cache_hit_rate",
+    "spec_tokens_per_step",
+    "spec_active",
+    "spec_drafted_tokens_total",
+    "spec_accepted_tokens_total",
+    "unified_step_tokens_decode_total",
+    "unified_step_tokens_prefill_total",
+    "batch_fill_ratio",
+    "coloc_quantum",
+    "itl_ema_ms",
+    "itl_p95_ms",
+    "itl_headroom_ms",
+    "itl_slo_violations_total",
+    "coloc_prefill_deferrals_total",
+    "prefill_backlog_tokens",
+    "abandoned_traces_total",
+    "flight_steps_total",
+    "num_waiting_interactive",
+    "num_waiting_batch",
+)
 
 
 class _BadRequest(Exception):
@@ -141,14 +188,15 @@ def _head(status: int, headers: dict[str, str], keep_alive: bool) -> bytes:
 
 
 class _Request:
-    __slots__ = ("method", "path", "headers", "body")
+    __slots__ = ("method", "path", "headers", "body", "query")
 
     def __init__(self, method: str, path: str, headers: dict[str, str],
-                 body: bytes) -> None:
+                 body: bytes, query: dict[str, str] | None = None) -> None:
         self.method = method
         self.path = path
         self.headers = headers
         self.body = body
+        self.query = query or {}
 
 
 class _StreamWriter:
@@ -205,6 +253,10 @@ class HttpService:
         "/health": ("GET", "_health"),
         "/live": ("GET", "_live"),
         "/metrics": ("GET", "_metrics"),
+        "/debug/steps": ("GET", "_debug_steps"),
+        "/debug/trace": ("GET", "_debug_trace"),
+        "/debug/routes": ("GET", "_debug_routes"),
+        "/debug/profile": ("GET", "_debug_profile"),
     }
 
     def __init__(
@@ -214,16 +266,22 @@ class HttpService:
         port: int = 8080,
         readiness=None,
         admission: AdmissionController | None = None,
+        debug=None,
+        profiler: Profiler | None = None,
     ) -> None:
         """``readiness``: zero-arg callable returning the serving engine's
         snapshot (TorchEngine.readiness) — /health turns 503 while the
         engine drains, /metrics exports its gauges, and the admission
         gate's watermarks read it. ``admission``: the overload gate; None
-        builds one with the default inflight cap so that drain works."""
+        builds one with the default inflight cap so that drain works.
+        ``debug``: the local engine for /debug/steps (anything with
+        ``debug_steps(n)``); ``profiler`` enables /debug/profile."""
         self.manager = manager
         self.metrics = Metrics()
         self._readiness = readiness
         self.admission = admission or AdmissionController(engine_stats=readiness)
+        self._debug = debug
+        self.profiler = profiler
         self.host = host
         self.port = port
         self._server: asyncio.Server | None = None
@@ -331,15 +389,16 @@ class HttpService:
         if not length.isdigit():
             raise _BadRequest(400, "400: Bad Request")
         length = int(length)
-        path = target.split("?", 1)[0]
+        path, _, qs = target.partition("?")
+        query = dict(parse_qsl(qs))
         if length > MAX_BODY_BYTES:
             # The reference reads this as a failed JSON body: 400.
-            return _Request(method, path, headers, b""), None
+            return _Request(method, path, headers, b"", query), None
         if length and headers.get("expect", "").lower() == "100-continue":
             writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
             await writer.drain()
         body = await reader.readexactly(length) if length else b""
-        return _Request(method, path, headers, body), keep_alive
+        return _Request(method, path, headers, body, query), keep_alive
 
     async def _respond(self, req: _Request, writer, keep_alive, gone) -> bool:
         """Run the request's handler until it finishes or the client goes
@@ -349,8 +408,6 @@ class HttpService:
             await self._write(writer, resp, False)
             return False
         route = self._ROUTES.get(req.path)
-        if route is None and req.path.startswith("/debug/"):
-            route = ("GET", "_debug")
         if route is None:
             await self._write(writer, _text_response(404, "404: Not Found"), keep_alive)
             return keep_alive
@@ -427,41 +484,91 @@ class HttpService:
             self.metrics.set_gauge(
                 "engine_ready", 1.0 if eng.get("state") == "ready" else 0.0
             )
-            for key in (
-                "mid_traffic_compiles_total",
-                "compile_stall_ms_total",
-                "warm_tail_pending",
-                "warmed_programs",
-                "warmup_programs_total",
-                "gpu_prefix_cache_hit_rate",
-                "spec_tokens_per_step",
-                "spec_active",
-                "spec_drafted_tokens_total",
-                "spec_accepted_tokens_total",
-                "unified_step_tokens_decode_total",
-                "unified_step_tokens_prefill_total",
-                "prefill_backlog_tokens",
-            ):
+            for key in _ENGINE_GAUGES:
                 if key in eng:
                     self.metrics.set_gauge(key, float(eng[key]))
+        # Process-wide overload counters: they export without an engine
+        # too (a frontend-only process sheds and expires work).
         self.metrics.set_gauge("shed_requests_total", float(OVERLOAD.shed_total))
+        self.metrics.set_gauge("deadline_exceeded_total", float(OVERLOAD.deadline_total))
+        self.metrics.set_gauge(
+            "shed_interactive_total", float(OVERLOAD.shed_class_total(slo.INTERACTIVE))
+        )
+        self.metrics.set_gauge("shed_batch_total", float(OVERLOAD.shed_class_total(slo.BATCH)))
         adm = self.admission.snapshot()
         self.metrics.set_gauge("draining", float(adm["draining"]))
         self.metrics.set_gauge("admission_inflight", float(adm["inflight"]))
         self.metrics.set_gauge(
             "admission_rejected_total", float(adm["rejected_total"])
         )
+        for cls in slo.CLASSES:
+            self.metrics.set_gauge(
+                f"admission_inflight_{cls}", float(adm["inflight_by_class"].get(cls, 0))
+            )
+            self.metrics.set_gauge(
+                f"admission_admitted_{cls}_total",
+                float(adm["admitted_by_class"].get(cls, 0)),
+            )
+            self.metrics.set_gauge(
+                f"admission_rejected_{cls}_total",
+                float(adm["rejected_by_class"].get(cls, 0)),
+            )
         for reason, hint in adm["retry_after_by_reason"].items():
             self.metrics.set_gauge(f"admission_retry_after_{reason}_s", float(hint))
-        return _text_response(200, self.metrics.render())
+        return _text_response(200, self.metrics.render() + tracer().render())
 
     async def _models(self, _req, _w) -> _Response:
         listing = ModelList(data=[ModelInfo(id=m) for m in self.manager.models()])
         return _json_response(listing.model_dump())
 
-    async def _debug(self, req, _w) -> _Response:
-        return _error(404, f"{req.path} is not served by this slice",
-                      kind="debug_error")
+    # -- debug surface ------------------------------------------------------
+    @staticmethod
+    def _int_query(req, name: str, default: int) -> int | None:
+        try:
+            return int(req.query.get(name, default))
+        except ValueError:
+            return None
+
+    async def _debug_steps(self, req, _w) -> _Response:
+        """The last N step records of the local engine's flight recorder."""
+        if self._debug is None:
+            return _error(404, "no local engine attached", kind="debug_error")
+        n = self._int_query(req, "n", 64)
+        if n is None:
+            return _error(400, "n must be an integer")
+        return _json_response({"steps": self._debug.debug_steps(n)})
+
+    async def _debug_trace(self, req, _w) -> _Response:
+        """The tracer's live snapshot: histogram digest and the most
+        recent completed traces."""
+        n = self._int_query(req, "n", 32)
+        if n is None:
+            return _error(400, "n must be an integer")
+        return _json_response(tracer().snapshot(n))
+
+    async def _debug_routes(self, req, _w) -> _Response:
+        return _error(
+            404, "/debug/routes reads the KV router's route audit, which is "
+            "not served by the port yet (ROADMAP A5)", kind="debug_error",
+        )
+
+    async def _debug_profile(self, req, _w) -> _Response:
+        """A torch.profiler window of ?seconds=N while serving continues;
+        requires a configured profile directory."""
+        if self.profiler is None or not self.profiler.configured:
+            return _error(
+                503, "profiling not configured — set --profile-dir / "
+                "DYNTPU_PROFILE_DIR", kind="profile_error",
+            )
+        try:
+            seconds = float(req.query.get("seconds", 5.0))
+        except ValueError:
+            return _error(400, "seconds must be a number")
+        try:
+            result = await self.profiler.capture(seconds)
+        except ProfileError as exc:
+            return _error(409 if exc.busy else 503, str(exc), kind="profile_error")
+        return _json_response(result)
 
     async def _embeddings(self, req, _w) -> _Response:
         try:
@@ -481,15 +588,14 @@ class HttpService:
     async def _completions(self, req, w) -> _Response | None:
         return await self._serve(req, w, CompletionRequest, "completions")
 
-    @staticmethod
-    def _unserved_header(req: _Request) -> str | None:
-        if DEADLINE_HEADER in req.headers:
-            return "request deadlines (X-Request-Timeout-Ms) are not served yet"
-        cls = req.headers.get(REQUEST_CLASS_HEADER)
-        if cls is not None and cls.strip().lower() != SERVED_REQUEST_CLASS:
-            return (f"request class {cls!r} is not served yet; only "
-                    f"{SERVED_REQUEST_CLASS!r}")
-        return None
+    def _request_deadline(self, req: _Request) -> Deadline | None:
+        """The client's header budget, else the configured default, else
+        none."""
+        ms = parse_timeout_ms(req.headers.get(DEADLINE_HEADER))
+        if ms is not None:
+            return Deadline.after_ms(ms)
+        default_s = self.admission.cfg.default_deadline_s
+        return Deadline.after(default_s) if default_s > 0 else None
 
     async def _serve(self, req, w, request_type, endpoint: str) -> _Response | None:
         try:
@@ -500,16 +606,28 @@ class HttpService:
         engine = self.manager.get(oai.model)
         if engine is None:
             return _error(404, f"model {oai.model!r} not found")
-        unserved = self._unserved_header(req)
-        if unserved:
-            return _error(400, unserved)
 
         ctx = Context(oai)
+        tracer().mark(ctx.id, "received")
+        # The class scales the watermarks and rides the Context onto the
+        # wire, so every later shed/preempt decision knows it.
+        request_class = slo.normalize_class(
+            req.headers.get(REQUEST_CLASS_HEADER),
+            self.admission.cfg.default_request_class,
+        )
+        ctx.annotations[slo.ANNOTATION_KEY] = request_class
         try:
-            permit = self.admission.admit()
+            with tracer().span(ctx.id, "admission"):
+                permit = self.admission.admit(request_class=request_class)
         except AdmissionRejected as exc:
+            # Refused before any work: a deliberate drop, not an orphan.
+            tracer().abandon(ctx.id)
             return _shed_response(exc.reason, exc.retry_after_s, exc.draining)
-        with permit, self.metrics.guard(oai.model, endpoint) as guard:
+        deadline = self._request_deadline(req)
+        if deadline is not None:
+            ctx.annotations["deadline"] = deadline
+        with request_scope(ctx.id, tracer().trace_id(ctx.id)), permit, \
+                self.metrics.guard(oai.model, endpoint) as guard:
             try:
                 if oai.stream:
                     return await self._stream(w, engine, ctx, guard)
@@ -530,6 +648,10 @@ class HttpService:
             except Exception as exc:  # noqa: BLE001
                 logger.exception("%s failed", endpoint)
                 return _error(500, str(exc))
+            finally:
+                # Idempotent: the engine usually finished it already; this
+                # folds in requests that failed before reaching it.
+                tracer().finish(ctx.id)
 
     async def _stream(self, w: _StreamWriter, engine, ctx: Context, guard) -> None:
         await w.prepare(200, {"Content-Type": "text/event-stream",
@@ -650,22 +772,28 @@ class HttpService:
 
 
 class HealthServer(HttpService):
-    """The worker's health and metrics endpoint (``--health-port``): no
-    OpenAI surface. ``/health`` answers 503 while the engine warms or
+    """The worker's health, metrics and debug endpoint (``--health-port``):
+    no OpenAI surface. ``/health`` answers 503 while the engine warms or
     drains (the readiness probe's target); ``/metrics`` exports every
     numeric field of the engine's readiness snapshot, the process-wide
-    shed/fault/retry/failover counters and ``gauges()`` (the served
-    endpoint's request count), under the prefix ``dyntpu_worker``."""
+    shed/deadline/fault/retry/failover counters, ``gauges()`` (the served
+    endpoint's request count) and the tracer's histograms, under the
+    prefix ``dyntpu_worker``; ``/debug/*`` as on the OpenAI server."""
 
     _ROUTES = {
         "/health": ("GET", "_health"),
         "/live": ("GET", "_live"),
         "/metrics": ("GET", "_metrics"),
+        "/debug/steps": ("GET", "_debug_steps"),
+        "/debug/trace": ("GET", "_debug_trace"),
+        "/debug/routes": ("GET", "_debug_routes"),
+        "/debug/profile": ("GET", "_debug_profile"),
     }
 
     def __init__(self, readiness, host: str = "0.0.0.0", port: int = 8081,
-                 gauges=None) -> None:
-        super().__init__(ModelManager(), host=host, port=port, readiness=readiness)
+                 gauges=None, debug=None, profiler: Profiler | None = None) -> None:
+        super().__init__(ModelManager(), host=host, port=port, readiness=readiness,
+                         debug=debug, profiler=profiler)
         self.metrics = Metrics(prefix="dyntpu_worker")
         self._gauges = gauges
 
@@ -686,6 +814,9 @@ class HealthServer(HttpService):
         values.update({
             "engine_ready": eng.get("state") == "ready",
             "shed_requests_total": OVERLOAD.shed_total,
+            "shed_interactive_total": OVERLOAD.shed_class_total(slo.INTERACTIVE),
+            "shed_batch_total": OVERLOAD.shed_class_total(slo.BATCH),
+            "deadline_exceeded_total": OVERLOAD.deadline_total,
             "faults_injected_total": FAULTS.total_injected,
             "retries_total": RETRIES.total,
             "failover_total": FAILOVER.total,
@@ -696,4 +827,6 @@ class HealthServer(HttpService):
             values.update(self._gauges())
         for key, val in values.items():
             self.metrics.set_gauge(key, float(val))
-        return _text_response(200, self.metrics.render())
+        # The worker is where the engine's span and ITL histograms
+        # accumulate in a fleet: they export here.
+        return _text_response(200, self.metrics.render() + tracer().render())

@@ -8,18 +8,23 @@ usage-bearing chunk; requested annotations (``formatted_prompt``,
 is matched for tool calls, and the engine's logprob entries render in
 the OpenAI chat and legacy completions shapes.
 
-Not in this port yet: request tracing, deadlines and SLO classes
-(ROADMAP queue A).
+Tokenization is the request's ``tokenize`` span. The deadline and the
+SLO class the HTTP boundary put on the Context's annotations, and the
+trace context, ride the ``PreprocessedRequest`` wire to every later hop;
+a request shed or expired before any output surfaces as a typed error
+(``ShedError``, ``DeadlineError``), not an empty completion.
 """
 
 from __future__ import annotations
 
 from typing import Any, AsyncIterator
 
+from dynamo_tpu_torch.llm import slo
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.protocols.annotated import Annotated
 from dynamo_tpu_torch.llm.protocols.common import (
     MAX_LOGPROBS,
+    DeadlineError,
     EngineOutput,
     FinishReason,
     PreprocessedRequest,
@@ -38,6 +43,7 @@ from dynamo_tpu_torch.llm.protocols.openai import (
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.llm.tools import ToolCallMatcher
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
+from dynamo_tpu_torch.utils.tracing import tracer
 from dynamo_tpu_torch.runtime.pipeline import Operator
 
 ANNOTATION_FORMATTED_PROMPT = "formatted_prompt"
@@ -177,7 +183,15 @@ class OpenAIPreprocessor(Operator):
         self, request: Context, downstream: AsyncEngine
     ) -> AsyncIterator[Any]:
         oai: ChatCompletionRequest | CompletionRequest = request.payload
-        pre = self.preprocess(oai)
+        with tracer().span(request.id, "tokenize"):
+            pre = self.preprocess(oai)
+        # The HTTP boundary parsed or defaulted the deadline and the class
+        # onto the Context; from here they ride the wire.
+        pre.deadline = request.annotations.get("deadline")
+        cls = request.annotations.get(slo.ANNOTATION_KEY)
+        if cls is not None:
+            pre.annotations[slo.ANNOTATION_KEY] = cls
+        pre.trace = tracer().context(request.id, parent_span="tokenize")
         is_chat = isinstance(oai, ChatCompletionRequest)
         rid = new_request_id("chatcmpl" if is_chat else "cmpl")
         prompt_tokens = len(pre.token_ids)
@@ -229,10 +243,13 @@ class OpenAIPreprocessor(Operator):
             out = EngineOutput.from_wire(raw) if isinstance(raw, dict) else raw
             completion_tokens += len(out.token_ids)
             finish = out.finish_reason.value if out.finish_reason else None
-            if (completion_tokens == 0 and not out.token_ids
-                    and out.finish_reason is FinishReason.SHED):
-                # Shed before any output: a typed error, not an empty 200.
-                raise ShedError("request shed under overload before execution")
+            if completion_tokens == 0 and not out.token_ids:
+                # Shed or expired before any output: a typed error (HTTP
+                # 429/503/504), not an empty 200.
+                if out.finish_reason is FinishReason.SHED:
+                    raise ShedError("request shed under overload before execution")
+                if out.finish_reason is FinishReason.DEADLINE:
+                    raise DeadlineError("request deadline expired before any output")
             if matcher is not None:
                 if out.text:
                     buffered.append(out.text)

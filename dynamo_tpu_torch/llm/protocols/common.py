@@ -2,9 +2,10 @@
 dynamo_tpu/llm/protocols/common.py).
 
 The wire dictionaries are the reference's, field for field, so a request
-serialized by either package deserializes in the other. The deadline
-(``deadline_ms``) and trace context (``trace``) ride through opaquely:
-this slice's engine refuses deadlines and records no traces.
+serialized by either package deserializes in the other. In process a
+request carries a ``Deadline`` and a ``TraceContext``; on the wire they
+travel as ``deadline_ms`` (remaining budget, re-anchored on receipt) and
+``trace``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field
 from typing import Any
+
+from dynamo_tpu_torch.utils.deadline import Deadline
+from dynamo_tpu_torch.utils.tracing import TraceContext
 
 # Top alternatives reported per generated token (ops/sampling.py
 # token_logprobs); the reference's cap.
@@ -40,9 +44,8 @@ class ShedError(RuntimeError):
 
 
 class DeadlineError(RuntimeError):
-    """The request's deadline expired before it finished. Maps to HTTP
-    504. The port serves no deadlines yet (ROADMAP A4); the class exists
-    so a worker's error frame keeps its type across the wire."""
+    """The request's deadline expired before it finished; whatever work
+    remained was cancelled, not executed. Maps to HTTP 504."""
 
 
 class WorkerDiedError(ConnectionError):
@@ -157,10 +160,12 @@ class PreprocessedRequest:
     model: str = ""
     logprobs: int | None = None
     annotations: dict[str, Any] = field(default_factory=dict)
-    # Remaining deadline budget in ms and the trace context, as they
-    # travel on the wire (kept opaque here; see module docstring).
-    deadline_ms: float | None = None
-    trace: dict[str, Any] | None = None
+    # Absolute deadline; on the wire ``deadline_ms``, the remaining
+    # budget at serialization.
+    deadline: Deadline | None = None
+    # Trace identity: travels where ``deadline_ms`` travels so every
+    # hop's spans join one per-request timeline.
+    trace: TraceContext | None = None
     remote_prefill: bool = False
     mm_segments: list[dict[str, Any]] = field(default_factory=list)
 
@@ -174,10 +179,10 @@ class PreprocessedRequest:
             "annotations": self.annotations,
             "remote_prefill": self.remote_prefill,
         }
-        if self.deadline_ms is not None:
-            wire["deadline_ms"] = self.deadline_ms
+        if self.deadline is not None:
+            wire["deadline_ms"] = self.deadline.to_wire()
         if self.trace is not None:
-            wire["trace"] = self.trace
+            wire["trace"] = self.trace.to_wire()
         if self.mm_segments:
             wire["mm_segments"] = self.mm_segments
         return wire
@@ -191,8 +196,8 @@ class PreprocessedRequest:
             model=d.get("model", ""),
             logprobs=d.get("logprobs"),
             annotations=d.get("annotations") or {},
-            deadline_ms=d.get("deadline_ms"),
-            trace=d.get("trace"),
+            deadline=Deadline.from_wire(d.get("deadline_ms")),
+            trace=TraceContext.from_wire(d.get("trace")),
             remote_prefill=bool(d.get("remote_prefill", False)),
             mm_segments=list(d.get("mm_segments") or []),
         )

@@ -19,6 +19,13 @@ package defaults from its TPU calibration (``prefill_quadratic_us``,
 default to 0 here — off — until H100 constants are fitted (ROADMAP
 A11); no TPU number enters the port.
 
+Clock: every sleep is also charged to the runner's ``charged_clock``,
+which the engine reads for the co-location controller's ITL samples
+(``TorchEngine._clock``). A sample is then exactly the cost the model
+charged the dispatch, whatever the host's scheduling noise added to the
+sleep: the controller sees the simulated chip, not the CPU the test
+shares. Everything else keeps wall time.
+
 ``deterministic_tokens``: every sampled token is a pure affine function
 of (previous token, its position) — ``det_next_token`` — so any worker
 resuming from (last token, length), as a failover replay of prompt +
@@ -115,6 +122,17 @@ class _SimRunner(WarmupPlanMixin):
         self._rng = np.random.default_rng(sim.seed)
         self.compile_stats = CompileStats()
         self.last_logprobs = None
+        self._charged_s = 0.0
+
+    def charged_clock(self) -> float:
+        """Seconds of simulated work charged so far (the engine's
+        coloc clock)."""
+        return self._charged_s
+
+    def _charge(self, us: float) -> None:
+        """Sleep ``us`` microseconds and charge them to the clock."""
+        self._charged_s += us / 1e6
+        time.sleep(us / 1e6)
 
     @property
     def unified_slots(self) -> int:
@@ -168,17 +186,17 @@ class _SimRunner(WarmupPlanMixin):
     # -- phase-split entry points ----------------------------------------------
     def prefill(self, new_tokens, block_ids, prefix_len, sampling) -> int:
         n = len(new_tokens)
-        time.sleep((self._weight_pass_us(self.sim.prefill_dispatch_base_us)
-                    + self._prefill_cost_us(n)) / 1e6)
+        self._charge(self._weight_pass_us(self.sim.prefill_dispatch_base_us)
+                     + self._prefill_cost_us(n))
         if self.sim.deterministic_tokens and n:
             return int(self._det_next(new_tokens[-1], prefix_len + n))
         return self._rand_token()
 
     def prefill_batch(self, lanes) -> list[int]:
-        time.sleep(self._weight_pass_us(self.sim.prefill_dispatch_base_us) / 1e6)
+        self._charge(self._weight_pass_us(self.sim.prefill_dispatch_base_us))
         out = []
         for toks, _blocks, prefix, _samp in lanes:
-            time.sleep(self._prefill_cost_us(len(toks)) / 1e6)
+            self._charge(self._prefill_cost_us(len(toks)))
             out.append(
                 int(self._det_next(toks[-1], prefix + len(toks)))
                 if self.sim.deterministic_tokens and toks
@@ -188,7 +206,7 @@ class _SimRunner(WarmupPlanMixin):
 
     def decode(self, token_ids, positions, block_tables, context_lens,
                slot_mapping, temp, top_k, top_p, seed=None) -> np.ndarray:
-        time.sleep(self._weight_pass_us(self.sim.decode_time_per_step_us) / 1e6)
+        self._charge(self._weight_pass_us(self.sim.decode_time_per_step_us))
         if self.sim.deterministic_tokens:
             return self._det_next(
                 np.asarray(token_ids), np.asarray(positions) + 1
@@ -200,9 +218,9 @@ class _SimRunner(WarmupPlanMixin):
         active = int(np.sum(np.asarray(context_lens) > 0))
         ctx_total = float(np.sum(np.maximum(np.asarray(context_lens), 0)))
         kv_us = sum(self._kv_read_us(ctx_total + active * s) for s in range(num_steps))
-        time.sleep(((self._weight_pass_us(self.sim.decode_time_per_step_us)
-                     + self.sim.decode_time_per_lane_us * len(token_ids))
-                    * num_steps + kv_us) / 1e6)
+        self._charge((self._weight_pass_us(self.sim.decode_time_per_step_us)
+                      + self.sim.decode_time_per_lane_us * len(token_ids))
+                     * num_steps + kv_us)
         if self.sim.deterministic_tokens:
             prev = np.asarray(token_ids, np.int64)
             pos = np.asarray(positions, np.int64)
@@ -242,10 +260,10 @@ class _SimRunner(WarmupPlanMixin):
         greedy = all(s[0] <= 0 for _, _, _, s in lanes)
         self._make_program(kind, T, greedy)
         self.compile_stats.record_serving(kind, T)
-        time.sleep((self._weight_pass_us(self.sim.decode_time_per_step_us)
-                    + self.sim.decode_time_per_lane_us * len(decode)
-                    + self._kv_read_us(decode_ctx)
-                    + self._prefill_cost_us(prefill_tokens + drafted)) / 1e6)
+        self._charge(self._weight_pass_us(self.sim.decode_time_per_step_us)
+                     + self.sim.decode_time_per_lane_us * len(decode)
+                     + self._kv_read_us(decode_ctx)
+                     + self._prefill_cost_us(prefill_tokens + drafted))
         S = self.unified_slots
         K = max(1, cfg.speculative_k)
         last = np.zeros(S, np.int32)
@@ -296,7 +314,8 @@ class _SimRunner(WarmupPlanMixin):
 class MockerEngine(TorchEngine):
     """TorchEngine with a simulated runner — the fleet testbed. Runs on
     no device (``device`` defaults to the CPU and nothing is placed on
-    it)."""
+    it). The co-location controller, per-phase admission, the flight
+    recorder and the tracer are the engine's own."""
 
     def __init__(self, cfg: EngineConfig, sim: MockerConfig | None = None,
                  **kwargs) -> None:
@@ -306,3 +325,4 @@ class MockerEngine(TorchEngine):
 
     def _build_runner(self) -> None:
         self.runner = _SimRunner(self.cfg, self._sim)
+        self._clock = self.runner.charged_clock

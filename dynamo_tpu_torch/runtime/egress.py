@@ -8,9 +8,14 @@ the response stream. A dispatch that finds a dead worker, or a stream
 whose socket dies, evicts the instance at once (the mark-dead fast path)
 instead of waiting out its lease.
 
+Instance selection and the envelope publish are the request's ``route``
+span; the envelope carries the trace context (``trace``), so the worker's
+capture joins the caller's timeline even for payloads that are not a
+PreprocessedRequest wire. Each streamed frame refreshes the caller's
+trace TTL.
+
 ``RouterMode.KV`` is parsed and refused: the KV-aware router arrives with
-ROADMAP A5, and so do the route span and the ``fleet.worker_kill`` trace
-record (the fault point itself is here).
+ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from dynamo_tpu_torch.runtime.transports import wire
 from dynamo_tpu_torch.runtime.transports.store import EventKind
 from dynamo_tpu_torch.utils.faults import FAULTS
 from dynamo_tpu_torch.utils.task import spawn_tracked
+from dynamo_tpu_torch.utils.tracing import tracer
 
 logger = logging.getLogger(__name__)
 
@@ -246,7 +252,8 @@ class PushRouter:
     ) -> AsyncIterator[Any]:
         tried: set[int] = set()
         while True:
-            instance = await self._pick(instance_id, tried)
+            with tracer().span(request.id, "route"):
+                instance = await self._pick(instance_id, tried)
             try:
                 receiver = await self._dispatch(instance, request)
             except (ConnectionError, OSError, asyncio.TimeoutError) as exc:
@@ -280,7 +287,7 @@ class PushRouter:
             "id": request.id,
             "payload": request.payload,
             "resp": server.connection_info(stream_id).to_wire(),
-            "trace": None,
+            "trace": tracer().context_wire(request.id, parent_span="route"),
         }
         try:
             if FAULTS.active:
@@ -299,6 +306,9 @@ class PushRouter:
             async for payload in receiver:
                 if request.is_killed:
                     break
+                # Each frame proves the request alive: keep the caller's
+                # trace out of the TTL sweep.
+                tracer().touch(request.id)
                 yield wire.unpackb(payload)
         except WorkerDiedError as exc:
             # Mid-stream death, on transport evidence only: evict now so

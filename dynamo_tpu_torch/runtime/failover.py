@@ -20,11 +20,15 @@
 - **Bounded**: ``max_attempts`` failovers, then ``FailoverExhausted``
   (HTTP 502).
 
-``deadline_ms`` rides through the replay unchanged: the reference's
-remaining-deadline re-stamp and its expiry check before a replay need
-the ``Deadline`` type, which arrives with ROADMAP A4 (the port's engine
-refuses deadlines until then). The failover span and the ``failover``
-trace record arrive with the tracer (A4) too.
+- **Deadlines**: a request whose deadline expired by the time of the
+  death gets ``DeadlineError`` (HTTP 504) instead of a replay; a replay
+  carries the REMAINING budget (re-shipping the original ``deadline_ms``
+  would reset the deadline on the new worker).
+- **Tracing**: the replay keeps the original trace id; the ``failover``
+  span covers the client-visible resume gap (death → the replay's first
+  frame), and each completed failover exports a ``kind="failover"``
+  record (reason, attempt, old and new worker, resume token) to the
+  capture.
 
 ``FAILOVER`` is the process-wide counter registry (``failover_total``,
 ``failover_success_total``, ``workers_marked_dead_total``, per reason).
@@ -38,11 +42,14 @@ import threading
 from typing import Any, AsyncIterator
 
 from dynamo_tpu_torch.llm.protocols.common import (
+    DeadlineError,
     FailoverExhausted,
     FinishReason,
     ShedError,
     WorkerDiedError,
 )
+from dynamo_tpu_torch.utils.deadline import OVERLOAD, Deadline
+from dynamo_tpu_torch.utils.tracing import TraceContext, tracer
 
 logger = logging.getLogger(__name__)
 
@@ -134,6 +141,10 @@ class FailoverEngine:
         wire = request.payload if isinstance(request.payload, dict) else None
         replayable = wire is not None and "token_ids" in wire
         stop = (wire.get("stop") or {}) if replayable else {}
+        deadline = (
+            Deadline.from_wire(wire.get("deadline_ms")) if replayable else None
+        )
+        trace_id = tracer().trace_id(request.id)
         emitted: list[int] = []
         yielded_any = False
         attempt = 0
@@ -219,8 +230,19 @@ class FailoverEngine:
                     "cum_tokens": len(emitted), "kv_transfer_params": None,
                 }
                 return
+            if deadline is not None and deadline.expired:
+                OVERLOAD.note_deadline("failover")
+                raise DeadlineError("request deadline expired during failover") from death
             attempt += 1
             FAILOVER.note_attempt(reason)
+            # Keep the ORIGINAL trace id across the seam: a dead worker
+            # sharing this process's tracer (mocker fleets) closed the
+            # trace in its teardown; re-adopt it under the same id so the
+            # failover span, the replay's spans and the finish join one
+            # timeline.
+            tracer().adopt(request.id, TraceContext(trace_id, sent_unix=None))
+            tracer().mark(request.id, "failover")
+            tracer().span_begin(request.id, "failover")
             logger.warning(
                 "request %s: worker %s died mid-stream (%s) — failover "
                 "attempt %d/%d resuming at token %d",
@@ -228,33 +250,43 @@ class FailoverEngine:
                 reason, attempt, self.max_attempts, len(emitted),
             )
             if replayable:
-                ctx = request.map(self._replay_wire(wire, emitted))
+                ctx = request.map(self._replay_wire(wire, emitted, deadline))
             # The router re-picks without the evicted corpse; a ShedError
             # (no healthy capacity left) is exhaustion here. A replay whose
             # first frame dies too loops back through the bounded path.
+            # The failover span closes at the replay's first frame.
             replay = self._next.generate(ctx)
             try:
                 first = await replay.__anext__()
             except StopAsyncIteration:
+                tracer().span_end(request.id, "failover")
                 succeed()
                 return
             except ShedError as exc:
+                tracer().span_end(request.id, "failover")
                 raise FailoverExhausted(
                     f"no healthy capacity for failover: {exc}", attempts=attempt
                 ) from exc
             except (GeneratorExit, asyncio.CancelledError):
+                tracer().span_end(request.id, "failover")
                 raise
             except BaseException as exc:  # noqa: BLE001 — classified below
+                tracer().span_end(request.id, "failover")
                 if not failover_eligible(exc):
                     raise
                 resumed = _raising(exc)
                 continue
+            tracer().span_end(request.id, "failover")
+            self._export_record(
+                request.id, reason, attempt, old_worker,
+                request.annotations.get("worker_id"), len(emitted),
+            )
             resumed = _resume(replay, first)
 
     @staticmethod
-    def _replay_wire(wire: dict, emitted: list[int]) -> dict[str, Any]:
+    def _replay_wire(wire: dict, emitted: list[int], deadline=None) -> dict[str, Any]:
         """The replay request: prompt + emitted tokens, stop budgets
-        shrunk by the emitted count."""
+        shrunk by the emitted count, the remaining deadline re-stamped."""
         w = dict(wire)
         w["token_ids"] = list(wire["token_ids"]) + list(emitted)
         stop = dict(w.get("stop") or {})
@@ -263,7 +295,27 @@ class FailoverEngine:
         if stop.get("min_tokens"):
             stop["min_tokens"] = max(0, stop["min_tokens"] - len(emitted))
         w["stop"] = stop
+        if deadline is not None:
+            w["deadline_ms"] = deadline.to_wire()
         return w
+
+    @staticmethod
+    def _export_record(request_id: str, reason: str, attempt: int,
+                       old_worker, new_worker, resumed_at: int) -> None:
+        """The ``kind="failover"`` line of the ``DYNTPU_TRACE`` capture."""
+        try:
+            tracer().export({
+                "kind": "failover",
+                "id": request_id,
+                "trace": tracer().trace_id_if_active(request_id) or "",
+                "reason": reason,
+                "attempt": attempt,
+                "old_worker": old_worker,
+                "new_worker": new_worker,
+                "resumed_at_token": resumed_at,
+            })
+        except Exception:  # noqa: BLE001 — observability must not fail failover
+            logger.exception("failover record export failed")
 
 
 def _owed_delivered(stop: dict, emitted: list[int]) -> str | None:

@@ -5,11 +5,13 @@ subject, and for each request envelope spawn a handler that runs the
 engine and streams its items back over the TCP response plane.
 
 Request envelope (MessagePack, transports/wire.py): ``{"id": str,
-"payload": <obj>, "resp": {host, port, stream_id}, "trace": ...}``.
-``trace`` stays null until the tracer arrives (ROADMAP A4); a request's
-``deadline_ms`` rides inside its payload. Response frames carry
-MessagePack items; the last frame is an end or err control frame
-(transports/tcp.py).
+"payload": <obj>, "resp": {host, port, stream_id}, "trace": {trace_id,
+parent_span, sent_unix}}``. The handler adopts the caller's trace id
+before any work, so every span it records (and any error frame it sends)
+joins the caller's timeline, and finishes the capture when the stream
+ends, however it ends. A request's ``deadline_ms`` rides inside its
+payload. Response frames carry MessagePack items; the last frame is an
+end or err control frame (transports/tcp.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dynamo_tpu_torch.runtime.transports import wire
 from dynamo_tpu_torch.runtime.transports.tcp import ConnectionInfo, TcpResponseSender
 from dynamo_tpu_torch.utils.logging import request_scope
 from dynamo_tpu_torch.utils.task import spawn_tracked
+from dynamo_tpu_torch.utils.tracing import TraceContext, tracer
 
 logger = logging.getLogger(__name__)
 
@@ -144,7 +147,10 @@ async def _handle_request(engine: AsyncEngine, raw: bytes) -> None:
     envelope = wire.unpackb(raw)
     sender: TcpResponseSender | None = None
     rid = envelope.get("id", "")
-    with request_scope(rid):
+    ctx_trace = TraceContext.from_wire(envelope.get("trace"))
+    tracer().adopt(rid, ctx_trace)
+    trace_id = ctx_trace.trace_id if ctx_trace is not None else None
+    with request_scope(rid, trace_id):
         try:
             info = ConnectionInfo.from_wire(envelope["resp"])
             sender = await TcpResponseSender.connect(info)
@@ -152,14 +158,23 @@ async def _handle_request(engine: AsyncEngine, raw: bytes) -> None:
             async for item in engine.generate(ctx):
                 await sender.send(wire.packb(item, default=_default))
             await sender.end()
+            # The engine finishes the requests it runs; a payload that
+            # bypassed it only opened a capture through adopt() above.
+            tracer().finish(rid)
         except asyncio.CancelledError:
             # Abrupt worker death (ServedInstance.kill, process teardown):
             # abort with NO terminal frame, so the caller fails over.
+            tracer().mark_if_active(rid, "error")
+            tracer().finish(rid)
             if sender is not None:
                 sender.abort()
             raise
         except Exception as exc:  # noqa: BLE001 — report to the caller, keep serving
             logger.exception("request %s failed", rid)
+            # Mark and finish under the trace id the caller finishes its
+            # half with: the error plane orphans nothing.
+            tracer().mark_if_active(rid, "error")
+            tracer().finish(rid)
             if sender is not None:
                 try:
                     await sender.error(_wire_error(exc))

@@ -31,6 +31,7 @@ from dynamo_tpu_torch.llm.protocols import common as t_proto
 from dynamo_tpu_torch.models import llama as t_llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.utils.deadline import Deadline
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_CFG = JCfg.tiny_test()
@@ -189,7 +190,9 @@ def test_oversized_prompt_errors():
     ({"logprobs": 2}, {"sampling_extras": False}, "sampling_extras=False"),
     ({"sampling": t_proto.SamplingOptions(frequency_penalty=0.5)},
      {"sampling_extras": False}, "sampling_extras=False"),
-    ({"deadline_ms": 100.0}, {}, "not served"),
+    # Deadlines are served; one already expired on arrival is refused
+    # with the typed DeadlineError, as the JAX engine refuses it.
+    ({"deadline": Deadline.after_ms(0)}, {}, "expired before admission"),
     ({"remote_prefill": True}, {}, "not served"),
 ], ids=["logprobs", "penalty", "deadline", "remote_prefill"])
 def test_unserved_requests_are_refused(change, engine_kw, match):
@@ -198,7 +201,8 @@ def test_unserved_requests_are_refused(change, engine_kw, match):
         await engine.start()
         try:
             pre = t_proto.PreprocessedRequest(token_ids=[1, 2], **change)
-            with pytest.raises(t_proto.RequestError, match=match):
+            exc = t_proto.DeadlineError if "deadline" in change else t_proto.RequestError
+            with pytest.raises(exc, match=match):
                 async for _ in engine.generate(Context(pre.to_wire())):
                     pass
         finally:
@@ -355,6 +359,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
     PreprocessedRequest, SamplingOptions, StopConditions)
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.utils.deadline import Deadline
 from dynamo_tpu_torch.engine.runner import ModelRunner
 from dynamo_tpu_torch.ops.kernels import (  # noqa: F401
     paged_decode_attention, paged_prefill_attention, ragged_attention)
@@ -419,6 +424,63 @@ def test_port_serves_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SERVED" in proc.stdout
+
+
+TRACED_BLOCKED_IMPORT = BLOCKED_IMPORT.split("async def main():")[0] + r'''
+import json, os, tempfile
+from dynamo_tpu_torch.utils.tracing import reset_tracer
+
+tmp = tempfile.mkdtemp()
+capture = os.path.join(tmp, "trace.jsonl")
+
+
+async def traced():
+    reset_tracer(capture)
+    args = cli.build_parser().parse_args([
+        "run", "--device", "cpu", "--model-path", "preset:tiny-test",
+        "--http-host", "127.0.0.1", "--http-port", "0", "--max-model-len", "64",
+        "--num-blocks", "32", "--max-num-seqs", "4", "--no-warmup",
+        "--coloc", "adaptive", "--itl-slo-ms", "50", "--default-deadline-s", "30",
+        "--default-request-class", "batch", "--profile-dir", tmp])
+    cli.refuse_unserved(args)
+    async with contextlib.AsyncExitStack() as stack:
+        service, engine = await cli.start_http(args, stack)
+        resp = await fetch("127.0.0.1", service.port, "POST", "/v1/completions",
+                           {"model": "tiny-test", "prompt": [1, 2, 3], "max_tokens": 3,
+                            "nvext": {"ignore_eos": True}},
+                           {"X-Request-Timeout-Ms": "20000", "X-Request-Class": "batch"})
+        steps = await fetch("127.0.0.1", service.port, "GET", "/debug/steps?n=4")
+        metrics = await fetch("127.0.0.1", service.port, "GET", "/metrics")
+        quantum = engine.readiness()["coloc_quantum"]
+    reset_tracer(None)
+    assert resp.status == 200, resp.body
+    assert resp.json()["usage"]["completion_tokens"] == 3
+    assert steps.status == 200 and steps.json()["steps"], steps.body
+    assert b"dyntpu_http_service_admission_admitted_batch_total 1.0" in metrics.body
+    assert quantum >= 16
+    kinds = [json.loads(line)["event"]["kind"] for line in open(capture)]
+    assert "finish" in kinds and "span" in kinds, kinds
+
+
+asyncio.run(traced())
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("TRACED")
+'''
+
+
+def test_port_serves_traced_deadline_class_request_with_jax_blocked():
+    """The same blocked interpreter as above serves, through the CLI's
+    HTTP path with --coloc adaptive, a default deadline and class and a
+    profile directory, a request carrying X-Request-Timeout-Ms and
+    X-Request-Class while the tracer writes a capture: jax and msgpack
+    are never needed."""
+    proc = subprocess.run(
+        [sys.executable, "-c", TRACED_BLOCKED_IMPORT], cwd=REPO,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "TRACED" in proc.stdout
 
 
 def test_preemption_under_block_pressure_keeps_streams_exact(caplog):

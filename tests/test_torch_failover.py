@@ -6,8 +6,8 @@ failover, bounded attempts, synthesized finishes — each case through
 both packages' FailoverEngine — and the mid-stream kill between two
 mocker workers, whose stream must equal the uninterrupted one byte for
 byte. The mocker's streams equal the JAX mocker's for the same prompts
-and config. (The reference's failover trace record waits for the
-tracer, ROADMAP A4.)"""
+and config. (The failover span and ``kind="failover"`` record are held
+in tests/test_torch_trace.py.)"""
 
 import asyncio
 from types import SimpleNamespace

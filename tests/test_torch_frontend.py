@@ -518,12 +518,8 @@ REFUSED = {
     "--speculative-k": ["--speculative-k", "-1"],
     "--router-mode kv": ["--router-mode", "kv"],
     "--model-type embeddings": ["--model-type", "embeddings"],
-    "--default-deadline-s": ["--default-deadline-s", "2"],
-    "--default-request-class": ["--default-request-class", "batch"],
     "--config": ["--config", "x.yaml"],
     "--set": ["--set", "Engine.x=1"],
-    "--coloc adaptive": ["--coloc", "adaptive"],
-    "--itl-slo-ms": ["--itl-slo-ms", "50"],
 }
 
 
@@ -549,6 +545,29 @@ def test_cli_serves_the_runtime_plane_flags(flag):
     t_cli.refuse_unserved(t_cli.build_parser().parse_args(["run", *SERVED[flag]]))
 
 
+# Deadlines, SLO classes, co-location and profiling, refused until this
+# slice, are served; the engine and admission configs carry them.
+SERVED_SLO = {
+    "--default-deadline-s": ["--default-deadline-s", "2"],
+    "--default-request-class": ["--default-request-class", "batch"],
+    "--batch-watermark-scale": ["--batch-watermark-scale", "0.25"],
+    "--coloc adaptive": ["--coloc", "adaptive", "--itl-slo-ms", "50"],
+    "--itl-slo-ms": ["--itl-slo-ms", "50"],
+    "--profile-dir": ["--profile-dir", "/nonexistent/profiles"],
+}
+
+
+@pytest.mark.parametrize("flag", sorted(SERVED_SLO))
+def test_cli_serves_the_slo_and_observability_flags(flag):
+    args = t_cli.build_parser().parse_args(
+        ["run", "--device", "cpu", "--model-path", "preset:tiny-test",
+         *SERVED_SLO[flag]])
+    t_cli.refuse_unserved(args)
+    _local, ecfg = t_cli._local_and_cfg(args)
+    assert (ecfg.coloc, ecfg.itl_slo_ms, ecfg.coloc_min_quantum) == (
+        args.coloc, args.itl_slo_ms, args.coloc_min_quantum)
+
+
 def test_cli_router_mode_kv_refusal_names_roadmap_a5():
     with pytest.raises(SystemExit, match="ROADMAP A5"):
         t_cli.main(["run", "--router-mode", "kv"])
@@ -563,7 +582,9 @@ def test_cli_refuses_non_preset_models_and_bad_dtypes():
 
 
 def test_cli_parser_rejects_flags_without_a_counterpart():
-    for flag in ("--compile-cache-dir", "--profile-dir", "--coloc-min-quantum"):
+    # --profile-dir and --coloc-min-quantum have their counterparts now
+    # (torch.profiler windows, the co-location floor): served above.
+    for flag in ("--compile-cache-dir",):
         with pytest.raises(SystemExit) as exc:
             t_cli.build_parser().parse_args(["run", flag, "1"])
         assert exc.value.code == 2

@@ -390,6 +390,9 @@ def _head_view(raw: bytes):
 
 
 def test_unserved_headers_and_routes_are_refused():
+    """The deadline and class headers are served now (both answer 200,
+    as the JAX server does); what stays refused is /debug/routes (the KV
+    router's audit, ROADMAP A5) and /v1/embeddings, both 404."""
     async def scenario(service):
         out = []
         for headers in ({"X-Request-Timeout-Ms": "500"}, {"X-Request-Class": "batch"},
@@ -397,12 +400,13 @@ def test_unserved_headers_and_routes_are_refused():
             resp = await fetch(HOST, service.port, "POST", "/v1/chat/completions",
                                {"model": "echo-model", "messages": MSG}, headers)
             out.append(resp.status)
-        debug = await fetch(HOST, service.port, "GET", "/debug/steps")
+        debug = await fetch(HOST, service.port, "GET", "/debug/routes")
         emb = await fetch(HOST, service.port, "POST", "/v1/embeddings",
                           {"model": "echo-model", "input": "x"})
-        return out, debug.status, debug.json()["error"]["type"], emb.status
+        err = debug.json()["error"]
+        return out, debug.status, err["type"], "ROADMAP A5" in err["message"], emb.status
 
-    assert _port_server(scenario) == ([400, 400, 200], 404, "debug_error", 404)
+    assert _port_server(scenario) == ([200, 200, 200], 404, "debug_error", True, 404)
 
 
 # -- tiny-test through both engines -----------------------------------------
@@ -502,12 +506,22 @@ def test_tiny_test_readiness_uses_jax_names(tiny_servers):
         "served_unwarmed", "warm_tail_pending", "mid_traffic_compiles_total",
         "compile_stall_ms_total", "warmed_programs", "warmup_programs_total",
         "spec_tokens_per_step", "spec_active", "spec_drafted_tokens_total",
-        "spec_accepted_tokens_total"}
+        "spec_accepted_tokens_total",
+        # SLO classes, deadlines, the tracer and the flight recorder
+        "shed_interactive_total", "shed_batch_total", "deadline_exceeded_total",
+        "abandoned_traces_total", "flight_steps_total", "num_waiting_interactive",
+        "num_waiting_batch", "batch_fill_ratio",
+        # the co-location controller
+        "coloc_quantum", "itl_ema_ms", "itl_p95_ms", "itl_headroom_ms",
+        "itl_slo_violations_total", "coloc_prefill_deferrals_total", "coloc_adaptive"}
     # Decode lanes issued depend on when requests arrived and how deep the
     # pipeline ran; the prompt tokens prefilled do not.
     for key in ("unified_step_tokens_prefill_total", "num_requests_waiting",
                 "prefill_backlog_tokens", "state", "draining", "served_unwarmed",
-                "warm_tail_pending", "warmed_programs", "spec_active"):
+                "warm_tail_pending", "warmed_programs", "spec_active",
+                "num_waiting_interactive", "num_waiting_batch", "coloc_quantum",
+                "coloc_adaptive", "itl_slo_violations_total",
+                "coloc_prefill_deferrals_total"):
         assert t_ready[key] == j_ready[key], key
     assert t_ready["unified_step_tokens_decode_total"] >= sum([8, 6, 7, 9]) - 4
     assert t_health["status"] == j_health["status"] == "healthy"

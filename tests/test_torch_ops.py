@@ -292,11 +292,21 @@ def test_protocol_wire_matches_jax():
 
 
 def test_opaque_deadline_and_trace_round_trip():
-    wire = {"token_ids": [1], "deadline_ms": 250.0, "trace": {"id": "x"}}
+    """The deadline and trace context cross the wire as the JAX package
+    writes them: the remaining budget re-anchors on receipt (never more
+    than was sent), the trace context comes back field for field, and a
+    wire without them stays without them."""
+    trace = {"trace_id": "x", "parent_span": "tokenize", "sent_unix": 1.5e9}
+    wire = {"token_ids": [1], "deadline_ms": 250.0, "trace": trace}
     pre = t_proto.PreprocessedRequest.from_wire(wire)
-    assert pre.deadline_ms == 250.0 and pre.trace == {"id": "x"}
+    assert 200.0 < pre.deadline.remaining_ms() <= 250.0
+    assert pre.trace.trace_id == "x" and pre.trace.parent_span == "tokenize"
     back = pre.to_wire()
-    assert back["deadline_ms"] == 250.0 and back["trace"] == {"id": "x"}
+    assert 200.0 < back["deadline_ms"] <= 250.0 and back["trace"] == trace
+    j = j_proto.PreprocessedRequest.from_wire(back)
+    assert j.trace.trace_id == "x" and 200.0 < j.deadline.remaining_ms() <= 250.0
+    bare = t_proto.PreprocessedRequest.from_wire({"token_ids": [1]}).to_wire()
+    assert "deadline_ms" not in bare and "trace" not in bare
 
 
 class _S:

@@ -159,7 +159,31 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 tokens with finish "length", round robin splits them 4
                 and 4 (each worker's /metrics), the streams pass phase
                 8's teacher-forced gates; token-match rate against the
-                http phase's streams; drain verb — one 256-token stream in
+                http phase's streams; kv_route — a second in-process
+                frontend with ``--router-mode kv`` on the same two
+                workers: 4 groups × 3 requests, each group sharing a
+                384-token prefix (24 blocks), each request its own
+                64-token suffix (prompts from the seed), 32 greedy tokens;
+                each group's first request, then (the router's indexer
+                settled: nothing pending, radix size steady) the 8 later
+                ones at once: every later request on its group's first
+                worker; 12 route records at /debug/routes, overlap 0 on
+                the firsts and 24 on the later ones; the workers'
+                kv_reused_device_blocks_total +192; the route-audit join
+                (tools/route_audit.py) of the router's records with the
+                workers' actual-reuse records off the hit-rate plane
+                exact; the router's metrics not stale; the streams
+                through phase 8's teacher-forced gates. Then the same
+                traffic shape (fresh prefixes) through the round-robin
+                frontend, reported only (reuse, TTFT p50); one more
+                group through a ``router`` subprocess (RouterService:
+                all 3 on one worker, 48 blocks reused, the streams
+                through the teacher-forced gates); a ``metrics``
+                subprocess's /metrics carries both workers' reuse
+                gauges; both subprocesses exit 0 on SIGTERM; and the
+                pinned host→device copy rate of 64 KV blocks (the
+                router's default_link_gbps) is measured; drain verb —
+                one 256-token stream in
                 flight on a worker, ``request_drain`` on its lease: the
                 stream completes, the instance key is deleted, the next
                 request is served by the other worker, the drained worker
@@ -2527,13 +2551,329 @@ async def wait_leases(drt, want: set[int], timeout: float = 30.0) -> float:
 
 
 async def worker_requests(port: int) -> float:
+    return await worker_metric(port, "ingress_requests_total")
+
+
+async def worker_metric(port: int, name: str) -> float:
+    """One gauge of a worker's health-port /metrics (-1 when absent)."""
     import re
 
     from dynamo_tpu_torch.llm.http_client import fetch
 
     body = (await fetch("127.0.0.1", port, "GET", "/metrics")).body.decode()
-    m = re.search(r"^dyntpu_worker_ingress_requests_total (\S+)$", body, re.M)
+    m = re.search(rf"^dyntpu_worker_{name} (\S+)$", body, re.M)
     return float(m.group(1)) if m else -1.0
+
+
+KV_GROUPS = 4                 # kv_route leg: prefix groups
+KV_PER_GROUP = 3              # requests per group (the first, then the later)
+KV_PREFIX = 384               # shared prefix tokens (24 blocks of 16)
+KV_SUFFIX = 64                # each request's own tokens
+KV_BLOCK_BYTES = 16 * 2 * 16 * 8 * 64 * 2   # a llama3.2-1b KV block, bf16
+
+
+def kv_groups(rng, vocab: int, groups: int) -> list[list[list[int]]]:
+    """``groups`` × KV_PER_GROUP prompts: a shared KV_PREFIX-token prefix
+    per group, a KV_SUFFIX-token suffix per request."""
+    out = []
+    for _ in range(groups):
+        prefix = rng.integers(0, vocab, KV_PREFIX).tolist()
+        out.append([prefix + rng.integers(0, vocab, KV_SUFFIX).tolist()
+                    for _ in range(KV_PER_GROUP)])
+    return out
+
+
+def h2d_kv_rate(blocks: int = 64, iters: int = 20) -> dict:
+    """Pinned host→device copy rate of a batch of llama3.2-1b KV blocks
+    (CUDA events around ``iters`` non-blocking copies): the number behind
+    the router's ``default_link_gbps``."""
+    nbytes = blocks * KV_BLOCK_BYTES
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
+    for _ in range(3):
+        dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        dev.copy_(host, non_blocking=True)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    return {"blocks": blocks, "bytes": nbytes, "ms": ms, "gbps": nbytes / ms / 1e6}
+
+
+async def send_groups(port, model, groups, max_tokens, tapped, greedy, settle) -> dict:
+    """Each group's first request at once; ``settle()``; then every later
+    request at once. Per request: stream summary, serving workers; per
+    later request, the frontend's ``route`` span (the pick, KV decision
+    and hit-rate publish included) from its finished trace."""
+    from dynamo_tpu_torch.utils.tracing import tracer
+
+    async def one(p):
+        resp, timed = await http_stream(port, "/v1/completions", {
+            "model": model, "prompt": p, "stream": True, "max_tokens": max_tokens,
+            **greedy})
+        return resp, stream_summary(timed)
+
+    firsts = [g[0] for g in groups]
+    later = [p for g in groups for p in g[1:]]
+    got_first = await asyncio.gather(*[one(p) for p in firsts])
+    await settle()
+    got_later = await asyncio.gather(*[one(p) for p in later])
+    done = dict(zip(map(tuple, firsts + later), got_first + got_later))
+    ok = all(r.status == 200 and s["usage"]["completion_tokens"] == max_tokens
+             and s["finish"] == "length" for r, s in done.values())
+    spans = {tr["id"]: tr["spans"] for tr in tracer().snapshot(1024)["recent"]}
+    route_ms = [sum(sp["dur_ms"] for sp in spans.get(tapped[tuple(p)]["id"], ())
+                    if sp["name"] == "route") for p in later]
+    return {
+        "ok": ok,
+        "route_ms_later": route_ms,
+        "firsts_per_worker": sorted(
+            sum(tapped[tuple(f)]["workers"][0] == w for f in firsts)
+            for w in {tapped[tuple(f)]["workers"][0] for f in firsts}),
+        "workers": {p: tapped[p]["workers"] for p in done},
+        "ttft_first_ms": [s["times"][0] * 1e3 for _, s in got_first],
+        "ttft_later_ms": [s["times"][0] * 1e3 for _, s in got_later],
+    }
+
+
+async def kv_route_leg(addr, stack, obs, bf16, cfg, params, port, tap, tapped, greedy,
+                       max_tokens, rng) -> dict:
+    """The KV-aware router on the two bf16 workers: see the module
+    docstring (phase 9, kv_route). ``tap`` records each request's
+    tokens, serving workers and id into ``tapped`` on both frontends."""
+    import re
+
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.llm.kv_router.audit import ROUTE_OBS
+    from dynamo_tpu_torch.llm.kv_router.scheduler import KvRouterConfig
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.egress import PushRouter
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.transports import wire
+    from dynamo_tpu_torch.tools import route_audit
+
+    import signal
+
+    t_leg = time.monotonic()
+    health = {lease: hport for _, lease, hport, _ in bf16}
+    children = []
+    mport = free_port()
+    router = await Child("router", ["router", "--control-plane", addr,
+                                    "--endpoint", FLEET_ENDPOINT]).start()
+    metrics = await Child("metrics", ["metrics", "--control-plane", addr, "--host",
+                                      "127.0.0.1", "--port", str(mport)]).start()
+    children += [router, metrics]
+    try:
+        # Both processes up before any traffic: their start-up (torch
+        # imports) must not share the host with the timed requests.
+        await router.wait_for(r"router service at dyn://dynamo\.router\.generate",
+                              FLEET_WAIT_S)
+        await metrics.wait_for(r"metrics exporter on", FLEET_WAIT_S)
+        rate = h2d_kv_rate()
+        emit({"phase": "fleet_kv_link", **rate,
+              "router_default_link_gbps": KvRouterConfig().default_link_gbps})
+        hits = await obs.bus.subscribe(
+            obs.namespace("dynamo").component("torch").event_subject("kv-hit-rate"))
+        stack.callback(hits.close)
+        actuals: list[dict] = []
+
+        async def collect():
+            async for raw in hits:
+                rec = wire.unpackb(raw)
+                if rec.get("kind") == "actual":
+                    actuals.append(rec)
+
+        collector = asyncio.ensure_future(collect())
+        stack.callback(collector.cancel)
+
+        kv_args = cli.build_parser().parse_args([
+            "run", "--in", "http", "--out", "dyn", "--control-plane", addr,
+            "--router-mode", "kv", "--http-host", "127.0.0.1", "--http-port", "0"])
+        cli.refuse_unserved(kv_args)
+        kv_service, _ = await cli.start_http(kv_args, stack, engine_ops=(tap,))
+        kv_port = kv_service.port
+        await wait_model(kv_port, cfg.name)
+
+        async def settle():
+            """The router's indexer holds every first's blocks: no event
+            pending and the radix size steady over 3 polls."""
+            sizes = []
+            t0 = time.monotonic()
+            while True:
+                g = ROUTE_OBS.gauges()
+                sizes.append(g.get("kv_radix_blocks", 0))
+                if (g.get("kv_events_pending", 1) == 0 and len(sizes) >= 3
+                        and sizes[-1] == sizes[-3] > 0):
+                    return
+                if time.monotonic() - t0 > 30:
+                    raise SystemExit(f"fleet: kv_route: the indexer never settled {g}")
+                await asyncio.sleep(0.05)
+
+        async def reused() -> dict[int, float]:
+            return {lease: await worker_metric(hp, "kv_reused_device_blocks_total")
+                    for lease, hp in health.items()}
+
+        groups = kv_groups(rng, cfg.vocab_size, KV_GROUPS)
+        before_reuse = await reused()
+        before_routes = ROUTE_OBS.snapshot(0)["routes_total"]
+        kv = await send_groups(kv_port, cfg.name, groups, max_tokens, tapped, greedy,
+                               settle)
+        after_reuse = await reused()
+        routes = (await fetch("127.0.0.1", kv_port, "GET",
+                              f"/debug/routes?n={KV_GROUPS * KV_PER_GROUP}")).json()
+        await until(lambda: len(actuals) >= len(routes["recent"]), 30,
+                    "kv_route: the workers' actual-reuse records")
+        prompts = [p for g in groups for p in g]
+        by_id = {tapped[tuple(p)]["id"]: p for p in prompts}
+        firsts = {tuple(g[0]) for g in groups}
+        group_of = {tuple(p): tuple(g[0]) for g in groups for p in g}
+        recs = [r for r in routes["recent"] if r["id"] in by_id]
+        overlap_ok = len(recs) == len(prompts) and all(
+            r["overlap_blocks"] == (0 if tuple(by_id[r["id"]]) in firsts
+                                    else KV_PREFIX // 16) for r in recs)
+        affinity = all(
+            kv["workers"][tuple(p)] == kv["workers"][group_of[tuple(p)]]
+            and len(kv["workers"][tuple(p)]) == 1 for p in prompts)
+        report = route_audit.join_report(recs, [a for a in actuals if a.get("trace")])
+        audit_fails = route_audit.run_asserts(report, 1.0)
+        reuse_delta = sum(after_reuse.values()) - sum(before_reuse.values())
+        streams = [tapped[tuple(p)]["tokens"][:max_tokens] for p in prompts]
+        ref = teacher_forced(cfg, params, prompts, streams)
+        ref.pop("first_token_ref_logprob")
+
+        # The same traffic's shape through the round-robin frontend (fresh
+        # prefixes: the KV leg's are cached now).
+        rr_groups = kv_groups(rng, cfg.vocab_size, KV_GROUPS)
+        before_rr = await reused()
+
+        async def pause():
+            await asyncio.sleep(0.5)
+
+        rr = await send_groups(port, cfg.name, rr_groups, max_tokens, tapped, greedy,
+                               pause)
+        after_rr = await reused()
+
+        # One more group through the standalone router (RouterService).
+        via = await PushRouter.create(obs, "dyn://dynamo.router.generate")
+        await via.client.wait_for_instances(30)
+        svc_group = kv_groups(rng, cfg.vocab_size, 1)[0]
+        req_before = {lease: await worker_requests(hp) for lease, hp in health.items()}
+        reuse_before = await reused()
+
+        async def through_router(p):
+            pre = PreprocessedRequest(
+                token_ids=p, sampling=SamplingOptions(temperature=0.0),
+                stop=StopConditions(max_tokens=max_tokens, ignore_eos=True))
+            toks = []
+            async for item in via.generate(Context(pre.to_wire())):
+                toks.extend(item.get("token_ids", []))
+            return toks
+
+        svc_streams = [await through_router(svc_group[0])]
+        await asyncio.sleep(1.0)   # the first's KV events reach the router process
+        svc_streams += await asyncio.gather(*[through_router(p) for p in svc_group[1:]])
+        req_after = {lease: await worker_requests(hp) for lease, hp in health.items()}
+        reuse_after = await reused()
+        svc_split = sorted(req_after[k] - req_before[k] for k in health)
+        svc_reuse = sum(reuse_after.values()) - sum(reuse_before.values())
+        svc_ref = teacher_forced(cfg, params, svc_group, svc_streams)
+        svc_ref.pop("first_token_ref_logprob")
+
+        # The exporter's view of both workers.
+        labels = 'namespace="dynamo",component="torch"'
+        want = {lease: await worker_metric(hp, "kv_reused_device_blocks_total")
+                for lease, hp in health.items()}
+        t0 = time.monotonic()
+        while True:
+            text = (await fetch("127.0.0.1", mport, "GET", "/metrics")).body.decode()
+            seen = {}
+            for lease in health:
+                m = re.search(rf'^dyntpu_kv_reused_device_blocks_total\{{{labels},'
+                              rf'worker="{lease:x}"\}} (\S+)$', text, re.M)
+                seen[lease] = float(m.group(1)) if m else None
+            if seen == want or time.monotonic() - t0 > 15:
+                break
+            await asyncio.sleep(0.2)
+        exporter_ok = seen == want and f"dyntpu_worker_count{{{labels}}} 2" in text
+
+        for child in (router, metrics):
+            child.signal(signal.SIGTERM)
+        exits = [await child.exit_code(30) for child in (router, metrics)]
+        result = {
+            "groups": KV_GROUPS, "per_group": KV_PER_GROUP, "prefix_tokens": KV_PREFIX,
+            "suffix_tokens": KV_SUFFIX, "max_tokens": max_tokens,
+            "h2d_kv_link": rate,
+            "later_on_first_worker": affinity,
+            "route_records": len(recs),
+            "predicted_overlaps": [r["overlap_blocks"] for r in recs],
+            "workers_reused_blocks": reuse_delta,
+            "route_audit": {k: report[k] for k in (
+                "routes", "actuals", "joined", "join_rate", "orphan_routes",
+                "overlap_error", "staleness", "decision_ms")},
+            "route_audit_failures": audit_fails,
+            "metrics_stale": routes["gauges"].get("kv_router_metrics_stale"),
+            "indexer": {k: routes["gauges"].get(k) for k in (
+                "kv_events_applied_total", "kv_radix_blocks", "kv_event_lag_p50_ms",
+                "kv_event_lag_p99_ms")},
+            "ttft_later_p50_ms": float(np.median(kv["ttft_later_ms"])),
+            "ttft_first_p50_ms": float(np.median(kv["ttft_first_ms"])),
+            "ttft_later_ms": kv["ttft_later_ms"],
+            "route_span_later_p50_ms": float(np.median(kv["route_ms_later"])),
+            "firsts_per_worker": kv["firsts_per_worker"],
+            "round_robin": {
+                "ttft_later_ms": rr["ttft_later_ms"],
+                "route_span_later_p50_ms": float(np.median(rr["route_ms_later"])),
+                "firsts_per_worker": rr["firsts_per_worker"],
+                "reused_blocks": sum(after_rr.values()) - sum(before_rr.values()),
+                "ttft_later_p50_ms": float(np.median(rr["ttft_later_ms"])),
+                "ttft_first_p50_ms": float(np.median(rr["ttft_first_ms"])),
+                "later_on_first_worker": sum(
+                    rr["workers"][tuple(p)] == rr["workers"][tuple(g[0])]
+                    for g in rr_groups for p in g[1:]),
+            },
+            "router_service": {"split": svc_split, "reused_blocks": svc_reuse,
+                               **svc_ref},
+            "exporter_ok": exporter_ok, "exporter_values": {
+                f"{k:x}": v for k, v in seen.items()},
+            "subprocess_exit_codes": exits,
+            **ref,
+            "leg_s": time.monotonic() - t_leg,
+        }
+        emit({"phase": "fleet_kv_route", **result})
+        gates = {
+            "counts": kv["ok"] and rr["ok"],
+            "affinity": affinity,
+            "route_records": overlap_ok,
+            "reuse_192": reuse_delta == (KV_GROUPS * (KV_PER_GROUP - 1)
+                                         * KV_PREFIX // 16),
+            "audit_exact": not audit_fails and report["joined"] == len(prompts)
+            and report["overlap_error"]["abs_max"] == 0,
+            "metrics_fresh": routes["gauges"].get("kv_router_metrics_stale") == 0,
+            "agreement": ref["logits_finite"] and ref["logits_shape_ok"]
+            and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+            and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS,
+            "router_service": svc_split == [0.0, float(KV_PER_GROUP)]
+            and svc_reuse == (KV_PER_GROUP - 1) * KV_PREFIX // 16
+            and svc_ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+            and svc_ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS,
+            "exporter": exporter_ok,
+            "exits": exits == [0, 0],
+        }
+        if not all(gates.values()):
+            raise SystemExit(f"fleet: kv_route gates {gates}")
+        return result
+    finally:
+        for child in children:
+            await child.kill()
 
 
 async def worker_exit(child, timeout: float = 120.0) -> dict:
@@ -2625,7 +2965,7 @@ def choice_events(timed) -> list[float]:
     return out
 
 
-async def phase_fleet(prompts, max_tokens, http, params) -> dict:
+async def phase_fleet(prompts, max_tokens, http, params, seed: int = 1) -> dict:
     """The runtime plane on the card: see the module docstring (phase 9).
     Legs run serve, drain verb, SIGTERM (the two bf16 workers), then the
     float32 failover pair."""
@@ -2643,7 +2983,8 @@ async def phase_fleet(prompts, max_tokens, http, params) -> dict:
     tapped: dict[tuple, dict] = {}   # prompt token ids -> tokens, workers
 
     def on_request(ctx):
-        tapped[tuple(ctx.payload["token_ids"])] = {"tokens": [], "workers": []}
+        tapped[tuple(ctx.payload["token_ids"])] = {
+            "tokens": [], "workers": [], "id": ctx.id}
 
     def on_response(ctx, item):
         rec = tapped[tuple(ctx.payload["token_ids"])]
@@ -2652,6 +2993,7 @@ async def phase_fleet(prompts, max_tokens, http, params) -> dict:
             rec["workers"].append(wid)
         rec["tokens"].extend(item["token_ids"])
 
+    tap = Tap(on_request, on_response)
     greedy = {"temperature": 0, "nvext": {"ignore_eos": True}}
     children: list = []
     result: dict = {"phase": "fleet", "model": cfg.name}
@@ -2667,7 +3009,7 @@ async def phase_fleet(prompts, max_tokens, http, params) -> dict:
                 "run", "--in", "http", "--out", "dyn", "--control-plane", addr,
                 "--http-host", "127.0.0.1", "--http-port", "0"])
             cli.refuse_unserved(args)
-            service, _ = await cli.start_http(args, stack, engine_ops=(Tap(on_request, on_response),))
+            service, _ = await cli.start_http(args, stack, engine_ops=(tap,))
             port = service.port
 
             # -- leg 1: serve through two bf16 workers ----------------------------
@@ -2702,6 +3044,11 @@ async def phase_fleet(prompts, max_tokens, http, params) -> dict:
                     and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
                     and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
                 raise SystemExit("fleet: streams disagree with the no-cache reference")
+
+            # -- kv_route: the KV-aware router on the same two workers -------
+            result["kv_route"] = await kv_route_leg(
+                addr, stack, obs, bf16, cfg, params, port, tap, tapped, greedy,
+                max_tokens, np.random.default_rng([seed, 9]))
 
             # -- legs 3 and 4: the drain verb, then SIGTERM on the last ----------
             by_lease = {w[1]: w for w in bf16}

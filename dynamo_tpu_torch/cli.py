@@ -1,10 +1,13 @@
-"""dynamo-tpu-torch CLI (port of the ``run`` and ``control-plane``
-subcommands of dynamo_tpu/cli.py): launch the port from a shell.
+"""dynamo-tpu-torch CLI (port of the ``run``, ``control-plane``,
+``router`` and ``metrics`` subcommands of dynamo_tpu/cli.py): launch the
+port from a shell.
 
   python -m dynamo_tpu_torch run [--in {http,text,batch:FILE,dyn://ns.comp.ep}]
                                  [--out {torch,echo_core,echo_full,dyn}]
                                  [--model-path preset:NAME] [--device {cuda,cpu}] ...
   python -m dynamo_tpu_torch control-plane [--host H] [--port P] [--token T]
+  python -m dynamo_tpu_torch router --control-plane ADDR --endpoint dyn://ns.c.e
+  python -m dynamo_tpu_torch metrics --control-plane ADDR [--component C]
 
 - ``--in http``        OpenAI server; SIGINT/SIGTERM drains it (new
                        requests 503, the admitted ones finish) and exits
@@ -23,10 +26,24 @@ subcommands of dynamo_tpu/cli.py): launch the port from a shell.
                        prompt's tokens / text
 - ``--out dyn``        frontend only: discover workers through the
                        control plane (``--control-plane ADDR``) and route
-                       to them (``--router-mode round_robin|random``),
+                       to them (``--router-mode round_robin|random|kv``),
                        failing a stream over to a sibling when its worker
                        dies mid-stream
 - ``control-plane``    the standalone discovery/messaging server
+- ``router``           the standalone KV router (llm/router_service.py):
+                       serves ``generate`` on ``--component`` (default
+                       ``router``) and forwards each request to the
+                       KV-best instance of ``--endpoint``
+- ``metrics``          the Prometheus exporter of the workers' load
+                       metrics (llm/metrics_exporter.py; ``--push-url``
+                       also pushes to a PushGateway)
+
+KV-aware routing (``--router-mode kv``): each worker publishes its block
+pool's KV events and per-request actual reuse on the bus events plane
+and serves its ``ForwardPassMetrics`` on ``load_metrics``; the frontend
+builds one KvRouter per worker component (radix index, metrics
+aggregator, selector; ``--route-network-aware`` adds the transfer-cost
+term) and audits every decision (``/debug/routes``).
 
 Without a control plane (``--control-plane``/``--spawn-control-plane``),
 ``--in http|text|batch`` with a local engine serves it in process, with
@@ -58,10 +75,11 @@ the span capture (``<path>.<pid>``) that
 ``python -m dynamo_tpu_torch.tools.trace_merge`` joins.
 
 The flags the port serves keep the reference's names, destinations and
-defaults, except ``--endpoint`` (``dyn://dynamo.torch.generate``). Flags
-that need what the port does not have yet — the KV-aware router (ROADMAP
-A5), meshes and multi-host, weight quantization, embeddings, layered
-configs — are refused with an error that names them, never ignored. The
+defaults, except ``--endpoint`` (``dyn://dynamo.torch.generate``) and the
+exporter's ``--component`` (``torch``). Flags that need what the port
+does not have yet — meshes and multi-host, weight quantization,
+embeddings, layered configs — are refused with an error that names them,
+never ignored. The
 reference's persistent XLA compile cache has no counterpart (a CUDA
 graph cannot outlive its process): its flag is absent and rejected by
 the parser.
@@ -111,6 +129,11 @@ def build_parser() -> argparse.ArgumentParser:
                      help="host a control-plane server in this process")
     run.add_argument("--router-mode", default="round_robin",
                      choices=["round_robin", "random", "kv"])
+    run.add_argument("--route-network-aware", action="store_true",
+                     help="KV router mode: add the transfer-cost term to the "
+                          "selection score — candidates pay for moving the "
+                          "non-overlapping prefix over their advertised "
+                          "ingest rate")
     run.add_argument("--mesh", default=None)
     run.add_argument("--kv-sp", action="store_true")
     run.add_argument("--coordinator", default=None, metavar="HOST:PORT")
@@ -224,20 +247,46 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--port", type=int, default=6380)
     cp.add_argument("--token", default=None)
     cp.add_argument("-v", "--verbose", action="store_true")
+
+    mx = sub.add_parser("metrics", help="Prometheus exporter for worker load")
+    mx.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    mx.add_argument("--namespace", default="dynamo")
+    mx.add_argument("--component", default="torch")
+    mx.add_argument("--host", default="0.0.0.0")
+    mx.add_argument("--port", type=int, default=9091)
+    mx.add_argument("--push-url", default=None, metavar="URL",
+                    help="also push to a Prometheus PushGateway at URL "
+                         "(for networks a scraper cannot reach)")
+    mx.add_argument("--push-interval", type=float, default=15.0)
+    mx.add_argument("--push-job", default="dynamo_tpu")
+    mx.add_argument("-v", "--verbose", action="store_true")
+
+    rt = sub.add_parser("router", help="standalone KV-aware router service")
+    rt.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    rt.add_argument("--endpoint", required=True,
+                    metavar="dyn://ns.component.endpoint",
+                    help="target worker endpoint to route to")
+    rt.add_argument("--component", default="router",
+                    help="component name the routed endpoint is served on")
+    rt.add_argument("--block-size", type=int, default=16)
+    rt.add_argument("--route-network-aware", action="store_true",
+                    help="add the transfer-cost term to the KV selection score")
+    rt.add_argument("--replica-id", type=int, default=0,
+                    help="this router replica's id: run one router process "
+                         "per replica on the same --component; the id labels "
+                         "the replica's route records")
+    rt.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
 def refuse_unserved(args) -> None:
     """SystemExit naming the first flag this slice does not serve."""
-    from dynamo_tpu_torch.runtime.egress import KV_REFUSAL
-
     refusals = [
         (args.output == "tpu", "--out tpu is the JAX engine; the port's is --out torch"),
         (args.output not in ("torch", "echo_core", "echo_full", "tpu", "dyn"),
          f"bad --out {args.output!r} (torch | echo_core | echo_full | dyn)"),
         (args.input.startswith("dyn://") and args.output == "dyn",
          "--in dyn://... serves a local engine: --out dyn has none"),
-        (args.router_mode == "kv", KV_REFUSAL),
         (args.mesh is not None, "--mesh: device meshes are not served yet"),
         (args.kv_sp, "--kv-sp: the striped KV cache is not served yet"),
         (args.coordinator is not None or args.num_nodes != 1 or args.node_rank != 0,
@@ -266,6 +315,12 @@ def main(argv: list[str] | None = None) -> None:
     if args.cmd == "control-plane":
         asyncio.run(_control_plane(args))
         return
+    if args.cmd == "metrics":
+        asyncio.run(_metrics(args))
+        return
+    if args.cmd == "router":
+        asyncio.run(_router(args))
+        return
     refuse_unserved(args)
     asyncio.run(_run(args))
 
@@ -279,6 +334,56 @@ async def _control_plane(args) -> None:
     print(f"control plane on {server.address}", flush=True)
     await _wait_for_signal()
     await server.stop()
+
+
+async def _metrics(args) -> None:
+    from dynamo_tpu_torch.llm.metrics_exporter import MetricsExporter
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    drt = await DistributedRuntime.connect(args.control_plane)
+    exporter = await MetricsExporter(
+        drt,
+        namespace=args.namespace,
+        component=args.component,
+        host=args.host,
+        port=args.port,
+        push_url=args.push_url,
+        push_interval_s=args.push_interval,
+        push_job=args.push_job,
+    ).start()
+    print(f"metrics exporter on {args.host}:{exporter.port}", flush=True)
+    try:
+        await _wait_for_signal()
+    finally:
+        await exporter.stop()
+        await drt.shutdown()
+
+
+async def _router(args) -> None:
+    from dynamo_tpu_torch.llm.kv_router.scheduler import KvRouterConfig
+    from dynamo_tpu_torch.llm.router_service import RouterService
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    drt = await DistributedRuntime.connect(args.control_plane)
+    service = await RouterService(
+        drt,
+        args.endpoint,
+        component_name=args.component,
+        cfg=KvRouterConfig(
+            block_size=args.block_size,
+            network_aware=args.route_network_aware,
+        ),
+        replica_id=args.replica_id,
+    ).start()
+    print(
+        f"router service at {service.endpoint_path} (replica {args.replica_id})",
+        flush=True,
+    )
+    try:
+        await _wait_for_signal()
+    finally:
+        await service.stop()
+        await drt.shutdown()
 
 
 async def _run(args) -> None:
@@ -361,8 +466,24 @@ async def start_worker(args, drt, stack):
 
     endpoint_path = args.input if args.input.startswith("dyn://") else args.endpoint
     eid = EndpointId.parse(endpoint_path)
-    endpoint = drt.namespace(eid.namespace).component(eid.component).endpoint(eid.name)
-    engine, card, torch_engine = await _start_engine(args, stack)
+    comp = drt.namespace(eid.namespace).component(eid.component)
+    endpoint = comp.endpoint(eid.name)
+    hooks = {}
+    if args.output == "torch":
+        from dynamo_tpu_torch.llm.kv_router.publisher import (
+            KvEventPublisher,
+            WorkerMetricsPublisher,
+        )
+
+        # KV events, actual reuse and per-pass load metrics feed the
+        # KV-aware router (and the exporter) over the control plane.
+        kv_pub = KvEventPublisher(drt, comp, drt.primary_lease_id)
+        metrics_pub = WorkerMetricsPublisher()
+        await metrics_pub.create_endpoint(comp)
+        hooks = dict(on_kv_event=kv_pub.publish_engine_event,
+                     on_metrics=metrics_pub.publish,
+                     on_kv_actual=kv_pub.publish_hit_actual)
+    engine, card, torch_engine = await _start_engine(args, stack, hooks)
     if torch_engine is not None and torch_engine.device.type == "cuda":
         if args.no_warmup:
             # Warmup launched every kernel; without it, build and load
@@ -461,14 +582,22 @@ async def _graceful_drain(engine, served, grace_s: float) -> bool:
 
 
 async def _start_frontend(args, drt, engine_ops=()):
-    """ModelWatcher + ModelManager over the runtime's discovery plane;
-    waits up to 5 s for the first model to appear."""
+    """ModelWatcher + ModelManager over the runtime's discovery plane (in
+    KV mode with a KvRouter per worker component); waits up to 5 s for
+    the first model to appear."""
     from dynamo_tpu_torch.llm.discovery import ModelManager, ModelWatcher
+    from dynamo_tpu_torch.llm.kv_router.router import kv_selector_factory
+    from dynamo_tpu_torch.llm.kv_router.scheduler import KvRouterConfig
     from dynamo_tpu_torch.runtime.egress import RouterMode
 
+    mode = RouterMode(args.router_mode)
+    kv_cfg = KvRouterConfig(network_aware=args.route_network_aware)
     manager = ModelManager()
     watcher = ModelWatcher(
-        drt, manager, router_mode=RouterMode(args.router_mode), engine_ops=engine_ops
+        drt, manager, router_mode=mode, engine_ops=engine_ops,
+        kv_selector_factory=(
+            kv_selector_factory(drt, kv_cfg) if mode is RouterMode.KV else None
+        ),
     )
     await watcher.start()
     for _ in range(50):
@@ -532,11 +661,12 @@ def _local_and_cfg(args):
     return local, ecfg
 
 
-async def _start_engine(args, stack):
+async def _start_engine(args, stack, hooks=None):
     """The local engine (torch or echo) and its card. The TorchEngine is
     started (weights built off the event loop) and, unless --no-warmup,
     warmed up (its programs made: CUDA graphs captured on the card)
-    before this returns."""
+    before this returns. ``hooks``: the TorchEngine's side-channel
+    callbacks (``on_kv_event``, ``on_metrics``, ``on_kv_actual``)."""
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 
     if args.output in ("echo_core", "echo_full"):
@@ -552,7 +682,7 @@ async def _start_engine(args, stack):
         logger.warning("--unified is a no-op: the unified step is the only engine path")
     local, ecfg = _local_and_cfg(args)
     # Presets only: the runner seeds random weights on the device.
-    engine = TorchEngine(ecfg, device=args.device)
+    engine = TorchEngine(ecfg, device=args.device, **(hooks or {}))
     await engine.start()
     stack.push_async_callback(engine.stop)
     if not args.no_warmup:

@@ -44,6 +44,14 @@ and preempted first). The prefill quantum of each dispatch is the
 co-location controller's (engine/coloc.py), fed one ITL sample per
 retired dispatch that carried decode lanes.
 
+Side channels (``_flush_side_channels``, on the engine thread once per
+loop pass): the block pool's KV events (``on_kv_event``, the KV
+router's radix index), each admitted request's actual prefix reuse
+(``kind="kv_actual"``: to the trace capture and ``on_kv_actual``, the
+router's hit-rate plane) and a ``ForwardPassMetrics`` dict
+(``on_metrics``, the worker's ``load_metrics`` endpoint). Without a
+hook the flush only clears the buffers.
+
 Not in this port yet: KVBM tiers, disaggregation, peers and multimodal
 (ROADMAP queue A). Requests that ask for any of them are refused with
 ``RequestError``.
@@ -57,7 +65,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import AsyncIterator
+from typing import AsyncIterator, Callable
 
 import numpy as np
 
@@ -72,7 +80,7 @@ from dynamo_tpu_torch.engine.compile_cache import (
 )
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.flight_recorder import FlightRecorder
-from dynamo_tpu_torch.engine.kv_cache import BlockAllocator
+from dynamo_tpu_torch.engine.kv_cache import BlockAllocator, KvEvent
 from dynamo_tpu_torch.engine.runner import ModelRunner
 from dynamo_tpu_torch.engine.scheduler import Scheduler, compose_unified
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
@@ -87,7 +95,10 @@ from dynamo_tpu_torch.llm.protocols.common import (
     ShedError,
 )
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.failover import FAILOVER
 from dynamo_tpu_torch.utils.deadline import OVERLOAD
+from dynamo_tpu_torch.utils.faults import FAULTS
+from dynamo_tpu_torch.utils.retry import RETRIES
 from dynamo_tpu_torch.utils.tracing import tracer
 
 logger = logging.getLogger(__name__)
@@ -99,11 +110,25 @@ class TorchEngine:
         cfg: EngineConfig,
         params=None,
         device: str | None = None,
+        on_kv_event: Callable[[KvEvent], None] | None = None,
+        on_metrics: Callable[[dict], None] | None = None,
+        on_kv_actual: Callable[[dict], None] | None = None,
     ) -> None:
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
         self._params = params
+        # Side channels, buffered on the engine thread and flushed once
+        # per loop pass (_flush_side_channels): block-pool KV events,
+        # per-request actual-reuse records, the metrics snapshot.
+        self._external_kv_event = on_kv_event
+        self._on_metrics = on_metrics
+        self._on_kv_actual = on_kv_actual
+        self._kv_events_buffer: list[KvEvent] = []
+        self._kv_actuals_buffer: list[dict] = []
+        self._reused_device_blocks = 0
+        # Engine-thread heartbeat: the last loop pass (last_dispatch_age_s).
+        self._last_dispatch_mono = time.monotonic()
         # Pipelined unified dispatches: issued-but-unprocessed records.
         self._inflight: deque = deque()
         # The previous dispatch's device tokens and id(seq) -> metadata
@@ -176,6 +201,7 @@ class TorchEngine:
             self.cfg.num_blocks,
             self.cfg.block_size,
             enable_prefix_caching=self.cfg.enable_prefix_caching,
+            on_event=self._queue_kv_event,
         )
         self.scheduler = Scheduler(self.cfg, self.allocator)
         # Weight init / upload happens off the event loop.
@@ -358,6 +384,15 @@ class TorchEngine:
             "spec_active": int(self._spec_active),
             "spec_drafted_tokens_total": self._spec_drafted,
             "spec_accepted_tokens_total": self._spec_accepted,
+            # KV observatory: actual reuse per tier (device only until
+            # the port has a KVBM).
+            "kv_reused_device_blocks_total": self._reused_device_blocks,
+            "kv_reused_host_blocks_total": 0,
+            "kv_reused_disk_blocks_total": 0,
+            "kv_reused_peer_blocks_total": 0,
+            "last_dispatch_age_s": round(
+                time.monotonic() - self._last_dispatch_mono, 3
+            ),
         }
         if self.scheduler is not None:
             # len() reads off the engine thread are atomic.
@@ -534,19 +569,14 @@ class TorchEngine:
         try:
             while not self._stop.is_set():
                 busy = self._step_unified()
+                # Heartbeat: every loop pass proves the thread alive.
+                self._last_dispatch_mono = time.monotonic()
                 if not busy and self._warm_tail:
                     # Idle step: make one deferred program, between
                     # traffic rather than under it.
                     self._warm_one_tail()
                     busy = True
-                self._prefill_backlog_tokens = sum(
-                    len(s.prompt_tokens) for s in self.scheduler.waiting
-                ) + sum(
-                    len(s.prompt_tokens) - s.prefill_cursor
-                    for s in self._prefilling
-                    if s.status is SeqStatus.PREFILLING
-                )
-                self._waiting_by_class = self.scheduler.waiting_by_class()
+                self._flush_side_channels()
                 if not busy:
                     self._wakeup.wait(timeout=0.01)
                     self._wakeup.clear()
@@ -1061,9 +1091,118 @@ class TorchEngine:
             self._prefix_lookups += 1
             if seq.num_cached_prefix:
                 self._prefix_hits += 1
+            self._note_kv_actual(seq)
             seq.status = SeqStatus.PREFILLING
             seq.prefill_cursor = seq.num_cached_prefix
             self._prefilling.append(seq)
+
+    def _note_kv_actual(self, seq: Sequence) -> None:
+        """Record what this request actually reused — the engine-side
+        half of the router's predicted-vs-actual loop. Called at
+        admission, once per request (a re-admission after preemption
+        does not count again); buffered, flushed with the side channels."""
+        if seq.kv_actual_reported:
+            return
+        seq.kv_actual_reported = True
+        bs = self.cfg.block_size
+        device = seq.num_cached_prefix // bs
+        seq.reuse_device_blocks = device
+        self._reused_device_blocks += device
+        self._kv_actuals_buffer.append(
+            {
+                "kind": "kv_actual",
+                "id": seq.request_id,
+                # Never re-opens a finished trace; "" when this process
+                # holds no trace for the request.
+                "trace": tracer().trace_id_if_active(seq.request_id) or "",
+                "isl_blocks": (len(seq.prompt_tokens) + bs - 1) // bs,
+                "device_blocks": device,
+                "host_blocks": 0,
+                "disk_blocks": 0,
+                "peer_blocks": 0,
+                "unix": time.time(),
+            }
+        )
+
+    # -- side channels ------------------------------------------------------
+    def _queue_kv_event(self, ev: KvEvent) -> None:
+        self._kv_events_buffer.append(ev)
+
+    def _flush_side_channels(self) -> None:
+        """Engine thread only: walks the scheduler's deques and drains the
+        side-channel buffers, none of which are locked."""
+        if self._external_kv_event:
+            for ev in self._kv_events_buffer:
+                try:
+                    self._external_kv_event(ev)
+                except Exception:  # noqa: BLE001 — a subscriber bug must not kill the loop
+                    logger.exception("kv event callback failed")
+        self._kv_events_buffer.clear()
+        if self._kv_actuals_buffer:
+            for rec in self._kv_actuals_buffer:
+                try:
+                    tracer().export(rec)
+                    if self._on_kv_actual is not None:
+                        self._on_kv_actual(rec)
+                except Exception:  # noqa: BLE001 — observability must not kill the loop
+                    logger.exception("kv actual export failed")
+            self._kv_actuals_buffer.clear()
+        sched = self.scheduler
+        # Un-prefilled prompt tokens and the per-class waiting split (the
+        # engine thread is the only place the waiting deque may be walked).
+        self._prefill_backlog_tokens = sum(
+            len(s.prompt_tokens) for s in sched.waiting
+        ) + sum(
+            len(s.prompt_tokens) - s.prefill_cursor
+            for s in self._prefilling
+            if s.status is SeqStatus.PREFILLING
+        )
+        self._waiting_by_class = sched.waiting_by_class()
+        if self._on_metrics is None:
+            return
+        m = sched.metrics()
+        m["gpu_prefix_cache_hit_rate"] = self.prefix_hit_rate
+        # Actual reuse per tier; the KVBM's tiers (host, disk, peer) and
+        # its kvbm_* telemetry, and the weight-quant fields, keep their
+        # ForwardPassMetrics defaults until the port has them.
+        m["kv_reused_device_blocks_total"] = self._reused_device_blocks
+        m["kv_reused_host_blocks_total"] = 0
+        m["kv_reused_disk_blocks_total"] = 0
+        m["kv_reused_peer_blocks_total"] = 0
+        if self.cfg.speculative_k:
+            m["spec_tokens_per_step"] = self.spec_tokens_per_step
+            m["spec_active"] = int(self._spec_active)
+        m["spec_drafted_tokens_total"] = self._spec_drafted
+        m["spec_accepted_tokens_total"] = self._spec_accepted
+        m["unified_step_tokens_decode_total"] = self.unified_decode_tokens
+        m["unified_step_tokens_prefill_total"] = self.unified_prefill_tokens
+        m["batch_fill_ratio"] = round(self._unified_fill_ratio, 4)
+        m.update(self.coloc.snapshot())
+        m["prefill_backlog_tokens"] = self._prefill_backlog_tokens
+        m.update(self.runner.compile_stats.snapshot())
+        m["engine_ready"] = int(self._state == "ready")
+        m["warm_tail_pending"] = len(self._warm_tail)
+        m["faults_injected_total"] = FAULTS.total_injected
+        m["retries_total"] = RETRIES.total
+        m["shed_requests_total"] = OVERLOAD.shed_total
+        m["shed_interactive_total"] = OVERLOAD.shed_class_total(slo.INTERACTIVE)
+        m["shed_batch_total"] = OVERLOAD.shed_class_total(slo.BATCH)
+        m["num_waiting_interactive"] = self._waiting_by_class[slo.INTERACTIVE]
+        m["num_waiting_batch"] = self._waiting_by_class[slo.BATCH]
+        m["deadline_exceeded_total"] = OVERLOAD.deadline_total
+        m["draining"] = int(self._draining)
+        m["failover_total"] = FAILOVER.total
+        m["failover_success_total"] = FAILOVER.success_total
+        m["workers_marked_dead_total"] = FAILOVER.marked_dead_total
+        m["last_dispatch_age_s"] = round(
+            time.monotonic() - self._last_dispatch_mono, 3
+        )
+        m["abandoned_traces_total"] = tracer().abandoned_total
+        m["flight_steps_total"] = self.flight.total_steps
+        try:
+            self._on_metrics(m)
+        except Exception:  # noqa: BLE001 — metrics export must not kill the loop
+            logger.exception("metrics callback failed")
 
     def _deliver(self, seq: Sequence, token: int, lp: dict | None = None) -> None:
         seq.output_tokens.append(token)

@@ -5,17 +5,20 @@ A block is *allocated* to a sequence, *registered* under its sequence
 hash once full, and on release either joins the reusable pool (still
 holding valid KV, discoverable by hash) or the free list. Allocation
 prefers truly free blocks and evicts LRU reusable blocks only on
-pressure. Block 0 is the trash block for padded writes — never
+pressure, emitting the KV-cache events (``stored`` once per hash,
+``removed`` when a hash leaves the pool) that feed the KV-aware router's
+radix index. Block 0 is the trash block for padded writes — never
 allocated. Illegal lifecycle transitions raise ``BlockStateError``.
 
-Not in this slice: striped allocation for kv_sp and the KV events that
-feed the router (ROADMAP queue A).
+Not in this slice: striped allocation for kv_sp (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import enum
 from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Callable
 
 
 class BlockState(enum.Enum):
@@ -30,16 +33,28 @@ class BlockStateError(RuntimeError):
     registering an unallocated block, ...)."""
 
 
+@dataclass
+class KvEvent:
+    """stored/removed event for the routing plane."""
+
+    kind: str                      # "stored" | "removed"
+    block_hashes: list[int] = field(default_factory=list)
+    parent_hash: int | None = None
+    token_ids: list[list[int]] | None = None
+
+
 class BlockAllocator:
     def __init__(
         self,
         num_blocks: int,
         block_size: int,
         enable_prefix_caching: bool = True,
+        on_event: Callable[[KvEvent], None] | None = None,
     ) -> None:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_caching = enable_prefix_caching
+        self.on_event = on_event
         self._free: list[int] = list(range(num_blocks - 1, 0, -1))
         self._refs: dict[int, int] = {}
         self._hash_to_block: dict[int, int] = {}
@@ -110,7 +125,13 @@ class BlockAllocator:
             self._free.append(block)
 
     # -- prefix caching -----------------------------------------------------
-    def register(self, block: int, sequence_hash: int) -> None:
+    def register(
+        self,
+        block: int,
+        sequence_hash: int,
+        parent_hash: int | None = None,
+        token_ids: list[int] | None = None,
+    ) -> None:
         """Publish a full block under its chained sequence hash."""
         self._expect(
             block, BlockState.ACTIVE, BlockState.REGISTERED, op="register"
@@ -119,10 +140,20 @@ class BlockAllocator:
             return
         if sequence_hash in self._hash_to_block:
             # Duplicate content (keep the first registration) or an
-            # idempotent re-register of this very block.
+            # idempotent re-register of this very block: the 'stored'
+            # event already went out.
             return
         self._hash_to_block[sequence_hash] = block
         self._block_to_hash[block] = sequence_hash
+        if self.on_event:
+            self.on_event(
+                KvEvent(
+                    kind="stored",
+                    block_hashes=[sequence_hash],
+                    parent_hash=parent_hash,
+                    token_ids=[token_ids] if token_ids else None,
+                )
+            )
 
     def match_prefix(self, sequence_hashes: list[int]) -> list[int]:
         """Longest run of cached blocks for a chained hash list; each
@@ -144,3 +175,12 @@ class BlockAllocator:
         h = self._block_to_hash.pop(block, None)
         if h is not None:
             self._hash_to_block.pop(h, None)
+            if self.on_event:
+                self.on_event(KvEvent(kind="removed", block_hashes=[h]))
+
+    def clear_reusable(self) -> None:
+        """Drop all cached-but-free blocks (tests / cache reset)."""
+        while self._reusable:
+            block, _ = self._reusable.popitem(last=False)
+            self._forget(block)
+            self._free.append(block)

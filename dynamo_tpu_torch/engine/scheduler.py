@@ -245,7 +245,13 @@ class Scheduler:
         full = covered_tokens // bs
         hashes = seq.hashes.blocks
         for idx in range(full):
-            self.allocator.register(seq.block_ids[idx], hashes[idx].sequence_hash)
+            h = hashes[idx]
+            self.allocator.register(
+                seq.block_ids[idx],
+                h.sequence_hash,
+                parent_hash=h.parent_sequence_hash,
+                token_ids=list(h.tokens),
+            )
 
     # -- decode -------------------------------------------------------------
     def decode_batch(self, lookahead: int = 1) -> list[Sequence]:
@@ -338,6 +344,21 @@ class Scheduler:
         for s in self.waiting:
             out[s.slo_class if s.slo_class in out else "interactive"] += 1
         return out
+
+    # -- metrics ------------------------------------------------------------
+    def metrics(self) -> dict:
+        """ForwardPassMetrics snapshot of the scheduler's own fields."""
+        usable = self.allocator.num_blocks - 1
+        active = usable - self.allocator.num_free
+        return {
+            "request_active_slots": len(self.running),
+            "request_total_slots": self.cfg.max_num_seqs,
+            "kv_active_blocks": active,
+            "kv_total_blocks": usable,
+            "num_requests_waiting": len(self.waiting),
+            "gpu_cache_usage_perc": active / max(usable, 1),
+            "gpu_prefix_cache_hit_rate": 0.0,  # updated by the engine
+        }
 
     def _release(self, seq: Sequence) -> None:
         for b in seq.block_ids:

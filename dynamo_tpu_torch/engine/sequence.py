@@ -68,6 +68,12 @@ class Sequence:
     # SLO class (llm/slo.py): "batch" sequences are the cheapest shed and
     # preemption victims.
     slo_class: str = "interactive"
+    # KV observatory: prefix blocks this request found already on the
+    # device at admission, reported once (kv_actual_reported guards the
+    # re-admission after a preemption). The host, disk and peer tiers
+    # read 0 until the port has a KVBM.
+    reuse_device_blocks: int = 0
+    kv_actual_reported: bool = False
 
     @property
     def total_len(self) -> int:

@@ -5,8 +5,9 @@ Workers call ``register_llm``: publish the card to the object store and
 put a ``ModelEntry`` at ``models/{name}:{lease}``, bound to the worker's
 lease. Frontends run a ``ModelWatcher`` on the ``models/`` prefix: on a
 PUT they fetch the card and build the serving pipeline — preprocessor →
-detokenizer → ``FailoverEngine(PushRouter)`` to the worker endpoint —
-and register it with the ``ModelManager``; when the last instance of a
+detokenizer → ``FailoverEngine(PushRouter)`` to the worker endpoint, in
+KV mode with the selector ``kv_selector_factory`` makes for the
+endpoint's component — and register it with the ``ModelManager``; when the last instance of a
 model goes, they drop it. In one process, ``build_serving_pipeline``
 links the same operators onto a local engine.
 """
@@ -108,7 +109,9 @@ class ModelWatcher:
     """Watches the model registry and keeps a ModelManager in sync.
     ``engine_ops`` are linked between the detokenizer and the router of
     every pipeline it builds (a ``Tap`` on the routed token ids, for
-    one)."""
+    one). In KV mode, ``kv_selector_factory(card, endpoint_id)`` gives
+    each pipeline's router its selector (``kv_selector_factory`` of
+    llm/kv_router/router.py)."""
 
     def __init__(
         self,
@@ -116,6 +119,7 @@ class ModelWatcher:
         manager: ModelManager,
         router_mode=None,
         engine_ops: tuple[Operator, ...] = (),
+        kv_selector_factory=None,
     ) -> None:
         from dynamo_tpu_torch.runtime.egress import RouterMode
 
@@ -123,6 +127,7 @@ class ModelWatcher:
         self.manager = manager
         self.router_mode = router_mode or RouterMode.ROUND_ROBIN
         self._engine_ops = engine_ops
+        self._kv_selector_factory = kv_selector_factory
         self._task: asyncio.Task | None = None
         self._refcount: dict[str, int] = {}
 
@@ -144,7 +149,8 @@ class ModelWatcher:
                 logger.exception("model watcher failed handling %s", ev.key)
 
     async def _handle_put(self, raw: bytes) -> None:
-        from dynamo_tpu_torch.runtime.egress import PushRouter
+        from dynamo_tpu_torch.runtime.component import EndpointId
+        from dynamo_tpu_torch.runtime.egress import PushRouter, RouterMode
         from dynamo_tpu_torch.runtime.failover import FailoverEngine
 
         entry = ModelEntry.from_json(raw)
@@ -155,7 +161,14 @@ class ModelWatcher:
         if card is None:
             card = ModelDeploymentCard(name=entry.name)
         card.model_type = entry.model_type or card.model_type
-        push = await PushRouter.create(self._drt, entry.endpoint, self.router_mode)
+        selector = None
+        if self.router_mode is RouterMode.KV and self._kv_selector_factory is not None:
+            selector = await self._kv_selector_factory(
+                card, EndpointId.parse(entry.endpoint)
+            )
+        push = await PushRouter.create(
+            self._drt, entry.endpoint, self.router_mode, selector=selector
+        )
         # Worker death mid-decode is a replay on a sibling, not an error
         # (runtime/failover.py).
         pipeline = build_serving_pipeline(card, FailoverEngine(push), self._engine_ops)

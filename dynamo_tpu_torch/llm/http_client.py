@@ -36,14 +36,16 @@ async def fetch(
     headers: dict[str, str] | None = None,
     on_chunk: Callable[[bytes], None] | None = None,
     timeout: float = 300.0,
+    data: bytes | None = None,
 ) -> HttpResponse:
-    """One request; ``body`` (if not None) is sent as JSON. ``on_chunk``
-    sees each piece of the response body as it is read."""
+    """One request; ``body`` (if not None) is sent as JSON, ``data`` as
+    raw bytes (with the caller's Content-Type). ``on_chunk`` sees each
+    piece of the response body as it is read."""
     reader, writer = await asyncio.open_connection(host, port)
     try:
         return await asyncio.wait_for(
             _exchange(reader, writer, host, method, path, body, headers or {},
-                      on_chunk),
+                      on_chunk, data),
             timeout,
         )
     finally:
@@ -54,8 +56,10 @@ async def fetch(
             pass
 
 
-async def _exchange(reader, writer, host, method, path, body, headers, on_chunk):
-    data = b"" if body is None else json.dumps(body).encode()
+async def _exchange(reader, writer, host, method, path, body, headers, on_chunk,
+                    data=None):
+    if data is None:
+        data = b"" if body is None else json.dumps(body).encode()
     lines = [f"{method} {path} HTTP/1.1", f"Host: {host}", "Connection: close",
              f"Content-Length: {len(data)}"]
     if body is not None:

@@ -1,7 +1,7 @@
 """OpenAI-compatible HTTP service (port of dynamo_tpu/llm/http_service.py).
 
 Routes: POST /v1/chat/completions, POST /v1/completions, GET /v1/models,
-GET /health, GET /live, GET /metrics, GET /debug/steps|trace|profile —
+GET /health, GET /live, GET /metrics, GET /debug/steps|trace|routes|profile —
 SSE streaming with a usage-final chunk, aggregated responses,
 per-request metrics, admission control and graceful drain, with the
 reference's status codes and bodies.
@@ -42,13 +42,14 @@ to the scheduler. Each request is traced: ``received``, the
 ``admission`` span, then the pipeline's own spans.
 
 Debug surface: /debug/steps?n= (the engine's flight recorder),
-/debug/trace?n= (the tracer's live snapshot), /debug/profile?seconds=
-(a ``torch.profiler`` window; 503 unless a profile directory is
-configured, 409 while one runs).
+/debug/trace?n= (the tracer's live snapshot), /debug/routes?n= (the last
+route-audit records of any KV router in the process, with the router
+gauges), /debug/profile?seconds= (a ``torch.profiler`` window; 503
+unless a profile directory is configured, 409 while one runs). Both
+/metrics renderings carry the router gauges (``ROUTE_OBS``).
 
-Not in this port yet, refused rather than ignored: /v1/embeddings and
-/debug/routes (the KV router's audit, ROADMAP A5), 404 with the
-reference's error body.
+Not in this port yet, refused rather than ignored: /v1/embeddings, 404
+with the reference's error body.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from urllib.parse import parse_qsl
 from dynamo_tpu_torch.llm import slo
 from dynamo_tpu_torch.llm.admission import AdmissionController, AdmissionRejected
 from dynamo_tpu_torch.llm.discovery import ModelManager
+from dynamo_tpu_torch.llm.kv_router.audit import ROUTE_OBS
 from dynamo_tpu_torch.llm.metrics import Metrics
 from dynamo_tpu_torch.llm.protocols.annotated import Annotated
 from dynamo_tpu_torch.llm.protocols.common import (
@@ -487,6 +489,14 @@ class HttpService:
             for key in _ENGINE_GAUGES:
                 if key in eng:
                     self.metrics.set_gauge(key, float(eng[key]))
+            # KV observatory: actual-reuse totals per tier.
+            for key, val in eng.items():
+                if key.startswith("kv_reused_") and isinstance(val, (int, float)):
+                    self.metrics.set_gauge(key, float(val))
+        # Router-plane gauges (route counts, indexer staleness, scrape
+        # failures) of any KvRouter living in this process.
+        for key, val in ROUTE_OBS.gauges().items():
+            self.metrics.set_gauge(key, float(val))
         # Process-wide overload counters: they export without an engine
         # too (a frontend-only process sheds and expires work).
         self.metrics.set_gauge("shed_requests_total", float(OVERLOAD.shed_total))
@@ -547,10 +557,12 @@ class HttpService:
         return _json_response(tracer().snapshot(n))
 
     async def _debug_routes(self, req, _w) -> _Response:
-        return _error(
-            404, "/debug/routes reads the KV router's route audit, which is "
-            "not served by the port yet (ROADMAP A5)", kind="debug_error",
-        )
+        """The last N route-audit records of any KvRouter in this process:
+        each decision's full candidate field, plus the router gauges."""
+        n = self._int_query(req, "n", 64)
+        if n is None:
+            return _error(400, "n must be an integer")
+        return _json_response(ROUTE_OBS.snapshot(n))
 
     async def _debug_profile(self, req, _w) -> _Response:
         """A torch.profiler window of ?seconds=N while serving continues;
@@ -825,6 +837,9 @@ class HealthServer(HttpService):
         })
         if self._gauges is not None:
             values.update(self._gauges())
+        # A RouterService process fronts its KvRouter with a HealthServer:
+        # the router gauges live there.
+        values.update(ROUTE_OBS.gauges())
         for key, val in values.items():
             self.metrics.set_gauge(key, float(val))
         # The worker is where the engine's span and ITL histograms

@@ -112,6 +112,10 @@ class Component:
     def endpoint(self, name: str) -> "Endpoint":
         return Endpoint(self._drt, self, name)
 
+    def event_subject(self, plane: str) -> str:
+        """Component-scoped broadcast subject (kv_events, kv-hit-rate)."""
+        return f"{self.service_name}.events.{plane}"
+
 
 class Endpoint:
     def __init__(self, drt: "DistributedRuntime", comp: Component, name: str) -> None:

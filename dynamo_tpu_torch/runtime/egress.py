@@ -2,26 +2,27 @@
 
 ``Client`` keeps a live instance list for an endpoint through a
 discovery-store watch. ``PushRouter`` picks an instance per request
-(round robin, random or direct), publishes the request envelope to the
-instance's bus subject with the caller's TCP connection info, and yields
-the response stream. A dispatch that finds a dead worker, or a stream
-whose socket dies, evicts the instance at once (the mark-dead fast path)
-instead of waiting out its lease.
+(round robin, random, direct, or KV-aware through a ``selector`` the KV
+router installs), publishes the request envelope to the instance's bus
+subject with the caller's TCP connection info, and yields the response
+stream. A dispatch that finds a dead worker, or a stream whose socket
+dies, evicts the instance at once (the mark-dead fast path) instead of
+waiting out its lease, and fires the ``on_dead`` hooks: a KV selector's
+owning router is wired there on its own, so the corpse also leaves the
+router's metrics and radix index in the same step.
 
 Instance selection and the envelope publish are the request's ``route``
 span; the envelope carries the trace context (``trace``), so the worker's
 capture joins the caller's timeline even for payloads that are not a
 PreprocessedRequest wire. Each streamed frame refreshes the caller's
 trace TTL.
-
-``RouterMode.KV`` is parsed and refused: the KV-aware router arrives with
-ROADMAP A5.
 """
 
 from __future__ import annotations
 
 import asyncio
 import enum
+import inspect
 import logging
 import random
 import uuid
@@ -54,12 +55,6 @@ class RouterMode(enum.Enum):
     ROUND_ROBIN = "round_robin"
     DIRECT = "direct"
     KV = "kv"
-
-
-KV_REFUSAL = (
-    "--router-mode kv: the KV-aware router is not served by the port yet "
-    "(ROADMAP A5)"
-)
 
 
 class Client:
@@ -174,21 +169,44 @@ class Client:
 
 
 class PushRouter:
-    """Routes requests to instances; itself an AsyncEngine."""
+    """Routes requests to instances; itself an AsyncEngine. KV mode
+    delegates the choice to ``selector(payload, instances[, request_id])``,
+    which returns an instance id."""
 
     def __init__(
         self,
         drt,
         client: Client,
         mode: RouterMode = RouterMode.ROUND_ROBIN,
+        selector=None,
         connect_timeout_s: float = DEFAULT_CONNECT_TIMEOUT_S,
     ) -> None:
-        if mode is RouterMode.KV:
-            raise SystemExit(KV_REFUSAL)
         self._drt = drt
         self.client = client
         self.mode = mode
         self.connect_timeout_s = connect_timeout_s
+        self._selector = selector
+        # Dead-worker hooks, fired with the instance id on every
+        # mark_dead; a KV selector's owning router is wired on its own.
+        self.on_dead: list = []
+        owner = getattr(selector, "__self__", None)
+        hook = getattr(owner, "note_worker_dead", None)
+        if hook is not None:
+            self.on_dead.append(hook)
+        # Whether the selector takes the request id (KvRouter.selector_fn
+        # does: it binds the route record to the request's trace).
+        # Sniffed once, never by a TypeError probe, which would mask a
+        # TypeError raised inside the selector.
+        self._selector_takes_rid = False
+        if selector is not None:
+            try:
+                params = inspect.signature(selector).parameters.values()
+                self._selector_takes_rid = any(
+                    p.name == "request_id" or p.kind is p.VAR_KEYWORD
+                    for p in params
+                )
+            except (TypeError, ValueError):
+                pass
         self._rr = 0
 
     @staticmethod
@@ -196,16 +214,20 @@ class PushRouter:
         drt,
         endpoint_id: EndpointId | str,
         mode: RouterMode = RouterMode.ROUND_ROBIN,
+        selector=None,
         connect_timeout_s: float = DEFAULT_CONNECT_TIMEOUT_S,
     ) -> "PushRouter":
-        if mode is RouterMode.KV:
-            raise SystemExit(KV_REFUSAL)
         if isinstance(endpoint_id, str):
             endpoint_id = EndpointId.parse(endpoint_id)
         client = await Client.create(drt, endpoint_id)
-        return PushRouter(drt, client, mode, connect_timeout_s=connect_timeout_s)
+        return PushRouter(
+            drt, client, mode, selector, connect_timeout_s=connect_timeout_s
+        )
 
-    async def _pick(self, instance_id: int | None, exclude: set[int]) -> Instance:
+    async def _pick(
+        self, payload: Any, instance_id: int | None,
+        request_id: str | None = None, exclude: set[int] | None = None,
+    ) -> Instance:
         try:
             instances = await self.client.wait_for_instances()
         except asyncio.TimeoutError:
@@ -235,17 +257,49 @@ class PushRouter:
             inst = instances[self._rr % len(instances)]
             self._rr += 1
             return inst
+        if self.mode is RouterMode.KV:
+            if self._selector is None:
+                raise RuntimeError("KV mode requires a selector")
+            chosen_id = await (
+                self._selector(payload, instances, request_id=request_id)
+                if self._selector_takes_rid
+                else self._selector(payload, instances)
+            )
+            if exclude and chosen_id in exclude:
+                # Stale selector metrics can still point at the corpse:
+                # spread over the surviving candidates instead.
+                chosen_id = random.choice(instances).instance_id
+            try:
+                return await self._pick(payload, chosen_id, exclude=exclude)
+            except LookupError:
+                # The choice raced a concurrent mark-dead eviction while
+                # the selector ran: spread over the survivors (a corpse
+                # among them is marked dead at dispatch).
+                survivors = [i for i in instances if i.instance_id != chosen_id]
+                if not survivors:
+                    raise ShedError(
+                        f"no surviving instances for {self.client.endpoint_id}",
+                        retry_after_s=2.0,
+                    ) from None
+                return random.choice(survivors)
         raise RuntimeError("direct mode requires instance_id")
 
     def mark_dead(self, instance_id: int, reason: str) -> None:
         """The mark-dead fast path: a typed transport failure against a
-        worker evicts it from the live routing view at once."""
+        worker evicts it from the live routing view at once and fires
+        the ``on_dead`` hooks (the KV router drops its load snapshot and
+        radix blocks and tells its sibling replicas)."""
         if self.client.evict(instance_id):
             FAILOVER.note_marked_dead(reason)
             logger.warning(
                 "marked worker %#x dead (%s) — evicted from the live "
                 "instance view", instance_id, reason,
             )
+        for hook in self.on_dead:
+            try:
+                hook(instance_id)
+            except Exception:  # noqa: BLE001 — a hook bug must not break routing
+                logger.exception("on_dead hook failed for %#x", instance_id)
 
     async def generate(
         self, request: Context, instance_id: int | None = None
@@ -253,7 +307,10 @@ class PushRouter:
         tried: set[int] = set()
         while True:
             with tracer().span(request.id, "route"):
-                instance = await self._pick(instance_id, tried)
+                instance = await self._pick(
+                    request.payload, instance_id, request_id=request.id,
+                    exclude=tried or None,
+                )
             try:
                 receiver = await self._dispatch(instance, request)
             except (ConnectionError, OSError, asyncio.TimeoutError) as exc:

@@ -14,8 +14,8 @@ Actions:
 - ``delay``     sleep ``delay_s``, then proceed;
 - ``drop``      ``maybe_fail_async`` returns False and the caller skips its
                 side effect (a lost message); honoured only where the
-                seam can skip (``bus.publish``, ``bus.broadcast``),
-                inert and uncounted elsewhere;
+                seam can skip (``bus.publish``, ``bus.broadcast``,
+                ``indexer.apply``), inert and uncounted elsewhere;
 - ``partition`` raise until the point is disarmed (``times`` ignored).
 
 Arming: ``FAULTS.arm(...)`` in tests, or ``DYNAMO_TPU_FAULTS`` — a
@@ -24,7 +24,7 @@ first imported (``arg`` is seconds for ``delay``, a trigger count
 otherwise), e.g. ``DYNAMO_TPU_FAULTS="fleet.worker_kill:raise:1"``.
 
 The instrumented points are ``KNOWN_FAULT_POINTS``; the reference's KV
-transfer, KVBM, stepcast and indexer points arrive with their slices.
+transfer, KVBM and stepcast points arrive with their slices.
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ logger = logging.getLogger(__name__)
 #: events planes); ``control.call`` — every control-plane RPC;
 #: ``control.keepalive`` — the lease keep-alive; ``tcp.respond`` — a
 #: response-plane frame send; ``fleet.worker_kill`` — the router's
-#: dispatch seam (the chosen worker is dead at dispatch).
+#: dispatch seam (the chosen worker is dead at dispatch);
+#: ``indexer.apply`` — the KV router's radix-index consumer (a delay
+#: keeps events pending, a drop loses one).
 KNOWN_FAULT_POINTS: tuple[str, ...] = (
     "bus.publish",
     "bus.broadcast",
@@ -51,6 +53,7 @@ KNOWN_FAULT_POINTS: tuple[str, ...] = (
     "control.keepalive",
     "tcp.respond",
     "fleet.worker_kill",
+    "indexer.apply",
 )
 
 _ACTIONS = ("raise", "delay", "drop", "partition")

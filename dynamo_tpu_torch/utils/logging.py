@@ -65,7 +65,10 @@ class _ScopeFilter(logging.Filter):
             record.scope_suffix = (
                 f" [rid={rid} trace={tid}]" if tid else f" [rid={rid}]"
             )
-        else:
+        elif not hasattr(record, "request_id"):
+            # Unscoped: empty stamps, but never over a stamp another
+            # filter already put on this record (a process that hosts
+            # both packages' handlers passes one record through both).
             record.request_id = ""
             record.trace_id = ""
             record.scope_suffix = ""

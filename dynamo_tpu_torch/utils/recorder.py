@@ -1,7 +1,8 @@
-"""Timestamped JSONL event recorder with rotation (port of the recorder
-and loader of dynamo_tpu/utils/recorder.py, same file layout: a capture
-written by either package loads in the other). The tracer's
-``DYNTPU_TRACE`` capture streams through it.
+"""Timestamped JSONL event recorder with rotation and replay (port of
+dynamo_tpu/utils/recorder.py, same file layout: a capture written by
+either package loads in the other). The tracer's ``DYNTPU_TRACE``
+capture and the KV router's event recorder (llm/kv_router/recorder.py)
+stream through it.
 
 Rotation is logrotate-style: when the active file exceeds ``max_bytes``
 it is renamed ``<path>.1`` (existing ``.1`` → ``.2`` …), keeping at most
@@ -11,21 +12,29 @@ oldest-first so replay order is total.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import time
 from pathlib import Path
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 from dynamo_tpu_torch.utils.concurrency import make_lock
 
 
 class Recorder:
     def __init__(
-        self, path: str | Path, max_bytes: int | None = None, max_files: int = 4
+        self,
+        path: str | Path,
+        max_bytes: int | None = None,
+        max_files: int = 4,
+        max_events: int | None = None,
+        encode: Callable[[Any], Any] | None = None,
     ) -> None:
         self.path = Path(path)
         self.max_bytes = max_bytes
         self.max_files = max_files
+        self.max_events = max_events
+        self._encode = encode
         self.count = 0
         self._fh = self.path.open("a")
         # Writers span threads (the tracer streams spans from both the
@@ -35,7 +44,10 @@ class Recorder:
         self._write_lock = make_lock("recorder.write")
 
     def record(self, event: Any) -> None:
-        line = json.dumps({"ts": time.time(), "event": event})
+        if self.max_events is not None and self.count >= self.max_events:
+            return
+        obj = self._encode(event) if self._encode is not None else event
+        line = json.dumps({"ts": time.time(), "event": obj})
         with self._write_lock:
             if (
                 self.max_bytes is not None
@@ -90,13 +102,38 @@ class Recorder:
         return out
 
     @staticmethod
-    def load(path: str | Path) -> Iterator[tuple[float, Any]]:
+    def load(
+        path: str | Path, decode: Callable[[Any], Any] | None = None
+    ) -> Iterator[tuple[float, Any]]:
         """(timestamp, event) for every record of the rotated set, oldest
-        first."""
+        first, each event through ``decode`` when given."""
         for p in Recorder.files(path):
             with p.open() as fh:
                 for line in fh:
                     if not line.strip():
                         continue
                     d = json.loads(line)
-                    yield d["ts"], d["event"]
+                    ev = d["event"]
+                    yield d["ts"], (decode(ev) if decode is not None else ev)
+
+    @staticmethod
+    async def replay(
+        path: str | Path,
+        apply: Callable[[Any], None],
+        decode: Callable[[Any], Any] | None = None,
+        timed: bool = False,
+        max_count: int | None = None,
+    ) -> int:
+        """Feed a recording into ``apply``; ``timed`` keeps the gaps
+        between events. Returns the number of events fed."""
+        last_ts: float | None = None
+        n = 0
+        for ts, ev in Recorder.load(path, decode):
+            if timed and last_ts is not None:
+                await asyncio.sleep(max(0.0, ts - last_ts))
+            last_ts = ts
+            apply(ev)
+            n += 1
+            if max_count is not None and n >= max_count:
+                break
+        return n

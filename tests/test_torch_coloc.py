@@ -251,10 +251,30 @@ def test_admission_prefill_backlog_watermark():
 
 
 def test_metric_surfaces_carry_coloc_fields():
-    """The port's metric surfaces are the engine's readiness snapshot
-    and the two /metrics renderings of it (the OpenAI server's and the
-    worker's HealthServer); the JAX package's ForwardPassMetrics wire
-    goes with the KV router (ROADMAP A5)."""
+    """The port's metric surfaces are the engine's readiness snapshot,
+    the two /metrics renderings of it (the OpenAI server's and the
+    worker's HealthServer) and, since the KV router slice, the
+    ``ForwardPassMetrics`` wire: every exporter gauge exists there and
+    the coloc fields survive the wire round trip, as in the JAX
+    package's tests/test_coloc.py, with the same bytes as its msgpack."""
+    import msgpack
+
+    from dynamo_tpu.llm.kv_router.protocols import ForwardPassMetrics as JFpm
+    from dynamo_tpu_torch.llm.kv_router.protocols import ForwardPassMetrics
+    from dynamo_tpu_torch.llm.metrics_exporter import _GAUGES
+    from dynamo_tpu_torch.runtime.transports import wire
+
+    m = ForwardPassMetrics()
+    for key, _help in _GAUGES:
+        assert hasattr(m, key), key
+    coloc = dict(coloc_quantum=640, itl_ema_ms=7.5, itl_slo_violations_total=3,
+                 coloc_prefill_deferrals_total=2, prefill_backlog_tokens=9000)
+    wire_dict = {**m.to_wire(), **coloc}
+    back = ForwardPassMetrics.from_wire(wire.unpackb(wire.packb(wire_dict)))
+    assert {k: getattr(back, k) for k in coloc} == coloc
+    assert wire.packb(back.to_wire()) == msgpack.packb(
+        JFpm.from_wire(wire_dict).to_wire())
+
     from dynamo_tpu_torch.llm.discovery import ModelManager
     from dynamo_tpu_torch.llm.http_client import fetch
     from dynamo_tpu_torch.llm.http_service import HealthServer, HttpService

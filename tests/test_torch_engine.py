@@ -365,6 +365,8 @@ from dynamo_tpu_torch.ops.kernels import (  # noqa: F401
     paged_decode_attention, paged_prefill_attention, ragged_attention)
 from dynamo_tpu_torch import cli
 from dynamo_tpu_torch.llm.http_client import fetch
+from dynamo_tpu_torch.llm import kv_router, metrics_exporter, router_service  # noqa: F401
+from dynamo_tpu_torch.tools import route_audit  # noqa: F401
 import chip_smoke  # noqa: F401
 
 

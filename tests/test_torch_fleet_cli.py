@@ -175,6 +175,59 @@ async def test_cli_worker_joins_frontend():
                 await p.kill()
 
 
+async def test_kv_router_frontend_sticks_a_repeated_prompt_to_one_worker():
+    """A frontend hosting the control plane with ``--router-mode kv`` and
+    two tiny-test workers on the CPU: a prompt sent three times lands on
+    one worker every time (its KV events reached the frontend's radix
+    index), the frontend's /debug/routes records the predicted overlap
+    (0, then both full blocks) and the workers' request counts agree."""
+    front = await _Cli.spawn(
+        "run", "--in", "http", "--out", "dyn", "--spawn-control-plane", "0",
+        "--router-mode", "kv", "--http-host", "127.0.0.1", "--http-port", "0")
+    workers = []
+    try:
+        addr = (await front.expect(r"control plane on ([0-9.]+:\d+)")).group(1)
+        port = int((await front.expect(r"OpenAI server on http://127\.0\.0\.1:(\d+)")).group(1))
+        health = [_free_port(), _free_port()]
+        for h in health:
+            workers.append(await _Cli.spawn(
+                "run", "--in", "dyn://dynamo.torch.generate", *TINY, "--no-warmup",
+                "--control-plane", addr, "--health-port", str(h)))
+        for w in workers:
+            await w.expect(r"worker serving dyn://dynamo\.torch\.generate", 120)
+        end = time.monotonic() + 30
+        while "tiny-test" not in [m["id"] for m in (await fetch(
+                "127.0.0.1", port, "GET", "/v1/models")).json()["data"]]:
+            assert time.monotonic() < end, "workers never discovered"
+            await asyncio.sleep(0.2)
+        prompt = list(range(1, 41))  # 2 full 16-token blocks + a tail
+        for _ in range(3):
+            r = await fetch("127.0.0.1", port, "POST", "/v1/completions", {
+                "model": "tiny-test", "prompt": prompt, "max_tokens": 4,
+                "nvext": {"ignore_eos": True}})
+            assert r.status == 200, r.body
+            await asyncio.sleep(0.5)  # the worker's KV events reach the index
+        routes = (await fetch("127.0.0.1", port, "GET", "/debug/routes?n=3")).json()
+        recs = routes["recent"]
+        assert len(recs) == 3 and len({rec["worker_id"] for rec in recs}) == 1
+        assert [rec["overlap_blocks"] for rec in recs] == [0, 2, 2]
+        assert routes["gauges"]["kv_router_metrics_stale"] == 0
+        counts = []
+        for h in health:
+            text = (await fetch("127.0.0.1", h, "GET", "/metrics")).body.decode()
+            m = re.search(r"^dyntpu_worker_ingress_requests_total (\S+)$", text, re.M)
+            counts.append(float(m.group(1)))
+        assert sorted(counts) == [0.0, 3.0]
+    finally:
+        for p in [*workers, front]:
+            p.proc.send_signal(signal.SIGTERM)
+        for p in [*workers, front]:
+            try:
+                await p.finish(30)
+            finally:
+                await p.kill()
+
+
 async def test_drain_verb_end_to_end():
     """The control-plane drain verb on a port mocker worker with a
     request in flight: the stream completes, readiness flips, new work is

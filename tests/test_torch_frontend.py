@@ -516,7 +516,6 @@ REFUSED = {
     "--quant": ["--quant", "int8"],
     "--weight-quant": ["--weight-quant", "int8"],
     "--speculative-k": ["--speculative-k", "-1"],
-    "--router-mode kv": ["--router-mode", "kv"],
     "--model-type embeddings": ["--model-type", "embeddings"],
     "--config": ["--config", "x.yaml"],
     "--set": ["--set", "Engine.x=1"],
@@ -530,13 +529,15 @@ def test_cli_refuses_unserved_flags_by_name(flag):
     assert isinstance(exc.value.code, str) and flag.split()[0] in exc.value.code
 
 
-# The runtime plane's flags, refused until the runtime slice, are served.
+# The runtime plane's flags, refused until the runtime slice, are served;
+# so is the KV-aware router's, refused until the KV router slice.
 SERVED = {
     "--out dyn": ["--out", "dyn"],
     "--in dyn://": ["--in", "dyn://a.b.c"],
     "--control-plane": ["--control-plane", "h:1"],
     "--spawn-control-plane": ["--spawn-control-plane"],
     "--router-mode random": ["--router-mode", "random"],
+    "--router-mode kv": ["--router-mode", "kv", "--route-network-aware"],
 }
 
 
@@ -569,8 +570,37 @@ def test_cli_serves_the_slo_and_observability_flags(flag):
 
 
 def test_cli_router_mode_kv_refusal_names_roadmap_a5():
-    with pytest.raises(SystemExit, match="ROADMAP A5"):
-        t_cli.main(["run", "--router-mode", "kv"])
+    """``--router-mode kv`` is served now (the name is kept from when it
+    was refused): the ``run`` flags and the ``router`` and ``metrics``
+    subcommands parse as the JAX CLI's do (the exporter's component
+    defaults to the port's ``torch``), and a KV frontend's router
+    config is the JAX one's but for the measured link rate."""
+    from dynamo_tpu.cli import build_parser as j_parser
+    from dynamo_tpu.llm.kv_router.scheduler import KvRouterConfig as JCfg
+    from dynamo_tpu_torch.llm.kv_router.scheduler import KvRouterConfig as TCfg
+
+    argvs = (
+        ["run", "--out", "dyn", "--router-mode", "kv", "--route-network-aware"],
+        ["router", "--control-plane", "h:1", "--endpoint", "dyn://a.b.c",
+         "--component", "r2", "--block-size", "32", "--route-network-aware",
+         "--replica-id", "3"],
+        ["metrics", "--control-plane", "h:1", "--port", "0", "--push-url",
+         "http://gw:9091", "--push-interval", "2", "--push-job", "j"],
+    )
+    for argv in argvs:
+        td = vars(t_cli.build_parser().parse_args(argv))
+        jd = vars(j_parser().parse_args(argv))
+        if argv[0] == "run":
+            t_cli.refuse_unserved(t_cli.build_parser().parse_args(argv))
+            assert td.pop("device") == "cuda" and td.pop("output") == jd["output"]
+            td.pop("endpoint")
+        if argv[0] == "metrics":
+            assert td.pop("component") == "torch" and jd["component"] == "tpu"
+        assert {k: td[k] for k in td} == {k: jd[k] for k in td}, argv
+    t, j = vars(TCfg(network_aware=True)), vars(JCfg(network_aware=True))
+    assert t.pop("default_link_gbps") > 0
+    j.pop("default_link_gbps")
+    assert t == j
 
 
 def test_cli_refuses_non_preset_models_and_bad_dtypes():

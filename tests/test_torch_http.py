@@ -390,23 +390,53 @@ def _head_view(raw: bytes):
 
 
 def test_unserved_headers_and_routes_are_refused():
-    """The deadline and class headers are served now (both answer 200,
-    as the JAX server does); what stays refused is /debug/routes (the KV
-    router's audit, ROADMAP A5) and /v1/embeddings, both 404."""
+    """The deadline and class headers are served (both answer 200, as
+    the JAX server does), and so is /debug/routes now (the name is kept
+    from when it was refused): both servers give the same route records,
+    totals and router gauges for the same decisions, and the same 400
+    for a bad ``n``. What stays refused is /v1/embeddings, 404 on both."""
+    from dynamo_tpu.llm.kv_router.audit import ROUTE_OBS as J_OBS
+    from dynamo_tpu.llm.kv_router.audit import RouteAuditRecord as JRec
+    from dynamo_tpu_torch.llm.kv_router.audit import ROUTE_OBS as T_OBS
+    from dynamo_tpu_torch.llm.kv_router.audit import RouteAuditRecord as TRec
+
     async def scenario(service):
+        port_side = type(service).__module__.startswith("dynamo_tpu_torch")
+        obs, rec = (T_OBS, TRec) if port_side else (J_OBS, JRec)
         out = []
         for headers in ({"X-Request-Timeout-Ms": "500"}, {"X-Request-Class": "batch"},
                         {"X-Request-Class": "interactive"}):
             resp = await fetch(HOST, service.port, "POST", "/v1/chat/completions",
                                {"model": "echo-model", "messages": MSG}, headers)
             out.append(resp.status)
-        debug = await fetch(HOST, service.port, "GET", "/debug/routes")
-        emb = await fetch(HOST, service.port, "POST", "/v1/embeddings",
-                          {"model": "echo-model", "input": "x"})
-        err = debug.json()["error"]
-        return out, debug.status, err["type"], "ROADMAP A5" in err["message"], emb.status
+        before = obs.routes_total, obs.predicted_blocks_total
+        for i in range(3):
+            obs.record(rec(request_id=f"r{i}", trace_id=f"t{i}", worker_id=7 + i,
+                           overlap_blocks=i, isl_blocks=4, logit=0.25 * i,
+                           decision_ms=1.5, unix=1000.0 + i,
+                           candidates=[{"worker": 7 + i, "logit": 0.25 * i}],
+                           indexer={"applied": 5, "pending": 0}))
+        debug = await fetch(HOST, service.port, "GET", "/debug/routes?n=2")
+        body = debug.json()
+        out.append((debug.status, body["routes_total"] - before[0],
+                    body["predicted_blocks_total"] - before[1], body["recent"],
+                    {"kv_router_routes_total", "kv_router_predicted_blocks_total"}
+                    <= set(body["gauges"])))
+        bad = await fetch(HOST, service.port, "GET", "/debug/routes?n=zebra")
+        out.append(_view(bad))
+        metrics = (await fetch(HOST, service.port, "GET", "/metrics")).body.decode()
+        out.append("kv_router_routes_total" in metrics)
+        return out
 
-    assert _port_server(scenario) == ([200, 200, 200], 404, "debug_error", True, 404)
+    async def embeddings(service):
+        return (await fetch(HOST, service.port, "POST", "/v1/embeddings",
+                            {"model": "echo-model", "input": "x"})).status
+
+    got = _both(scenario)
+    assert got[:3] == [200, 200, 200] and got[3][:3] == (200, 3, 3)
+    assert [r["trace"] for r in got[3][3]] == ["t1", "t2"] and got[3][4]
+    assert got[4][0] == 400 and got[5] is True
+    assert _port_server(embeddings) == 404
 
 
 # -- tiny-test through both engines -----------------------------------------
@@ -513,7 +543,11 @@ def test_tiny_test_readiness_uses_jax_names(tiny_servers):
         "num_waiting_batch", "batch_fill_ratio",
         # the co-location controller
         "coloc_quantum", "itl_ema_ms", "itl_p95_ms", "itl_headroom_ms",
-        "itl_slo_violations_total", "coloc_prefill_deferrals_total", "coloc_adaptive"}
+        "itl_slo_violations_total", "coloc_prefill_deferrals_total", "coloc_adaptive",
+        # the KV observatory's actual reuse per tier, the engine heartbeat
+        "kv_reused_device_blocks_total", "kv_reused_host_blocks_total",
+        "kv_reused_disk_blocks_total", "kv_reused_peer_blocks_total",
+        "last_dispatch_age_s"}
     # Decode lanes issued depend on when requests arrived and how deep the
     # pipeline ran; the prompt tokens prefilled do not.
     for key in ("unified_step_tokens_prefill_total", "num_requests_waiting",

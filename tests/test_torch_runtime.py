@@ -532,10 +532,50 @@ async def test_router_modes_and_direct(pkg):
 
 
 async def test_router_mode_kv_is_refused_naming_a5():
-    drt = await t_distributed.DistributedRuntime.in_process()
-    with pytest.raises(SystemExit, match="A5"):
-        await t_egress.PushRouter.create(drt, "ns.c.gen", t_egress.RouterMode.KV)
-    await drt.shutdown()
+    """``RouterMode.KV`` is served now (the name is kept from when it was
+    refused): both packages' PushRouters route each request to the
+    instance their selector names, pass the request id to a selector
+    that takes one, fire the selector owner's ``note_worker_dead`` on
+    mark-dead, and spread over the survivors when the chosen instance
+    is gone — the same answers from both."""
+    async def run(pkg):
+        m = PKGS[pkg]
+        drt_a, _ = await _worker(pkg, engine=_Who("a"))
+        drt_b, _ = await _worker(pkg, drt_a, engine=_Who("b"))
+        lease_b = drt_b.primary_lease_id
+        seen_ids, dead = [], []
+
+        class Owner:
+            async def pick(self, payload, instances, request_id=None):
+                seen_ids.append(request_id)
+                return lease_b
+
+            def note_worker_dead(self, wid):
+                dead.append(wid)
+
+        owner = Owner()
+        kv = await m.egress.PushRouter.create(
+            drt_a, "ns.c.gen", m.egress.RouterMode.KV, selector=owner.pick)
+        assert owner.note_worker_dead in kv.on_dead
+        got = [[i async for i in kv.generate(m.Context({}, id=f"r{n}"))]
+               for n in range(3)]
+
+        async def two_arg(payload, instances):
+            return 12345  # not an instance: raced a mark-dead eviction
+        stale = await m.egress.PushRouter.create(
+            drt_a, "ns.c.gen", m.egress.RouterMode.KV, selector=two_arg)
+        raced = [i async for i in stale.generate(m.Context({}))]
+        kv.mark_dead(lease_b, "test")
+        no_sel = m.egress.PushRouter(drt_a, kv.client, m.egress.RouterMode.KV)
+        with pytest.raises(RuntimeError, match="selector"):
+            await no_sel.generate(m.Context({})).__anext__()
+        await drt_b.shutdown()
+        await drt_a.shutdown()
+        return got, seen_ids, dead == [lease_b], len(raced) == 1
+
+    port, jax = await run("torch"), await run("jax")
+    assert port == jax
+    assert port[0] == [[{"who": "b"}]] * 3 and port[1] == ["r0", "r1", "r2"]
 
 
 @BOTH

@@ -219,6 +219,38 @@ def test_log_records_carry_request_and_trace_ids():
     assert lines[0] == lines[1]
 
 
+def test_port_log_filter_keeps_the_jax_packages_stamp():
+    """A process hosting both packages (a worker of a mixed test run, a
+    tool importing both): a record stamped by the JAX package's scope
+    filter and then passed through a handler with the port's filter (its
+    runtime installs one on the root logger) keeps the JAX stamp — the
+    port's unscoped filter adds empty stamps only where none exist."""
+    from dynamo_tpu.utils import logging as j_logging
+    from dynamo_tpu_torch.utils import logging as t_logging
+
+    parent = logging.getLogger("test.trace.mixed")
+    child = logging.getLogger("test.trace.mixed.jax")
+    seen: list = []
+    port_handler = logging.Handler()
+    port_handler.emit = lambda r: seen.append(("port", r.request_id, r.trace_id))
+    port_handler.addFilter(t_logging._ScopeFilter())
+    jax_handler = logging.Handler()
+    jax_handler.emit = lambda r: seen.append(("jax", r.request_id, r.trace_id))
+    jax_handler.addFilter(j_logging._ScopeFilter())
+    parent.addHandler(port_handler)
+    child.addHandler(jax_handler)
+    child.setLevel(logging.INFO)
+    try:
+        with j_logging.request_scope("req-42", "trace-abc"):
+            child.info("inside the JAX scope")
+        child.info("unscoped")
+    finally:
+        parent.removeHandler(port_handler)
+        child.removeHandler(jax_handler)
+    assert seen == [("jax", "req-42", "trace-abc"), ("port", "req-42", "trace-abc"),
+                    ("jax", "", ""), ("port", "", "")]
+
+
 # ---------------------------------------------------------------------------
 # flight recorder
 # ---------------------------------------------------------------------------
@@ -370,7 +402,13 @@ def test_debug_endpoints(tmp_path, monkeypatch):
         assert prof.status == 200 and prof.json()["path"].startswith(str(tmp_path))
         assert prof.json()["trace"] == "t.json"
         assert bad.status == 400
-        assert routes.status == 404 and "ROADMAP A5" in routes.json()["error"]["message"]
+        # /debug/routes is served on both surfaces (refused until the KV
+        # router slice): the JAX package's snapshot layout.
+        from dynamo_tpu.llm.kv_router.audit import ROUTE_OBS as J_OBS
+
+        assert routes.status == 200
+        assert set(routes.json()) == set(J_OBS.snapshot(0))
+        assert "kv_router_routes_total" in routes.json()["gauges"]
     assert len(started) == 2
 
 

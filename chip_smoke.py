@@ -124,9 +124,11 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 /debug/steps, itl_slo_violations_total. Gates: every reply
                 200, full-length streams held to the no-cache reference as
                 in phase 8; no capture mid-traffic; on every leg the
-                quantum starts at 256, never goes below 16, and goes down
-                where (and only where) the controller's EMA crossed its
-                SLO, which the tight leg's must; one flight
+                quantum starts at 256, never goes below 16, stays put on
+                the static leg, and on an adaptive leg falls only after
+                its itl_slo_violations_total rose (a 2 ms poll of the
+                controller; the compose-time EMA peak is reported); the
+                tight leg's must fall; one flight
                 record per unified dispatch; the 1 ms request answers 504
                 and deadline_exceeded_total grows by one; the profile's
                 Chrome trace names the ragged kernel; /metrics carries the
@@ -205,6 +207,40 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 the http phase's, the gap at the client across the kill.
                 Every process has its own timeouts and is killed at the
                 end of the phase, whatever happened.
+
+10. disagg    — disaggregated prefill/decode and the KVBM tiers on
+                llama3.2-1b (max_model_len 2048), with the phase's own
+                prompts from seeds: per leg 4 long prompts (1024–1536
+                tokens) that go remote (DisaggConfig(max_local_prefill_
+                length=512)) and 4 short ones (64–256) that stay local,
+                32 greedy tokens each. Legs: device — a decode and a
+                prefill engine in this process, the device channel (the
+                same prompts served locally first, for the TTFT they
+                are compared with); kvbm — an engine with a
+                KvBlockManager (a G2 host tier, a G3 disk tier in a
+                temporary directory): 8 prompts sharing two 512-token
+                prefixes cold, then the device cache cleared and served
+                again twice (the adaptive gate's first decisions, then
+                with its estimates), the onboarded blocks read back from
+                the device cache equal the offered rows by CRC, then G2
+                spilled and two touches that promote from G3 (envelope
+                verified, no integrity failure); tcp and native — the
+                prefill engine in a worker process
+                (``dynamo_tpu_torch.examples.prefill_worker``), each
+                transport pinned; int8 — an int8-KV pair over tcp
+                (packed rows, scales included, by their byte count).
+                Gates on every leg: 4 remote, 4 local; the pinned
+                transport's receiver carried every block and no other
+                did; no integrity failure and no degraded request; the
+                device leg's received blocks equal the sent ones by CRC;
+                the ragged wrapper launched num_layers times per unified
+                dispatch of this process's engines (the prefill worker's
+                report: the same of its own, and nothing captured
+                mid-traffic), tile and split paths; the streams through
+                phase 8's teacher-forced gates. Reported: TTFT p50 of
+                the remote and local requests, kv_transfer span p50/p95
+                and GB/s per transport, host→device onboard GB/s, TTFT
+                cold against host hit, the gate's probes and skips.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Then the card's name and power limit, the kernels line, and the
@@ -2099,15 +2135,41 @@ def metric_value(text: str, name: str) -> float | None:
     return None
 
 
+async def watch_quantum_fall(engine, start: int, stop: asyncio.Event) -> dict:
+    """Poll the controller every 2 ms until ``stop``: the violation count
+    at the first sample whose quantum is below ``start``. The quantum is
+    read before the count: the controller counts a sample's violation
+    before it adapts, so a fall seen here has its cause counted."""
+    coloc = engine.coloc
+    v0 = coloc.itl_slo_violations_total
+    while not stop.is_set():
+        q = coloc.quantum
+        v = coloc.itl_slo_violations_total
+        if q < start:
+            return {"violations_at_start": v0, "violations_at_first_fall": v,
+                    "first_fall_quantum": q}
+        await asyncio.sleep(0.002)
+    return {"violations_at_start": v0, "violations_at_first_fall": None,
+            "first_fall_quantum": None}
+
+
 async def observe_adaptive_leg(port, engine, model, prompts, burst, tapped, slo,
                                name) -> dict:
     """The burst leg on an adaptive server; its flight records give the
-    quantum trajectory and whether the controller's EMA crossed the SLO."""
+    quantum trajectory and the compose-time EMA, a 2 ms poll of the
+    controller whether its violation count rose before the quantum first
+    fell."""
     from dynamo_tpu_torch.llm.http_client import fetch
 
     last = engine.debug_steps(1)
     seq0 = last[-1]["seq"] if last else 0
-    leg, _ = await observe_leg(port, model, prompts, burst, tapped)
+    stop = asyncio.Event()
+    watch = asyncio.ensure_future(watch_quantum_fall(engine, engine.coloc.quantum, stop))
+    try:
+        leg, _ = await observe_leg(port, model, prompts, burst, tapped)
+    finally:
+        stop.set()
+    fall = await watch
     steps = (await fetch("127.0.0.1", port, "GET", "/debug/steps?n=1024")).json()["steps"]
     recs = [r for r in steps if r["seq"] > seq0 and r["kind"] in ("unified", "spec")]
     ready = engine.readiness()
@@ -2118,6 +2180,10 @@ async def observe_adaptive_leg(port, engine, model, prompts, burst, tapped, slo,
         "ema_first_ms": recs[0]["itl_ema_ms"],
         "ema_peak_ms": max(r["itl_ema_ms"] for r in recs),
         "ema_crossed_slo": any(r["itl_ema_ms"] > slo for r in recs),
+        **fall,
+        "violations_before_first_fall": (
+            fall["violations_at_first_fall"] is not None
+            and fall["violations_at_first_fall"] > fall["violations_at_start"]),
         "coloc": {k: ready[k] for k in (
             "coloc_quantum", "itl_ema_ms", "itl_p95_ms", "itl_slo_violations_total",
             "coloc_prefill_deferrals_total")},
@@ -2327,18 +2393,28 @@ async def phase_observe(vocab: int) -> dict:
         raise SystemExit("observe: streams short or disagreeing with the reference")
     if any(mid.values()):
         raise SystemExit(f"observe: graphs captured mid-traffic {mid}")
-    # The controller's contract on every leg: the quantum starts at 256,
-    # never goes below the floor, and goes down where (and only where) its
-    # EMA crossed the SLO; the tight leg must have crossed it.
+    # The controller's contract on every leg: the quantum starts at 256
+    # and never goes below the floor; the static one never moves; an
+    # adaptive one falls only after a sample over its SLO was counted
+    # (itl_slo_violations_total rose before the first fall: the EMA can
+    # pass the SLO only after such a sample). The flight records' EMA is
+    # taken at compose and can miss a crossing between two records, so
+    # its peak is reported, not gated. The tight leg must move.
     for name in ("static", "adaptive", "adaptive_tight"):
         leg = legs[name]
         traj = [q for q, _ in leg["quantum_trajectory"]]
         moved = min(traj) < OBSERVE_QUANTUM
-        want_moved = leg["ema_crossed_slo"] and name != "static"
-        if not traj or traj[0] != OBSERVE_QUANTUM or min(traj) < 16 or moved != want_moved:
-            raise SystemExit(f"observe: {name} quantum trajectory {leg['quantum_trajectory']} "
-                             f"(EMA crossed the SLO: {leg['ema_crossed_slo']})")
-    if not legs["adaptive_tight"]["ema_crossed_slo"]:
+        if name == "static":
+            ok = not moved
+        else:
+            ok = not moved or leg["violations_before_first_fall"]
+        if not traj or traj[0] != OBSERVE_QUANTUM or min(traj) < 16 or not ok:
+            raise SystemExit(
+                f"observe: {name} quantum trajectory {leg['quantum_trajectory']} "
+                f"(violations at start {leg['violations_at_start']}, at the first "
+                f"fall {leg['violations_at_first_fall']}; compose-time EMA crossed "
+                f"the SLO: {leg['ema_crossed_slo']}, peak {leg['ema_peak_ms']} ms)")
+    if min(q for q, _ in legs["adaptive_tight"]["quantum_trajectory"]) >= OBSERVE_QUANTUM:
         raise SystemExit("observe: the tight SLO was never pressured")
     if any(f != d for _, f, d in checks) or not dispatches:
         raise SystemExit(f"observe: flight records vs dispatches {checks}")
@@ -2429,9 +2505,12 @@ class Child:
     ...``): stdout and stderr merged, read line by line as they come,
     each line kept with its arrival time."""
 
-    def __init__(self, name: str, argv: list[str]) -> None:
+    def __init__(self, name: str, argv: list[str], module: str = "dynamo_tpu_torch",
+                 env: dict | None = None) -> None:
         self.name = name
         self.argv = argv
+        self.module = module
+        self.env = env
         self.proc = None
         self.lines: list[tuple[float, str]] = []
         self.t_spawn = 0.0
@@ -2441,9 +2520,10 @@ class Child:
     async def start(self) -> "Child":
         self.t_spawn = time.monotonic()
         self.proc = await asyncio.create_subprocess_exec(
-            sys.executable, "-m", "dynamo_tpu_torch", *self.argv,
+            sys.executable, "-m", self.module, *self.argv,
             stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,
             cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=None if self.env is None else {**os.environ, **self.env},
         )
         self._reader = asyncio.ensure_future(self._read())
         return self
@@ -3273,6 +3353,450 @@ async def wait_model(port: int, name: str, timeout: float = 30.0) -> None:
         await asyncio.sleep(0.05)
 
 
+# -- phase 10: disaggregation and the KVBM tiers ------------------------------
+DISAGG_MAX_LEN = 2048         # the disagg engines' max_model_len (1536 + 32 fits)
+DISAGG_LONG = (1024, 1537)    # remote prompts: 4, tokens in [1024, 1536]
+DISAGG_SHORT = (64, 257)      # local prompts: 4, tokens in [64, 256]
+DISAGG_LOCAL_MAX = 512        # DisaggConfig.max_local_prefill_length
+KVBM_GROUPS = 2               # the kvbm leg: prefix groups ...
+KVBM_PER_GROUP = 4            # ... of 4 prompts ...
+KVBM_PREFIX = 512             # ... sharing 512 tokens (32 blocks) ...
+KVBM_SUFFIX = 64              # ... each with 64 of its own
+WORKER_ARGS = ["--model-path", "preset:llama3.2-1b", "--max-model-len", str(DISAGG_MAX_LEN),
+               "--num-blocks", "1024", "--max-num-seqs", "8", "--prefill-batch", "4",
+               "--unified-token-budget", "256", "--seed", "0", "--warmup"]
+
+
+def disagg_config(**kw):
+    return full_width_config(max_model_len=DISAGG_MAX_LEN, **kw)
+
+
+def disagg_prompts(seed: int, vocab: int) -> list[list[int]]:
+    """4 long prompts (remote) then 4 short ones (local), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lens = list(rng.integers(*DISAGG_LONG, 4)) + list(rng.integers(*DISAGG_SHORT, 4))
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def stream_gates(leg: str, cfg, params, prompts, streams, finishes, max_tokens) -> dict:
+    """Full-length greedy streams in the vocabulary, held to the no-cache
+    reference as the phase-split run is: agreement >= 0.9, every
+    disagreement a near tie."""
+    from dynamo_tpu_torch.llm.protocols.common import FinishReason
+
+    ref = teacher_forced(cfg, params, prompts, streams)
+    ref.pop("first_token_ref_logprob")
+    full = all(len(s) == max_tokens for s in streams) and all(
+        f is FinishReason.LENGTH for f in finishes)
+    in_vocab = all(0 <= t < cfg.vocab_size for s in streams for t in s)
+    if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]
+            and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+            and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
+        raise SystemExit(f"disagg {leg}: streams failed their checks "
+                         f"(full {full}, in vocab {in_vocab}, {ref})")
+    return ref
+
+
+def span_ms(path: str, name: str) -> list[float]:
+    """Durations of every ``name`` span of one process's trace capture, in
+    the order they were recorded."""
+    from dynamo_tpu_torch.utils.recorder import Recorder
+
+    return [float(ev["dur_ms"]) for _ts, ev in Recorder.load(path)
+            if ev.get("kind") == "span" and ev.get("span") == name]
+
+
+def pct(xs: list[float], q: float) -> float | None:
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def device_crc_match(sender, receiver, prompts) -> dict:
+    """Each remote prompt's full blocks: the receiving engine's bytes
+    against the sending engine's (both caches hold the prompt under the
+    same block hashes), by CRC. Returns counts."""
+    from dynamo_tpu_torch.block_manager.integrity import block_checksum
+    from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+
+    same = total = 0
+    bs = sender.cfg.block_size
+    for p in prompts:
+        hashes = TokenBlockSequence.from_tokens(p, block_size=bs).sequence_hashes()[
+            : len(p) // bs]
+        ids = [(sender.allocator._hash_to_block.get(h), receiver.allocator._hash_to_block.get(h))
+               for h in hashes]
+        ids = [(a, b) for a, b in ids if a is not None and b is not None]
+        if not ids:
+            continue
+        got_a = sender.runner.gather_many([a for a, _ in ids])
+        got_b = receiver.runner.gather_many([b for _, b in ids])
+        for x, y in zip(got_a, got_b):
+            total += 1
+            same += block_checksum(x) == block_checksum(y)
+    return {"blocks_compared": total, "blocks_crc_equal": same}
+
+
+async def disagg_leg(name, decode, queue, transport, prompts, max_tokens, params,
+                     prefill=None, worker=None) -> dict:
+    """The 8 prompts through a DecodeOperator pinned to ``transport``: 4
+    remote, 4 local; the receivers' counters name the transport that
+    carried the blocks; the ragged kernel's launches are counted over the
+    leg on this process's engines (and read from the worker's report
+    when the prefill engine is a process of its own)."""
+    from dynamo_tpu_torch.block_manager.integrity import INTEGRITY
+    from dynamo_tpu_torch.disagg import DecodeOperator, DisaggConfig, DisaggRouter
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+
+    router = DisaggRouter.__new__(DisaggRouter)
+    router.cfg = DisaggConfig(max_local_prefill_length=DISAGG_LOCAL_MAX,
+                              max_prefill_queue_size=64)
+    # Staging slots for 4 remote prompts of up to 97 blocks at once (the
+    # native transport reserves one per block; 512 KiB each).
+    op = await DecodeOperator(decode, queue, router, transport=transport,
+                              staging_slots=512).start()
+    INTEGRITY.reset()
+    engines = [decode] + ([prefill] if prefill is not None else [])
+    d0 = [e.unified_dispatches for e in engines]
+    reset_counts()
+    try:
+        streams, finishes, ttft, wall = await serve(op, prompts, max_tokens)
+    finally:
+        await op.stop()
+    launches = fn.launches
+    paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
+    dispatches = [e.unified_dispatches - d for e, d in zip(engines, d0)]
+    cfg = decode.cfg.model
+    receivers = {"device": op.device_receiver, "native": op.receiver if op.transport == "native"
+                 else None, "tcp": op.tcp_receiver or (op.receiver if op.transport == "tcp"
+                                                      else None)}
+    carried = {k: (r.blocks_received if r is not None else 0) for k, r in receivers.items()}
+    nbytes = {k: (r.bytes_received if r is not None else 0) for k, r in receivers.items()}
+    bs = decode.cfg.block_size
+    want_blocks = sum((len(p) + bs - 1) // bs for p in prompts[:4])
+    out = {
+        "leg": name, "transport": transport, "remote_count": op.remote_count,
+        "local_count": op.local_count, "blocks_received": carried,
+        "bytes_received": nbytes, "expected_blocks": want_blocks,
+        "integrity": INTEGRITY.snapshot(), "wall_s": wall,
+        "ttft_remote_p50_ms": float(np.median(ttft[:4])) * 1e3,
+        "ttft_local_p50_ms": float(np.median(ttft[4:])) * 1e3,
+        "ttft_ms": [t * 1e3 for t in ttft],
+        "unified_dispatches": dispatches, "kernel_launches": launches,
+        "kernel_launches_by_path": paths,
+        "mid_traffic_compiles": [mid_traffic(e) for e in engines],
+        "degraded_requests": decode.degraded_requests,
+    }
+    if (op.remote_count, op.local_count) != (4, 4):
+        raise SystemExit(f"disagg {name}: remote/local {op.remote_count}/{op.local_count}")
+    if carried[transport] != want_blocks or sum(carried.values()) != want_blocks:
+        raise SystemExit(f"disagg {name}: blocks carried {carried}, want {want_blocks} "
+                         f"on {transport} only")
+    if out["integrity"]["integrity_failures_total"] or decode.degraded_requests:
+        raise SystemExit(f"disagg {name}: integrity {out['integrity']}, "
+                         f"degraded {decode.degraded_requests}")
+    if launches != cfg.num_layers * sum(dispatches) or 0 in dispatches:
+        raise SystemExit(f"disagg {name}: ragged kernel launched {launches} times for "
+                         f"{dispatches} dispatches x {cfg.num_layers} layers")
+    want_paths = {"tc": launches, "split": launches, "walk": 0}
+    if decode.cfg.dtype == "bfloat16" and paths != want_paths:
+        raise SystemExit(f"disagg {name}: ragged paths {paths}")
+    if any(out["mid_traffic_compiles"]):
+        raise SystemExit(f"disagg {name}: graphs captured mid-traffic "
+                         f"{out['mid_traffic_compiles']}")
+    out.update(stream_gates(name, cfg, params, prompts, streams, finishes, max_tokens))
+    out["streams"] = streams
+    return out
+
+
+async def worker_done(child, leg: str, served: int) -> dict:
+    """SIGTERM a prefill worker; its report: every dispatch launched the
+    ragged kernel once per layer, nothing was captured mid-traffic."""
+    import json as _json
+    import signal as _signal
+
+    child.signal(_signal.SIGTERM)
+    rc = await child.exit_code(120)
+    m, _ = await child.wait_for(r"worker report (\{.*\})", 5)
+    rep = _json.loads(m.group(1))
+    launches = rep["kernel_launches"]["ragged_paged_attention_cuda.launches"]
+    rep["ragged_launches"] = launches
+    if (rc != 0 or rep["requests"] != served or rep["mid_traffic_compiles"]
+            or launches != rep["num_layers"] * rep["unified_dispatches"]
+            or not rep["unified_dispatches"]):
+        raise SystemExit(f"disagg {leg}: prefill worker rc {rc}, report {rep}")
+    return rep
+
+
+async def kvbm_leg(vocab: int, max_tokens: int, params) -> dict:
+    """An engine with a KvBlockManager (a G2 host tier, a G3 disk tier in
+    a temporary directory): 8 prompts sharing two 512-token prefixes
+    served cold, the device cache cleared and the prompts served again
+    (the first time the adaptive gate decides, then with its estimates
+    in), the onboarded blocks held to the offered rows by CRC; then the
+    host tier spilled and a two-touch disk promotion brought back through
+    G3 with its envelope verified."""
+    from dynamo_tpu_torch.block_manager import KvbmConfig, KvBlockManager, KvLayoutConfig
+    from dynamo_tpu_torch.block_manager.integrity import INTEGRITY, block_checksum
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+
+    rng = np.random.default_rng(5)
+    prompts = []
+    for _ in range(KVBM_GROUPS):
+        prefix = rng.integers(0, vocab, KVBM_PREFIX).tolist()
+        prompts += [prefix + rng.integers(0, vocab, KVBM_SUFFIX).tolist()
+                    for _ in range(KVBM_PER_GROUP)]
+    ecfg = disagg_config()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kvbm_")
+    INTEGRITY.reset()
+    kvbm = await KvBlockManager(KvbmConfig(
+        layout=KvLayoutConfig.for_engine(ecfg, quant=None), host_blocks=256,
+        disk_blocks=512, disk_path=os.path.join(tmp, "g3.kv"),
+    )).start()
+    engine = TorchEngine(ecfg, device=DEVICE, block_manager=kvbm)
+    await engine.start()
+    out: dict = {"leg": "kvbm", "prompts": len(prompts)}
+    try:
+        await warm_up(engine)
+
+        async def run_pass(name):
+            await engine.wait_drained(30)
+            r0 = {k: engine.readiness()[k] for k in (
+                "kv_reused_device_blocks_total", "kv_reused_host_blocks_total",
+                "kv_reused_disk_blocks_total")}
+            d0 = engine.unified_dispatches
+            reset_counts()
+            streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
+            await engine.wait_drained(30)
+            await kvbm.drain_offers()
+            rd = engine.readiness()
+            dispatches = engine.unified_dispatches - d0
+            if fn.launches != ecfg.model.num_layers * dispatches or not dispatches:
+                raise SystemExit(f"disagg kvbm {name}: ragged kernel launched "
+                                 f"{fn.launches} times for {dispatches} dispatches")
+            out["ragged_launches"] = out.get("ragged_launches", 0) + fn.launches
+            out[name] = {
+                "ttft_p50_ms": float(np.median(ttft)) * 1e3, "wall_s": wall,
+                "unified_dispatches": dispatches,
+                "prefill_tokens_total": engine.unified_prefill_tokens,
+                **{k: rd[k] - r0[k] for k in r0},
+                "onboard_skips": engine._onboard_skips,
+                "onboard_probes": engine._onboard_probes,
+            }
+            return streams, finishes
+
+        cold, cold_fin = await run_pass("cold")
+        stream_gates("kvbm_cold", ecfg.model, params, prompts, cold, cold_fin, max_tokens)
+        offered = {h: kvbm.host_pool.get_by_hash(h).checksum
+                   for h in kvbm.host_pool.registered_hashes()}
+        out["offered_blocks"] = len(offered)
+        # Twice with the adaptive gate deciding (its first pass probes, the
+        # second has its rate estimates), then with the gate off: every
+        # host hit onboards, the TTFT of a host hit against recompute.
+        for name in ("host_gate_first", "host_gate", "host"):
+            engine.cfg.kvbm_adaptive_gate = name != "host"
+            engine.allocator.clear_reusable()
+            streams, fin = await run_pass(name)
+            stream_gates(f"kvbm_{name}", ecfg.model, params, prompts, streams, fin,
+                         max_tokens)
+        # The onboarded blocks, read back from the device cache, are the
+        # rows the tier was offered (same CRC): every prompt's blocks
+        # below its last full one (that one is always recomputed).
+        from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+
+        onboardable = set()
+        for p in prompts:
+            hs = TokenBlockSequence.from_tokens(p, block_size=16).sequence_hashes()
+            onboardable.update(hs[: (len(p) - 1) // 16])
+        ids = [(h, engine.allocator._hash_to_block[h]) for h in offered
+               if h in onboardable and h in engine.allocator._hash_to_block]
+        rows = engine.runner.gather_many([b for _, b in ids])
+        same = sum(block_checksum(r) == offered[h] for (h, _), r in zip(ids, rows))
+        out["device_vs_offered_crc"] = {"compared": len(ids), "equal": same}
+        out["onboard_gbps"] = (engine._onboard_bps or 0.0) / 1e9
+        out["prefill_tps"] = engine._prefill_tps
+        # Spill G2 (LRU pressure): the prefixes live on G3 only; touch 1
+        # recomputes and requests their promotion, touch 2 onboards them.
+        await kvbm._g2_to_g3.drain()
+        for b in kvbm.host_pool.allocate_blocks(kvbm.host_pool.num_free):
+            kvbm.host_pool.release(b)
+        for name in ("disk_touch1", "disk_touch2"):
+            engine.allocator.clear_reusable()
+            streams, fin = await run_pass(name)
+            stream_gates(f"kvbm_{name}", ecfg.model, params, prompts, streams, fin,
+                         max_tokens)
+        st = kvbm.stats()
+        out["stats"] = {k: v for k, v in st.items() if not k.startswith("quant")}
+        out["integrity"] = INTEGRITY.snapshot()
+    finally:
+        await engine.stop()
+        await kvbm.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    h = out["host"]
+    if (len(offered) != KVBM_GROUPS * KVBM_PREFIX // 16 + len(prompts) * KVBM_SUFFIX // 16
+            or not h["kv_reused_host_blocks_total"]
+            or out["device_vs_offered_crc"]["equal"] != out["device_vs_offered_crc"][
+                "compared"] or not out["device_vs_offered_crc"]["compared"]
+            or out["stats"]["promotions_requested_total"] == 0
+            or out["stats"]["promoted_blocks_total"] == 0
+            or out["integrity"]["integrity_failures_total"]):
+        raise SystemExit(f"disagg kvbm: gates failed {out}")
+    return out
+
+
+async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
+    """Disaggregated prefill/decode at full width (llama3.2-1b), over the
+    three transports, an int8 pair, and the KVBM tiers: see the module
+    docstring (phase 10)."""
+    from dynamo_tpu_torch.disagg import PrefillQueue, PrefillWorker
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.transports.control_plane import ControlPlaneServer
+    from dynamo_tpu_torch.utils.tracing import reset_tracer
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_disagg_")
+    trace = os.path.join(tmp, "trace.jsonl")
+    result: dict = {"phase": "disagg"}
+    server = await ControlPlaneServer(port=0).start()
+    front = await DistributedRuntime.connect(server.address)
+    # The prefill worker processes start now: their start-up overlaps
+    # the in-process legs.
+    workers = {
+        "bf16": await Child("prefill worker bf16", [
+            "--control-plane", server.address, "--namespace", "wire", *WORKER_ARGS],
+            module="dynamo_tpu_torch.examples.prefill_worker",
+            env={"DYNTPU_TRACE": trace}).start(),
+        "int8": await Child("prefill worker int8", [
+            "--control-plane", server.address, "--namespace", "wire8", "--kv-quant",
+            "int8", *WORKER_ARGS], module="dynamo_tpu_torch.examples.prefill_worker",
+            env={"DYNTPU_TRACE": trace}).start(),
+    }
+    engines = []
+    try:
+        # device: both engines in this process, the device channel.
+        reset_tracer(trace)
+        decode = TorchEngine(disagg_config(), device=DEVICE)
+        prefill = TorchEngine(disagg_config(), device=DEVICE)
+        engines += [decode, prefill]
+        for e in (decode, prefill):
+            await e.start()
+            await warm_up(e)
+        dev_params = decode.runner.params
+        prompts = disagg_prompts(1, vocab)
+        # The same prompts served locally on the decode engine first: the
+        # TTFT the remote path is compared with.
+        local_streams, _f, local_ttft, _w = await serve(decode, prompts, max_tokens)
+        await decode.wait_drained(30)
+        decode.allocator.clear_reusable()
+        drt = await DistributedRuntime.in_process()
+        queue = PrefillQueue(drt, "device")
+        pw = PrefillWorker(prefill, queue).start()
+        try:
+            leg = await disagg_leg("device", decode, queue, "device", prompts, max_tokens,
+                                   dev_params, prefill=prefill)
+        finally:
+            await pw.stop()
+            await drt.shutdown()
+        leg["ttft_same_prompts_local_p50_ms"] = float(np.median(local_ttft[:4])) * 1e3
+        leg["match_rate_vs_local"] = match_rate(leg.pop("streams"), local_streams)
+        leg["sender_vs_receiver_blocks"] = device_crc_match(prefill, decode, prompts[:4])
+        c = leg["sender_vs_receiver_blocks"]
+        if not c["blocks_compared"] or c["blocks_crc_equal"] != c["blocks_compared"]:
+            raise SystemExit(f"disagg device: received blocks differ from sent {c}")
+        result["device"] = leg
+        emit({"phase": "disagg_leg", **leg})
+        for e in (decode, prefill):
+            await e.stop()
+        engines.clear()
+        del decode, prefill
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # kvbm: one engine over the G2 host and G3 disk tiers.
+        result["kvbm"] = await kvbm_leg(vocab, max_tokens, params)
+        emit({"phase": "disagg_leg", **result["kvbm"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # tcp and native: the prefill engine in a worker process.
+        decode = TorchEngine(disagg_config(), device=DEVICE)
+        engines.append(decode)
+        await decode.start()
+        await warm_up(decode)
+        await workers["bf16"].wait_for(r"READY \d+", FLEET_WAIT_S)
+        served = 0
+        for seed, transport in ((2, "tcp"), (3, "native")):
+            leg = await disagg_leg(transport, decode, PrefillQueue(front, "wire"), transport,
+                                   disagg_prompts(seed, vocab), max_tokens, params)
+            leg.pop("streams")
+            served += 4
+            result[transport] = leg
+            emit({"phase": "disagg_leg", **leg})
+        result["worker_bf16"] = await worker_done(workers["bf16"], "bf16", served)
+        await decode.stop()
+        engines.clear()
+        del decode
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # int8: an int8-KV pair over tcp (packed rows with their scales).
+        decode = TorchEngine(disagg_config(kv_quant="int8"), device=DEVICE)
+        engines.append(decode)
+        await decode.start()
+        await warm_up(decode)
+        await workers["int8"].wait_for(r"READY \d+", FLEET_WAIT_S)
+        leg = await disagg_leg("int8", decode, PrefillQueue(front, "wire8"), "tcp",
+                               disagg_prompts(4, vocab), max_tokens, params)
+        leg.pop("streams")
+        lay = decode.runner._quant_layout()
+        if leg["bytes_received"]["tcp"] != leg["expected_blocks"] * lay.block_bytes:
+            raise SystemExit(f"disagg int8: {leg['bytes_received']} bytes for "
+                             f"{leg['expected_blocks']} packed rows of {lay.block_bytes}")
+        result["int8"] = leg
+        emit({"phase": "disagg_leg", **leg})
+        result["worker_int8"] = await worker_done(workers["int8"], "int8", 4)
+    finally:
+        for e in engines:
+            await e.stop()
+        for w in workers.values():
+            await w.kill()
+        reset_tracer(None)
+        await front.shutdown()
+        await server.stop()
+    # kv_transfer spans: the device leg's in this process's capture, the
+    # wire legs' in each worker's (tcp then native in the bf16 worker's).
+    per_leg = {"device": span_ms(trace, "kv_transfer")}
+    bf16 = span_ms(f"{trace}.{workers['bf16'].proc.pid}", "kv_transfer")
+    per_leg["tcp"], per_leg["native"] = bf16[:4], bf16[4:]
+    per_leg["int8"] = span_ms(f"{trace}.{workers['int8'].proc.pid}", "kv_transfer")
+    for name, s in per_leg.items():
+        leg = result[name]
+        leg["kv_transfer_spans"] = len(s)
+        leg["kv_transfer_p50_ms"] = pct(s, 50)
+        leg["kv_transfer_p95_ms"] = pct(s, 95)
+        moved = sum(leg["bytes_received"].values())
+        leg["kv_transfer_gbps"] = moved / (sum(s) / 1e3) / 1e9 if s else None
+    shutil.rmtree(tmp, ignore_errors=True)
+    if [len(s) for s in per_leg.values()] != [4, 4, 4, 4]:
+        raise SystemExit(f"disagg: kv_transfer spans per leg "
+                         f"{ {k: len(v) for k, v in per_leg.items()} }")
+    result["wall_s"] = time.monotonic() - t_phase
+    emit({"phase": "disagg", **{k: v for k, v in result.items()
+                                if k not in ("device", "tcp", "native", "int8", "kvbm")},
+          "summary": {n: {k: result[n].get(k) for k in (
+              "ttft_remote_p50_ms", "ttft_local_p50_ms", "ttft_same_prompts_local_p50_ms",
+              "kv_transfer_p50_ms", "kv_transfer_p95_ms", "kv_transfer_gbps",
+              "unified_dispatches", "kernel_launches")}
+              for n in ("device", "tcp", "native", "int8")}})
+    return result
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3341,6 +3865,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fleet = asyncio.run(phase_fleet(prompts, max_tokens, http, params))
+    disagg = asyncio.run(phase_disagg(vocab, max_tokens, params))
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
@@ -3357,13 +3882,21 @@ def main() -> int:
                      observe_launches=observe["kernel_launches"],
                      fleet_worker_launches={
                          w: r["kernel_launches"]["ragged_paged_attention_cuda.launches"]
-                         for w, r in fleet["bf16_workers"].items()}),
+                         for w, r in fleet["bf16_workers"].items()},
+                     disagg_launches={
+                         **{leg: disagg[leg]["kernel_launches"]
+                            for leg in ("device", "tcp", "native")},
+                         "prefill_worker": disagg["worker_bf16"]["ragged_launches"],
+                         "kvbm": disagg["kvbm"]["ragged_launches"]}),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
                      served_int8["kernel_launches"], t_int8,
                      ragged + "; int8 pages unscaled in bf16, k scale on the f32 "
                      "scores, v scale on P", launches_by_path=served_int8[
-                         "kernel_launches_by_path"]),
+                         "kernel_launches_by_path"],
+                     disagg_launches={"tcp": disagg["int8"]["kernel_launches"],
+                                      "prefill_worker": disagg["worker_int8"][
+                                          "ragged_launches"]}),
         kernel_entry("paged_decode_attention",
                      "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:91",

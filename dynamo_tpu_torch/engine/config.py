@@ -89,6 +89,14 @@ class EngineConfig:
     # faults.
     flight_record_capacity: int = 512
     flight_record_dir: str | None = None
+    # Disaggregation (decode side): the longest a sequence admitted for
+    # remote prefill waits for its KV before it degrades to local
+    # recompute.
+    remote_kv_timeout_s: float = 30.0
+    # KVBM adaptive onboard gate: skip a host-tier hit when moving its
+    # bytes (measured onboard rate) is predicted slower than recomputing
+    # them (measured prefill rate); re-probe every 32nd skip.
+    kvbm_adaptive_gate: bool = True
 
     # -- reference features the port refuses (validate) --------------------
     quant: str | None = None

@@ -52,9 +52,26 @@ router's hit-rate plane) and a ``ForwardPassMetrics`` dict
 (``on_metrics``, the worker's ``load_metrics`` endpoint). Without a
 hook the flush only clears the buffers.
 
-Not in this port yet: KVBM tiers, disaggregation, peers and multimodal
-(ROADMAP queue A). Requests that ask for any of them are refused with
-``RequestError``.
+KVBM (``block_manager=``, block_manager/): at admission the G1 prefix
+hit is extended with host-tier (G2) blocks (``_onboard_host_prefix``:
+a bytes-free count first, disk promotion of the missing tail, the
+adaptive gate that skips an onboard predicted slower than recompute,
+then one in-place scatter of the matched rows); a prompt's full blocks
+are offered to G2 once it is fed (``_offload_prompt_blocks``: one
+device gather copied to pinned host memory, materialized on the KVBM
+pump's thread).
+
+Disaggregation (disagg/): the prefill side runs queued prompts through
+``prefill_only_batch`` — depth-first waves of ``unified_step`` spans,
+the warmed programs, each prompt's blocks gathered and its future
+resolved as it completes; the decode side admits a sequence with its
+blocks funded (``begin_remote``), lands the KV the transfer plane
+delivers (``on_remote_block(s)``, checked against the sequence's
+completeness ledger) and activates it at ``on_remote_finish``. A lost,
+corrupt or late transfer degrades the request to local recompute.
+
+Not in this port yet: G4 peers and multimodal (ROADMAP queue A).
+Requests that ask for them are refused with ``RequestError``.
 """
 
 from __future__ import annotations
@@ -85,6 +102,7 @@ from dynamo_tpu_torch.engine.runner import ModelRunner
 from dynamo_tpu_torch.engine.scheduler import Scheduler, compose_unified
 from dynamo_tpu_torch.engine.sequence import Sequence, SeqStatus
 from dynamo_tpu_torch.llm import slo
+from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
 from dynamo_tpu_torch.llm.protocols.common import (
     MAX_LOGPROBS,
     DeadlineError,
@@ -113,11 +131,23 @@ class TorchEngine:
         on_kv_event: Callable[[KvEvent], None] | None = None,
         on_metrics: Callable[[dict], None] | None = None,
         on_kv_actual: Callable[[dict], None] | None = None,
+        block_manager=None,
     ) -> None:
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
         self._params = params
+        # KvBlockManager (G2/G3 tiers) or None. An int8 G1 offers (int8
+        # data, scales): an unquantized tier layout cannot hold them.
+        self.kvbm = block_manager
+        layout = getattr(getattr(block_manager, "cfg", None), "layout", None)
+        if cfg.kv_quant == "int8" and layout is not None and layout.quant != "int8":
+            raise ValueError(
+                "kv_quant='int8' requires the block manager's "
+                "KvLayoutConfig to be quantized too (quant='int8') — an "
+                "unquantized G2/G3 layout cannot hold the int8 G1's "
+                "scale sidecars"
+            )
         # Side channels, buffered on the engine thread and flushed once
         # per loop pass (_flush_side_channels): block-pool KV events,
         # per-request actual-reuse records, the metrics snapshot.
@@ -127,6 +157,23 @@ class TorchEngine:
         self._kv_events_buffer: list[KvEvent] = []
         self._kv_actuals_buffer: list[dict] = []
         self._reused_device_blocks = 0
+        self._reused_host_blocks = 0
+        self._reused_disk_blocks = 0
+        self._reused_peer_blocks = 0
+        # Disagg decode side: request_id -> sequence awaiting remote KV.
+        self._remote: dict[str, Sequence] = {}
+        # KVBM adaptive onboard gate: EMA bytes/s of host→device onboards
+        # and EMA tok/s of prefill compute, on the engine's clock.
+        self._onboard_bps: float | None = None
+        self._prefill_tps: float | None = None
+        self._onboard_skips = 0
+        self._onboard_probes = 0
+        # (start event, end event, bytes) of onboard scatters on the card
+        # whose device time is not read yet.
+        self._onboard_timings: deque = deque()
+        # Requests completed through a fallback (remote KV lost ⇒ local
+        # recompute): degraded_requests_total.
+        self._degraded_requests = 0
         # Engine-thread heartbeat: the last loop pass (last_dispatch_age_s).
         self._last_dispatch_mono = time.monotonic()
         # Pipelined unified dispatches: issued-but-unprocessed records.
@@ -351,6 +398,7 @@ class TorchEngine:
         return (
             self.scheduler is not None
             and not self.scheduler.has_work
+            and not self._remote
             and not self._inflight
             and self._submit_q.empty()
         )
@@ -372,6 +420,7 @@ class TorchEngine:
             "state": "draining" if self._draining else self._state,
             "served_unwarmed": self._served_unwarmed,
             "warm_tail_pending": len(self._warm_tail),
+            "degraded_requests_total": self._degraded_requests,
             "draining": self._draining,
             "shed_requests_total": OVERLOAD.shed_total,
             "shed_interactive_total": OVERLOAD.shed_class_total(slo.INTERACTIVE),
@@ -384,16 +433,18 @@ class TorchEngine:
             "spec_active": int(self._spec_active),
             "spec_drafted_tokens_total": self._spec_drafted,
             "spec_accepted_tokens_total": self._spec_accepted,
-            # KV observatory: actual reuse per tier (device only until
-            # the port has a KVBM).
+            # KV observatory: actual reuse per tier.
             "kv_reused_device_blocks_total": self._reused_device_blocks,
-            "kv_reused_host_blocks_total": 0,
-            "kv_reused_disk_blocks_total": 0,
-            "kv_reused_peer_blocks_total": 0,
+            "kv_reused_host_blocks_total": self._reused_host_blocks,
+            "kv_reused_disk_blocks_total": self._reused_disk_blocks,
+            "kv_reused_peer_blocks_total": self._reused_peer_blocks,
+            "kvbm_kv_quant_ratio": round(
+                getattr(self.runner, "kv_bytes_ratio", 1.0), 4),
             "last_dispatch_age_s": round(
                 time.monotonic() - self._last_dispatch_mono, 3
             ),
         }
+        d.update(self._kvbm_gauges())
         if self.scheduler is not None:
             # len() reads off the engine thread are atomic.
             d["num_requests_waiting"] = len(self.scheduler.waiting)
@@ -449,13 +500,9 @@ class TorchEngine:
                 "frequency_penalty/presence_penalty/logprobs are not "
                 "supported with speculative decoding"
             )
-        refused = [
-            (pre.mm_segments, "multimodal segments"),
-            (pre.remote_prefill, "remote prefill"),
-        ]
-        for on, what in refused:
-            if on:
-                raise RequestError(f"not served by this engine yet: {what}")
+        if pre.mm_segments:
+            raise RequestError(
+                "not served by this engine yet: multimodal segments")
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -599,25 +646,58 @@ class TorchEngine:
                 if op == "add":
                     arg.status = SeqStatus.FINISHED
                     arg.emit(None, FinishReason.ERROR)
-                elif op == "warmup" and not arg.done():
+                    continue
+                # A pending warmup or remote-prefill future fails, never
+                # hangs, on a dead engine.
+                if op == "warmup":
+                    futs = [arg]
+                elif op == "add_remote":
+                    futs = [arg[1]]
+                elif op == "remote_prefill_batch":
+                    futs = [f for _, _, f in arg]
+                else:
+                    futs = []
+                for fut in futs:
                     self._loop.call_soon_threadsafe(
-                        lambda f=arg, e=exc: f.done() or f.set_exception(
+                        lambda f=fut, e=exc: f.done() or f.set_exception(
                             RuntimeError(f"engine dead: {e}")
                         )
                     )
 
     def _drain_submissions(self) -> None:
+        # Wire-delivered blocks queued back to back land in one scatter
+        # per request (flushed before any other submission, so a finish
+        # always finds its blocks landed).
+        frames: dict[str, list] = {}
         while True:
             try:
                 op, arg = self._submit_q.get_nowait()
             except queue.Empty:
-                return
+                break
+            if op == "scatter_remote":
+                frames.setdefault(arg[0], []).append(arg[1:])
+                continue
+            for rid, items in frames.items():
+                self._scatter_remote(rid, items)
+            frames = {}
             if op == "add":
                 self.scheduler.add(arg)
             elif op == "abort":
                 self.scheduler.abort(arg)
             elif op == "warmup":
                 self._run_warmup(arg)
+            elif op == "remote_prefill_batch":
+                self._run_remote_prefill_batch(arg)
+            elif op == "add_remote":
+                self._admit_remote(*arg)
+            elif op == "scatter_remote_batch":
+                self._scatter_remote_batch(*arg)
+            elif op == "activate_remote":
+                self._activate_remote(*arg)
+            elif op == "cancel_remote":
+                self._cancel_remote(arg)
+        for rid, items in frames.items():
+            self._scatter_remote(rid, items)
 
     def _step_unified(self) -> bool:
         """One engine iteration: retire ready dispatches, admit prefills,
@@ -894,6 +974,11 @@ class TorchEngine:
                 n_dec, n_pre + drafted,
             )
         self._last_unified_retire = now
+        if n_pre and not n_dec:
+            # Prefill-only dispatch: a clean recompute-rate sample for the
+            # KVBM adaptive onboard gate (pipelining can only overstate
+            # the interval: the conservative direction for the gate).
+            self._note_prefill_rate(n_pre, self._clock() - t_issue)
         for seq, *_rest in roles:
             seq.inflight_chunks -= 1
         n_drafted = n_accepted = 0
@@ -939,6 +1024,9 @@ class TorchEngine:
                     continue  # aborted mid-prompt; KV writes were harmless
                 self.scheduler.register_filled_blocks(seq, start + n)
                 if deliver and seq.status is SeqStatus.RUNNING:
+                    if self.kvbm is not None:
+                        # Prompt fully fed: stage its blocks into G2.
+                        self._offload_prompt_blocks(seq)
                     tok = int(toks[i])
                     self._deliver(seq, tok, self._lp_at(lp, seq, i, tok))
         for seq, *_rest in roles:
@@ -1088,6 +1176,8 @@ class TorchEngine:
                         seq.request_id, "queue_wait", start_mono=seq.arrival_s
                     )
                 tracer().span_begin(seq.request_id, "prefill")
+            if self.kvbm is not None:
+                self._onboard_host_prefix(seq)
             self._prefix_lookups += 1
             if seq.num_cached_prefix:
                 self._prefix_hits += 1
@@ -1097,17 +1187,27 @@ class TorchEngine:
             self._prefilling.append(seq)
 
     def _note_kv_actual(self, seq: Sequence) -> None:
-        """Record what this request actually reused — the engine-side
-        half of the router's predicted-vs-actual loop. Called at
-        admission, once per request (a re-admission after preemption
-        does not count again); buffered, flushed with the side channels."""
+        """Record what this request actually reused, split by tier — the
+        engine-side half of the router's predicted-vs-actual loop. Called
+        at admission after any host-prefix onboard, once per request (a
+        re-admission after preemption or a remote-KV degradation does not
+        count again); buffered, flushed with the side channels."""
         if seq.kv_actual_reported:
             return
         seq.kv_actual_reported = True
         bs = self.cfg.block_size
-        device = seq.num_cached_prefix // bs
+        # num_cached_prefix covers the G1 hit plus everything onboarded;
+        # the device share is the remainder.
+        device = max(
+            0,
+            seq.num_cached_prefix // bs - seq.reuse_host_blocks
+            - seq.reuse_disk_blocks - seq.reuse_peer_blocks,
+        )
         seq.reuse_device_blocks = device
         self._reused_device_blocks += device
+        self._reused_host_blocks += seq.reuse_host_blocks
+        self._reused_disk_blocks += seq.reuse_disk_blocks
+        self._reused_peer_blocks += seq.reuse_peer_blocks
         self._kv_actuals_buffer.append(
             {
                 "kind": "kv_actual",
@@ -1117,12 +1217,590 @@ class TorchEngine:
                 "trace": tracer().trace_id_if_active(seq.request_id) or "",
                 "isl_blocks": (len(seq.prompt_tokens) + bs - 1) // bs,
                 "device_blocks": device,
-                "host_blocks": 0,
-                "disk_blocks": 0,
-                "peer_blocks": 0,
+                "host_blocks": seq.reuse_host_blocks,
+                "disk_blocks": seq.reuse_disk_blocks,
+                "peer_blocks": seq.reuse_peer_blocks,
                 "unix": time.time(),
             }
         )
+
+    # -- KVBM (G2 host / G3 disk tiers) ----------------------------------------
+    # Blocks an adaptive-gate rate probe moves: enough bytes for a stable
+    # bandwidth sample, few enough that the first request on a slow link
+    # pays milliseconds.
+    PROBE_BLOCKS = 4
+
+    def _note_prefill_rate(self, tokens: int, dt: float) -> None:
+        """EMA of prefill throughput — the recompute side of the adaptive
+        onboard gate's cost model."""
+        if tokens <= 0 or dt <= 0:
+            return
+        tps = tokens / dt
+        self._prefill_tps = (
+            tps if self._prefill_tps is None
+            else 0.7 * self._prefill_tps + 0.3 * tps
+        )
+
+    def _note_onboard_rate(self, nbytes: int, dt: float) -> None:
+        """EMA of host→device onboard bandwidth — the transfer side of the
+        gate's cost model (every sample a byte-capped window)."""
+        if nbytes <= 0 or dt <= 0:
+            return
+        bps = nbytes / dt
+        self._onboard_bps = (
+            bps if self._onboard_bps is None
+            else 0.7 * self._onboard_bps + 0.3 * bps
+        )
+
+    def _onboard_host_prefix(self, seq: Sequence) -> None:
+        """G2→G1: extend the G1 prefix hit with host-tier blocks — scatter
+        their bytes into the sequence's already-allocated blocks, in
+        place, then register them. Engine thread, before the prefill's
+        first dispatch (stream order puts the scatter ahead of it)."""
+        bs = self.cfg.block_size
+        P = len(seq.prompt_tokens)
+        start = seq.num_cached_prefix // bs
+        limit = (P - 1) // bs  # always leave >= 1 token to compute
+        if seq.hashes is None or start >= limit:
+            return
+        hashes = seq.hashes.sequence_hashes()[start:limit]
+        # A bytes-free match first: deciding to skip must not itself pay
+        # the prefix-sized host memcpy that match_host does.
+        n_match = self.kvbm.count_host_match(hashes)
+        if n_match < len(hashes):
+            # Two-touch disk promotion of whatever G2 misses, so the NEXT
+            # request with this prefix hits G2 (no-op without a G3).
+            self.kvbm.request_disk_promotion(hashes[n_match:])
+        if n_match == 0:
+            return
+        r = self.runner
+        layout = getattr(getattr(self.kvbm, "cfg", None), "layout", None)
+        block_bytes = layout.block_bytes if layout is not None else 0
+        if self.cfg.kvbm_adaptive_gate and self._onboard_bps is None:
+            # No bandwidth estimate yet: probe PROBE_BLOCKS and
+            # extrapolate; the rest of the prefix recomputes.
+            self._onboard_probes += 1
+            hashes = hashes[: self.PROBE_BLOCKS]
+        elif (
+            self.cfg.kvbm_adaptive_gate
+            and self._onboard_bps and self._prefill_tps
+            and (n_match * block_bytes) / self._onboard_bps
+            > (n_match * bs) / self._prefill_tps
+        ):
+            # Moving the bytes is predicted slower than recomputing them:
+            # treat the hit as a miss (the prefill recomputes identical
+            # KV). Every 32nd skip re-probes, bounded to PROBE_BLOCKS, so
+            # a stale estimate cannot pin the gate shut.
+            self._onboard_skips += 1
+            if self._onboard_skips % 32 != 0:
+                return
+            self._onboard_probes += 1
+            hashes = hashes[: self.PROBE_BLOCKS]
+        prepare = getattr(r, "prepare_blocks_host", None)  # the mocker has none
+        # Unquantized rows in the cache's own bytes land straight in pinned
+        # staging on the card: one asynchronous copy to the device.
+        staging = None
+        if (prepare is not None and layout is not None and layout.quant is None
+                and layout.dtype == self.cfg.dtype):
+            staging = r.onboard_staging(len(hashes))
+            if staging is not None and staging[1].shape[1] != layout.block_elems:
+                staging = None
+        matches = self.kvbm.match_host(
+            hashes, out=None if staging is None else staging[1])
+        if not matches:  # raced an eviction between count and fetch
+            return
+        blocks = [seq.block_ids[start + i] for i in range(len(matches))]
+        sc_rows = None
+        try:
+            # Host-side validation BEFORE any cache write: a bad row fails
+            # here with the cache untouched, so recomputing is valid.
+            if staging is not None:
+                rows = staging[0][: len(matches)]
+            elif layout is not None and layout.quant == "int8" and prepare is not None:
+                rows, sc_rows = r.import_host_rows([m[3] for m in matches], layout)
+            elif prepare is not None:
+                rows = prepare([m[3] for m in matches])
+            else:
+                rows = [m[3] for m in matches]
+        except Exception:  # noqa: BLE001 — nothing written yet: recompute
+            logger.exception("bad host-tier rows for %s; recomputing", seq.request_id)
+            return
+        try:
+            t0 = self._clock()
+            timer = getattr(r, "timing_event", lambda: None)()
+            if prepare is not None:
+                r.scatter_many_prepared(blocks, rows)
+                if sc_rows is not None:
+                    r.set_block_scales(blocks, sc_rows)
+            else:
+                r.scatter_many(blocks, rows)
+            nbytes = len(matches) * block_bytes
+            if timer is None:
+                self._note_onboard_rate(nbytes, max(self._clock() - t0, 1e-6))
+            else:
+                # On the card the scatter is asynchronous: its device time
+                # is read once its end event has passed (_settle_onboards),
+                # never by waiting here.
+                self._onboard_timings.append((timer, r.timing_event(), nbytes))
+            for block, (h, parent, tokens, _data) in zip(blocks, matches):
+                self.allocator.register(
+                    block, h, parent_hash=parent, token_ids=list(tokens))
+            seq.num_cached_prefix = (start + len(matches)) * bs
+            # Actual-reuse attribution: G2-native vs G3-origin blocks.
+            disk_n = self.kvbm.count_disk_origin([m[0] for m in matches])
+            seq.reuse_host_blocks += len(matches) - disk_n
+            seq.reuse_disk_blocks += disk_n
+        except Exception as exc:
+            if prepare is not None:
+                # The failure is in or after the in-place cache write: the
+                # blocks may hold partial rows the allocator does not know
+                # of — recomputing over them is not safe. Fatal: the
+                # engine loop fails every sequence loudly.
+                raise RuntimeError(
+                    "host onboard failed at/after the KV scatter for "
+                    f"{seq.request_id}; cache state is unrecoverable"
+                ) from exc
+            logger.exception("host onboard failed for %s; recomputing", seq.request_id)
+
+    def _offload_prompt_blocks(self, seq: Sequence) -> None:
+        """G1→G2: stage the prompt's full blocks into the host tier. One
+        device gather into pinned host memory, asynchronous: the engine
+        thread pays the enqueue, the KVBM pump's worker thread waits on
+        the copy's event."""
+        bs = self.cfg.block_size
+        full = len(seq.prompt_tokens) // bs
+        if seq.hashes is None:
+            return
+        todo = []
+        for idx in range(full):
+            h = seq.hashes.blocks[idx]
+            if self.kvbm.has_host(h.sequence_hash):
+                continue
+            todo.append((seq.block_ids[idx], h))
+        if not todo:
+            return
+        ids = [b for b, _ in todo]
+        datas = self.runner.gather_many_async(ids)
+        scales = (self.runner.gather_scales_async(ids)
+                  if getattr(self.runner, "kv_quant", None) else None)
+        self.kvbm.offer_batch(
+            [(h.sequence_hash, h.parent_sequence_hash, h.tokens) for _, h in todo],
+            datas, scales=scales,
+        )
+
+    def _kvbm_gauges(self) -> dict:
+        """The block manager's tier telemetry, kvbm_-prefixed for every
+        metric surface; empty without a block manager."""
+        if self.kvbm is None:
+            return {}
+        try:
+            st = self.kvbm.stats()
+        except Exception:  # noqa: BLE001 — a telemetry probe must not fail readiness
+            logger.exception("kvbm stats failed")
+            return {}
+        g = {f"kvbm_{k}": st.get(k, 0) for k in _KVBM_STATS}
+        # Host→device onboard rate: the EMA the adaptive gate keeps.
+        g["kvbm_link_g2g1_bps"] = round(self._onboard_bps, 1) if self._onboard_bps else 0.0
+        return g
+
+    def _settle_onboards(self) -> None:
+        """Fold the device time of every onboard scatter that has run into
+        the onboard-rate EMA (engine thread; never waits)."""
+        while self._onboard_timings and self._onboard_timings[0][1].query():
+            start, end, nbytes = self._onboard_timings.popleft()
+            self._note_onboard_rate(nbytes, max(start.elapsed_time(end) / 1000.0, 1e-6))
+
+    @property
+    def degraded_requests(self) -> int:
+        """Requests completed through a degradation path (remote KV lost ⇒
+        local recompute) rather than dropped."""
+        return self._degraded_requests
+
+    def prefix_overlap(self, token_ids: list[int]) -> float:
+        """Fraction of this prompt already covered by the G1 prefix cache —
+        the per-request hit rate the disagg decision needs. A read-only
+        peek at the allocator from the caller's thread."""
+        if not self.cfg.enable_prefix_caching or not token_ids:
+            return 0.0
+        bs = self.cfg.block_size
+        hashes = TokenBlockSequence.from_tokens(token_ids, block_size=bs).sequence_hashes()
+        n = 0
+        for h in hashes[: (len(token_ids) - 1) // bs]:
+            if not self.allocator.is_registered(h):
+                break
+            n += 1
+        return n * bs / len(token_ids)
+
+    # -- disaggregation: the prefill side --------------------------------------
+    async def prefill_only(
+        self, pre: PreprocessedRequest, request_id: str, device: bool = False
+    ) -> tuple[int, list] | None:
+        """One prompt's prefill: (first_token, blocks) — every block that
+        covers the prompt, on the host (or one device snapshot with
+        ``device=True``, the device channel). None when the engine cannot
+        admit it now (the caller requeues)."""
+        return await self.prefill_only_batch([(pre, request_id, device)])[0]
+
+    def prefill_only_batch(
+        self, items: list[tuple[PreprocessedRequest, str, bool]]
+    ) -> list[asyncio.Future]:
+        """Batched remote prefill; items are (request, request_id,
+        device_snapshot). One future per item, resolved to (first_token,
+        blocks) — or None when not admitted — as EACH prompt completes:
+        the waves run depth-first, so early finishers ship while later
+        prompts still compute."""
+        futs = [self._loop.create_future() for _ in items]
+        if self._draining:
+            # A draining prefill worker refuses: the queue redelivers each
+            # item to a live worker.
+            for pre, _rid, _device in items:
+                OVERLOAD.note_shed("engine.draining", request_class=_request_class(pre))
+            for fut in futs:
+                fut.set_result(None)
+            return futs
+        seqs = []
+        for (pre, rid, device), fut in zip(items, futs):
+            seqs.append((
+                Sequence(
+                    request_id=rid,
+                    prompt_tokens=list(pre.token_ids),
+                    sampling=pre.sampling,
+                    stop=pre.stop,
+                    emit=lambda t, f, lp=None: None,
+                    slo_class=_request_class(pre),
+                ),
+                device,
+                fut,
+            ))
+        self._submit_q.put(("remote_prefill_batch", seqs))
+        self._wakeup.set()
+        return futs
+
+    def _run_remote_prefill_batch(self, seqs) -> None:
+        loop = self._loop
+
+        def resolve(fut: asyncio.Future, value) -> None:
+            loop.call_soon_threadsafe(
+                lambda: fut.set_result(value) if not fut.done() else None)
+
+        # The waves replay the step programs, whose output buffers the
+        # next pipelined dispatch would read its feed from: retire every
+        # dispatch in flight first, so the next one feeds from the host.
+        while self._inflight:
+            self._process_unified_chunk(self._inflight.popleft())
+        bs = self.cfg.block_size
+        # Keyed by id(seq), not request_id: at-least-once delivery can put
+        # two copies of one request in one batch.
+        done: set[int] = set()
+
+        def finish(seq: Sequence, device: bool, fut, token: int) -> None:
+            """Register, gather, resolve and RELEASE one completed prompt
+            at once: its caller ships while later waves compute."""
+            try:
+                self.scheduler.register_filled_blocks(seq, len(seq.prompt_tokens))
+                if self.kvbm is not None:
+                    self._offload_prompt_blocks(seq)
+                ids = seq.block_ids[: (len(seq.prompt_tokens) + bs - 1) // bs]
+                quantized = getattr(self.runner, "kv_quant", None)
+                if device:
+                    from dynamo_tpu_torch.disagg.device_transfer import BlockBatch
+
+                    # One gather for the whole prompt (a snapshot: the
+                    # blocks are released below), scatter-ready as a unit.
+                    blocks = BlockBatch(
+                        self.runner.gather_many_device(ids),
+                        scales=(self.runner.gather_scales_device(ids)
+                                if quantized else None),
+                    )
+                elif quantized:
+                    # Wire frames of an int8 pair are PACKED rows.
+                    blocks = self.runner.export_block_rows(ids)
+                else:
+                    # One batched host copy; each frame is copied out of
+                    # it, so a queued frame never pins the whole batch.
+                    batch = self.runner.gather_many(ids)
+                    blocks = [np.array(batch[j]) for j in range(len(ids))]
+                # The prefill span closes once the blocks are ready to
+                # ship; kv_transfer starts from here (disagg/worker.py).
+                tracer().span_end(seq.request_id, "prefill")
+                resolve(fut, (token, blocks))
+            except Exception:  # noqa: BLE001 — fails ONE item: the decode side recomputes
+                logger.exception("remote prefill gather failed for %s", seq.request_id)
+                resolve(fut, None)
+            finally:
+                done.add(id(seq))
+                self.scheduler._release(seq)
+                seq.status = SeqStatus.FINISHED
+
+        admitted: list[tuple[Sequence, bool, asyncio.Future]] = []
+        try:
+            for seq, device, fut in seqs:
+                if (
+                    not self._admission_held()
+                    and len(seq.prompt_tokens) < self.cfg.max_model_len
+                    and self.scheduler.admit(seq)
+                ):
+                    self._note_unwarmed_traffic()
+                    tracer().add_span(seq.request_id, "queue_wait",
+                                      start_mono=seq.arrival_s)
+                    tracer().span_begin(seq.request_id, "prefill")
+                    admitted.append((seq, device, fut))
+                else:
+                    resolve(fut, None)
+            cursors: dict[int, int] = {}
+            meta: dict[int, tuple] = {}
+            for seq, device, fut in admitted:
+                if self.kvbm is not None:
+                    self._onboard_host_prefix(seq)
+                self._prefix_lookups += 1
+                if seq.num_cached_prefix:
+                    self._prefix_hits += 1
+                self._note_kv_actual(seq)
+                cursors[id(seq)] = seq.num_cached_prefix
+                meta[id(seq)] = (device, fut)
+            # Depth-first waves of unified_step spans — the warmed
+            # programs, replayed: the first sequences keep their lanes
+            # until their prompts complete, then the next takes the
+            # freed budget.
+            pending = [seq for seq, _, _ in admitted]
+            while pending:
+                items = [(s, len(s.prompt_tokens) - cursors[id(s)]) for s in pending]
+                _, take = compose_unified(
+                    [], items, self.cfg.unified_token_budget,
+                    self.cfg.unified_prefill_quantum,
+                )
+                take = take[: self.runner.unified_slots]
+                lanes = [
+                    (s.prompt_tokens[cursors[id(s)] : cursors[id(s)] + n],
+                     s.block_ids, cursors[id(s)], self._lane_sampling(s))
+                    for s, n in take
+                ]
+                t0 = self._clock()
+                out = self.runner.unified_step(lanes)
+                toks = out.tokens()
+                n_pre = sum(n for _, n in take)
+                self.unified_dispatches += 1
+                self.unified_prefill_tokens += n_pre
+                self._note_prefill_rate(n_pre, self._clock() - t0)
+                self._note_step("unified", prefill_tokens=n_pre, lanes=len(take))
+                still = []
+                for i, (seq, n) in enumerate(take):
+                    c = min(cursors[id(seq)] + n, len(seq.prompt_tokens))
+                    cursors[id(seq)] = c
+                    if c >= len(seq.prompt_tokens):
+                        device, fut = meta[id(seq)]
+                        finish(seq, device, fut, int(toks[i]))
+                    else:
+                        still.append(seq)
+                in_wave = {id(s) for s, _ in take}
+                pending = still + [s for s in pending if id(s) not in in_wave]
+        except Exception:  # noqa: BLE001 — the finally resolves every unserved future None
+            logger.exception("batched remote prefill failed")
+        finally:
+            for seq, _, fut in admitted:
+                if id(seq) not in done:
+                    resolve(fut, None)
+                    self.scheduler._release(seq)
+                    seq.status = SeqStatus.FINISHED
+
+    # -- disaggregation: the decode side ---------------------------------------
+    def begin_remote(self, request: Context, pre: PreprocessedRequest):
+        """Admit ``request`` with remote KV. Returns an awaitable resolving
+        to (info, stream) — info has ``num_blocks`` and ``start_block``
+        (the prefix-cache hit: only the suffix is transferred) — or None
+        when admission failed (the caller serves it locally)."""
+        if self._draining:
+            OVERLOAD.note_shed("engine.draining", request_class=_request_class(pre))
+            raise ShedError("engine draining — retry another instance", draining=True)
+        if pre.deadline is not None and pre.deadline.expired:
+            OVERLOAD.note_deadline("engine.arrival")
+            raise DeadlineError("request deadline expired before admission")
+        self._validate_request(pre)
+        tracer().adopt(request.id, pre.trace)
+        out_q: asyncio.Queue = asyncio.Queue()
+        loop = self._loop
+
+        def emit(token, finish, lp=None):
+            loop.call_soon_threadsafe(out_q.put_nowait, (token, finish, lp))
+
+        seq = Sequence(
+            request_id=request.id,
+            prompt_tokens=list(pre.token_ids),
+            sampling=pre.sampling,
+            stop=pre.stop,
+            emit=emit,
+            logprobs=pre.logprobs,
+            deadline=pre.deadline,
+            slo_class=_request_class(pre),
+        )
+        fut: asyncio.Future = loop.create_future()
+        self._submit_q.put(("add_remote", (seq, fut)))
+        self._wakeup.set()
+
+        async def wait():
+            info = await fut
+            if info is None:
+                return None
+            return info, self._stream(request, seq, out_q)
+
+        return wait()
+
+    def _admit_remote(self, seq: Sequence, fut: asyncio.Future) -> None:
+        info = None
+        if (
+            not self._admission_held()
+            and len(seq.prompt_tokens) < self.cfg.max_model_len
+            and self.scheduler.admit(seq)
+        ):
+            self._note_unwarmed_traffic()
+            tracer().add_span(seq.request_id, "queue_wait", start_mono=seq.arrival_s)
+            seq.status = SeqStatus.WAITING_REMOTE
+            self._remote[seq.request_id] = seq
+            bs = self.cfg.block_size
+            info = {
+                "num_blocks": (len(seq.prompt_tokens) + bs - 1) // bs,
+                "start_block": seq.num_cached_prefix // bs,
+            }
+            # Completeness ledger: a lost frame must degrade to recompute,
+            # never activate over a hole of stale KV.
+            seq.remote_span = (info["start_block"], info["num_blocks"])
+            seq.remote_landed = set()
+        self._loop.call_soon_threadsafe(
+            lambda: fut.set_result(info) if not fut.done() else None)
+
+    def cancel_remote(self, request_id: str) -> None:
+        """The decode side bailed before enqueueing: free the admitted
+        sequence (thread-safe)."""
+        self._submit_q.put(("cancel_remote", request_id))
+        self._wakeup.set()
+
+    def _cancel_remote(self, request_id: str) -> None:
+        seq = self._remote.pop(request_id, None)
+        if seq is not None and seq.status is SeqStatus.WAITING_REMOTE:
+            self.scheduler.abort(seq)
+
+    def on_remote_block(self, request_id: str, seq_idx: int, data) -> None:
+        """Receiver callback: one block's bytes arrived (thread-safe)."""
+        self._submit_q.put(("scatter_remote", (request_id, seq_idx, data)))
+        self._wakeup.set()
+
+    def on_remote_blocks(self, request_id: str, start_idx: int, data) -> None:
+        """Receiver callback: an [N, ...] device snapshot arrived (the
+        device channel), scattered in one go (thread-safe)."""
+        self._submit_q.put(("scatter_remote_batch", (request_id, start_idx, data)))
+        self._wakeup.set()
+
+    def on_remote_finish(self, request_id: str, first_token: int) -> None:
+        """Receiver callback: every block sent; activate decode."""
+        self._submit_q.put(("activate_remote", (request_id, first_token)))
+        self._wakeup.set()
+
+    def _degrade_remote_to_local(self, request_id: str, why: str) -> None:
+        """The KV handoff for ``request_id`` died (transfer failure,
+        prefill-worker death, corrupt frame): release its blocks and
+        requeue it for LOCAL prefill — the request completes through
+        recompute, which overwrites whatever the transfer left. Late
+        frames find nothing in ``_remote`` and are ignored."""
+        seq = self._remote.pop(request_id, None)
+        if seq is None or seq.status is not SeqStatus.WAITING_REMOTE:
+            return
+        logger.warning(
+            "remote prefill for %s degraded to local recompute (%s)", request_id, why)
+        self._degraded_requests += 1
+        # A degraded request legitimately completes without a kv_transfer
+        # span: trace_merge reads this mark.
+        tracer().mark_if_active(request_id, "degraded_local")
+        seq.remote_span = None
+        seq.remote_landed = set()
+        self.scheduler.requeue_for_recompute(seq)
+
+    def _remote_span_check(self, seq: Sequence, lo: int, hi: int) -> None:
+        start, total = seq.remote_span or (0, len(seq.block_ids))
+        if not (start <= lo and hi <= total):
+            # Below-span blocks are SHARED prefix-cache blocks other
+            # sequences read: writing there would corrupt them all.
+            raise ValueError(
+                f"blocks [{lo}, {hi}) outside the remote span [{start}, {total})")
+
+    def _scatter_remote(self, request_id: str, items: list) -> None:
+        """Land one request's wire frames — (block index, host bytes)
+        pairs queued back to back — in one scatter. Wire-supplied indices
+        and payloads are validated first: a corrupt frame degrades ONE
+        request to local recompute, never the engine."""
+        seq = self._remote.get(request_id)
+        if seq is None or seq.status is not SeqStatus.WAITING_REMOTE:
+            return
+        r = self.runner
+        try:
+            idxs = [i for i, _ in items]
+            for i in idxs:
+                self._remote_span_check(seq, i, i + 1)
+            ids = [seq.block_ids[i] for i in idxs]
+            datas = [d for _, d in items]
+            if getattr(r, "kv_quant", None):
+                # Quantized pairs ship PACKED rows: data + scale rows.
+                rows, scales = r.import_host_rows(datas, r._quant_layout())
+                r.scatter_many_prepared(ids, rows)
+                r.set_block_scales(ids, scales)
+            else:
+                r.scatter_many(ids, datas)
+            seq.remote_landed.update(idxs)
+        except Exception:  # noqa: BLE001 — degrades the request
+            logger.exception("bad remote KV frame for %s", request_id)
+            self._degrade_remote_to_local(request_id, "corrupt KV frame")
+
+    def _scatter_remote_batch(self, request_id: str, start_idx: int, data) -> None:
+        seq = self._remote.get(request_id)
+        if seq is None or seq.status is not SeqStatus.WAITING_REMOTE:
+            return
+        try:
+            n = len(data)
+            self._remote_span_check(seq, start_idx, start_idx + n)
+            ids = seq.block_ids[start_idx : start_idx + n]
+            blocks, scales = (data.consume() if hasattr(data, "consume")
+                              else (data, None))
+            self.runner.scatter_many_device(ids, blocks)
+            if scales is not None:
+                self.runner.set_block_scales(ids, scales)
+            seq.remote_landed.update(range(start_idx, start_idx + n))
+        except Exception:  # noqa: BLE001 — degrades the request
+            logger.exception("bad remote KV batch for %s", request_id)
+            self._degrade_remote_to_local(request_id, "corrupt KV batch")
+
+    def _activate_remote(self, request_id: str, first_token: int) -> None:
+        seq = self._remote.get(request_id)
+        if seq is None or seq.status is not SeqStatus.WAITING_REMOTE:
+            return
+        if seq.remote_span is not None:
+            start, total = seq.remote_span
+            missing = len(set(range(start, total)) - seq.remote_landed)
+            if missing > 0:
+                # A finish over a hole: decoding would read stale KV.
+                self._degrade_remote_to_local(
+                    request_id,
+                    f"incomplete remote KV ({missing} of {total - start} "
+                    "blocks never landed)",
+                )
+                return
+        self._remote.pop(request_id, None)
+        seq.status = SeqStatus.RUNNING
+        self.scheduler.register_filled_blocks(seq, len(seq.prompt_tokens))
+        if self.kvbm is not None:
+            self._offload_prompt_blocks(seq)
+        self._deliver(seq, first_token)
+
+    def _expire_stale_remotes(self) -> None:
+        """A prefill worker that died mid-transfer must not pin decode
+        slots: WAITING_REMOTE sequences past remote_kv_timeout_s degrade
+        to local recompute; past their deadline they finish DEADLINE."""
+        now = time.monotonic()
+        for rid, seq in list(self._remote.items()):
+            if seq.deadline is not None and seq.deadline.expired:
+                OVERLOAD.note_deadline("engine.remote")
+                self._remote.pop(rid, None)
+                self.scheduler.abort(seq, FinishReason.DEADLINE)
+            elif now - seq.arrival_s > self.cfg.remote_kv_timeout_s:
+                self._degrade_remote_to_local(rid, "remote KV timeout")
 
     # -- side channels ------------------------------------------------------
     def _queue_kv_event(self, ev: KvEvent) -> None:
@@ -1131,6 +1809,10 @@ class TorchEngine:
     def _flush_side_channels(self) -> None:
         """Engine thread only: walks the scheduler's deques and drains the
         side-channel buffers, none of which are locked."""
+        if self._remote:
+            self._expire_stale_remotes()
+        if self._onboard_timings:
+            self._settle_onboards()
         if self._external_kv_event:
             for ev in self._kv_events_buffer:
                 try:
@@ -1162,13 +1844,22 @@ class TorchEngine:
             return
         m = sched.metrics()
         m["gpu_prefix_cache_hit_rate"] = self.prefix_hit_rate
-        # Actual reuse per tier; the KVBM's tiers (host, disk, peer) and
-        # its kvbm_* telemetry, and the weight-quant fields, keep their
-        # ForwardPassMetrics defaults until the port has them.
+        if self.kvbm is not None:
+            # Why the host tier is (not) used: the adaptive gate's skips
+            # and its onboard-rate estimate.
+            m["kvbm_onboard_skips"] = self._onboard_skips
+            if self._onboard_bps is not None:
+                m["kvbm_onboard_bps"] = round(self._onboard_bps, 1)
+        # Actual reuse per tier and the KVBM's tier telemetry; the
+        # weight-quant fields keep their ForwardPassMetrics defaults
+        # until the port has them.
         m["kv_reused_device_blocks_total"] = self._reused_device_blocks
-        m["kv_reused_host_blocks_total"] = 0
-        m["kv_reused_disk_blocks_total"] = 0
-        m["kv_reused_peer_blocks_total"] = 0
+        m["kv_reused_host_blocks_total"] = self._reused_host_blocks
+        m["kv_reused_disk_blocks_total"] = self._reused_disk_blocks
+        m["kv_reused_peer_blocks_total"] = self._reused_peer_blocks
+        m["kvbm_kv_quant_ratio"] = round(getattr(self.runner, "kv_bytes_ratio", 1.0), 4)
+        m.update(self._kvbm_gauges())
+        m["degraded_requests_total"] = self._degraded_requests
         if self.cfg.speculative_k:
             m["spec_tokens_per_step"] = self.spec_tokens_per_step
             m["spec_active"] = int(self._spec_active)
@@ -1224,6 +1915,22 @@ class TorchEngine:
         seq.emit(token, None, lp)
         if reason is not None:
             self.scheduler.finish(seq, reason)
+
+
+#: KvBlockManager.stats() keys every metric surface carries, kvbm_-prefixed.
+_KVBM_STATS = (
+    "host_registered", "host_usage", "disk_registered", "disk_usage",
+    "host_evictions_total", "disk_evictions_total", "host_stored_blocks_total",
+    "host_hit_blocks_total", "host_miss_blocks_total", "promoted_blocks_total",
+    "promotions_requested_total", "offloaded_blocks_total",
+    "link_g1g2_bps", "link_g2g3_bps", "link_g3g2_bps",
+    "quant_host_density", "quant_disk_density", "quant_bytes_saved_total",
+    "g4_pulls_total", "g4_pull_bytes_total", "g4_pull_fallbacks_total",
+    "link_peer_bps",
+    "integrity_failures_total", "integrity_failures_host", "integrity_failures_disk",
+    "integrity_failures_peer", "integrity_failures_frame",
+    "scrub_scanned_total", "scrub_detected_total",
+)
 
 
 def _request_class(pre: PreprocessedRequest) -> str:

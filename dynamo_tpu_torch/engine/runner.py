@@ -44,8 +44,14 @@ they serve parity tests, bring-up tools and the parallel slice. Like the
 reference's phase programs they read the cache in its compute dtype, so
 they refuse an int8 cache.
 
-Not in this port yet: the multimodal variant, weight quantization,
-meshes, and block IO for KVBM/disagg (ROADMAP queue A).
+Block IO (the KVBM tiers and disaggregation): batched gathers and
+in-place scatters of whole blocks and their int8 scale rows
+(ops/kv_copy.py), on the engine thread's stream, so a gather follows the
+step that wrote its blocks and a scatter precedes the replay that reads
+them. Host block bytes are numpy: bfloat16 as its uint16 bit pattern.
+
+Not in this port yet: the multimodal variant, weight quantization and
+meshes (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ from dynamo_tpu_torch.engine.compile_cache import (
 )
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.models import llama
-from dynamo_tpu_torch.ops import kernels
+from dynamo_tpu_torch.ops import kernels, kv_copy
 from dynamo_tpu_torch.ops.sampling import (
     apply_penalties,
     sample_tokens,
@@ -597,6 +603,146 @@ class ModelRunner(WarmupPlanMixin):
         event = torch.cuda.Event()
         event.record()
         return UnifiedOut(ints[: b.S], ints_host, floats_host, event, spec_k)
+
+    # -- block IO (KVBM tiers, disaggregation) -------------------------------
+    def _block_shape(self, n: int | None = None) -> tuple:
+        m = self.cfg.model
+        shape = (m.num_layers, 2, self.cfg.block_size, m.num_kv_heads, m.head_dim)
+        return shape if n is None else (n, *shape)
+
+    def _normalize_block_host(self, data) -> np.ndarray:
+        """Host block bytes → the cache dtype's host representation:
+        same-width bytes are reinterpreted (uint16 ↔ bfloat16), other
+        widths convert by value. The one rule every host scatter shares."""
+        return kv_copy.to_numpy(kv_copy.from_numpy(np.asarray(data), self.kv_dtype))
+
+    def gather_many(self, block_idxs) -> np.ndarray:
+        """N blocks to host: [N, L, 2, bs, H, D] (waits for this copy)."""
+        return kv_copy.gather_blocks(self.kv_caches, block_idxs, self.cfg.block_size)
+
+    def gather_many_device(self, block_idxs) -> torch.Tensor:
+        """N blocks as one device snapshot [N, L, 2, bs, H, D] (the
+        device channel's payload; no host sync)."""
+        return kv_copy.gather_blocks_device(
+            self.kv_caches, block_idxs, self.cfg.block_size)
+
+    def gather_many_async(self, block_idxs) -> kv_copy.HostCopy:
+        """N blocks copied to pinned host memory asynchronously; the
+        offload path hands this to the KVBM pump, whose worker thread
+        waits on the copy's event."""
+        return kv_copy.HostCopy(self.gather_many_device(block_idxs))
+
+    def prepare_blocks_host(self, datas) -> np.ndarray:
+        """Validate and normalize N host block payloads into the stacked
+        [N, L, 2, bs, H, D] scatter layout without touching the device:
+        a bad row raises here, before any cache write."""
+        shape = self._block_shape()
+        return np.stack([self._normalize_block_host(d).reshape(shape) for d in datas])
+
+    def onboard_staging(self, n: int):
+        """On the card: a pinned host tensor of ``n`` blocks in the cache
+        dtype and its host bytes as [n, row elements] numpy — the G2 tier
+        copies its rows straight into it (``match_host(out=...)``) and one
+        asynchronous copy moves them to the device
+        (``scatter_many_prepared`` takes the tensor). None on the CPU."""
+        if not self._cuda:
+            return None
+        t = torch.empty(self._block_shape(n), dtype=self.kv_dtype, pin_memory=True)
+        return t, kv_copy.to_numpy(t).reshape(n, -1)
+
+    def scatter_many_prepared(self, block_idxs, rows) -> None:
+        """Write N prepared rows (host numpy, or a pinned host tensor from
+        ``onboard_staging``) into their blocks, in place."""
+        kv_copy.scatter_blocks(self.kv_caches, block_idxs, self.cfg.block_size, rows)
+
+    def scatter_many(self, block_idxs, datas) -> None:
+        self.scatter_many_prepared(block_idxs, self.prepare_blocks_host(datas))
+
+    def scatter_many_device(self, block_idxs, data: torch.Tensor) -> None:
+        """Write N blocks from a device snapshot [N, ...] in place."""
+        kv_copy.scatter_blocks(
+            self.kv_caches, block_idxs, self.cfg.block_size,
+            data.reshape(self._block_shape(len(block_idxs))))
+
+    def scatter_block(self, block_idx: int, data) -> None:
+        """One block from host bytes (the wire frames' form) or a device
+        tensor. Under int8 KV host bytes are the PACKED row (int8 data +
+        scale sidecar): the scale row is written alongside."""
+        if isinstance(data, torch.Tensor):
+            self.scatter_many_device([block_idx], data[None])
+        elif self.kv_quant:
+            from dynamo_tpu_torch.block_manager import quant as bq
+
+            q, scales = bq.unpack_block(data, self._quant_layout())
+            self.set_block_scales([block_idx], scales[None])
+            self.scatter_many_prepared([block_idx], q[None])
+        else:
+            self.scatter_many([block_idx], [data])
+
+    def timing_event(self):
+        """A timing event recorded now on the card, to bracket block IO
+        (``start.elapsed_time(end)`` is readable once ``end.query()``);
+        None on the CPU, where the IO is synchronous and the host clock
+        times it."""
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    @property
+    def kv_bytes_ratio(self) -> float:
+        """Stored-KV bytes per token relative to the compute dtype: 1.0
+        unquantized, about 0.5 under int8 (the scale sidecar adds 4 B
+        per (layer, K/V, head) per block)."""
+        if not self.kv_quant:
+            return 1.0
+        lay = self._quant_layout()
+        return lay.block_bytes / lay.unquantized_block_bytes
+
+    def _quant_layout(self):
+        """This runner's G1 block as a quantized KvLayoutConfig — the
+        packed-row wire and tier format of its blocks."""
+        from dynamo_tpu_torch.block_manager.config import KvLayoutConfig
+
+        return KvLayoutConfig.for_engine(self.cfg)
+
+    def gather_scales_device(self, block_idxs) -> torch.Tensor:
+        """[N, L, 2, kvH] scale rows of N blocks (device copy)."""
+        return kv_copy.gather_scales_device(self.kv_scales, block_idxs)
+
+    def gather_scales_async(self, block_idxs) -> kv_copy.HostCopy:
+        return kv_copy.HostCopy(self.gather_scales_device(block_idxs))
+
+    def set_block_scales(self, block_idxs, rows) -> None:
+        """Write N blocks' scale rows ([N, L, 2, kvH], host or device) in
+        place."""
+        kv_copy.scatter_scales(self.kv_scales, block_idxs, rows)
+
+    def export_block_rows(self, block_idxs) -> list[np.ndarray]:
+        """N int8 blocks as PACKED host rows (int8 data + f32 scale
+        sidecar) — the form disagg frames and the KVBM tiers move."""
+        from dynamo_tpu_torch.block_manager import quant as bq
+
+        layout = self._quant_layout()
+        batch = self.gather_many(block_idxs)
+        scales = kv_copy.gather_scales(self.kv_scales, block_idxs)
+        return [bq.pack_block(batch[i], scales[i], layout)
+                for i in range(len(block_idxs))]
+
+    def import_host_rows(self, rows, layout):
+        """Quantized tier or wire rows → (scatter-ready data, scale rows or
+        None): an int8 cache takes the packed bytes as they are; a
+        bf16/f32 cache dequantizes on the host. Validates before any
+        cache write."""
+        from dynamo_tpu_torch.block_manager import quant as bq
+
+        unpacked = [bq.unpack_block(r, layout) for r in rows]
+        if self.kv_quant:
+            return (np.stack([q for q, _ in unpacked]),
+                    np.stack([s for _, s in unpacked]))
+        deq = [bq.dequantize_kv_block_host(q, s) for q, s in unpacked]
+        return self.prepare_blocks_host(deq), None
 
     # -- warmup ---------------------------------------------------------------
     def warmup(self, manifest=None) -> int:

@@ -169,7 +169,8 @@ class Scheduler:
         if seq.status is SeqStatus.FINISHED:
             return
         if (
-            seq.status in (SeqStatus.RUNNING, SeqStatus.PREFILLING)
+            seq.status
+            in (SeqStatus.RUNNING, SeqStatus.WAITING_REMOTE, SeqStatus.PREFILLING)
             and seq.slot is not None
         ):
             if seq.inflight_chunks > 0:
@@ -312,7 +313,10 @@ class Scheduler:
 
     def requeue_for_recompute(self, seq: Sequence) -> None:
         """Release everything and requeue for full recompute (the fed
-        tokens become the new prompt, so generation resumes seamlessly)."""
+        tokens become the new prompt, so generation resumes seamlessly).
+        Shared by preemption and the disagg degradation path: a
+        WAITING_REMOTE sequence whose KV transfer died falls back to local
+        prefill through here."""
         self._release(seq)
         seq.prompt_tokens = seq.prompt_tokens + seq.output_tokens
         seq.folded_output += len(seq.output_tokens)

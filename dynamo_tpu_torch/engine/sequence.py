@@ -19,6 +19,8 @@ class SeqStatus(enum.Enum):
     WAITING = "waiting"
     RUNNING = "running"
     FINISHED = "finished"
+    # Disagg decode side: blocks allocated, KV inbound from a prefill worker.
+    WAITING_REMOTE = "waiting_remote"
     # Admitted (slot + blocks held) but the prompt is still being prefilled
     # chunk by chunk; excluded from decode batches until the last chunk.
     PREFILLING = "prefilling"
@@ -68,11 +70,21 @@ class Sequence:
     # SLO class (llm/slo.py): "batch" sequences are the cheapest shed and
     # preemption victims.
     slo_class: str = "interactive"
-    # KV observatory: prefix blocks this request found already on the
-    # device at admission, reported once (kv_actual_reported guards the
-    # re-admission after a preemption). The host, disk and peer tiers
-    # read 0 until the port has a KVBM.
+    # Disagg decode side completeness ledger (WAITING_REMOTE only): the
+    # (start_block, num_blocks) span whose KV must arrive, and the block
+    # indices that actually landed. Activation over a hole degrades to
+    # local recompute instead of decoding stale KV.
+    remote_span: tuple[int, int] | None = None
+    remote_landed: set[int] = field(default_factory=set)
+    # KV observatory: prefix blocks this request reused at admission, per
+    # tier (device = the G1 prefix cache, host/disk = onboarded from the
+    # KVBM's G2, of which disk = promoted from G3 earlier), reported once
+    # (kv_actual_reported guards the re-admission after a preemption).
+    # The peer tier reads 0 until the port has G4.
     reuse_device_blocks: int = 0
+    reuse_host_blocks: int = 0
+    reuse_disk_blocks: int = 0
+    reuse_peer_blocks: int = 0
     kv_actual_reported: bool = False
 
     @property

@@ -123,6 +123,41 @@ class _SimRunner(WarmupPlanMixin):
         self.compile_stats = CompileStats()
         self.last_logprobs = None
         self._charged_s = 0.0
+        # Simulated per-block KV bytes (8 floats a block) so the KVBM and
+        # disagg paths can check byte fidelity without a device.
+        self._fake_kv: dict[int, np.ndarray] = {}
+
+    # -- block IO (the real runner's batched forms, on the fake bytes) ------
+    def gather_block(self, block_idx: int) -> np.ndarray:
+        return self._fake_kv.get(block_idx, np.full(8, block_idx, np.float32))
+
+    def scatter_block(self, block_idx: int, data) -> None:
+        self._fake_kv[block_idx] = np.asarray(data)
+
+    def gather_many(self, block_idxs) -> np.ndarray:
+        return np.stack([self.gather_block(b) for b in block_idxs])
+
+    # No device: the "device snapshot" and the asynchronous host copy are
+    # the same host array.
+    gather_many_device = gather_many
+    gather_many_async = gather_many
+
+    def scatter_many(self, block_idxs, datas) -> None:
+        for b, d in zip(block_idxs, datas):
+            self.scatter_block(b, d)
+
+    def scatter_many_device(self, block_idxs, data) -> None:
+        self.scatter_many(block_idxs, data)
+
+    @property
+    def kv_bytes_ratio(self) -> float:
+        """The advertised stored-KV precision ratio, as the real runner's."""
+        if self.cfg.kv_quant != "int8":
+            return 1.0
+        from dynamo_tpu_torch.block_manager.config import KvLayoutConfig
+
+        lay = KvLayoutConfig.for_engine(self.cfg)
+        return lay.block_bytes / lay.unquantized_block_bytes
 
     def charged_clock(self) -> float:
         """Seconds of simulated work charged so far (the engine's

@@ -23,8 +23,8 @@ comma-separated list of ``point[:action[:arg]]`` read when this module is
 first imported (``arg`` is seconds for ``delay``, a trigger count
 otherwise), e.g. ``DYNAMO_TPU_FAULTS="fleet.worker_kill:raise:1"``.
 
-The instrumented points are ``KNOWN_FAULT_POINTS``; the reference's KV
-transfer, KVBM and stepcast points arrive with their slices.
+The instrumented points are ``KNOWN_FAULT_POINTS``; the reference's
+stepcast and G4 peer points arrive with their slices.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import logging
 import os
 import random
 import threading
+import time
 from dataclasses import dataclass
 
 logger = logging.getLogger(__name__)
@@ -45,7 +46,14 @@ logger = logging.getLogger(__name__)
 #: response-plane frame send; ``fleet.worker_kill`` — the router's
 #: dispatch seam (the chosen worker is dead at dispatch);
 #: ``indexer.apply`` — the KV router's radix-index consumer (a delay
-#: keeps events pending, a drop loses one).
+#: keeps events pending, a drop loses one); ``disagg.send`` /
+#: ``disagg.recv`` — a KV block push and its landing (a drop loses one
+#: frame: the decode side degrades to local recompute); ``kvbm.pump`` —
+#: the KVBM offer pump; ``kvbm.corrupt_disk`` — G3 bytes mutated at the
+#: disk write; ``kvbm.corrupt_frame`` — KV bytes mutated on the wire;
+#: ``kvbm.torn_write`` — a G3 block or sidecar write cut short. The three
+#: ``kvbm.corrupt_*``/``torn_write`` points take the payload mutators
+#: ``flip`` and ``truncate`` (``FAULTS.corrupt``).
 KNOWN_FAULT_POINTS: tuple[str, ...] = (
     "bus.publish",
     "bus.broadcast",
@@ -54,9 +62,15 @@ KNOWN_FAULT_POINTS: tuple[str, ...] = (
     "tcp.respond",
     "fleet.worker_kill",
     "indexer.apply",
+    "disagg.send",
+    "disagg.recv",
+    "kvbm.pump",
+    "kvbm.corrupt_disk",
+    "kvbm.corrupt_frame",
+    "kvbm.torn_write",
 )
 
-_ACTIONS = ("raise", "delay", "drop", "partition")
+_ACTIONS = ("raise", "delay", "drop", "partition", "flip", "truncate")
 
 
 class FaultError(ConnectionError):
@@ -122,9 +136,12 @@ class FaultRegistry:
         await on this, so the disarmed path makes no coroutine."""
         return bool(self._armed)
 
-    def _trigger(self, point: str, can_drop: bool) -> _ArmedFault | None:
+    def _trigger(
+        self, point: str, can_drop: bool, mutate: bool = False
+    ) -> _ArmedFault | None:
         """One armed-state transition under the lock; the action runs
-        outside it. A ``drop`` at a seam that cannot skip is inert."""
+        outside it. A ``drop`` at a seam that cannot skip is inert, and so
+        is a ``flip``/``truncate`` anywhere but a ``corrupt`` call site."""
         if not self._armed:
             return None
         with self._lock:
@@ -132,6 +149,8 @@ class FaultRegistry:
             if f is None:
                 return None
             if f.action == "drop" and not can_drop:
+                return None
+            if f.action in ("flip", "truncate") and not mutate:
                 return None
             if f.probability < 1.0 and random.random() >= f.probability:
                 return None
@@ -142,6 +161,39 @@ class FaultRegistry:
                 if f.times <= 0:
                     del self._armed[point]
             return f
+
+    def maybe_fail(self, point: str, can_drop: bool = False) -> bool:
+        """The blocking twin of ``maybe_fail_async`` (worker-thread seams):
+        a ``delay`` sleeps the calling thread."""
+        f = self._trigger(point, can_drop)
+        if f is None:
+            return True
+        if f.action == "delay":
+            time.sleep(f.delay_s)
+            return True
+        if f.action == "drop":
+            return False
+        raise f.exc(f"injected fault at {point}")
+
+    def corrupt(self, point: str, data: bytes) -> bytes:
+        """A payload seam: ``data`` unchanged when nothing fires, else a
+        mutated copy — ``flip`` XORs one bit in the middle, ``truncate``
+        keeps the first half. Other actions keep their meaning."""
+        f = self._trigger(point, can_drop=False, mutate=True)
+        if f is None:
+            return data
+        if f.action == "flip":
+            if not data:
+                return data
+            buf = bytearray(data)
+            buf[len(buf) // 2] ^= 0x01
+            return bytes(buf)
+        if f.action == "truncate":
+            return data[: len(data) // 2]
+        if f.action == "delay":
+            time.sleep(f.delay_s)
+            return data
+        raise f.exc(f"injected fault at {point}")
 
     async def maybe_fail_async(self, point: str, can_drop: bool = False) -> bool:
         """One call per seam hit: True to proceed, False when an armed

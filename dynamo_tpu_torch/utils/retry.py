@@ -89,13 +89,24 @@ CONTROL_CONNECT = RetryPolicy(
 )
 
 
+# The KV push: its whole retried send (ack waits included) stays under
+# the decode side's remote_kv_timeout_s default (30 s). Queue redelivery:
+# the prefill worker's requeue budget.
+TRANSFER = RetryPolicy(
+    attempts=3, base_delay_s=0.05, max_delay_s=1.0, deadline_s=25.0
+)
+QUEUE_REDELIVERY = RetryPolicy(attempts=3, base_delay_s=0.05, max_delay_s=0.5)
+
+
 async def retry_async(
     fn: Callable[[], Awaitable[T]],
     policy: RetryPolicy = RetryPolicy(),
     seam: str = "unnamed",
+    on_retry: Callable[[BaseException, int], None] | None = None,
 ) -> T:
     """Run ``fn`` under ``policy``; re-raise the last failure when it is
-    not retryable or a budget is spent."""
+    not retryable or a budget is spent. ``on_retry(exc, attempt)`` runs
+    before each backoff sleep (e.g. to drop a cached connection)."""
     start = time.monotonic()
     for attempt in range(policy.attempts):
         try:
@@ -108,6 +119,8 @@ async def retry_async(
                     and time.monotonic() - start + delay > policy.deadline_s):
                 raise
             RETRIES.note(seam)
+            if on_retry is not None:
+                on_retry(exc, attempt)
             logger.warning(
                 "%s failed (attempt %d/%d): %r — retrying in %.2fs",
                 seam, attempt + 1, policy.attempts, exc, delay,

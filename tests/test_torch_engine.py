@@ -193,7 +193,10 @@ def test_oversized_prompt_errors():
     # Deadlines are served; one already expired on arrival is refused
     # with the typed DeadlineError, as the JAX engine refuses it.
     ({"deadline": Deadline.after_ms(0)}, {}, "expired before admission"),
-    ({"remote_prefill": True}, {}, "not served"),
+    # Served since the disaggregation slice: the flag is the frontend's
+    # hint, the decode operator decides; the engine itself serves the
+    # request locally, as the JAX engine does.
+    ({"remote_prefill": True}, {}, None),
 ], ids=["logprobs", "penalty", "deadline", "remote_prefill"])
 def test_unserved_requests_are_refused(change, engine_kw, match):
     async def main():
@@ -201,6 +204,17 @@ def test_unserved_requests_are_refused(change, engine_kw, match):
         await engine.start()
         try:
             pre = t_proto.PreprocessedRequest(token_ids=[1, 2], **change)
+            if match is None:
+                toks = [t async for raw in engine.generate(Context(pre.to_wire()))
+                        for t in raw["token_ids"]]
+                jeng = TpuEngine(JEngineConfig(model=JAX_CFG, **ENGINE_KW), params=PARAMS)
+                await jeng.start()
+                jpre = j_proto.PreprocessedRequest(token_ids=[1, 2], **change)
+                jtoks = [t async for raw in jeng.generate(JContext(jpre.to_wire()))
+                         for t in raw["token_ids"]]
+                await jeng.stop()
+                assert toks == jtoks and toks
+                return
             exc = t_proto.DeadlineError if "deadline" in change else t_proto.RequestError
             with pytest.raises(exc, match=match):
                 async for _ in engine.generate(Context(pre.to_wire())):
@@ -293,7 +307,7 @@ def _port_files():
 
 # The JAX stack, and the third-party packages the JAX package's serving
 # front uses that the machine with the card does not have.
-BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "aiohttp", "pydantic",
+BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "ml_dtypes", "aiohttp", "pydantic",
            "httpx", "jinja2", "tokenizers", "transformers", "uvicorn")
 THIRD_PARTY_ALLOWED = ("torch", "numpy")
 

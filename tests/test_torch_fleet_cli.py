@@ -238,7 +238,9 @@ async def test_drain_verb_end_to_end():
     engine = MockerEngine(
         EngineConfig(model=ModelConfig.tiny_test(), num_blocks=64, max_num_seqs=4,
                      max_model_len=256, dtype="float32"),
-        MockerConfig(decode_time_per_step_us=15000.0))
+        # 100 ms per mocker step: the 24-token stream runs ~2.4 s, so the
+        # drain verb lands while it is in flight however loaded the host.
+        MockerConfig(decode_time_per_step_us=100000.0))
     await engine.start()
     try:
         ep = worker.namespace("chaos").component("drain").endpoint("gen")
@@ -256,13 +258,18 @@ async def test_drain_verb_end_to_end():
         router = await PushRouter.create(front, ep.id)
         assert len(await router.client.wait_for_instances()) == 1
         got = []
+        first = asyncio.Event()
 
         async def consume():
             async for item in router.generate(Context(_wire(range(16), 24))):
                 got.extend(item["token_ids"])
+                if got:
+                    first.set()
 
         stream = asyncio.ensure_future(consume())
-        await asyncio.sleep(0.3)
+        # A bounded wait for the first token, not a fixed sleep: under a
+        # loaded host the stream may start late, never early.
+        await asyncio.wait_for(first.wait(), 10)
         assert got and len(got) < 24
         await request_drain(front, "chaos", "drain")
         await asyncio.wait_for(drained.wait(), 30)

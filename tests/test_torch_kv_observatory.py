@@ -2,7 +2,7 @@
 indexer staleness, aggregator failure counting, the engine's actual
 reuse records, tools/route_audit.py, /debug/routes and the metrics
 exporter) on the CPU: the cases of tests/test_kv_observatory.py on port
-objects — the KVBM tier cases aside, which come with the KVBM — with
+objects — the KVBM tier cases too, on the port's block manager — with
 the same records through the JAX package's observatory and audit tool
 where both exist."""
 
@@ -556,3 +556,165 @@ async def test_metrics_exporter_serves_and_pushes_worker_gauges():
         await exp.stop()
         await gw.stop()
         await drt_a.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# KVBM tier telemetry
+# ---------------------------------------------------------------------------
+
+_LAYOUT8 = dict(num_layers=1, page_size=1, num_kv_heads=1, head_dim=4, dtype="float32")
+# block_elems == 1*2*1*1*4 == 8: the mocker runner's 8-float block rows
+
+
+def _row(seed: float):
+    import numpy as np
+
+    return np.full((8,), seed, np.float32)
+
+
+async def _settle(mgr, n):
+    deadline = asyncio.get_running_loop().time() + 5
+    while mgr.stats()["host_registered"] < n:
+        assert asyncio.get_running_loop().time() < deadline
+        await asyncio.sleep(0.02)
+
+
+def _counters(st: dict) -> dict:
+    """The stats digest less the wall-clock rates."""
+    return {k: v for k, v in st.items() if not k.endswith("_bps")}
+
+
+async def test_kvbm_stats_counters_and_disk_origin(tmp_path):
+    """The reference case on the port's manager, and the same operations
+    on the JAX package's manager: every counter of the two stats digests
+    agrees step by step (rates are wall clock: only their sign is held)."""
+    from dynamo_tpu.block_manager import KvbmConfig as JKvbmConfig
+    from dynamo_tpu.block_manager import KvBlockManager as JKvBlockManager
+    from dynamo_tpu.block_manager import KvLayoutConfig as JKvLayoutConfig
+    from dynamo_tpu_torch.block_manager import KvbmConfig, KvBlockManager, KvLayoutConfig
+
+    async def run(mgr_cls, cfg_cls, lay_cls, path):
+        mgr = await mgr_cls(cfg_cls(layout=lay_cls(**_LAYOUT8), host_blocks=4,
+                                    disk_blocks=8, disk_path=str(path))).start()
+        seen = []
+        try:
+            mgr.offer(100, None, [1] * 4, _row(1.0))
+            mgr.offer(200, 100, [2] * 4, _row(2.0))
+            await _settle(mgr, 2)
+            await mgr._g2_to_g3.drain()
+            st = mgr.stats()
+            assert st["host_stored_blocks_total"] == 2
+            assert st["offloaded_blocks_total"] == 2
+            assert st["link_g1g2_bps"] > 0 and st["link_g2g3_bps"] > 0
+            assert st["disk_registered"] == 2
+            seen.append(_counters(st))
+            assert mgr.count_host_match([100, 200, 999]) == 2
+            st = mgr.stats()
+            assert st["host_hit_blocks_total"] == 2 and st["host_miss_blocks_total"] == 1
+            for b in mgr.host_pool.allocate_blocks(4):
+                mgr.host_pool.release(b)
+            assert mgr.stats()["host_evictions_total"] >= 2
+            assert mgr.count_host_match([100, 200]) == 0
+            assert await mgr.onboard_from_disk([100, 200]) == 2
+            st = mgr.stats()
+            assert st["promoted_blocks_total"] == 2 and st["link_g3g2_bps"] > 0
+            assert mgr.count_disk_origin([100, 200]) == 2
+            assert mgr.count_disk_origin([999]) == 0
+            seen.append(_counters(mgr.stats()))
+            for b in mgr.host_pool.allocate_blocks(4):
+                mgr.host_pool.release(b)
+            assert mgr.count_host_match([100]) == 0
+            mgr.offer(100, None, [1] * 4, _row(1.0))
+            await _settle(mgr, 1)
+            assert mgr.count_disk_origin([100]) == 0
+            seen.append(_counters(mgr.stats()))
+        finally:
+            await mgr.stop()
+        return seen
+
+    mine = await run(KvBlockManager, KvbmConfig, KvLayoutConfig, tmp_path / "a.bin")
+    theirs = await run(JKvBlockManager, JKvbmConfig, JKvLayoutConfig, tmp_path / "b.bin")
+    assert mine == theirs
+
+
+async def test_engine_reports_actuals_split_by_tier():
+    """Engine A computes a prompt cold (actual reuse 0) then warm (device
+    tier); a FRESH engine B sharing the host tier reuses via G2 — every
+    path lands a kv_actual record with the right split, and the readiness
+    snapshot, the metrics callback and the ForwardPassMetrics wire agree
+    on every KV observatory key."""
+    from dynamo_tpu_torch.block_manager import KvbmConfig, KvBlockManager, KvLayoutConfig
+
+    kvbm = await KvBlockManager(KvbmConfig(layout=KvLayoutConfig(**_LAYOUT8),
+                                           host_blocks=16)).start()
+    actuals_a: list[dict] = []
+    metrics_a: list[dict] = []
+    eng_a = MockerEngine(_ecfg(), MockerConfig(seed=1), block_manager=kvbm,
+                         on_kv_actual=actuals_a.append, on_metrics=metrics_a.append)
+    await eng_a.start()
+    prompt = list(range(40))  # 2 full blocks + tail
+    await _generate(eng_a, prompt)
+    await asyncio.sleep(0.05)
+    assert len(actuals_a) == 1
+    cold = actuals_a[0]
+    assert cold["kind"] == "kv_actual" and cold["isl_blocks"] == 3
+    assert (cold["device_blocks"], cold["host_blocks"], cold["disk_blocks"]) == (0, 0, 0)
+    await _generate(eng_a, prompt)
+    await asyncio.sleep(0.05)
+    warm = actuals_a[1]
+    assert warm["device_blocks"] == 2
+    assert warm["host_blocks"] == 0 and warm["disk_blocks"] == 0
+    assert eng_a._reused_device_blocks == 2
+    rd = eng_a.readiness()
+    assert rd["kv_reused_device_blocks_total"] == 2
+    assert rd["kvbm_host_registered"] == kvbm.stats()["host_registered"]
+    assert metrics_a, "metrics callback never fired"
+    m = metrics_a[-1]
+    fpm = ForwardPassMetrics.from_wire(wire.unpackb(wire.packb(m)))
+    for key in ("kv_reused_device_blocks_total", "kv_reused_host_blocks_total",
+                "kv_reused_disk_blocks_total", "kvbm_host_registered",
+                "kvbm_host_stored_blocks_total", "kvbm_host_hit_blocks_total"):
+        assert key in m, key
+        assert getattr(fpm, key) == m[key] == rd[key], key
+    await kvbm.drain_offers()
+    await eng_a.stop()
+
+    actuals_b: list[dict] = []
+    eng_b = MockerEngine(_ecfg(), MockerConfig(seed=2), block_manager=kvbm,
+                         on_kv_actual=actuals_b.append)
+    await eng_b.start()
+    await _generate(eng_b, prompt)
+    await asyncio.sleep(0.05)
+    assert len(actuals_b) == 1
+    host = actuals_b[0]
+    assert host["host_blocks"] == 2 and host["device_blocks"] == 0
+    assert eng_b.readiness()["kv_reused_host_blocks_total"] == 2
+    await eng_b.stop()
+    await kvbm.stop()
+
+
+def test_engine_gauges_carry_every_kvbm_stat():
+    """The engine's kvbm_ gauges are exactly the JAX engine's, each a
+    ForwardPassMetrics field, and every block-manager stats key is among
+    them."""
+    import dataclasses
+
+    from dynamo_tpu.block_manager import KvbmConfig as JKvbmConfig
+    from dynamo_tpu.block_manager import KvBlockManager as JKvBlockManager
+    from dynamo_tpu.block_manager import KvLayoutConfig as JKvLayoutConfig
+    from dynamo_tpu.engine.config import EngineConfig as JEngineConfig
+    from dynamo_tpu.mocker import MockerEngine as JMockerEngine
+    from dynamo_tpu.models.config import ModelConfig as JModelConfig
+    from dynamo_tpu_torch.block_manager import KvbmConfig, KvBlockManager, KvLayoutConfig
+
+    kvbm = KvBlockManager(KvbmConfig(layout=KvLayoutConfig(**_LAYOUT8), host_blocks=2))
+    g = MockerEngine(_ecfg(), block_manager=kvbm)._kvbm_gauges()
+    fields = {f.name for f in dataclasses.fields(ForwardPassMetrics)}
+    assert set(g) <= fields
+    assert {f"kvbm_{k}" for k in kvbm.stats()} <= set(g)
+    jk = JKvBlockManager(JKvbmConfig(layout=JKvLayoutConfig(**_LAYOUT8), host_blocks=2))
+    jeng = JMockerEngine(JEngineConfig(model=JModelConfig.tiny_test(), num_blocks=64,
+                                       max_num_seqs=4, max_model_len=256, dtype="float32"),
+                         block_manager=jk)
+    assert set(jeng._kvbm_gauges()) == set(g)
+    assert set(jk.stats()) == set(kvbm.stats())

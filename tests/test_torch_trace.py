@@ -1,9 +1,9 @@
 """The port's observability plane against the JAX package's, case for
-case with tests/test_trace.py (less its disaggregation and kv_transfer
-cases): the tracer (wire context, adopt, TTL sweep, histograms), log
+case with tests/test_trace.py: the tracer (wire context, adopt, TTL sweep, histograms), log
 correlation, the flight recorder and the engine's fault dump, the debug
 endpoints, the profile window's refusals and the control-plane profile
-verb, and the trace merge.
+verb, the trace merge, and the disaggregated path's kv_transfer span,
+remote_prefill and degraded_local marks.
 
 Captures cross packages: a capture the port writes is read by the
 reference's ``benchmarks/trace_merge.py`` and by the port's
@@ -553,9 +553,9 @@ def test_trace_merge_cli_exit_codes(tmp_path, capsys):
 
 
 def test_trace_merge_flags_gaps(tmp_path):
-    """The gap half of the reference's kv_transfer case (the kv_transfer
-    half waits for disaggregation, ROADMAP A6): a 900 ms hole before
-    prefill is reported incomplete by both merges."""
+    """The gap half of the reference's kv_transfer case (its kv_transfer
+    half is test_trace_merge_flags_missing_kv_transfer): a 900 ms hole
+    before prefill is reported incomplete by both merges."""
     t0 = 2_000_000.0
     cap = tmp_path / "c.jsonl"
     _write_capture(cap, [
@@ -730,3 +730,181 @@ def test_failover_span_and_record_join_one_timeline(tmp_path):
         traces = merge.load_captures([str(capture)])
         assert traces[trace_id].failed_over and traces[trace_id].completed
         assert not [t for t in traces.values() if t.orphan]
+
+
+# ---------------------------------------------------------------------------
+# disaggregation: the kv_transfer span, the remote_prefill and
+# degraded_local marks
+# ---------------------------------------------------------------------------
+
+
+def test_trace_merge_flags_missing_kv_transfer(tmp_path):
+    """The kv_transfer half of the reference's case: a remote request
+    (``remote_prefill`` mark) without a ``kv_transfer`` span is incomplete
+    in both merges; marked ``degraded_local`` it completes without one."""
+    t0 = 2_000_000.0
+    spans = [
+        {"kind": "span", "id": "r2", "trace": "T2", "span": name,
+         "start_unix": t0 + start, "dur_ms": dur, "pid": 1}
+        for name, start, dur in (("queue_wait", 0.0, 1.0), ("prefill", 0.001, 5.0),
+                                 ("decode_first", 0.006, 1.0), ("decode", 0.007, 1.0))
+    ]
+    marks = {"received": t0, "remote_prefill": t0, "first_token": t0 + 0.007,
+             "finished": t0 + 0.01}
+    cap = tmp_path / "c.jsonl"
+    _write_capture(cap, spans + [
+        {"kind": "finish", "id": "r2", "trace": "T2", "pid": 1, "marks": marks,
+         "spans": []}])
+    report = _both_reports([str(cap)], max_gap_ms=250.0)
+    assert len(report["incomplete"]) == 1
+    assert "kv_transfer" in report["incomplete"][0]["missing_spans"]
+
+    cap2 = tmp_path / "d.jsonl"
+    _write_capture(cap2, spans + [
+        {"kind": "span", "id": "r2", "trace": "T2", "span": "admission",
+         "start_unix": t0, "dur_ms": 0.5, "pid": 1},
+        {"kind": "finish", "id": "r2", "trace": "T2", "pid": 1,
+         "marks": {**marks, "degraded_local": t0 + 0.002}, "spans": []}])
+    assert _both_reports([str(cap2)], max_gap_ms=250.0)["incomplete"] == []
+
+
+def _disagg_mockers(trace_path, transport="tcp"):
+    """A decode and a prefill mocker, every prefill forced remote."""
+    from dynamo_tpu_torch.disagg import (
+        DecodeOperator,
+        DisaggConfig,
+        DisaggRouter,
+        PrefillQueue,
+        PrefillWorker,
+    )
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    async def start():
+        reset_tracer(str(trace_path))
+        cfg = EngineConfig(model=ModelConfig.tiny_test(), num_blocks=64, max_num_seqs=4,
+                           max_model_len=256, dtype="float32")
+        decode = MockerEngine(cfg, MockerConfig(vocab_size=100))
+        prefill = MockerEngine(cfg, MockerConfig(vocab_size=100))
+        await decode.start()
+        await prefill.start()
+        drt = await DistributedRuntime.in_process()
+        queue = PrefillQueue(drt, "trace-e2e")
+        dis = DisaggRouter.__new__(DisaggRouter)
+        dis.cfg = DisaggConfig(max_local_prefill_length=1, max_prefill_queue_size=64)
+        op = await DecodeOperator(decode, queue, dis, transport=transport).start()
+        pw = PrefillWorker(prefill, queue).start()
+
+        async def stop():
+            await pw.stop()
+            await op.stop()
+            await decode.stop()
+            await prefill.stop()
+            await drt.shutdown()
+
+        return drt, decode, op, stop
+
+    return start()
+
+
+def test_disagg_trace_e2e_mocker(tmp_path):
+    """Frontend → prefill queue → decode over the real wire planes (HTTP,
+    bus envelope, TCP response plane, KV tcp transfer) with mocker
+    engines: the merged timeline is gapless in both merges, kv_transfer
+    lands between prefill and the first decode, trace ids survive the
+    TCP error plane, and /debug/steps serves the step ring."""
+    from dynamo_tpu_torch.llm.discovery import ModelManager, ModelWatcher, register_llm
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.llm.http_service import HttpService
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    capture = tmp_path / "trace.jsonl"
+
+    async def main():
+        try:
+            drt, decode, op, stop = await _disagg_mockers(capture)
+            ep = drt.namespace("trace").component("mock").endpoint("generate")
+            await ep.serve(op)
+            await register_llm(drt, ep, ModelDeploymentCard(name="mock", model_path=None))
+            manager = ModelManager()
+            await ModelWatcher(drt, manager).start()
+            service = HttpService(manager, host="127.0.0.1", port=0, debug=decode)
+            await service.start()
+            end = asyncio.get_running_loop().time() + 30
+            while not manager.models():  # discovery, bounded
+                assert asyncio.get_running_loop().time() < end, "model never discovered"
+                await asyncio.sleep(0.02)
+            body = {"model": "mock", "stream": False, "max_tokens": 8,
+                    "messages": [{"role": "user",
+                                  "content": "trace this request across every process hop"}]}
+            r = await fetch("127.0.0.1", service.port, "POST", "/v1/chat/completions", body)
+            assert r.status == 200, r.body
+            assert op.remote_count == 1 and op.local_count == 0
+            steps = (await fetch("127.0.0.1", service.port, "GET",
+                                 "/debug/steps?n=16")).json()["steps"]
+            assert steps and all("batch_fill_ratio" in st for st in steps)
+            decode.begin_drain()
+            r = await fetch("127.0.0.1", service.port, "POST", "/v1/chat/completions", body)
+            assert r.status == 503 and "retry-after" in {k.lower() for k in r.headers}
+            await service.stop()
+            await stop()
+        finally:
+            reset_tracer(None)
+
+    asyncio.run(main())
+    for merge in (j_merge, t_merge):
+        traces = merge.load_captures([str(capture)])
+        completed = [t for t in traces.values() if t.completed]
+        assert len(completed) == 1
+        t = completed[0]
+        assert t.missing_spans() == []
+        have = {s["name"] for s in t.spans}
+        assert {"admission", "tokenize", "route", "queue_wait", "prefill",
+                "kv_transfer", "decode_first", "decode"} <= have
+        assert "remote_prefill" in t.marks
+        assert t.max_gap_ms() < 250.0
+        prefill_end = max(s["start_unix"] + s["dur_ms"] / 1000.0
+                          for s in t.spans if s["name"] == "prefill")
+        kvt = next(s for s in t.spans if s["name"] == "kv_transfer")
+        dfirst = next(s for s in t.spans if s["name"] == "decode_first")
+        assert kvt["start_unix"] >= prefill_end - 1e-3
+        assert dfirst["start_unix"] >= kvt["start_unix"]
+        report = merge.merge_report(traces)
+        for name in ("admission", "queue_wait", "prefill", "kv_transfer", "decode_first"):
+            assert name in report["ttft_decomposition_ms"], name
+        assert merge.assert_complete(report) == []
+        shed = [t for t in traces.values()
+                if t.finishes and "error" in t.marks and not t.completed]
+        assert len(shed) == 1
+        assert {"admission"} <= {s["name"] for s in shed[0].spans}
+
+
+def test_degraded_remote_request_is_marked_and_completes(tmp_path):
+    """A remote request whose block frame is lost degrades to local
+    recompute: its capture carries ``remote_prefill`` and
+    ``degraded_local`` and no ``kv_transfer`` span needs to complete it;
+    both merges pass it."""
+    from dynamo_tpu_torch.utils.faults import FAULTS
+
+    capture = tmp_path / "trace.jsonl"
+
+    async def main():
+        try:
+            _drt, decode, op, stop = await _disagg_mockers(capture)
+            FAULTS.arm("disagg.recv", "drop", times=1)
+            pre = PreprocessedRequest(token_ids=list(range(40)),
+                                      sampling=SamplingOptions(temperature=0.0),
+                                      stop=StopConditions(max_tokens=4, ignore_eos=True))
+            toks = [t async for item in op.generate(Context(pre.to_wire()))
+                    for t in item["token_ids"]]
+            assert len(toks) == 4 and decode.degraded_requests == 1
+            await stop()
+        finally:
+            FAULTS.clear()
+            reset_tracer(None)
+
+    asyncio.run(main())
+    for merge in (j_merge, t_merge):
+        traces = merge.load_captures([str(capture)])
+        (t,) = [t for t in traces.values() if t.completed]
+        assert {"remote_prefill", "degraded_local"} <= set(t.marks)
+        assert t.missing_spans() == []

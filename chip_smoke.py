@@ -241,6 +241,56 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 the remote and local requests, kv_transfer span p50/p95
                 and GB/s per transport, host→device onboard GB/s, TTFT
                 cold against host hit, the gate's probes and skips.
+11. planner   — the planner over llama3.2-1b worker processes, after the
+                in-process engines are freed. calibration: a runner of
+                64 slots and a 2048-token budget, graphs captured, times
+                unified decode dispatches at 32 and 64 lanes (160 tokens
+                of context each) and the engine's full prefill-only
+                dispatches of prompts of 128, 512 and 2048 tokens (15, 4
+                and 1 of them; device ms from the profiler), pinned
+                host→device copies of 1 and 64 KV
+                blocks, then an engine on the same weights serves the
+                headline, 64 requests of 128 tokens for 64 greedy tokens
+                released at once from its warmup gate (tok/s, TTFT p50
+                from the first dispatch's start), and once more under
+                the profiler (device ms per dispatch beside the wall);
+                the record is printed and written to chip_smoke_out/
+                calibration_h100.json, planner/calibration.py's law must
+                find every price finite and positive; the drift against
+                the committed record and the calibrated simulation of
+                the headline are reported. aggregated: a control plane,
+                the frontend in this process, ``python -m
+                dynamo_tpu_torch planner --min-workers 1 --max-workers
+                2`` (0.25 s ticks, 2 s adjustments, a state file, a
+                decision log) spawning ``run --in dyn://...`` workers
+                (the serve's settings, each output in a file); 24
+                closed-loop clients (prompts of 64–512 tokens, 64 greedy
+                tokens): the decision log must show the scale up, the
+                second worker's lease appear and it serve requests,
+                then with the load stopped a scale down within 5
+                adjustments, the drained worker printing its report,
+                "drain complete" and exiting 0 (the planner logs its
+                code), its ragged launches 16 × its dispatches; SIGTERM
+                stops the planner (exit 0) and leaves the survivor
+                running and in the state file; every stream full length
+                and through phase 8's teacher-forced gates. two_pool:
+                ``planner --two-pool`` with the prefill pool 1..2
+                (``examples.prefill_worker`` on llama3.2-1b) and the
+                decode pool 1..1 (a ``run --in dyn://pool.decode...``
+                worker), a decode engine in this process whose
+                DecodeOperator fills the prefill queue over tcp; 8
+                closed-loop remote prompts of 1024–1536 tokens: the
+                prefill pool must scale up and its second worker take
+                work (report: requests ≥ 1, ragged launches 16 × its
+                dispatches), then scale down (exit 0) once the load
+                stops, while every decode-pool decision holds at 1;
+                the decode worker SIGKILLed (shell and child) must be
+                logged on the crash path within a tick and its
+                replacement's pid reach the state file; no integrity
+                failure, no degraded request, the streams through the
+                teacher-forced gates. Reported: seconds from the up
+                decision to the new lease and to its first token, TTFT
+                p50 before and after, the crash gap.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Then the card's name and power limit, the kernels line, and the
@@ -3797,6 +3847,741 @@ async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
     return result
 
 
+# -- phase 11: the planner ------------------------------------------------------
+# The calibration engine: 64 slots, a 2048-token budget, prompts admitted
+# 15 at a time (15 × 128 prompt tokens and up to 64 decode lanes fit the
+# budget, so no prompt splits across dispatches: the fused-batch policy
+# the simulator models).
+CAL_ENGINE = {"max_num_seqs": 64, "unified_token_budget": 2048,
+              "unified_prefill_quantum": 2048, "prefill_batch": 15,
+              "max_model_len": 2304, "num_blocks": 2048, "warmup_gate": "hold"}
+CAL_LANES = (32, 64)          # decode dispatches of this many lanes ...
+CAL_CONTEXT = 160             # ... each over this many tokens of context
+CAL_PREFILL = (128, 512, 2048)    # prefill-only dispatches of prompts this long
+CAL_HEADLINE = (64, 128, 64)  # requests (all at once), prompt and output tokens
+CAL_REPS = 20                 # dispatches per timed point
+PLANNER_TICK = 0.25           # the planner's --metric-interval, s
+PLANNER_ADJUST = 2.0          # its --adjustment-interval, s
+PLANNER_CLIENTS = 24          # the aggregated leg's closed-loop clients
+PLANNER_TOKENS = 64           # greedy tokens per request of the planner legs
+POOL_CLIENTS = 8              # the two-pool leg's closed-loop remote requests
+
+
+def cal_record_path() -> str:
+    """Where the calibration leg writes its record (beside this script)."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_out",
+                        "calibration_h100.json")
+
+
+def param_bytes(params) -> int:
+    """Bytes of every weight tensor (what a decode dispatch streams)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_bytes(v) for v in params)
+    return 0
+
+
+async def calibration_leg(card: str, vocab: int) -> dict:
+    """The H100 calibration record (planner/calibration.py's artifact):
+    decode dispatches at CAL_LANES lanes, the engine's full prefill-only
+    dispatches of prompts of CAL_PREFILL tokens (a standalone runner,
+    graphs replayed, device ms from the profiler), pinned copies of 1
+    and 64 KV blocks, and the
+    headline serve (CAL_HEADLINE, all at once) through an engine with
+    the same settings: tok/s and TTFT p50, then again under the profiler
+    for the device ms per dispatch beside the wall per dispatch."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.runner import ModelRunner
+    from dynamo_tpu_torch.planner import calibration as cal
+    from torch.profiler import ProfilerActivity, profile
+
+    ecfg = full_width_config(**CAL_ENGINE)
+    t0 = time.monotonic()
+    runner = ModelRunner(ecfg, device=DEVICE)
+    graphs = runner.warmup()
+    greedy = (0.0, 0, 1.0, -1)
+
+    def timed(lanes) -> float:
+        for _ in range(3):
+            runner.unified_step(lanes).tokens()
+        return profiled_device_ms(
+            lambda: [runner.unified_step(lanes) for _ in range(CAL_REPS)]) / CAL_REPS
+
+    nb = (CAL_CONTEXT + BS) // BS         # blocks of a lane's context + its token
+    decode_ms = []
+    for n in CAL_LANES:
+        lanes = [([7], list(range(1 + i * nb, 1 + (i + 1) * nb)), CAL_CONTEXT, greedy)
+                 for i in range(n)]
+        decode_ms.append(timed(lanes))
+    # Each the engine's full prefill dispatch of its prompt length: as
+    # many prompts as it admits at once and its budget holds.
+    prefill_ms, prefill_prompts = [], []
+    for n in CAL_PREFILL:
+        rng = np.random.default_rng(n)
+        k = min(ecfg.prefill_batch, ecfg.unified_token_budget // n)
+        nb = (n + BS - 1) // BS
+        lanes = [(rng.integers(0, vocab, n).tolist(),
+                  list(range(1 + i * nb, 1 + (i + 1) * nb)), 0, greedy) for i in range(k)]
+        prefill_prompts.append(k)
+        prefill_ms.append(timed(lanes))
+    weights = param_bytes(runner.params)
+    params = runner.params
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    handoff_ms = [h2d_kv_rate(n, 50)["ms"] for n in (1, 64)]
+
+    reqs, isl, osl = CAL_HEADLINE
+    rng = np.random.default_rng([11, 1])
+    heads = [rng.integers(0, vocab, isl).tolist() for _ in range(reqs)]
+    prof_prompts = [rng.integers(0, vocab, isl).tolist() for _ in range(reqs)]
+    engine = TorchEngine(ecfg, params=params, device=DEVICE)
+    await engine.start()
+    try:
+        # All at once: the requests wait at the warmup gate and are
+        # released together, the first dispatch composing all of them;
+        # times run from that dispatch's start on the engine thread (its
+        # flight record), not from the submissions.
+        warm = asyncio.ensure_future(engine.warmup())
+        # The first dispatches' lanes, kept by reference (no copy on the
+        # timed path): the prefill phase replays them below.
+        step, lanes_of = engine.runner.unified_step, []
+
+        def keep(lanes, **kw):
+            if len(lanes_of) < 16:
+                lanes_of.append(lanes)
+            return step(lanes, **kw)
+
+        engine.runner.unified_step = keep
+        held = asyncio.ensure_future(serve_unix(engine, heads, osl))
+        await warm
+        streams, firsts, lasts = await held
+        del engine.runner.unified_step
+        steps = [r for r in engine.flight.snapshot() if r.get("kind") == "unified"]
+        t0 = steps[0]["t_unix"] - steps[0]["dispatch_ms"] / 1e3
+        ttft = [t - t0 for t in firsts]
+        wall = max(lasts) - t0
+        dispatches = len(steps)
+        first_steps = [(r["prefill_tokens"], r["decode_tokens"]) for r in steps[:6]]
+        # The prefill phase: its dispatches replayed one at a time on the
+        # idle engine's runner for their device time, beside its wall (to
+        # the last first token).
+        n_pre = sum(1 for r in steps if r["prefill_tokens"])
+        pre_device_ms = sum(
+            profiled_device_ms(lambda lanes=lanes: engine.runner.unified_step(lanes))
+            for lanes in lanes_of[:n_pre])
+        d1 = engine.unified_dispatches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            *_, prof_wall = await serve(engine, prof_prompts, osl)
+            torch.cuda.synchronize()
+        prof_dispatches = engine.unified_dispatches - d1
+        busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+        mid = mid_traffic(engine)
+    finally:
+        await engine.stop()
+    if not all(len(s) == osl for s in streams) or mid:
+        raise SystemExit(f"planner calibration: headline streams {[len(s) for s in streams]}, "
+                         f"{mid} captures mid-traffic")
+    record = {
+        "schema": cal.SCHEMA, "card": card, "model": ecfg.model.name, "dtype": ecfg.dtype,
+        "source": "chip_smoke.py phase 11 (planner), calibration leg",
+        "engine": {**CAL_ENGINE, "block_size": ecfg.block_size, "graphs": graphs},
+        "decode": {"lanes": list(CAL_LANES), "context_tokens": CAL_CONTEXT,
+                   "device_ms": decode_ms, "weight_bytes": weights,
+                   "streamed_bytes": weights + CAL_LANES[-1] * (CAL_CONTEXT + 1)
+                   * cal.KV_BYTES_PER_TOKEN},
+        "prefill": {"tokens": list(CAL_PREFILL), "prompts": prefill_prompts,
+                    "device_ms": prefill_ms},
+        "host": {"wall_ms_per_dispatch": wall * 1e3 / dispatches,
+                 "device_ms_per_dispatch": busy / prof_dispatches,
+                 "dispatches": dispatches, "profiled_dispatches": prof_dispatches,
+                 "profiled_wall_ms_per_dispatch": prof_wall * 1e3 / prof_dispatches,
+                 "prefill_wall_ms": max(ttft) * 1e3, "prefill_device_ms": pre_device_ms,
+                 "prefill_dispatches": n_pre},
+        "handoff": {"blocks": [1, 64], "block_bytes": KV_BLOCK_BYTES, "ms": handoff_ms},
+        "headline": {"num_requests": reqs, "isl": isl, "osl": osl,
+                     "tok_s": reqs * osl / wall, "p50_ttft_ms": float(np.median(ttft)) * 1e3,
+                     "wall_s": wall, "dispatches": dispatches,
+                     "first_dispatches_prefill_decode": first_steps},
+    }
+    fresh = cal.derive(record)   # raises unless every term is finite and positive
+    from dynamo_tpu_torch.planner.simulate import calibrated_headline
+
+    sim = calibrated_headline(fresh)
+    os.makedirs(os.path.dirname(cal_record_path()), exist_ok=True)
+    with open(cal_record_path(), "w") as f:
+        json.dump(record, f, indent=1)
+    emit({"phase": "calibration_record", **record})
+    try:
+        committed = cal.CALIBRATION.price_list()
+        drift = {k: (v - committed[k]) / committed[k] if committed[k] else None
+                 for k, v in fresh.price_list().items()}
+    except ValueError as exc:   # reported, not gated: a record of an older layout
+        drift = {"unavailable": str(exc)}
+    out = {"leg": "calibration", "record": cal_record_path(), "fit": fresh.price_list(),
+           "prefill_quadratic_free_us": fresh.prefill_quadratic_free_us,
+           "drift_vs_committed": drift,
+           "sim_headline": {"tok_s": sim.tok_s, "p50_ttft_ms": sim.p50_ttft_ms,
+                            "tok_s_error": sim.tok_s / record["headline"]["tok_s"] - 1,
+                            "p50_ttft_error": sim.p50_ttft_ms
+                            / record["headline"]["p50_ttft_ms"] - 1},
+           "wall_s": time.monotonic() - t0}
+    emit({"phase": "planner_leg", **out, "headline": record["headline"],
+          "host": record["host"]})
+    return out
+
+
+async def serve_unix(engine, prompts, max_tokens):
+    """``serve`` with wall-clock times: (streams, each request's first
+    and last token time, unix seconds)."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        EngineOutput,
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(p):
+        pre = PreprocessedRequest(
+            token_ids=p, sampling=SamplingOptions(temperature=0.0),
+            stop=StopConditions(max_tokens=max_tokens, ignore_eos=True))
+        toks, first, last = [], None, None
+        async for raw in engine.generate(Context(pre.to_wire())):
+            out = EngineOutput.from_wire(raw)
+            if out.token_ids:
+                last = time.time()
+                first = first or last
+            toks.extend(out.token_ids)
+        return toks, first, last
+
+    results = await asyncio.gather(*[one(p) for p in prompts])
+    return [r[0] for r in results], [r[1] for r in results], [r[2] for r in results]
+
+
+class LogFile:
+    """The output of one process the planner spawned (its worker command
+    redirects it to a file of its own), matched line by line."""
+
+    def __init__(self, path: str, name: str) -> None:
+        self.path, self.name = path, name
+
+    def lines(self) -> list[str]:
+        try:
+            with open(self.path, errors="replace") as f:
+                return f.read().splitlines()
+        except FileNotFoundError:
+            return []
+
+    def tail(self, n: int = 30) -> str:
+        return "\n".join(self.lines()[-n:])
+
+    async def wait_for(self, pattern: str, timeout: float):
+        """(match, time seen) of the first line matching ``pattern``."""
+        import re
+
+        pat = re.compile(pattern)
+        deadline = time.monotonic() + timeout
+        while True:
+            for line in self.lines():
+                m = pat.search(line)
+                if m:
+                    return m, time.monotonic()
+            if time.monotonic() > deadline:
+                raise SystemExit(f"planner: {self.name} gave no {pattern!r} in "
+                                 f"{timeout:.0f} s:\n{self.tail()}")
+            await asyncio.sleep(0.05)
+
+
+def decisions(path: str) -> list[dict]:
+    try:
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.strip()]
+    except FileNotFoundError:
+        return []
+
+
+def state_pids(path: str, pool: str | None = None) -> list[int]:
+    """Worker pids of a planner state file (v1, or one pool of v2)."""
+    try:
+        with open(path) as f:
+            st = json.load(f)
+    except (FileNotFoundError, ValueError):
+        return []
+    workers = st["pools"][pool]["workers"] if pool else st.get("workers", [])
+    return [w["pid"] for w in workers]
+
+
+def pid_alive(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, IndexError):
+        return False
+
+
+def worker_cmd(tmp: str, tag: str, argv: list[str]) -> str:
+    """A planner ``--worker-cmd``: one process per ``{index}``, its
+    output in a file of its own (``exec``: the pid the planner holds is
+    the worker's, so SIGTERM reaches it and it drains)."""
+    import shlex
+
+    log = os.path.join(tmp, f"{tag}-{{index}}.log")
+    return f"exec {shlex.quote(sys.executable)} {' '.join(shlex.quote(a) for a in argv)} > {log} 2>&1"
+
+
+class ClosedLoop:
+    """``clients`` concurrent requests: each client sends its next one
+    when its last ends, drawing prompts in turn, until ``stop()``.
+    Every result is kept with its send and first-token times."""
+
+    def __init__(self, send, prompts, clients: int) -> None:
+        self.send, self.prompts, self.clients = send, prompts, clients
+        self.results: list[dict] = []
+        self._stop = asyncio.Event()
+        self._n = 0
+        self._tasks: list = []
+
+    async def _client(self) -> None:
+        while not self._stop.is_set():
+            i = self._n
+            self._n += 1
+            self.results.append(await self.send(i, self.prompts[i % len(self.prompts)]))
+
+    def start(self) -> "ClosedLoop":
+        self._tasks = [asyncio.ensure_future(self._client()) for _ in range(self.clients)]
+        return self
+
+    async def stop(self) -> list[dict]:
+        self._stop.set()
+        await asyncio.gather(*self._tasks)
+        return self.results
+
+
+
+async def wait_decision(path: str, pool: str | None, decision: str, after: float,
+                        timeout: float) -> dict:
+    """The first decision-log line of ``pool`` (None: the single-pool
+    log) taking ``decision`` at or after unix time ``after``."""
+    t0 = time.monotonic()
+    while True:
+        for d in decisions(path):
+            if (d["decision"] == decision and d.get("ts", d.get("unix", 0)) >= after
+                    and (pool is None or d.get("pool") == pool)):
+                return d
+        if time.monotonic() - t0 > timeout:
+            raise SystemExit(f"planner: no {decision!r} decision ({pool}) in {timeout:.0f} s: "
+                             f"{decisions(path)[-6:]}")
+        await asyncio.sleep(0.05)
+
+
+async def report_of(log: LogFile, timeout: float = 120.0) -> dict:
+    m, _ = await log.wait_for(r"worker report (\{.*\})", timeout)
+    return json.loads(m.group(1))
+
+
+async def retire(pid: int, log: LogFile) -> dict:
+    """SIGTERM a worker the planner left running; its report."""
+    import signal
+
+    os.kill(pid, signal.SIGTERM)
+    rep = await report_of(log)
+    t0 = time.monotonic()
+    while pid_alive(pid):
+        if time.monotonic() - t0 > 60:
+            raise SystemExit(f"planner: pid {pid} did not exit after its report")
+        await asyncio.sleep(0.05)
+    return rep
+
+
+def unique_prompt(base: list[int], i: int, vocab: int) -> list[int]:
+    """``base`` with its first token set from ``i``: each request of a
+    closed loop has a prompt of its own (the Tap keys streams by it)."""
+    return [(1 + i * 7919) % vocab] + base[1:]
+
+
+async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
+    """The single-pool planner (watermark law) over real workers: see
+    the module docstring (phase 11, aggregated)."""
+    import signal
+
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.pipeline import Tap
+
+    tapped: dict[tuple, dict] = {}
+
+    def on_request(ctx):
+        tapped[tuple(ctx.payload["token_ids"])] = {"tokens": [], "workers": [], "first": None}
+
+    def on_response(ctx, item):
+        rec = tapped[tuple(ctx.payload["token_ids"])]
+        wid = ctx.annotations.get("worker_id")
+        if not rec["workers"] or rec["workers"][-1] != wid:
+            rec["workers"].append(wid)
+        if rec["first"] is None and item["token_ids"]:
+            rec["first"] = time.time()
+        rec["tokens"].extend(item["token_ids"])
+
+    rng = np.random.default_rng(1)
+    bases = [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(64, 513, 24)]
+    greedy = {"temperature": 0, "nvext": {"ignore_eos": True}}
+    state = os.path.join(tmp, "agg-state.json")
+    dlog = os.path.join(tmp, "agg-decisions.jsonl")
+    logs = [LogFile(os.path.join(tmp, f"agg-{i}.log"), f"aggregated worker {i}")
+            for i in (1, 2)]
+    children: list = []
+    result: dict = {"leg": "aggregated"}
+    obs = None
+    pids: list[int] = []
+    t_leg = time.monotonic()
+    try:
+        cp = Child("planner control plane", ["control-plane", "--host", "127.0.0.1",
+                                             "--port", "0"])
+        children.append(cp)
+        await cp.start()
+        addr = (await cp.wait_for(r"control plane on (\S+)", 120))[0].group(1)
+        obs = await DistributedRuntime.connect(addr)
+        cmd = worker_cmd(tmp, "agg", ["-m", "dynamo_tpu_torch", *HTTP_ARGS, "--in",
+                                      FLEET_ENDPOINT, "--control-plane", addr])
+        async with contextlib.AsyncExitStack() as stack:
+            args = cli.build_parser().parse_args([
+                "run", "--in", "http", "--out", "dyn", "--control-plane", addr,
+                "--http-host", "127.0.0.1", "--http-port", "0"])
+            cli.refuse_unserved(args)
+            service, _ = await cli.start_http(args, stack,
+                                              engine_ops=(Tap(on_request, on_response),))
+            port = service.port
+            planner = Child("planner", [
+                "planner", "--control-plane", addr, "--min-workers", "1",
+                "--max-workers", "2", "--metric-interval", str(PLANNER_TICK),
+                "--adjustment-interval", str(PLANNER_ADJUST), "--state-path", state,
+                "--decision-log", dlog, "--worker-cmd", cmd])
+            children.append(planner)
+            await planner.start()
+            await planner.wait_for(r"^planner running", 60)
+            lease1 = int((await logs[0].wait_for(r"\(lease (0x[0-9a-f]+)\)", FLEET_WAIT_S))[0]
+                         .group(1), 16)
+            await logs[0].wait_for(r"worker serving ", FLEET_WAIT_S)
+            await wait_leases(obs, {lease1})
+            await wait_model(port, cfg.name)
+            result["worker_1_ready_s"] = time.monotonic() - t_leg
+
+            async def send(i, base):
+                p = unique_prompt(base, i, vocab)
+                t_send = time.time()
+                resp, timed = await http_stream(port, "/v1/completions", {
+                    "model": cfg.name, "prompt": p, "stream": True,
+                    "max_tokens": PLANNER_TOKENS, **greedy})
+                s = stream_summary(timed)
+                return {"prompt": p, "status": resp.status, "finish": s["finish"],
+                        "tokens": (s["usage"] or {}).get("completion_tokens"),
+                        "events": len(s["times"]), "t_send": t_send,
+                        "ttft_ms": s["times"][0] * 1e3 if s["times"] else None}
+
+            t_load = time.time()
+            load = ClosedLoop(send, bases, PLANNER_CLIENTS).start()
+            up = await wait_decision(dlog, None, "up", t_load, 60)
+            m, _ = await logs[1].wait_for(r"\(lease (0x[0-9a-f]+)\)", FLEET_WAIT_S)
+            lease2 = int(m.group(1), 16)
+            await wait_leases(obs, {lease1, lease2}, timeout=FLEET_WAIT_S)
+            t_lease = time.time()
+
+            def served_by_2():
+                return [r for r in tapped.values() if lease2 in r["workers"] and r["first"]]
+
+            await until(lambda: len(served_by_2()) >= 1, 120, "the second worker's streams")
+            t_first2 = min(r["first"] for r in served_by_2())
+            # Two more rounds of the clients on two workers: the TTFT after.
+            n_first2 = len(load.results)
+            await until(lambda: len(load.results) >= n_first2 + 2 * PLANNER_CLIENTS, 120,
+                        "requests after the second worker joined")
+            pid2 = state_pids(state)[-1]
+            results = await load.stop()
+            t_stop = time.time()
+            down = await wait_decision(dlog, None, "down", t_stop, 5 * PLANNER_ADJUST + 10)
+            report2 = await report_of(logs[1])
+            await logs[1].wait_for(r"^drain complete", 5)
+            m, _ = await planner.wait_for(rf"worker pid {pid2} exited \(code (\S+)\)", 60)
+            rc2 = m.group(1)
+            await wait_leases(obs, {lease1})
+            planner.signal(signal.SIGTERM)
+            planner_rc = await planner.exit_code(60)
+            pids = state_pids(state)
+            adopted_alive = [pid_alive(p) for p in pids]
+            report1 = await retire(pids[0], logs[0]) if pids else {}
+            pids = []
+        ttft_before = [r["ttft_ms"] for r in results if r["t_send"] < up["ts"]
+                       and r["ttft_ms"] is not None]
+        ttft_after = [r["ttft_ms"] for r in results if r["t_send"] >= t_first2
+                      and r["ttft_ms"] is not None]
+        bad = [{k: r[k] for k in ("status", "tokens", "events", "finish", "ttft_ms")}
+               for r in results if not (r["status"] == 200 and r["tokens"] == PLANNER_TOKENS
+                                        and r["events"] == PLANNER_TOKENS
+                                        and r["finish"] == "length")]
+        full = not bad
+        streams = [tapped[tuple(r["prompt"])]["tokens"] for r in results]
+        ref = teacher_forced(cfg, params, [r["prompt"] for r in results], streams)
+        ref.pop("first_token_ref_logprob")
+        dec = decisions(dlog)
+        result.update({
+            "requests": len(results), "clients": PLANNER_CLIENTS,
+            "max_tokens": PLANNER_TOKENS, "streams_full_length": full, "bad_streams": bad[:4],
+            "leases": [f"{lease1:#x}", f"{lease2:#x}"],
+            "requests_by_worker": {f"{w:#x}": sum(1 for r in results if tapped[tuple(
+                r["prompt"])]["workers"] == [w]) for w in (lease1, lease2)},
+            "decision_up": up, "decision_down": down,
+            "decisions": [d["decision"] for d in dec],
+            "up_to_lease_s": t_lease - up["ts"],
+            "up_to_new_worker_first_token_s": t_first2 - up["ts"],
+            "load_stop_to_down_s": down["ts"] - t_stop,
+            "ttft_p50_before_up_ms": pct(ttft_before, 50),
+            "ttft_p50_after_new_worker_ms": pct(ttft_after, 50),
+            "planner_exit_code": planner_rc, "drained_worker_exit_code": rc2,
+            "state_pids_after_sigterm": len(adopted_alive),
+            "adopted_worker_alive_after_sigterm": all(adopted_alive) and bool(adopted_alive),
+            "worker_reports": {"1": report1, "2": report2},
+            "launches_ok": {"1": launches_ok(report1, walk_path=False),
+                            "2": launches_ok(report2, walk_path=False)},
+            "wall_s": time.monotonic() - t_leg, **ref,
+        })
+        if not (full and ref["logits_finite"] and ref["logits_shape_ok"]
+                and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
+                and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
+            raise SystemExit(f"planner aggregated: streams failed their gates {result}")
+        if not (down["ts"] - t_stop <= 5 * PLANNER_ADJUST and report2["requests"] >= 1
+                and rc2 == "0"
+                and all(result["launches_ok"].values()) and planner_rc == 0
+                and result["adopted_worker_alive_after_sigterm"]
+                and len(adopted_alive) == 1):
+            raise SystemExit(f"planner aggregated: {result}")
+    finally:
+        import signal as _signal
+
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, _signal.SIGKILL)
+        for child in reversed(children):
+            await child.kill()
+        if obs is not None:
+            await obs.shutdown()
+    return result
+
+
+async def two_pool_leg(tmp: str, cfg, params, vocab: int) -> dict:
+    """The two-pool planner: prefill workers it spawns drain the queue a
+    decode engine in this process fills; a decode pool held at one; the
+    decode pool's worker killed mid-leg: see the module docstring (phase
+    11, crash heal and two-pool)."""
+    import signal
+
+    from dynamo_tpu_torch.block_manager.integrity import INTEGRITY
+    from dynamo_tpu_torch.disagg import DecodeOperator, DisaggConfig, DisaggRouter, PrefillQueue
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.protocols.common import (
+        EngineOutput,
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.transports.control_plane import ControlPlaneServer
+
+    ns = "pool"
+    max_tokens = 32
+    state = os.path.join(tmp, "pool-state.json")
+    dlog = os.path.join(tmp, "pool-decisions.jsonl")
+    plogs = [LogFile(os.path.join(tmp, f"prefill-{i}.log"), f"prefill worker {i}")
+             for i in (1, 2)]
+    dlogs = [LogFile(os.path.join(tmp, f"decode-{i}.log"), f"decode worker {i}")
+             for i in (1, 2)]
+    result: dict = {"leg": "two_pool"}
+    t_leg = time.monotonic()
+    server = await ControlPlaneServer(port=0).start()
+    front = await DistributedRuntime.connect(server.address)
+    planner = None
+    decode = None
+    op = None
+    pids: list[int] = []
+    try:
+        pcmd = worker_cmd(tmp, "prefill", [
+            "-m", "dynamo_tpu_torch.examples.prefill_worker", "--control-plane",
+            server.address, "--namespace", ns, *WORKER_ARGS])
+        dcmd = worker_cmd(tmp, "decode", [
+            "-m", "dynamo_tpu_torch", *HTTP_ARGS, "--in", f"dyn://{ns}.decode.generate",
+            "--control-plane", server.address])
+        planner = await Child("fleet planner", [
+            "planner", "--control-plane", server.address, "--namespace", ns, "--two-pool",
+            "--worker-cmd", dcmd, "--prefill-worker-cmd", pcmd, "--min-workers", "1",
+            "--max-workers", "1", "--prefill-min-workers", "1", "--prefill-max-workers", "2",
+            "--decode-component", "decode", "--metric-interval", str(PLANNER_TICK),
+            "--adjustment-interval", str(PLANNER_ADJUST), "--state-path", state,
+            "--decision-log", dlog]).start()
+        await planner.wait_for(r"fleet planner running", 60)
+        decode = TorchEngine(disagg_config(), device=DEVICE)
+        await decode.start()
+        await warm_up(decode)
+        await plogs[0].wait_for(r"READY \d+", FLEET_WAIT_S)
+        await dlogs[0].wait_for(r"worker serving ", FLEET_WAIT_S)
+        result["pools_ready_s"] = time.monotonic() - t_leg
+        router = DisaggRouter.__new__(DisaggRouter)
+        router.cfg = DisaggConfig(max_local_prefill_length=DISAGG_LOCAL_MAX,
+                                  max_prefill_queue_size=64)
+        op = await DecodeOperator(decode, PrefillQueue(front, ns), router,
+                                  transport="tcp").start()
+        INTEGRITY.reset()
+        bases = disagg_prompts(5, vocab)[:4] + disagg_prompts(6, vocab)[:4]
+
+        async def send(i, base):
+            p = unique_prompt(base, i, vocab)
+            pre = PreprocessedRequest(
+                token_ids=p, sampling=SamplingOptions(temperature=0.0),
+                stop=StopConditions(max_tokens=max_tokens, ignore_eos=True))
+            t0 = time.monotonic()
+            toks, finish, first = [], None, None
+            async for raw in op.generate(Context(pre.to_wire())):
+                out = EngineOutput.from_wire(raw)
+                if out.token_ids and first is None:
+                    first = time.monotonic() - t0
+                toks.extend(out.token_ids)
+                finish = out.finish_reason or finish
+            return {"prompt": p, "tokens": toks, "finish": finish, "ttft_ms": first * 1e3}
+
+        t_load = time.time()
+        load = ClosedLoop(send, bases, POOL_CLIENTS).start()
+        # Crash heal: the decode pool's worker killed, shell and child.
+        victim = state_pids(state, "decode")[0]
+        seen_before = len(planner.lines)
+        t_kill = time.monotonic()
+        os.killpg(victim, signal.SIGKILL)
+        m, t_seen = await planner.wait_for(
+            rf"worker {victim} died .*crash path, no drain", 30)
+        gap_s = t_seen - t_kill
+
+        await until(lambda: state_pids(state, "decode") not in ([], [victim]), 30,
+                    "the replacement's pid in the state file")
+        respawn_s = time.monotonic() - t_kill
+        up = await wait_decision(dlog, "prefill", "up", t_load, 60)
+        await plogs[1].wait_for(r"READY \d+", FLEET_WAIT_S)
+        t_ready2 = time.time()
+        p2_pid = state_pids(state, "prefill")[-1]
+        n_ready = len(load.results)
+        await until(lambda: len(load.results) >= n_ready + 2 * POOL_CLIENTS, 120,
+                    "requests after the second prefill worker joined")
+        results = await load.stop()
+        t_stop = time.time()
+        _, t_serving = await dlogs[1].wait_for(r"worker serving ", FLEET_WAIT_S)
+        down = await wait_decision(dlog, "prefill", "down", t_stop, 10 * PLANNER_ADJUST + 10)
+        report_p2 = await report_of(plogs[1])
+        m, _ = await planner.wait_for(rf"worker pid {p2_pid} exited \(code (\S+)\)", 60)
+        rc_p2 = m.group(1)
+        dec = decisions(dlog)
+        decode_decisions = [(d["decision"], d["size"]) for d in dec if d["pool"] == "decode"]
+        planner.signal(signal.SIGTERM)
+        planner_rc = await planner.exit_code(60)
+        pids = state_pids(state, "prefill") + state_pids(state, "decode")
+        report_p1 = await retire(state_pids(state, "prefill")[0], plogs[0])
+        report_d2 = await retire(state_pids(state, "decode")[0], dlogs[1])
+        pids = []
+        integrity = INTEGRITY.snapshot()
+        remote = op.remote_count
+        await op.stop()
+        op = None
+        streams = [r["tokens"] for r in results]
+        ref = stream_gates("planner two_pool", cfg, params, [r["prompt"] for r in results],
+                           streams, [r["finish"] for r in results], max_tokens)
+        launches = {k: r["kernel_launches"]["ragged_paged_attention_cuda.launches"]
+                    for k, r in (("prefill-1", report_p1), ("prefill-2", report_p2))}
+        result.update({
+            "requests": len(results), "clients": POOL_CLIENTS, "max_tokens": max_tokens,
+            "remote_count": remote, "decision_up": up, "decision_down": down,
+            "prefill_decisions": [d["decision"] for d in dec if d["pool"] == "prefill"],
+            "decode_decisions": decode_decisions,
+            "crash": {"killed_pid": victim, "kill_to_planner_log_s": gap_s,
+                      "kill_to_new_pid_in_state_s": respawn_s,
+                      "kill_to_replacement_serving_s": t_serving - t_kill,
+                      "planner_lines_since_kill": len(planner.lines) - seen_before},
+            "up_to_second_prefill_ready_s": t_ready2 - up["unix"],
+            "load_stop_to_prefill_down_s": down["unix"] - t_stop,
+            "ttft_p50_ms": pct([r["ttft_ms"] for r in results], 50),
+            "integrity": integrity, "degraded_requests": decode.degraded_requests,
+            "prefill_worker_reports": {"1": report_p1, "2": report_p2},
+            "prefill_worker_launches": launches, "planner_exit_code": planner_rc,
+            "retired_prefill_exit_code": rc_p2,
+            "wall_s": time.monotonic() - t_leg, **ref,
+        })
+        rep_ok = all(r["unified_dispatches"] and not r["mid_traffic_compiles"]
+                     and r["kernel_launches"]["ragged_paged_attention_cuda.launches"]
+                     == r["num_layers"] * r["unified_dispatches"]
+                     for r in (report_p1, report_p2))
+        if not (report_p2["requests"] >= 1 and launches["prefill-2"] > 0 and rep_ok
+                and rc_p2 == "0"
+                and all(d == ("hold", 1) for d in decode_decisions) and decode_decisions
+                and gap_s <= PLANNER_TICK + 2.0
+                and integrity["integrity_failures_total"] == 0
+                and not decode.degraded_requests and planner_rc == 0
+                and result["remote_count"] >= 2 * POOL_CLIENTS):
+            raise SystemExit(f"planner two_pool: {result}")
+    finally:
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        if op is not None:
+            await op.stop()
+        if planner is not None:
+            await planner.kill()
+        if decode is not None:
+            await decode.stop()
+        await front.shutdown()
+        await server.stop()
+    return result
+
+
+async def phase_planner(vocab: int, params) -> dict:
+    """Phase 11: the H100 calibration, then the planner over real
+    llama3.2-1b workers (see the module docstring)."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    t0 = time.monotonic()
+    cfg = ModelConfig.llama32_1b()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_planner_")
+    result: dict = {"phase": "planner"}
+    try:
+        result["calibration"] = await calibration_leg(card_line(), vocab)
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["aggregated"] = await aggregated_leg(tmp, cfg, params, vocab)
+        emit({"phase": "planner_leg", **result["aggregated"]})
+        result["two_pool"] = await two_pool_leg(tmp, cfg, params, vocab)
+        emit({"phase": "planner_leg", **result["two_pool"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["wall_s"] = time.monotonic() - t0
+    agg, pool = result["aggregated"], result["two_pool"]
+    result["worker_launches"] = {
+        **{f"aggregated-{k}": r["kernel_launches"]["ragged_paged_attention_cuda.launches"]
+           for k, r in agg["worker_reports"].items()},
+        **pool["prefill_worker_launches"]}
+    emit({"phase": "planner", "wall_s": result["wall_s"],
+          "worker_launches": result["worker_launches"],
+          "summary": {
+              "calibration_fit": result["calibration"]["fit"],
+              "up_to_lease_s": agg["up_to_lease_s"],
+              "up_to_new_worker_first_token_s": agg["up_to_new_worker_first_token_s"],
+              "ttft_p50_before_up_ms": agg["ttft_p50_before_up_ms"],
+              "ttft_p50_after_new_worker_ms": agg["ttft_p50_after_new_worker_ms"],
+              "load_stop_to_down_s": agg["load_stop_to_down_s"],
+              "crash": pool["crash"],
+              "load_stop_to_prefill_down_s": pool["load_stop_to_prefill_down_s"]}})
+    return result
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3866,6 +4651,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet = asyncio.run(phase_fleet(prompts, max_tokens, http, params))
     disagg = asyncio.run(phase_disagg(vocab, max_tokens, params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    planner = asyncio.run(phase_planner(vocab, params))
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
@@ -3887,7 +4675,8 @@ def main() -> int:
                          **{leg: disagg[leg]["kernel_launches"]
                             for leg in ("device", "tcp", "native")},
                          "prefill_worker": disagg["worker_bf16"]["ragged_launches"],
-                         "kvbm": disagg["kvbm"]["ragged_launches"]}),
+                         "kvbm": disagg["kvbm"]["ragged_launches"]},
+                     planner_worker_launches=planner["worker_launches"]),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
                      served_int8["kernel_launches"], t_int8,

@@ -21,6 +21,7 @@ import numpy as np
 
 from dynamo_tpu_torch.block_manager.integrity import INTEGRITY, block_checksum
 from dynamo_tpu_torch.block_manager.pool import Block, BlockPool
+from dynamo_tpu_torch.utils.concurrency import bound
 
 logger = logging.getLogger(__name__)
 
@@ -128,7 +129,10 @@ class OffloadManager:
                 self._pending.discard(h)
 
     def _store(self, h, parent_hash, tokens, data, checksum=None) -> None:
-        with self._lock:
+        # Runs on a to_thread executor: a scoped bind tells this thread
+        # apart from the engine and the loop for the affinity checker
+        # (executor threads are reused, so the bind does not stick).
+        with bound("worker"), self._lock:
             # Timed inside the lock: the rate sample must measure the
             # transfer, not lock-wait (deflated EMAs would mislead the
             # network-aware selection they feed).
@@ -164,7 +168,7 @@ class OffloadManager:
         out: list[Block] = []
         nbytes = 0
         bad: Block | None = None
-        with self._lock:
+        with bound("worker"), self._lock:
             matched = self.dst.match_sequence_hashes(hashes)
             # Timer starts at the copy loop: the rate sample must cover
             # the byte moves only — neither lock-wait nor the hash-match

@@ -1,6 +1,6 @@
 """dynamo-tpu-torch CLI (port of the ``run``, ``control-plane``,
-``router`` and ``metrics`` subcommands of dynamo_tpu/cli.py): launch the
-port from a shell.
+``router``, ``metrics`` and ``planner`` subcommands of
+dynamo_tpu/cli.py): launch the port from a shell.
 
   python -m dynamo_tpu_torch run [--in {http,text,batch:FILE,dyn://ns.comp.ep}]
                                  [--out {torch,echo_core,echo_full,dyn}]
@@ -8,6 +8,8 @@ port from a shell.
   python -m dynamo_tpu_torch control-plane [--host H] [--port P] [--token T]
   python -m dynamo_tpu_torch router --control-plane ADDR --endpoint dyn://ns.c.e
   python -m dynamo_tpu_torch metrics --control-plane ADDR [--component C]
+  python -m dynamo_tpu_torch planner --control-plane ADDR --worker-cmd CMD
+                                     [--two-pool --prefill-worker-cmd CMD] ...
 
 - ``--in http``        OpenAI server; SIGINT/SIGTERM drains it (new
                        requests 503, the admitted ones finish) and exits
@@ -37,6 +39,17 @@ port from a shell.
 - ``metrics``          the Prometheus exporter of the workers' load
                        metrics (llm/metrics_exporter.py; ``--push-url``
                        also pushes to a PushGateway)
+- ``planner``          the auto-scaler (planner/): spawns workers from
+                       ``--worker-cmd`` (``{index}`` substituted) and
+                       scales them within [--min-workers, --max-workers]
+                       on the queue, KV and waiting watermarks, or on a
+                       ``--profile`` and an SLA; ``--two-pool`` scales a
+                       prefill pool (``--prefill-worker-cmd``, on the
+                       prefill queue's depth and age) and a decode pool
+                       apart. Crashed workers are replaced at once;
+                       SIGTERM stops the planner and leaves its workers
+                       running, checkpointed in ``--state-path`` for the
+                       next planner to adopt (a recycled pid is refused).
 
 KV-aware routing (``--router-mode kv``): each worker publishes its block
 pool's KV events and per-request actual reuse on the bus events plane
@@ -75,8 +88,9 @@ the span capture (``<path>.<pid>``) that
 ``python -m dynamo_tpu_torch.tools.trace_merge`` joins.
 
 The flags the port serves keep the reference's names, destinations and
-defaults, except ``--endpoint`` (``dyn://dynamo.torch.generate``) and the
-exporter's ``--component`` (``torch``). Flags that need what the port
+defaults, except ``--endpoint`` (``dyn://dynamo.torch.generate``), the
+exporter's ``--component`` and the planner's ``--decode-component``
+(``torch``: the port's workers serve that component). Flags that need what the port
 does not have yet — meshes and multi-host, weight quantization,
 embeddings, layered configs — are refused with an error that names them,
 never ignored. The
@@ -276,6 +290,47 @@ def build_parser() -> argparse.ArgumentParser:
                          "per replica on the same --component; the id labels "
                          "the replica's route records")
     rt.add_argument("-v", "--verbose", action="store_true")
+
+    pl = sub.add_parser("planner", help="auto-scaler (queue/KV watermarks)")
+    pl.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    pl.add_argument("--namespace", default="dynamo")
+    pl.add_argument("--min-workers", type=int, default=1)
+    pl.add_argument("--max-workers", type=int, default=4, help="card budget")
+    pl.add_argument("--adjustment-interval", type=float, default=10.0)
+    pl.add_argument("--metric-interval", type=float, default=1.0)
+    pl.add_argument("--worker-cmd", required=True,
+                    help="shell command template spawning one worker "
+                         "({index} is substituted)")
+    pl.add_argument("--state-path", default=None, metavar="FILE.json",
+                    help="checkpoint for crash/restart resume (default "
+                         "~/.dynamo_tpu/state/<namespace>.json)")
+    pl.add_argument("--profile", default=None, metavar="BENCH.json",
+                    help="perf profile (a bench output line with "
+                         "extras.sweep) enabling SLA-driven scaling")
+    pl.add_argument("--ttft-sla-ms", type=float, default=None)
+    pl.add_argument("--itl-sla-ms", type=float, default=None)
+    pl.add_argument("--decision-log", default=None, metavar="FILE.jsonl",
+                    help="append one JSONL line per scaling decision")
+    # Two-pool mode: independent prefill (queue depth/age) and decode
+    # (KV use, waiting, ITL) pools; --worker-cmd spawns DECODE workers,
+    # --prefill-worker-cmd prefill workers.
+    pl.add_argument("--two-pool", action="store_true",
+                    help="scale prefill and decode pools independently")
+    pl.add_argument("--prefill-worker-cmd", default=None,
+                    help="shell command template spawning one PREFILL "
+                         "worker (required with --two-pool)")
+    pl.add_argument("--prefill-min-workers", type=int, default=1)
+    pl.add_argument("--prefill-max-workers", type=int, default=4)
+    pl.add_argument("--prefill-queue-age-up-s", type=float, default=5.0,
+                    help="oldest queued prefill older than this scales "
+                         "the prefill pool up at ANY depth")
+    pl.add_argument("--decode-component", default="torch",
+                    help="component whose metrics plane scores the "
+                         "decode pool")
+    pl.add_argument("--decode-itl-up-ms", type=float, default=None,
+                    help="decode pool scales up when the pool ITL EMA "
+                         "exceeds this (off by default)")
+    pl.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
@@ -320,6 +375,9 @@ def main(argv: list[str] | None = None) -> None:
         return
     if args.cmd == "router":
         asyncio.run(_router(args))
+        return
+    if args.cmd == "planner":
+        asyncio.run(_planner(args))
         return
     refuse_unserved(args)
     asyncio.run(_run(args))
@@ -383,6 +441,126 @@ async def _router(args) -> None:
         await _wait_for_signal()
     finally:
         await service.stop()
+        await drt.shutdown()
+
+
+def _planner_state_path(args) -> str:
+    from pathlib import Path
+
+    return args.state_path or str(
+        Path.home() / ".dynamo_tpu" / "state" / f"{args.namespace}.json"
+    )
+
+
+async def _planner(args) -> None:
+    """The planner until SIGTERM/SIGINT: stopping leaves its workers
+    running and checkpointed in the state file, where the next planner
+    adopts them."""
+    from dynamo_tpu_torch.planner.planner import Planner, PlannerConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    if args.two_pool:
+        if args.profile or args.ttft_sla_ms is not None \
+                or args.itl_sla_ms is not None:
+            # The SLA law is single-pool: accepting the flags and
+            # ignoring them would be a silent half-config.
+            raise SystemExit(
+                "--two-pool does not support --profile/--ttft-sla-ms/"
+                "--itl-sla-ms (single-pool SLA law); use "
+                "--decode-itl-up-ms and --prefill-queue-age-up-s"
+            )
+        await _fleet_planner(args)
+        return
+    has_sla = args.ttft_sla_ms is not None or args.itl_sla_ms is not None
+    if bool(args.profile) != has_sla:
+        raise SystemExit(
+            "SLA scaling needs BOTH --profile and at least one of "
+            "--ttft-sla-ms/--itl-sla-ms (got only one half; the other "
+            "would be silently ignored)"
+        )
+    profile = None
+    if args.profile:
+        from dynamo_tpu_torch.planner.profiles import PerfProfile
+
+        profile = PerfProfile.from_bench_json(args.profile)
+    drt = await DistributedRuntime.connect(args.control_plane)
+    planner = Planner(
+        drt,
+        PlannerConfig(
+            namespace=args.namespace,
+            min_workers=args.min_workers,
+            max_workers=args.max_workers,
+            adjustment_interval_s=args.adjustment_interval,
+            metric_interval_s=args.metric_interval,
+            state_path=_planner_state_path(args),
+            ttft_sla_ms=args.ttft_sla_ms,
+            itl_sla_ms=args.itl_sla_ms,
+            decision_log_path=args.decision_log,
+        ),
+        worker_cmd=args.worker_cmd,
+        profile=profile,
+    )
+    await planner.start()
+    print("planner running", flush=True)
+    try:
+        await _wait_for_signal()
+    finally:
+        await planner.stop()
+        await drt.shutdown()
+
+
+async def _fleet_planner(args) -> None:
+    """Two-pool mode: --worker-cmd spawns decode workers,
+    --prefill-worker-cmd prefill workers; each pool runs its own law and
+    hysteresis over the shared sample loop."""
+    from dynamo_tpu_torch.planner.fleet import FleetPlanner, FleetPlannerConfig
+    from dynamo_tpu_torch.planner.planner import SubprocessConnector
+    from dynamo_tpu_torch.planner.pools import (
+        DecodeLaw,
+        PoolConfig,
+        PrefillLaw,
+        default_pools,
+    )
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    if not args.prefill_worker_cmd:
+        raise SystemExit("--two-pool requires --prefill-worker-cmd")
+    drt = await DistributedRuntime.connect(args.control_plane)
+    prefill_pool, decode_pool = default_pools(
+        SubprocessConnector(args.prefill_worker_cmd),
+        SubprocessConnector(args.worker_cmd),
+        prefill_cfg=PoolConfig(
+            name="prefill",
+            min_workers=args.prefill_min_workers,
+            max_workers=args.prefill_max_workers,
+        ),
+        decode_cfg=PoolConfig(
+            name="decode",
+            min_workers=args.min_workers,
+            max_workers=args.max_workers,
+        ),
+        prefill_law=PrefillLaw(age_up_s=args.prefill_queue_age_up_s),
+        decode_law=DecodeLaw(itl_up_ms=args.decode_itl_up_ms),
+    )
+    planner = FleetPlanner(
+        drt,
+        FleetPlannerConfig(
+            namespace=args.namespace,
+            decode_component=args.decode_component,
+            adjustment_interval_s=args.adjustment_interval,
+            metric_interval_s=args.metric_interval,
+            state_path=_planner_state_path(args),
+            decision_log_path=args.decision_log,
+        ),
+        prefill_pool,
+        decode_pool,
+    )
+    await planner.start()
+    print("fleet planner running (two-pool)", flush=True)
+    try:
+        await _wait_for_signal()
+    finally:
+        await planner.stop()
         await drt.shutdown()
 
 

@@ -500,6 +500,7 @@ class PrefillWorker:
             tid = (req.get("trace") or {}).get("trace_id") or None
             with request_scope(rid, tid):
                 requeued = False
+                rejoined = False
                 try:
                     result = await fut
                     if result is None:
@@ -518,6 +519,22 @@ class PrefillWorker:
                     if tid:
                         # Same traceless-legacy guard as queue_wait
                         # above: never auto-open a junk trace.
+                        if (
+                            req.get("trace_pid") == os.getpid()
+                            and tracer().trace_id_if_active(rid) != tid
+                        ):
+                            # Same process, one shared capture: the last
+                            # frame activated the decode side, which can
+                            # stream and FINISH the request before this
+                            # coroutine resumes. A span added now would
+                            # open a fresh trace under a new id (the
+                            # request's timeline then lacks kv_transfer
+                            # and an orphan appears): rejoin the request's
+                            # trace for the span and close it again below.
+                            late = TraceContext.from_wire(req.get("trace"))
+                            late.sent_unix = None   # no clock-offset hint
+                            tracer().adopt(rid, late)
+                            rejoined = True
                         tracer().add_span(
                             rid, "kv_transfer", start_mono=t0_send
                         )
@@ -527,7 +544,11 @@ class PrefillWorker:
                     )
                     requeued = await self._requeue_full(req)
                 finally:
-                    if req.get("trace_pid") != os.getpid():
+                    if rejoined:
+                        # The span streamed to the capture as it closed;
+                        # the request's finish is the decode side's.
+                        tracer().abandon(rid, reason="late kv_transfer span")
+                    elif req.get("trace_pid") != os.getpid():
                         # Cross-process item (including trace_pid=None —
                         # an entry from a producer that predates trace
                         # context): this worker's half of the capture

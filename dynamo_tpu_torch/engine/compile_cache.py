@@ -40,12 +40,13 @@ import hashlib
 import json
 import logging
 import os
-import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Callable
 
 import torch
+
+from dynamo_tpu_torch.utils.concurrency import make_lock
 
 logger = logging.getLogger(__name__)
 
@@ -171,7 +172,7 @@ class ShapeManifest:
     set first, in usage order. Entries are keyed by ``shape_key``."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("compile.manifest")
         self.shapes: dict[str, dict] = {}
 
     def record(
@@ -268,7 +269,7 @@ class CompileStats:
     def __init__(self) -> None:
         self.manifest = ShapeManifest()
         # Written by the engine thread, read by /metrics from the loop.
-        self._lock = threading.Lock()
+        self._lock = make_lock("compile.stats")
         self.seen: set[str] = set()
         self.warming = False
         self.warmed_programs = 0

@@ -114,6 +114,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 )
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.failover import FAILOVER
+from dynamo_tpu_torch.utils import concurrency
 from dynamo_tpu_torch.utils.deadline import OVERLOAD
 from dynamo_tpu_torch.utils.faults import FAULTS
 from dynamo_tpu_torch.utils.retry import RETRIES
@@ -251,6 +252,9 @@ class TorchEngine:
             on_event=self._queue_kv_event,
         )
         self.scheduler = Scheduler(self.cfg, self.allocator)
+        # start() runs on the event loop: bind it for the affinity
+        # checker (a no-op unless DYNTPU_CHECK_THREADS=1).
+        concurrency.bind_thread("loop")
         # Weight init / upload happens off the event loop.
         await asyncio.to_thread(self._build_runner)
         self._state = "warming"
@@ -613,6 +617,7 @@ class TorchEngine:
 
     # -- engine thread ------------------------------------------------------
     def _engine_loop(self) -> None:
+        concurrency.bind_thread("engine")
         try:
             while not self._stop.is_set():
                 busy = self._step_unified()
@@ -1809,6 +1814,9 @@ class TorchEngine:
     def _flush_side_channels(self) -> None:
         """Engine thread only: walks the scheduler's deques and drains the
         side-channel buffers, none of which are locked."""
+        concurrency.assert_context(
+            "engine", what="TorchEngine._flush_side_channels"
+        )
         if self._remote:
             self._expire_stale_remotes()
         if self._onboard_timings:

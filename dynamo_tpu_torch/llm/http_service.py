@@ -46,7 +46,8 @@ Debug surface: /debug/steps?n= (the engine's flight recorder),
 route-audit records of any KV router in the process, with the router
 gauges), /debug/profile?seconds= (a ``torch.profiler`` window; 503
 unless a profile directory is configured, 409 while one runs). Both
-/metrics renderings carry the router gauges (``ROUTE_OBS``).
+/metrics renderings carry the router gauges (``ROUTE_OBS``) and the
+planner's (``PLANNER_OBS``).
 
 Not in this port yet, refused rather than ignored: /v1/embeddings, 404
 with the reference's error body.
@@ -89,7 +90,9 @@ from dynamo_tpu_torch.llm.protocols.openai import (
     Usage,
 )
 from dynamo_tpu_torch.llm.protocols.sse import SseEvent
+from dynamo_tpu_torch.planner.obs import PLANNER_OBS
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.utils import concurrency
 from dynamo_tpu_torch.utils.deadline import OVERLOAD, Deadline, parse_timeout_ms
 from dynamo_tpu_torch.utils.logging import request_scope
 from dynamo_tpu_torch.utils.profiling import ProfileError, Profiler
@@ -291,6 +294,9 @@ class HttpService:
 
     # -- lifecycle ----------------------------------------------------------
     async def start(self) -> None:
+        # Handlers run on this loop: bind it for the affinity checker (a
+        # no-op unless DYNTPU_CHECK_THREADS=1).
+        concurrency.bind_thread("loop")
         loop = asyncio.get_running_loop()
         self._server = await loop.create_server(
             lambda: _Connection(self), self.host, self.port
@@ -496,6 +502,10 @@ class HttpService:
         # Router-plane gauges (route counts, indexer staleness, scrape
         # failures) of any KvRouter living in this process.
         for key, val in ROUTE_OBS.gauges().items():
+            self.metrics.set_gauge(key, float(val))
+        # Planner-plane gauges (scale decisions, pool sizes, the last
+        # decision's age) of any planner living in this process.
+        for key, val in PLANNER_OBS.gauges().items():
             self.metrics.set_gauge(key, float(val))
         # Process-wide overload counters: they export without an engine
         # too (a frontend-only process sheds and expires work).
@@ -840,6 +850,8 @@ class HealthServer(HttpService):
         # A RouterService process fronts its KvRouter with a HealthServer:
         # the router gauges live there.
         values.update(ROUTE_OBS.gauges())
+        # So do a planner's, where one hosts a health server.
+        values.update(PLANNER_OBS.gauges())
         for key, val in values.items():
             self.metrics.set_gauge(key, float(val))
         # The worker is where the engine's span and ITL histograms

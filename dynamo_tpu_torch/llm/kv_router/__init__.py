@@ -4,8 +4,9 @@ A global radix index of which worker holds KV for which token-block
 prefix, fed by the workers' KV events over the bus events plane, plus
 scraped per-worker load metrics, picks the best worker per request.
 Every decision is audited (``ROUTE_OBS``, ``/debug/routes``) and joined
-against the engine's actual reuse by tools/route_audit.py. The router
-replica set of the reference (``replicas.py``) is not ported yet.
+against the engine's actual reuse by tools/route_audit.py.
+``replicas.py`` runs N router services as one replicated endpoint and
+measures a rejoined replica's staleness.
 """
 
 from dynamo_tpu_torch.llm.kv_router.audit import (

@@ -23,19 +23,10 @@ import random
 from dataclasses import dataclass, field
 
 from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import ProcessedEndpoints
+from dynamo_tpu_torch.planner import calibration
+from dynamo_tpu_torch.planner.calibration import KV_BYTES_PER_TOKEN
 
 logger = logging.getLogger(__name__)
-
-#: KV bytes per token of the llama3.2-1b layout: K and V × 16 layers ×
-#: 8 kv heads × 64 dims × 2 B (bf16) = 32 KiB.
-KV_BYTES_PER_TOKEN = 2 * 16 * 8 * 64 * 2
-
-#: Pinned host→device copy rate of a batch of llama3.2-1b KV blocks
-#: (64 blocks of 16 tokens, 32 MiB per copy), GB/s: 51.23 measured by
-#: chip_smoke.py's fleet phase (``kv_route`` leg, ``h2d_kv_rate``) on an
-#: NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
-H2D_KV_GBPS = 51.23
-
 
 @dataclass
 class KvRouterConfig:
@@ -55,10 +46,11 @@ class KvRouterConfig:
     # ratio across candidates moves a decision; the absolute value
     # scales the audited transfer_ms.
     block_bytes: int = 16 * KV_BYTES_PER_TOKEN
-    # Fallback link for a worker that advertises no rate (the port's
-    # workers have no KVBM yet, so all of them): the measured pinned
-    # host→device rate above.
-    default_link_gbps: float = H2D_KV_GBPS
+    # Fallback link for a worker that advertises no rate: the calibrated
+    # handoff rate (planner/calibration.py, the one source of it: the
+    # pinned host→device KV copy rate the H100 calibration measured), so
+    # a re-calibration reprices every consumer at once.
+    default_link_gbps: float = field(default_factory=lambda: calibration.HANDOFF_GBPS)
 
 
 @dataclass

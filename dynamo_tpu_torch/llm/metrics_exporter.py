@@ -11,8 +11,9 @@ exporter also POSTs the same text body to ``{push_url}/metrics/job/{job}``
 every ``push_interval_s`` (the Prometheus PushGateway protocol), over
 the port's standard-library HTTP client.
 
-Not yet: the planner's gauges (``PLANNER_OBS`` of the reference) come
-with the planner slice (ROADMAP A11).
+A planner sharing the process exports its gauges here too
+(``PLANNER_OBS``: scale decisions, pool sizes, the last decision's
+age), as ``dyntpu_planner_*`` series.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from dynamo_tpu_torch.llm.http_service import (
     _text_response,
 )
 from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvMetricsAggregator
+from dynamo_tpu_torch.planner.obs import PLANNER_OBS
 
 logger = logging.getLogger(__name__)
 
@@ -231,6 +233,11 @@ class MetricsExporter:
                     f'dyntpu_{key}{{{self._labels},worker="{wid:x}"}} '
                     f"{getattr(m, key)}"
                 )
+        # Planner-plane gauges of a planner sharing this process: its
+        # scale decisions and pool sizes beside the worker plane.
+        for key, val in PLANNER_OBS.gauges().items():
+            lines.append(f"# TYPE dyntpu_{key} gauge")
+            lines.append(f"dyntpu_{key}{{{self._labels}}} {val}")
         return "\n".join(lines) + "\n"
 
     async def stop(self) -> None:

@@ -95,7 +95,14 @@ class RouterService:
         ep = self._drt.namespace(self.target.namespace).component(
             self.component_name
         ).endpoint(self.target.name)
-        self._instance = await ep.serve(self)
+        # Discovery says what this instance is: a replica routing to
+        # ``target``, under its replica id.
+        self._instance = await ep.serve(
+            self, metadata={
+                "routes_to": str(self.target),
+                "replica_id": self.replica_id,
+            }
+        )
         logger.info(
             "router service %s (replica %d) -> %s",
             self.endpoint_path, self.replica_id, self.target,

@@ -16,8 +16,9 @@ term); the optional bytes terms price KV reads and weight passes against
 defaults (500 µs per step, 2 µs per prefill token). The terms the JAX
 package defaults from its TPU calibration (``prefill_quadratic_us``,
 ``kv_bytes_per_token``, ``decode_hbm_gbps``, ``weight_bytes_per_step``)
-default to 0 here — off — until H100 constants are fitted (ROADMAP
-A11); no TPU number enters the port.
+default to 0 here — off; ``planner.calibration.calibrated_mocker_config()``
+prices every term from the recorded H100 run instead. No TPU number
+enters the port.
 
 Clock: every sleep is also charged to the runner's ``charged_clock``,
 which the engine reads for the co-location controller's ITL samples
@@ -60,7 +61,7 @@ class MockerConfig:
     """Cost model and token law of the simulated runner."""
 
     prefill_time_per_token_us: float = 2.0   # linear term
-    prefill_quadratic_us: float = 0.0        # * len^2 (off: no H100 fit yet)
+    prefill_quadratic_us: float = 0.0        # * len^2 (off; calibrated: planner/calibration.py)
     decode_time_per_step_us: float = 500.0   # per dispatch (weight pass)
     decode_time_per_lane_us: float = 0.0     # per decode lane per step
     prefill_dispatch_base_us: float = 0.0    # per standalone prefill call

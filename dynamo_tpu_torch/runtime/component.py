@@ -16,7 +16,7 @@ Endpoints are addressed as ``dyn://namespace.component.endpoint``
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any
 
 if TYPE_CHECKING:
@@ -58,6 +58,9 @@ class Instance:
     endpoint: EndpointId
     lease_id: int
     subject: str
+    # What the instance says of itself in discovery (a router replica:
+    # ``routes_to`` and ``replica_id``); not part of its identity.
+    metadata: dict = field(default_factory=dict, compare=False)
 
     @property
     def instance_id(self) -> int:
@@ -70,15 +73,16 @@ class Instance:
         return f"{self.endpoint.etcd_prefix}{self.lease_id:x}"
 
     def to_json(self) -> bytes:
-        return json.dumps(
-            {
-                "namespace": self.endpoint.namespace,
-                "component": self.endpoint.component,
-                "endpoint": self.endpoint.name,
-                "lease_id": self.lease_id,
-                "subject": self.subject,
-            }
-        ).encode()
+        d = {
+            "namespace": self.endpoint.namespace,
+            "component": self.endpoint.component,
+            "endpoint": self.endpoint.name,
+            "lease_id": self.lease_id,
+            "subject": self.subject,
+        }
+        if self.metadata:
+            d["metadata"] = self.metadata
+        return json.dumps(d).encode()
 
     @staticmethod
     def from_json(raw: bytes) -> "Instance":
@@ -87,6 +91,7 @@ class Instance:
             endpoint=EndpointId(d["namespace"], d["component"], d["endpoint"]),
             lease_id=d["lease_id"],
             subject=d["subject"],
+            metadata=dict(d.get("metadata") or {}),
         )
 
 
@@ -133,9 +138,10 @@ class Endpoint:
         """Per-instance request subject (reference: component.rs:335-346)."""
         return f"{self.component.service_name}.{self.name}-{lease_id:x}"
 
-    async def serve(self, engine: Any):
-        """Register this endpoint instance and start handling requests.
-        Returns a `ServedInstance` handle (stop() deregisters)."""
+    async def serve(self, engine: Any, metadata: dict | None = None):
+        """Register this endpoint instance (with ``metadata`` in its
+        discovery record) and start handling requests. Returns a
+        `ServedInstance` handle (stop() deregisters)."""
         from dynamo_tpu_torch.runtime.ingress import serve_endpoint
 
-        return await serve_endpoint(self._drt, self, engine)
+        return await serve_endpoint(self._drt, self, engine, metadata)

@@ -112,13 +112,14 @@ class ServedInstance:
 
 
 async def serve_endpoint(
-    drt, endpoint: Endpoint, engine: AsyncEngine
+    drt, endpoint: Endpoint, engine: AsyncEngine, metadata: dict | None = None,
 ) -> ServedInstance:
-    """Register ``engine`` as a live instance of ``endpoint`` and start
-    the request pump."""
+    """Register ``engine`` as a live instance of ``endpoint`` (its
+    discovery record carrying ``metadata``) and start the request pump."""
     lease_id = drt.primary_lease_id
     subject = endpoint.subject_for(lease_id)
-    instance = Instance(endpoint=endpoint.id, lease_id=lease_id, subject=subject)
+    instance = Instance(endpoint=endpoint.id, lease_id=lease_id, subject=subject,
+                        metadata=dict(metadata or {}))
 
     sub = await drt.bus.subscribe(subject)
     await drt.store.put(instance.store_key, instance.to_json(), lease_id=lease_id)

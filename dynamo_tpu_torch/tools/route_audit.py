@@ -47,9 +47,8 @@ def load_records(
     paths: list[str],
 ) -> tuple[list[dict], list[dict], list[dict]]:
     """All route / kv_actual / planner records across the capture set
-    (pid-suffixed captures expand as trace_merge's do). A planner's
-    ``kind="planner"`` scale decisions share the capture in the JAX
-    package; the port has no planner yet, so its captures hold none."""
+    (pid-suffixed captures expand as trace_merge's do), and a planner's
+    ``kind="planner"`` scale decisions, which share the capture."""
     routes: list[dict] = []
     actuals: list[dict] = []
     planner: list[dict] = []

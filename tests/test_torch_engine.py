@@ -380,7 +380,11 @@ from dynamo_tpu_torch.ops.kernels import (  # noqa: F401
 from dynamo_tpu_torch import cli
 from dynamo_tpu_torch.llm.http_client import fetch
 from dynamo_tpu_torch.llm import kv_router, metrics_exporter, router_service  # noqa: F401
-from dynamo_tpu_torch.tools import route_audit  # noqa: F401
+from dynamo_tpu_torch.tools import ingress_bench, route_audit  # noqa: F401
+from dynamo_tpu_torch import planner  # noqa: F401
+from dynamo_tpu_torch.planner import calibration, fleet, obs, pools, profiles, simulate  # noqa: F401
+from dynamo_tpu_torch.llm.kv_router import replicas  # noqa: F401
+from dynamo_tpu_torch.utils import concurrency, pool  # noqa: F401
 import chip_smoke  # noqa: F401
 
 
@@ -419,6 +423,40 @@ async def http_chat():
 
 
 assert asyncio.run(http_chat()) > 0
+
+
+async def planner_cli():
+    """The planner subcommand in this interpreter: two pools of sleep
+    workers, then SIGTERM; the workers are killed here."""
+    import io, json, os, signal, tempfile
+    from dynamo_tpu_torch.runtime.transports.control_plane import ControlPlaneServer
+
+    server = await ControlPlaneServer(host="127.0.0.1", port=0).start()
+    state = os.path.join(tempfile.mkdtemp(), "s.json")
+    args = cli.build_parser().parse_args([
+        "planner", "--control-plane", server.address, "--two-pool",
+        "--worker-cmd", "exec sleep 600 >/dev/null 2>&1 # d-{index}",
+        "--prefill-worker-cmd", "exec sleep 600 >/dev/null 2>&1 # p-{index}",
+        "--metric-interval", "0.1", "--state-path", state])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        task = asyncio.ensure_future(cli._planner(args))
+        for _ in range(600):
+            if "fleet planner running" in out.getvalue():
+                break
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(0.2)
+        os.kill(os.getpid(), signal.SIGTERM)
+        await asyncio.wait_for(task, 30)
+    st = json.load(open(state))
+    pids = [w["pid"] for p in st["pools"].values() for w in p["workers"]]
+    for pid in pids:
+        os.killpg(pid, signal.SIGKILL)
+    await server.stop()
+    return len(pids)
+
+
+assert asyncio.run(planner_cli()) == 2
 runner = ModelRunner(EngineConfig(model=ModelConfig.tiny_test(), dtype="float32",
                                   num_blocks=32, max_model_len=64), device="cpu")
 assert len(runner.prefill_batch([([1, 2, 3], [1], 0, (0.0, 0, 1.0))])) == 1

@@ -505,6 +505,13 @@ def test_cli_flags_keep_the_reference_defaults():
     missing = [k for k in td if k not in jd]
     assert not missing, missing
     assert {k: td[k] for k in td} == {k: jd[k] for k in td}
+    # The planner's flags: the reference's names and defaults, except the
+    # decode pool's component (the port's workers serve "torch").
+    argv = ["planner", "--control-plane", "h:1", "--worker-cmd", "w"]
+    jd = vars(j_parser().parse_args(argv))
+    td = vars(t_cli.build_parser().parse_args(argv))
+    assert td.pop("decode_component") == "torch" and jd.pop("decode_component") == "tpu"
+    assert td == jd
 
 
 REFUSED = {

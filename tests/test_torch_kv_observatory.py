@@ -546,8 +546,15 @@ async def test_metrics_exporter_serves_and_pushes_worker_gauges():
             w = f'{labels},worker="{drt.primary_lease_id:x}"'
             assert f"dyntpu_kv_active_blocks{{{w}}} {active}" in text
             assert f"dyntpu_kv_reused_device_blocks_total{{{w}}} 24" in text
+        # One TYPE line per worker gauge, the worker count, and each of
+        # the planner's gauges (the exporter renders PLANNER_OBS too).
+        from dynamo_tpu_torch.planner.obs import PLANNER_OBS
+
+        planner = [line for line in text.splitlines()
+                   if line.startswith("# TYPE dyntpu_planner_")]
+        assert len(planner) == len(PLANNER_OBS.gauges())
         assert sum(line.startswith("# TYPE") for line in text.splitlines()) == \
-            len(_GAUGES) + 1
+            len(_GAUGES) + 1 + len(planner)
         health = (await fetch("127.0.0.1", exp.port, "GET", "/health")).json()
         assert sorted(health["workers"]) == sorted(
             f"{d.primary_lease_id:x}" for d in (drt_a, drt_b))

@@ -878,6 +878,62 @@ def test_disagg_trace_e2e_mocker(tmp_path):
         assert {"admission"} <= {s["name"] for s in shed[0].spans}
 
 
+def test_late_kv_transfer_span_joins_the_finished_trace(tmp_path, monkeypatch):
+    """In one process the prefill worker and the decode side share a
+    capture. The last frame activates the decode side, which may stream
+    and finish the request before the worker resumes to record its
+    ``kv_transfer`` span: the span must still land under the request's
+    trace id — no orphan trace, no missing span, both merges complete
+    (the timing race behind test_disagg_trace_e2e_mocker's rare failure
+    under load, made certain here by holding the worker until the trace
+    has finished)."""
+    from dynamo_tpu_torch.disagg.worker import PrefillWorker
+
+    real = PrefillWorker._send_result
+    held = []
+
+    async def late(self, req, *args, **kwargs):
+        await real(self, req, *args, **kwargs)
+        rid = req["request_id"]
+        for _ in range(1000):
+            if tracer().trace_id_if_active(rid) is None:
+                break
+            await asyncio.sleep(0.005)
+        held.append(tracer().trace_id_if_active(rid))
+
+    monkeypatch.setattr(PrefillWorker, "_send_result", late)
+    capture = tmp_path / "trace.jsonl"
+
+    async def main():
+        try:
+            _drt, decode, op, stop = await _disagg_mockers(capture)
+            pre = PreprocessedRequest(token_ids=list(range(40)),
+                                      sampling=SamplingOptions(temperature=0.0),
+                                      stop=StopConditions(max_tokens=4, ignore_eos=True))
+            ctx = Context(pre.to_wire())
+            toks = [t async for item in op.generate(ctx) for t in item["token_ids"]]
+            tracer().finish(ctx.id)
+            assert len(toks) == 4 and op.remote_count == 1
+            for _ in range(400):
+                if held:
+                    break
+                await asyncio.sleep(0.005)
+            await stop()
+        finally:
+            reset_tracer(None)
+
+    asyncio.run(main())
+    assert held == [None], "the worker did not resume after the finish"
+    for merge in (j_merge, t_merge):
+        traces = merge.load_captures([str(capture)])
+        assert len(traces) == 1, sorted(traces)
+        (t,) = traces.values()
+        assert t.completed and t.missing_spans() == []
+        assert "kv_transfer" in {s["name"] for s in t.spans}
+        assert t.max_gap_ms() < 250.0
+        assert merge.assert_complete(merge.merge_report(traces)) == []
+
+
 def test_degraded_remote_request_is_marked_and_completes(tmp_path):
     """A remote request whose block frame is lost degrades to local
     recompute: its capture carries ``remote_prefill`` and

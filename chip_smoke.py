@@ -119,7 +119,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 controller; this one does): the same leg; then, under the
                 same traffic, a request with
                 ``X-Request-Timeout-Ms: 1`` sent while the burst holds every
-                slot, and a /debug/profile?seconds=1 window. Reported: client
+                slot, and a /debug/profile?seconds=1 window (16-token
+                requests keep coming until it closes). Reported: client
                 ITL p50/p95 over each burst, the quantum trajectory from
                 /debug/steps, itl_slo_violations_total. Gates: every reply
                 200, full-length streams held to the no-cache reference as
@@ -224,8 +225,31 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 with its estimates), the onboarded blocks read back from
                 the device cache equal the offered rows by CRC, then G2
                 spilled and two touches that promote from G3 (envelope
-                verified, no integrity failure); tcp and native — the
-                prefill engine in a worker process
+                verified, no integrity failure); g4 — the G4 peer tier
+                between three llama3.2-1b engines, each with its own G2
+                and its own runtime on the phase's control plane: engine
+                A serves 8 prompts sharing two 512-token prefixes cold
+                and exports its G2 (PeerBlockServer); (a) cold engine B,
+                a PeerBlockClient attached, parks each prompt on a pull,
+                onboards the rows and serves — B's landed rows carry A's
+                CRCs, its device blocks read back equal them, its
+                kv_actual peer blocks sum to kv_reused_peer_blocks_total,
+                pulls >= 1, no fallback, the ragged kernel launched per
+                dispatch, no graph captured mid-traffic, streams through
+                phase 8's gates; reported: parked TTFT p50 against the
+                same prompts recomputed on B, the pull's GB/s, the first
+                plan's priced pull against the measured transfer, and the
+                plan's decision for a fresh prefix once the measured rate
+                is in; (b) a PrefixHeat fed by A's prompts pre-places the
+                hottest chains into cold engine C before it serves: each
+                group's first request onboards its whole chain from G2
+                (host + peer blocks), no request parks; C's TTFT against
+                B's parked TTFT; (c) a fresh prefix, ``kvbm.peer_pull``
+                armed as a delay and A's runtime shut down mid-pull: the
+                parked request finishes by recompute within
+                kvbm_peer_timeout_s + G4_SLACK_S under a watchdog,
+                degraded +1, fallbacks >= 1, stream gates; tcp and
+                native — the prefill engine in a worker process
                 (``dynamo_tpu_torch.examples.prefill_worker``), each
                 transport pinned; int8 — an int8-KV pair over tcp
                 (packed rows, scales included, by their byte count).
@@ -2368,6 +2392,13 @@ async def phase_observe(vocab: int) -> dict:
                 late = await fetch("127.0.0.1", port, "POST", "/v1/completions", {
                     "model": model, "prompt": prompts[0][::-1], "max_tokens": 8,
                     "temperature": 0}, {"X-Request-Timeout-Ms": "1"})
+                # Keep the engine dispatching until the window closes: the
+                # profiler's start holds the loop for a time that varies
+                # from call to call, and the burst can end before it opens.
+                while not prof.done():
+                    await fetch("127.0.0.1", port, "POST", "/v1/completions", {
+                        "model": model, "prompt": prompts[1][::-1], "max_tokens": 16,
+                        "temperature": 0})
                 return late, await prof
 
             legs["deadline_profile"], (late, prof) = await observe_leg(
@@ -3412,6 +3443,8 @@ KVBM_GROUPS = 2               # the kvbm leg: prefix groups ...
 KVBM_PER_GROUP = 4            # ... of 4 prompts ...
 KVBM_PREFIX = 512             # ... sharing 512 tokens (32 blocks) ...
 KVBM_SUFFIX = 64              # ... each with 64 of its own
+G4_SLACK_S = 5.0              # g4 leg (c): recompute + decode after the park deadline
+G4_HOLD_S = 3.0               # g4 leg (c): the kvbm.peer_pull delay holding the pull
 WORKER_ARGS = ["--model-path", "preset:llama3.2-1b", "--max-model-len", str(DISAGG_MAX_LEN),
                "--num-blocks", "1024", "--max-num-seqs", "8", "--prefill-batch", "4",
                "--unified-token-budget", "256", "--seed", "0", "--warmup"]
@@ -3699,6 +3732,266 @@ async def kvbm_leg(vocab: int, max_tokens: int, params) -> dict:
     return out
 
 
+async def g4_leg(vocab: int, max_tokens: int, params, address: str) -> dict:
+    """The G4 peer tier between three llama3.2-1b engines (A, B, C), each
+    with its own KvBlockManager (G2) and its own runtime on the phase's
+    control plane at ``address``: see the module docstring (phase 10, g4).
+    Returns the leg's report; a failed gate raises SystemExit."""
+    from dynamo_tpu_torch.block_manager import (
+        KvbmConfig,
+        KvBlockManager,
+        KvLayoutConfig,
+        PeerBlockClient,
+        PeerBlockServer,
+        PrefixHeat,
+        preplace,
+    )
+    from dynamo_tpu_torch.block_manager.integrity import block_checksum
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.utils.faults import FAULTS
+
+    t_leg = time.monotonic()
+    rng = np.random.default_rng(6)
+    prompts = []
+    for _ in range(KVBM_GROUPS):
+        prefix = rng.integers(0, vocab, KVBM_PREFIX).tolist()
+        prompts += [prefix + rng.integers(0, vocab, KVBM_SUFFIX).tolist()
+                    for _ in range(KVBM_PER_GROUP)]
+    fresh = rng.integers(0, vocab, KVBM_PREFIX + KVBM_SUFFIX).tolist()
+    firsts = list(range(0, len(prompts), KVBM_PER_GROUP))
+    # The adaptive gate would onboard a 4-block probe first: this leg
+    # measures the peer tier, so every landed row onboards.
+    ecfg = disagg_config(kvbm_adaptive_gate=False)
+    layout = KvLayoutConfig.for_engine(ecfg, quant=None)
+    bs, L = ecfg.block_size, ecfg.model.num_layers
+
+    def chain(p):
+        return TokenBlockSequence.from_tokens(p, block_size=bs).sequence_hashes()[
+            : (len(p) - 1) // bs]
+
+    out: dict = {"leg": "g4", "prompts": len(prompts), "block_bytes": layout.block_bytes}
+    drts, kvbms, engines, closers = [], [], [], []
+
+    async def worker(name, actuals=None):
+        drt = await DistributedRuntime.connect(address)
+        kvbm = await KvBlockManager(KvbmConfig(layout=layout, host_blocks=160)).start()
+        eng = TorchEngine(ecfg, params=params, device=DEVICE, block_manager=kvbm,
+                          on_kv_actual=None if actuals is None else actuals.append)
+        drts.append(drt)
+        kvbms.append(kvbm)
+        engines.append(eng)
+        await eng.start()
+        out[f"warmup_{name}"] = await warm_up(eng)
+        return drt, kvbm, eng
+
+    async def attach(drt, kvbm, want):
+        client = await PeerBlockClient(
+            drt, drt.namespace("dynamo").component("g4"), layout, layout_cfg=layout).start()
+        closers.append(client.stop)
+        await until(lambda: all(client.best_peer(h)[1] == len(h) for h in want), 10.0,
+                    "g4 blockset discovery")
+        kvbm.attach_peer_client(client)
+        return client
+
+    async def counted_serve(name, eng, ps):
+        """Serve ``ps``; the ragged launches must be num_layers per dispatch,
+        with nothing captured mid-traffic."""
+        await eng.wait_drained(30)
+        d0 = eng.unified_dispatches
+        reset_counts()
+        streams, fin, ttft, wall = await serve(eng, ps, max_tokens)
+        await eng.wait_drained(30)
+        dispatches = eng.unified_dispatches - d0
+        if fn.launches != L * dispatches or not dispatches or mid_traffic(eng):
+            raise SystemExit(f"disagg g4 {name}: ragged kernel launched {fn.launches} "
+                             f"times for {dispatches} dispatches, "
+                             f"{mid_traffic(eng)} graphs captured mid-traffic")
+        out["ragged_launches"] = out.get("ragged_launches", 0) + fn.launches
+        stream_gates(f"g4_{name}", ecfg.model, params, ps, streams, fin, max_tokens)
+        return streams, ttft, wall
+
+    def fail(part):
+        raise SystemExit(f"disagg g4 {part}: gates failed {json.dumps(out, default=str)}")
+
+    def parks(eng) -> list:
+        """Record each admission's park decision."""
+        seen = []
+        decide = eng._maybe_park_for_peer_pull
+
+        def counted(seq):
+            parked = decide(seq)
+            seen.append(parked)
+            return parked
+        eng._maybe_park_for_peer_pull = counted
+        return seen
+
+    try:
+        # A: the prompts (and a fresh one) served cold, offered to G2, and
+        # exported.
+        drt_a, kvbm_a, eng_a = await worker("a")
+        cold, cold_ttft, _ = await counted_serve("a_cold", eng_a, prompts + [fresh])
+        await kvbm_a.drain_offers()
+        server_a = await PeerBlockServer(
+            drt_a, drt_a.namespace("dynamo").component("g4"), kvbm_a, layout=layout,
+            refresh_s=0.05).start()
+        closers.append(server_a.stop)
+        crc_a = {h: kvbm_a.host_pool.get_by_hash(h).checksum
+                 for h in kvbm_a.host_pool.registered_hashes()}
+        await eng_a.stop()
+        engines.remove(eng_a)
+
+        # (a) B: cold, a peer client attached; each group's first request
+        # parks and pulls, its siblings park on the same transfer.
+        actuals_b: list[dict] = []
+        drt_b, kvbm_b, eng_b = await worker("b", actuals_b)
+        client_b = await attach(drt_b, kvbm_b, [chain(p) for p in prompts])
+        wid = client_b.best_peer(chain(prompts[0]))[0]
+        n0 = len(chain(prompts[0]))
+        priced_pull_s, priced_recompute_s = client_b.price(n0, wid, None)
+        parked_b = parks(eng_b)
+        streams_b, ttft_b, wall_b = await counted_serve("pull", eng_b, prompts)
+        await kvbm_b.drain_pulls(30)
+        rd = eng_b.readiness()
+        pulled = sorted(h for h in kvbm_b.host_pool.registered_hashes()
+                        if kvbm_b.count_peer_origin([h]))
+        landed_equal = sum(kvbm_b.host_pool.get_by_hash(h).checksum == crc_a.get(h)
+                           for h in pulled)
+        ids = [(h, eng_b.allocator._hash_to_block[h]) for h in pulled
+               if h in eng_b.allocator._hash_to_block]
+        rows = eng_b.runner.gather_many([b for _, b in ids]) if ids else []
+        device_equal = sum(block_checksum(r) == crc_a[h] for (h, _), r in zip(ids, rows))
+        peer_attributed = sum(a["peer_blocks"] for a in actuals_b)
+        bps = rd["kvbm_link_peer_bps"]
+        out["pull"] = {
+            "parks": sum(parked_b), "ttft_p50_ms": float(np.median(ttft_b)) * 1e3,
+            "ttft_first_ms": [ttft_b[i] * 1e3 for i in firsts], "wall_s": wall_b,
+            "pulls_total": rd["kvbm_g4_pulls_total"],
+            "pull_bytes_total": rd["kvbm_g4_pull_bytes_total"],
+            "pull_fallbacks_total": rd["kvbm_g4_pull_fallbacks_total"],
+            "reused_peer_blocks_total": rd["kv_reused_peer_blocks_total"],
+            "kv_actual_peer_blocks": peer_attributed,
+            "pulled_rows": len(pulled), "landed_crc_equal": landed_equal,
+            "device_compared": len(ids), "device_crc_equal": device_equal,
+            "pull_gbps": bps / 1e9,
+            "first_plan": {"blocks": n0, "priced_pull_ms": priced_pull_s * 1e3,
+                           "priced_recompute_ms": priced_recompute_s * 1e3,
+                           "measured_pull_ms": (n0 * layout.block_bytes / bps * 1e3
+                                                if bps else None)},
+            "degraded_requests": eng_b.degraded_requests,
+        }
+        # The same prompts recomputed on B: its caches out of reach.
+        eng_b.allocator.clear_reusable()
+        eng_b.kvbm = None
+        _s, ttft_rc, _w = await counted_serve("recompute", eng_b, prompts)
+        eng_b.kvbm = kvbm_b
+        out["pull"]["recompute_ttft_p50_ms"] = float(np.median(ttft_rc)) * 1e3
+        out["pull"]["recompute_ttft_first_ms"] = [ttft_rc[i] * 1e3 for i in firsts]
+        # The law's decision for a fresh prefix once the measured rate is in.
+        pull_s, recompute_s = client_b.price(len(chain(fresh)), wid, eng_b._prefill_tps)
+        out["pull"]["fresh_plan"] = {
+            "decision": "recompute" if client_b.plan(chain(fresh), eng_b._prefill_tps)
+            is None else "pull", "pull_ms": pull_s * 1e3, "recompute_ms": recompute_s * 1e3,
+            "prefill_tps": eng_b._prefill_tps}
+        pa = out["pull"]
+        if (not pa["pulls_total"] or pa["pull_fallbacks_total"] or not pulled
+                or landed_equal != len(pulled) or not ids or device_equal != len(ids)
+                or not peer_attributed or peer_attributed != pa["reused_peer_blocks_total"]
+                or pa["degraded_requests"] or not pa["parks"]):
+            fail("pull")
+
+        # (b) C: the hottest chains pre-placed before it takes traffic.
+        heat = PrefixHeat()
+        for p in prompts:
+            heat.note(chain(p))
+        actuals_c: list[dict] = []
+        drt_c, kvbm_c, eng_c = await worker("c", actuals_c)
+        client_c = await attach(drt_c, kvbm_c, [chain(p) for p in prompts])
+        t0 = time.monotonic()
+        landed = await preplace(client_c, kvbm_c, heat)
+        preplace_s = time.monotonic() - t0
+        # C's first requests: each group's hottest prompt, whose chain the
+        # heat kept (one per leading hash).
+        parked_c = parks(eng_c)
+        _s, ttft_c, _w = await counted_serve("preplaced", eng_c, [prompts[i] for i in firsts])
+        out["preplace"] = {
+            "landed_blocks": landed, "preplace_s": preplace_s, "parks": sum(parked_c),
+            "first_requests": [{k: r[k] for k in ("device_blocks", "host_blocks",
+                                                  "peer_blocks", "isl_blocks")}
+                               for r in actuals_c],
+            "ttft_first_ms": [t * 1e3 for t in ttft_c],
+            "pull_gbps": kvbm_c.stats()["link_peer_bps"] / 1e9,
+        }
+        if (not landed or any(parked_c) or len(actuals_c) != len(firsts) or any(
+                r["host_blocks"] + r["peer_blocks"] != len(chain(prompts[i]))
+                for r, i in zip(actuals_c, firsts))):
+            fail("preplace")
+        await eng_c.stop()
+        engines.remove(eng_c)
+
+        # (c) A fresh prefix, the pull held in flight, A's runtime shut down.
+        # A's exporter restarts (its advertised serve rate back to 0) and B
+        # takes a fresh client (no measured rate): the law prices the pull
+        # at the calibrated channel and parks. With the rates (a) measured
+        # it would recompute instead (``fresh_plan``).
+        await server_a.stop()
+        server_a = await PeerBlockServer(
+            drt_a, drt_a.namespace("dynamo").component("g4"), kvbm_a, layout=layout,
+            refresh_s=0.05).start()
+        closers.append(server_a.stop)
+        client_b2 = await attach(drt_b, kvbm_b, [chain(fresh)])
+        degraded0 = eng_b.degraded_requests
+        FAULTS.arm("kvbm.peer_pull", "delay", times=None, delay_s=G4_HOLD_S)
+        try:
+            t0 = time.monotonic()
+            task = asyncio.ensure_future(serve(eng_b, [fresh], max_tokens))
+            await until(lambda: eng_b._peer_parked or task.done(), 10.0, "g4 park")
+            t_park, parked = time.monotonic() - t0, bool(eng_b._peer_parked)
+            await drt_a.shutdown()
+            drts.remove(drt_a)
+            await server_a.stop()  # its refresh loop; the unpublish fails quietly
+            limit = ecfg.kvbm_peer_timeout_s + G4_SLACK_S
+            streams_f, fin_f, ttft_f, _w = await asyncio.wait_for(task, limit)
+            t_done = time.monotonic() - t0
+        finally:
+            FAULTS.disarm("kvbm.peer_pull")
+        await kvbm_b.drain_pulls(30)
+        stream_gates("g4_peer_death", ecfg.model, params, [fresh], streams_f, fin_f,
+                     max_tokens)
+        rd = eng_b.readiness()
+        out["peer_death"] = {
+            "parked": parked, "parked_after_s": t_park, "completed_s": t_done,
+            "limit_s": limit,
+            "ttft_ms": ttft_f[0] * 1e3,
+            "degraded_delta": eng_b.degraded_requests - degraded0,
+            "pull_fallbacks_total": rd["kvbm_g4_pull_fallbacks_total"],
+            "client_fallbacks": client_b2.pull_fallbacks_total,
+        }
+        pd = out["peer_death"]
+        if (not parked or t_done > limit or pd["degraded_delta"] != 1
+                or pd["pull_fallbacks_total"] < 1):
+            fail("peer_death")
+    finally:
+        FAULTS.disarm("kvbm.peer_pull")
+        for e in engines:
+            await e.stop()
+        for close in reversed(closers):
+            with contextlib.suppress(Exception):
+                await close()
+        for k in kvbms:
+            await k.stop()
+        for d in drts:
+            with contextlib.suppress(Exception):
+                await d.shutdown()
+    out["wall_s"] = time.monotonic() - t_leg
+    return out
+
+
 async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
     """Disaggregated prefill/decode at full width (llama3.2-1b), over the
     three transports, an int8 pair, and the KVBM tiers: see the module
@@ -3774,6 +4067,12 @@ async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
+        # g4: three engines pooling KV through their peers.
+        result["g4"] = await g4_leg(vocab, max_tokens, params, server.address)
+        emit({"phase": "disagg_leg", **result["g4"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # tcp and native: the prefill engine in a worker process.
         decode = TorchEngine(disagg_config(), device=DEVICE)
         engines.append(decode)
@@ -3838,7 +4137,7 @@ async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
                          f"{ {k: len(v) for k, v in per_leg.items()} }")
     result["wall_s"] = time.monotonic() - t_phase
     emit({"phase": "disagg", **{k: v for k, v in result.items()
-                                if k not in ("device", "tcp", "native", "int8", "kvbm")},
+                                if k not in ("device", "tcp", "native", "int8", "kvbm", "g4")},
           "summary": {n: {k: result[n].get(k) for k in (
               "ttft_remote_p50_ms", "ttft_local_p50_ms", "ttft_same_prompts_local_p50_ms",
               "kv_transfer_p50_ms", "kv_transfer_p95_ms", "kv_transfer_gbps",
@@ -3899,7 +4198,7 @@ async def calibration_leg(card: str, vocab: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     ecfg = full_width_config(**CAL_ENGINE)
-    t0 = time.monotonic()
+    t_leg = time.monotonic()
     runner = ModelRunner(ecfg, device=DEVICE)
     graphs = runner.warmup()
     greedy = (0.0, 0, 1.0, -1)
@@ -4029,7 +4328,7 @@ async def calibration_leg(card: str, vocab: int) -> dict:
                             "tok_s_error": sim.tok_s / record["headline"]["tok_s"] - 1,
                             "p50_ttft_error": sim.p50_ttft_ms
                             / record["headline"]["p50_ttft_ms"] - 1},
-           "wall_s": time.monotonic() - t0}
+           "wall_s": time.monotonic() - t_leg}
     emit({"phase": "planner_leg", **out, "headline": record["headline"],
           "host": record["host"]})
     return out
@@ -4366,10 +4665,12 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
         for pid in pids:
             with contextlib.suppress(ProcessLookupError):
                 os.kill(pid, _signal.SIGKILL)
-        for child in reversed(children):
-            await child.kill()
+        # The observer revokes its lease while the plane still runs: killed
+        # first, the plane resets the connection under the revoke.
         if obs is not None:
             await obs.shutdown()
+        for child in reversed(children):
+            await child.kill()
     return result
 
 
@@ -4675,7 +4976,8 @@ def main() -> int:
                          **{leg: disagg[leg]["kernel_launches"]
                             for leg in ("device", "tcp", "native")},
                          "prefill_worker": disagg["worker_bf16"]["ragged_launches"],
-                         "kvbm": disagg["kvbm"]["ragged_launches"]},
+                         "kvbm": disagg["kvbm"]["ragged_launches"],
+                         "g4": disagg["g4"]["ragged_launches"]},
                      planner_worker_launches=planner["worker_launches"]),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",

@@ -16,7 +16,7 @@ G2→G1 onboard       `KvBlockManager.match_host`            ``host``
 G3→G2 promotion     `OffloadManager._onboard_blocking`     ``disk``
 G3 scrub            `KvBlockManager.scrub_tick`            ``disk``
 G3 restart          `DiskStorage` sidecar recovery         ``disk``
-G4 pull             (not in the port yet)                  ``peer``
+G4 pull             `RemoteBlockClient._fetch_attempt`     ``peer``
 disagg tcp frame    `KvReceiver._on_conn`                  ``frame``
 disagg native       `NativeKvReceiver._handle`             ``frame``
 ==================  =====================================  ============

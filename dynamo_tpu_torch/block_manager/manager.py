@@ -1,5 +1,5 @@
 """KvBlockManager: the multi-tier orchestrator (port of
-dynamo_tpu/block_manager/manager.py, without the G4 peer tier).
+dynamo_tpu/block_manager/manager.py).
 
 Wires the tiers (reference: lib/llm/src/block_manager.rs:89-174
 KvBlockManager): the engine owns G1 (its paged device cache + allocator); this
@@ -8,7 +8,8 @@ between them. The engine thread hands gathered block bytes in via
 `offer()` (G1→G2, batched to an asyncio pump so serving never blocks on
 tier writes), the scheduler queries `match_host()` on prefix miss, and
 onboarding returns bytes for the engine to scatter back into the device
-cache. A device gather reaches ``offer_batch`` as an asynchronous host
+cache. A fleet peer's rows (G4, block_manager/peer.py) land in G2 through
+``import_peer_blocks``, marked peer-origin, and onboard from there. A device gather reaches ``offer_batch`` as an asynchronous host
 copy (ops/kv_copy.py ``HostCopy``): the pump's worker thread waits on
 that copy's event, never on the device.
 
@@ -132,6 +133,22 @@ class KvBlockManager:
         self._promoted_blocks = 0
         self._from_disk: set[int] = set()
         self._store_rate = RateEMA()
+        # G4 peer tier (block_manager/peer.py): the attached pull client,
+        # which host-resident hashes arrived via a PEER pull (the G4 share
+        # of actual-reuse attribution, disjoint from _from_disk), one
+        # in-flight pull per prefix, completed-pull results the engine's
+        # parked sequences poll (bounded), and engine-side timeout
+        # fallbacks (the client counts the transfer failures it sees).
+        self._peer_client = None
+        self._from_peer: set[int] = set()
+        self._pulls: set[asyncio.Task] = set()
+        self._pulling: set[int] = set()     # leading hash per in-flight pull
+        self._pull_results: dict[int, int] = {}
+        self._pull_result_keys: deque = deque(maxlen=256)
+        self._peer_fallbacks = 0
+        # Called (on the loop) whenever a pull settles: a parked engine
+        # resumes at once instead of at its next idle poll.
+        self._pull_listeners: set[Callable[[], None]] = set()
         # Quantized-tier telemetry (docs/architecture/kv_quant.md):
         # blocks stored quantized into G2 and the cumulative bytes saved
         # vs storing them in the compute dtype (G3's share is derived in
@@ -160,6 +177,7 @@ class KvBlockManager:
         if ev.kind == "removed":
             for h in ev.block_hashes:
                 self._from_disk.discard(h)
+                self._from_peer.discard(h)
         if self._external_event is not None:
             self._external_event(ev)
 
@@ -171,6 +189,7 @@ class KvBlockManager:
         # promotion tasks it guarded are gone, so the set must be too.
         with self._lock:
             self._promoting.clear()
+            self._pulling.clear()
         self._offer_signal = asyncio.Event()
         self._pump_task = asyncio.ensure_future(self._pump())
         if self.disk_pool is not None and self.cfg.scrub_blocks_per_tick > 0:
@@ -189,6 +208,7 @@ class KvBlockManager:
                 setattr(self, attr, None)
         with self._lock:
             self._promoting.clear()
+            self._pulling.clear()
 
     # -- engine-thread API --------------------------------------------------
     def offer(
@@ -290,8 +310,8 @@ class KvBlockManager:
             )
 
     def registered_hashes(self) -> frozenset[int]:
-        """Snapshot of host-tier registered sequence hashes (the blockset
-        a G4 exporter would publish); owns its own locking."""
+        """Snapshot of host-tier registered sequence hashes (the exported
+        blockset — block_manager/remote.py); owns its own locking."""
         if self.host_pool is None:
             return frozenset()
         with self._lock:
@@ -315,6 +335,20 @@ class KvBlockManager:
             self._host_miss_blocks += max(0, len(hashes) - n)
         return n
 
+    def peek_host_match(self, hashes: Sequence[int]) -> int:
+        """Length of the host-tier prefix match WITHOUT bumping the
+        hit/miss counters — the G4 pull planner's probe (the onboard's
+        count_host_match runs later on the same prefix and stays the one
+        accounting point)."""
+        if self.host_pool is None:
+            return 0
+        with self._lock:
+            matched = self.host_pool.match_sequence_hashes(hashes)
+            n = len(matched)
+            for b in matched:
+                self.host_pool.release(b)
+        return n
+
     def count_disk_origin(self, hashes: Sequence[int]) -> int:
         """How many of `hashes` are host-resident blocks that arrived via
         DISK promotion — the G3 share of an actual-reuse report. Entries
@@ -333,9 +367,31 @@ class KvBlockManager:
                 n += 1
         return n
 
+    def count_peer_origin(self, hashes: Sequence[int]) -> int:
+        """How many of `hashes` are host-resident blocks that arrived via
+        a G4 PEER pull — the peer share of an actual-reuse report.
+        Disjoint from count_disk_origin (the disk set wins on overlap, the
+        engine's attribution order); stale entries are pruned lazily as
+        the disk set's are."""
+        if self.host_pool is None:
+            return 0
+        n = 0
+        with self._lock:
+            for h in hashes:
+                if h not in self._from_peer:
+                    continue
+                if self.host_pool.get_by_hash(h) is None:
+                    self._from_peer.discard(h)
+                    continue
+                if h in self._from_disk:
+                    continue
+                n += 1
+        return n
+
     def host_entries(self) -> list[tuple[int, int | None, tuple]]:
         """(hash, parent, tokens) for every host-resident block that is
-        not barred, no byte copies — what a re-announce would publish."""
+        not barred, no byte copies — the re-announce payload
+        (block_manager/peer.py Reannouncer)."""
         if self.host_pool is None:
             return []
         out = []
@@ -433,6 +489,152 @@ class KvBlockManager:
         except RuntimeError:
             with self._lock:
                 self._promoting.discard(key)
+
+    # -- G4 peer tier (block_manager/peer.py) -------------------------------
+    def attach_peer_client(self, client) -> None:
+        """Wire a started PeerBlockClient: from here on a miss can plan a
+        fleet pull, and stats() carries the client's G4 counters."""
+        self._peer_client = client
+
+    def has_peer_client(self) -> bool:
+        return self._peer_client is not None
+
+    def add_pull_listener(self, fn: Callable[[], None]) -> None:
+        """Have ``fn`` called, thread-safely and without arguments, each
+        time a peer pull settles (the engine passes its wakeup event's
+        ``set``)."""
+        self._pull_listeners.add(fn)
+
+    def plan_peer_pull(
+        self, hashes: Sequence[int], prefill_tps: float | None = None
+    ) -> int | None:
+        """Engine-thread G4 decision: if a fleet peer holds a prefix of
+        `hashes` at a winning pull-vs-recompute price, dispatch the pull
+        and return its key (the leading hash — poll peer_pull_pending /
+        peer_pull_result with it); None when recompute wins or nobody has
+        the blocks. A prefix whose pull is already in flight returns the
+        same key, so concurrent misses park on one transfer."""
+        client = self._peer_client
+        if client is None or self._pump_task is None or not hashes:
+            return None
+        hashes = list(hashes)
+        key = hashes[0]
+        with self._lock:
+            if key in self._pulling:
+                return key
+        if client.plan(hashes, prefill_tps) is None:
+            return None
+        return self.request_peer_pull(hashes, prefill_tps)
+
+    def request_peer_pull(
+        self, hashes: Sequence[int], prefill_tps: float | None = None
+    ) -> int | None:
+        """Thread-safe, fire-and-forget fleet pull (request_disk_promotion's
+        shape: one in flight per prefix, dispatched to the pump's loop).
+        Returns the pull key, or None when it could not be dispatched."""
+        client = self._peer_client
+        if client is None or self._pump_task is None or not hashes:
+            return None
+        hashes = list(hashes)
+        key = hashes[0]
+        with self._lock:
+            if key in self._pulling:
+                return key
+            self._pulling.add(key)
+        loop = self._pump_task.get_loop()
+
+        def _done(task: asyncio.Task) -> None:
+            self._pulls.discard(task)
+            n = 0
+            if not task.cancelled() and task.exception() is not None:
+                logger.warning("peer pull failed: %r", task.exception())
+            elif not task.cancelled():
+                n = int(task.result() or 0)
+            with self._lock:
+                self._pulling.discard(key)
+                if len(self._pull_result_keys) == self._pull_result_keys.maxlen:
+                    self._pull_results.pop(self._pull_result_keys[0], None)
+                self._pull_result_keys.append(key)
+                self._pull_results[key] = n
+            for fn in list(self._pull_listeners):
+                fn()
+
+        def _go() -> None:
+            task = asyncio.ensure_future(
+                client.pull_into(self, hashes, prefill_tps=prefill_tps)
+            )
+            self._pulls.add(task)
+            task.add_done_callback(_done)
+
+        try:
+            loop.call_soon_threadsafe(_go)
+        except RuntimeError:
+            with self._lock:
+                self._pulling.discard(key)
+            return None
+        return key
+
+    def peer_pull_pending(self, key: int) -> bool:
+        """Engine-thread poll: is the pull behind `key` still in flight?"""
+        with self._lock:
+            return key in self._pulling
+
+    def peer_pull_result(self, key: int) -> int:
+        """Blocks the settled pull behind `key` landed (0 for a failed,
+        priced-out or unknown pull)."""
+        with self._lock:
+            return self._pull_results.get(key, 0)
+
+    def note_peer_fallback(self) -> None:
+        """Engine-side G4 degrade (a parked request reached its deadline
+        with the pull still in flight) — the client's own counter sees
+        only the transfer failures it observed itself."""
+        self._peer_fallbacks += 1
+
+    def import_peer_blocks(self, blocks) -> int:
+        """Land fetched peer rows in the host tier, marked G4-origin.
+        Blocking (a per-block memcpy under the pool lock): the client
+        calls it through to_thread. Rows arrive as the PEER stored them;
+        the layout handshake already held geometry and precision equal,
+        so packed int8 rows re-store bit for bit through _store_host's
+        packed-row path and unquantized rows verbatim."""
+        if self.host_pool is None:
+            return 0
+        n = 0
+        for h, parent, tokens, data in blocks:
+            if self.has_host(h):
+                continue
+            try:
+                self._store_host(h, parent, tuple(tokens), np.asarray(data))
+            except MemoryError:
+                logger.debug("host tier full; peer import stopped at %x", h)
+                break
+            with self._lock:
+                self._from_peer.add(h)
+            n += 1
+        return n
+
+    async def drain_pulls(self, timeout_s: float = 30.0) -> None:
+        """Wait until every in-flight peer pull settles (tests and tools).
+        Bounded: past ``timeout_s`` it raises ``TimeoutError`` instead of
+        waiting on a pull that never settles."""
+        deadline = time.monotonic() + timeout_s
+        # Let call_soon_threadsafe-scheduled pull starts land first.
+        await asyncio.sleep(0)
+        await asyncio.sleep(0)
+        while self._pulls:
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"drain_pulls: {len(self._pulls)} pulls in flight "
+                    f"after {timeout_s}s"
+                )
+            done, _pending = await asyncio.wait(
+                list(self._pulls),
+                timeout=max(0.0, deadline - time.monotonic()),
+            )
+            for t in done:
+                self._pulls.discard(t)
+                t.exception()  # retrieved; the done callback logs it
 
     # -- offload pump (asyncio side) ---------------------------------------
     async def _pump(self) -> None:
@@ -558,11 +760,14 @@ class KvBlockManager:
             # A fresh store re-stamps the envelope: the quarantine bar
             # lifts (these are new bytes, verified-at-birth).
             self._barred.discard(h)
-            # These bytes came from the DEVICE: if an earlier disk
-            # promotion of the same hash was since evicted, the origin
-            # marker must not survive into this re-store — the tier
-            # split would misattribute reuse forever.
+            # These bytes came from the DEVICE (or a fresh import): if an
+            # earlier disk promotion or peer pull of the same hash was
+            # since evicted, its origin marker must not survive into this
+            # re-store — the tier split would misattribute reuse forever.
+            # import_peer_blocks re-adds its marker AFTER this call, so
+            # peer-origin attribution still lands.
             self._from_disk.discard(h)
+            self._from_peer.discard(h)
             self._host_stored_blocks += 1
             # nbytes of the row as WRITTEN: a quantized tier's link EMAs
             # honestly reflect the halved transfer bytes.
@@ -663,6 +868,7 @@ class KvBlockManager:
         metric-scrape tearing across fields is acceptable."""
         host, disk = self.host_pool, self.disk_pool
         edge = self._g2_to_g3.stats() if self._g2_to_g3 is not None else {}
+        peer = self._peer_client.stats() if self._peer_client is not None else {}
         # Quantized-tier digest (per-tier precision policy): density is
         # the quantized fraction of cumulative stores per tier (1.0 on a
         # quantized layout — every store packs), bytes-saved counts G2
@@ -709,12 +915,15 @@ class KvBlockManager:
             "link_g1g2_bps": self._store_rate.value,
             "link_g2g3_bps": edge.get("offload_bps", 0.0),
             "link_g3g2_bps": edge.get("onboard_bps", 0.0),
-            # G4 peer tier: not in the port yet — its keys read 0 so
-            # every metric surface keeps the reference's field set.
-            "g4_pulls_total": 0,
-            "g4_pull_bytes_total": 0,
-            "g4_pull_fallbacks_total": 0,
-            "link_peer_bps": 0.0,
+            # G4 peer tier (block_manager/peer.py): the attached client's
+            # pull counters and measured pull-rate EMA (zeros without
+            # one), plus the engine-side timeout fallbacks.
+            "g4_pulls_total": peer.get("g4_pulls_total", 0),
+            "g4_pull_bytes_total": peer.get("g4_pull_bytes_total", 0),
+            "g4_pull_fallbacks_total": (
+                peer.get("g4_pull_fallbacks_total", 0) + self._peer_fallbacks
+            ),
+            "link_peer_bps": peer.get("link_peer_bps", 0.0),
             # Integrity envelope: process-wide per-tier corruption
             # detections + scrub progress (integrity.py). The ledger's
             # internal lock guards a dict copy only — never held across

@@ -97,6 +97,14 @@ class EngineConfig:
     # bytes (measured onboard rate) is predicted slower than recomputing
     # them (measured prefill rate); re-probe every 32nd skip.
     kvbm_adaptive_gate: bool = True
+    # G4 peer tier (block_manager/peer.py): the longest a request admitted
+    # for prefill stays PARKED waiting for a fleet peer's pull to land its
+    # missing prefix blocks in G2. Past it the request proceeds by local
+    # recompute (counted in degraded_requests_total) while the pull keeps
+    # running and warms the tier for the next request. Much tighter than
+    # remote_kv_timeout_s: a pull is a TTFT optimisation, not a
+    # correctness dependency like disagg's inbound KV.
+    kvbm_peer_timeout_s: float = 2.0
 
     # -- reference features the port refuses (validate) --------------------
     quant: str | None = None
@@ -178,6 +186,11 @@ class EngineConfig:
             raise ValueError(
                 f"model {self.model.name}: {', '.join(missing)} not served "
                 "by this slice of the port"
+            )
+        if not self.kvbm_peer_timeout_s > 0:
+            raise ValueError(
+                f"kvbm_peer_timeout_s={self.kvbm_peer_timeout_s} must be > 0 "
+                "(a parked request needs a deadline to resume by)"
             )
         if self.max_waiting < 0 or self.max_queue_delay_s < 0:
             raise ValueError(

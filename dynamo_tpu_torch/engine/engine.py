@@ -59,7 +59,12 @@ adaptive gate that skips an onboard predicted slower than recompute,
 then one in-place scatter of the matched rows); a prompt's full blocks
 are offered to G2 once it is fed (``_offload_prompt_blocks``: one
 device gather copied to pinned host memory, materialized on the KVBM
-pump's thread).
+pump's thread). With a G4 peer client attached (block_manager/peer.py),
+a prompt whose G2-missing prefix a fleet peer holds at a winning price
+is PARKED at admission (``_maybe_park_for_peer_pull``: funded, in no
+dispatch) while the pull lands the rows in G2, then resumes through the
+same onboard (``_service_peer_parked``); a pull that fails or outlives
+``kvbm_peer_timeout_s`` resumes it by local recompute, counted degraded.
 
 Disaggregation (disagg/): the prefill side runs queued prompts through
 ``prefill_only_batch`` — depth-first waves of ``unified_step`` spans,
@@ -70,8 +75,8 @@ delivers (``on_remote_block(s)``, checked against the sequence's
 completeness ledger) and activates it at ``on_remote_finish``. A lost,
 corrupt or late transfer degrades the request to local recompute.
 
-Not in this port yet: G4 peers and multimodal (ROADMAP queue A).
-Requests that ask for them are refused with ``RequestError``.
+Not in this port yet: multimodal (ROADMAP queue A). Requests that ask
+for it are refused with ``RequestError``.
 """
 
 from __future__ import annotations
@@ -163,6 +168,10 @@ class TorchEngine:
         self._reused_peer_blocks = 0
         # Disagg decode side: request_id -> sequence awaiting remote KV.
         self._remote: dict[str, Sequence] = {}
+        # G4 peer pulls: admitted sequences PARKED waiting, bounded by
+        # cfg.kvbm_peer_timeout_s, for a fleet peer's rows to land in G2
+        # (_maybe_park_for_peer_pull / _service_peer_parked).
+        self._peer_parked: dict[str, Sequence] = {}
         # KVBM adaptive onboard gate: EMA bytes/s of host→device onboards
         # and EMA tok/s of prefill compute, on the engine's clock.
         self._onboard_bps: float | None = None
@@ -1146,12 +1155,15 @@ class TorchEngine:
         )
 
     def _admit_prefills(self) -> None:
-        """Admit waiting prompts into the PREFILLING set (prefix-hit
-        accounting, cursor setup); composition takes quanta from it."""
+        """Admit waiting prompts into the PREFILLING set (parked G4 pulls
+        resumed first, then the host-prefix onboard, prefix-hit accounting
+        and cursor setup of _finish_admission); composition takes quanta
+        from it."""
         sched = self.scheduler
         self._prefilling = [
             s for s in self._prefilling if s.status is SeqStatus.PREFILLING
         ]
+        self._service_peer_parked()
         if (
             sched.waiting
             and len(self._prefilling) < self.cfg.prefill_batch
@@ -1171,25 +1183,117 @@ class TorchEngine:
             if seq is None:
                 break
             self._note_unwarmed_traffic()
-            if seq.first_token_s is None:
-                # Admission: the waiting time becomes a queue_wait span
-                # and the prefill span opens (closed at the first token).
-                # A preempted sequence re-admitted after its first token
-                # opens neither.
-                if not tracer().has_span(seq.request_id, "queue_wait"):
-                    tracer().add_span(
-                        seq.request_id, "queue_wait", start_mono=seq.arrival_s
-                    )
-                tracer().span_begin(seq.request_id, "prefill")
-            if self.kvbm is not None:
-                self._onboard_host_prefix(seq)
-            self._prefix_lookups += 1
-            if seq.num_cached_prefix:
-                self._prefix_hits += 1
-            self._note_kv_actual(seq)
-            seq.status = SeqStatus.PREFILLING
-            seq.prefill_cursor = seq.num_cached_prefix
-            self._prefilling.append(seq)
+            if self.kvbm is not None and self._maybe_park_for_peer_pull(seq):
+                # G4: a fleet peer holds this prompt's G2-missing prefix at
+                # a winning price — the pull is in flight and the funded
+                # sequence waits, bounded, for the rows to land in G2.
+                continue
+            self._finish_admission(seq)
+
+    def _finish_admission(self, seq: Sequence) -> None:
+        """The admission tail shared by the direct path and a peer-pull
+        resume: spans, host-prefix onboard, prefix-hit accounting, the
+        kv_actual record, cursor setup, and entry into PREFILLING."""
+        if seq.first_token_s is None:
+            # The waiting time becomes a queue_wait span and the prefill
+            # span opens (closed at the first token). A preempted sequence
+            # re-admitted after its first token opens neither.
+            if not tracer().has_span(seq.request_id, "queue_wait"):
+                tracer().add_span(
+                    seq.request_id, "queue_wait", start_mono=seq.arrival_s
+                )
+            tracer().span_begin(seq.request_id, "prefill")
+        if self.kvbm is not None:
+            self._onboard_host_prefix(seq)
+        self._prefix_lookups += 1
+        if seq.num_cached_prefix:
+            self._prefix_hits += 1
+        self._note_kv_actual(seq)
+        seq.status = SeqStatus.PREFILLING
+        seq.prefill_cursor = seq.num_cached_prefix
+        self._prefilling.append(seq)
+
+    def _maybe_park_for_peer_pull(self, seq: Sequence) -> bool:
+        """G4 decision at admission: when G2 misses part of this prompt's
+        prefix but a fleet peer announced it AND pulling beats recomputing
+        under the live cost model, dispatch the pull and PARK the sequence
+        (admitted and funded; it enters PREFILLING later). Bounded by
+        kvbm_peer_timeout_s: _service_peer_parked resumes it, degraded,
+        past the deadline. One attempt per request.
+
+        The deadline is wall time, not ``self._clock``: the mocker's clock
+        advances only with charged dispatches, and an idle engine with one
+        parked request charges none."""
+        if seq.peer_pull_tried:
+            return False
+        seq.peer_pull_tried = True
+        kvbm = self.kvbm
+        if not kvbm.has_peer_client() or seq.hashes is None:
+            return False
+        bs = self.cfg.block_size
+        start = seq.num_cached_prefix // bs
+        limit = (len(seq.prompt_tokens) - 1) // bs
+        if start >= limit:
+            return False
+        hashes = seq.hashes.sequence_hashes()[start:limit]
+        n_match = kvbm.peek_host_match(hashes)
+        missing = list(hashes[n_match:])
+        if not missing:
+            return False
+        # A settled pull wakes the engine thread: the parked sequence then
+        # resumes without waiting out the idle loop's 10 ms poll.
+        kvbm.add_pull_listener(self._wakeup.set)
+        key = kvbm.plan_peer_pull(missing, prefill_tps=self._prefill_tps)
+        if key is None:
+            return False
+        seq.peer_pull_key = key
+        seq.peer_pull_deadline = time.monotonic() + self.cfg.kvbm_peer_timeout_s
+        seq.peer_parked = True
+        self._peer_parked[seq.request_id] = seq
+        return True
+
+    def _service_peer_parked(self) -> None:
+        """Resume parked sequences whose pull settled or whose deadline
+        passed: a peer's death or a timeout costs the request its pull,
+        never its completion. Engine thread only; runs every admission
+        pass, and the idle loop's 10 ms wait bounds the resume latency."""
+        if not self._peer_parked:
+            return
+        for rid in list(self._peer_parked):
+            if (
+                self._admission_held()
+                or len(self._prefilling) >= self.cfg.prefill_batch
+            ):
+                return
+            seq = self._peer_parked[rid]
+            if seq.status is not SeqStatus.RUNNING:
+                # Preempted or aborted while parked: whoever changed the
+                # status owns the sequence now (a requeue resets it to
+                # WAITING and admission retries it fresh).
+                seq.peer_parked = False
+                del self._peer_parked[rid]
+                continue
+            pending = self.kvbm.peer_pull_pending(seq.peer_pull_key)
+            if pending and time.monotonic() < seq.peer_pull_deadline:
+                continue
+            seq.peer_parked = False
+            del self._peer_parked[rid]
+            if pending:
+                # Deadline hit with the transfer in flight: the request
+                # proceeds by local recompute NOW (the pull runs on and
+                # warms G2 for the next request).
+                self.kvbm.note_peer_fallback()
+                self._degraded_requests += 1
+                logger.warning(
+                    "G4 pull for %s timed out after %.1fs; recomputing",
+                    rid, self.cfg.kvbm_peer_timeout_s,
+                )
+            elif self.kvbm.peer_pull_result(seq.peer_pull_key) == 0:
+                # Settled without landing a block (the peer died past the
+                # retry budget, or was evicted or re-priced between plan
+                # and fetch): recompute.
+                self._degraded_requests += 1
+            self._finish_admission(seq)
 
     def _note_kv_actual(self, seq: Sequence) -> None:
         """Record what this request actually reused, split by tier — the
@@ -1276,6 +1380,13 @@ class TorchEngine:
             # Two-touch disk promotion of whatever G2 misses, so the NEXT
             # request with this prefix hits G2 (no-op without a G3).
             self.kvbm.request_disk_promotion(hashes[n_match:])
+            # Two-touch G4: a fleet peer may hold it — pull at a winning
+            # price so the NEXT request hits G2 (no-op without a peer
+            # client; the request-blocking pull already ran at admission,
+            # and the per-prefix in-flight dedup makes this a cheap ask).
+            self.kvbm.plan_peer_pull(
+                list(hashes[n_match:]), prefill_tps=self._prefill_tps
+            )
         if n_match == 0:
             return
         r = self.runner
@@ -1351,10 +1462,14 @@ class TorchEngine:
                 self.allocator.register(
                     block, h, parent_hash=parent, token_ids=list(tokens))
             seq.num_cached_prefix = (start + len(matches)) * bs
-            # Actual-reuse attribution: G2-native vs G3-origin blocks.
-            disk_n = self.kvbm.count_disk_origin([m[0] for m in matches])
-            seq.reuse_host_blocks += len(matches) - disk_n
+            # Actual-reuse attribution: G2-native vs G3-origin vs
+            # G4-origin blocks.
+            matched_hashes = [m[0] for m in matches]
+            disk_n = self.kvbm.count_disk_origin(matched_hashes)
+            peer_n = self.kvbm.count_peer_origin(matched_hashes)
+            seq.reuse_host_blocks += len(matches) - disk_n - peer_n
             seq.reuse_disk_blocks += disk_n
+            seq.reuse_peer_blocks += peer_n
         except Exception as exc:
             if prepare is not None:
                 # The failure is in or after the in-place cache write: the

@@ -265,6 +265,11 @@ class Scheduler:
         for seq in sorted(self.running.values(), key=lambda s: s.arrival_s):
             if seq.status is not SeqStatus.RUNNING:
                 continue
+            if seq.peer_parked:
+                # Admitted but parked on a G4 peer pull: its prompt is not
+                # prefilled, so a decode lane built from it would
+                # fabricate context (engine _maybe_park_for_peer_pull).
+                continue
             if seq.context_cap(self.cfg.max_model_len) <= 0:
                 continue  # finishes when its in-flight chunks retire
             needed_block = min(

@@ -79,13 +79,25 @@ class Sequence:
     # KV observatory: prefix blocks this request reused at admission, per
     # tier (device = the G1 prefix cache, host/disk = onboarded from the
     # KVBM's G2, of which disk = promoted from G3 earlier), reported once
-    # (kv_actual_reported guards the re-admission after a preemption).
-    # The peer tier reads 0 until the port has G4.
+    # (kv_actual_reported guards the re-admission after a preemption);
+    # peer = onboarded rows a G4 pull brought into G2.
     reuse_device_blocks: int = 0
     reuse_host_blocks: int = 0
     reuse_disk_blocks: int = 0
     reuse_peer_blocks: int = 0
     kv_actual_reported: bool = False
+    # G4 peer-pull parking (engine _maybe_park_for_peer_pull): the
+    # in-flight pull this admitted-but-parked sequence waits on, its
+    # give-up point on the engine's clock (past it the sequence proceeds
+    # by local recompute, counted degraded), and the once-per-request
+    # guard.
+    peer_pull_key: int | None = None
+    peer_pull_deadline: float = 0.0
+    peer_pull_tried: bool = False
+    # While True the sequence is RUNNING but takes no decode lane: it is
+    # admitted, yet its prompt waits on the peer pull — decode_batch would
+    # otherwise treat the un-prefilled prompt as cached context.
+    peer_parked: bool = False
 
     @property
     def total_len(self) -> int:

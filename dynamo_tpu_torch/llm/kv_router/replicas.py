@@ -15,7 +15,9 @@ tool, tests, single-host deployments): spawn, kill, rejoin, and the
 measured staleness of a rejoined replica. A replica that rejoins after
 a death subscribes afresh to the event plane: every KV event published
 while it was down is gone, so its radix view undercounts until the
-workers' store/remove traffic rebuilds it.
+workers' store/remove traffic rebuilds it — or until the re-announce
+that ``rejoin`` asks for (block_manager/peer.py ``Reannouncer``)
+republishes every worker's resident blocks.
 :meth:`RouterReplicaSet.staleness` reports each replica's
 applied-event watermark against the set's maximum, and its
 publish→apply lag p99; the rejoined replica's route records carry its
@@ -133,9 +135,8 @@ class RouterReplicaSet:
         """Restart a killed replica UNDER ITS replica id, with a fresh
         lease and a fresh (EMPTY) radix view — the events published
         while it was down are lost, which is exactly the staleness
-        :meth:`staleness` then measures instead of assuming away. (The
-        JAX package also asks the workers to re-announce their blocks
-        here; that plane comes with the G4 peer tier.)"""
+        :meth:`staleness` then measures instead of assuming away; then it
+        asks the workers to re-announce their blocks."""
         if handle.alive:
             return handle
         drt = await self._drt_factory()
@@ -151,6 +152,20 @@ class RouterReplicaSet:
         self.replicas[self.replicas.index(handle)] = fresh
         logger.info("router replica %d rejoined (lease %#x)",
                     fresh.replica_id, fresh.instance_id)
+        # Staleness repair: ask the worker fleet to republish its
+        # registered blocks on the KV event plane (block_manager/peer.py
+        # Reannouncer), so the fresh radix view converges in one announce
+        # round instead of waiting for live traffic to re-cover the lost
+        # prefixes. Best-effort: a worker without a Reannouncer never
+        # answers, and the measured staleness above still holds.
+        try:
+            from dynamo_tpu_torch.block_manager.peer import request_reannounce
+
+            target = svc.target
+            comp = drt.namespace(target.namespace).component(target.component)
+            await request_reannounce(drt, comp)
+        except Exception:  # noqa: BLE001 — the repair is opportunistic
+            logger.debug("re-announce request failed", exc_info=True)
         return fresh
 
     # -- staleness ----------------------------------------------------------

@@ -78,6 +78,11 @@ class MockerConfig:
     # Closed-form greedy stream (see the module docstring); off: seeded
     # RNG tokens.
     deterministic_tokens: bool = False
+    # G4 peer-link cost model: the rate, in GB/s, a mocker worker's
+    # PeerBlockServer paces fleet pulls at (its ``serve_link_gbps``; 0 =
+    # unpaced). tools/g4_bench.py sets it to the calibrated HANDOFF_GBPS so
+    # the pull-vs-recompute price meets a transfer time of that link.
+    peer_link_gbps: float = 0.0
 
 
 def det_next_token(prev_tok, next_pos, vocab: int, positional: bool = True):

@@ -24,7 +24,7 @@ first imported (``arg`` is seconds for ``delay``, a trigger count
 otherwise), e.g. ``DYNAMO_TPU_FAULTS="fleet.worker_kill:raise:1"``.
 
 The instrumented points are ``KNOWN_FAULT_POINTS``; the reference's
-stepcast and G4 peer points arrive with their slices.
+stepcast points arrive with their slice.
 """
 
 from __future__ import annotations
@@ -49,8 +49,11 @@ logger = logging.getLogger(__name__)
 #: keeps events pending, a drop loses one); ``disagg.send`` /
 #: ``disagg.recv`` — a KV block push and its landing (a drop loses one
 #: frame: the decode side degrades to local recompute); ``kvbm.pump`` —
-#: the KVBM offer pump; ``kvbm.corrupt_disk`` — G3 bytes mutated at the
-#: disk write; ``kvbm.corrupt_frame`` — KV bytes mutated on the wire;
+#: the KVBM offer pump; ``kvbm.peer_pull`` — a G4 peer block fetch (an
+#: armed raise is the serving peer dying mid-pull: the request completes
+#: by local recompute, degraded, never hung); ``kvbm.corrupt_disk`` — G3
+#: bytes mutated at the disk write; ``kvbm.corrupt_frame`` — KV bytes
+#: mutated on the wire;
 #: ``kvbm.torn_write`` — a G3 block or sidecar write cut short. The three
 #: ``kvbm.corrupt_*``/``torn_write`` points take the payload mutators
 #: ``flip`` and ``truncate`` (``FAULTS.corrupt``).
@@ -65,6 +68,7 @@ KNOWN_FAULT_POINTS: tuple[str, ...] = (
     "disagg.send",
     "disagg.recv",
     "kvbm.pump",
+    "kvbm.peer_pull",
     "kvbm.corrupt_disk",
     "kvbm.corrupt_frame",
     "kvbm.torn_write",

@@ -91,11 +91,13 @@ CONTROL_CONNECT = RetryPolicy(
 
 # The KV push: its whole retried send (ack waits included) stays under
 # the decode side's remote_kv_timeout_s default (30 s). Queue redelivery:
-# the prefill worker's requeue budget.
+# the prefill worker's requeue budget. Block import: a G4 peer pull (a
+# read-only prefix fetch, so a clean re-request is always safe).
 TRANSFER = RetryPolicy(
     attempts=3, base_delay_s=0.05, max_delay_s=1.0, deadline_s=25.0
 )
 QUEUE_REDELIVERY = RetryPolicy(attempts=3, base_delay_s=0.05, max_delay_s=0.5)
+BLOCK_IMPORT = RetryPolicy(attempts=3, base_delay_s=0.1, max_delay_s=1.0)
 
 
 async def retry_async(

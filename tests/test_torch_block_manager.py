@@ -1,7 +1,6 @@
 """The port's KVBM (dynamo_tpu_torch/block_manager) and block IO
 (dynamo_tpu_torch/ops/kv_copy.py, the runner's gather/scatter) on the
-CPU: the cases of tests/test_block_manager.py on port objects (the G4
-remote-blockset case aside: the port has no G4 tier yet), held against
+CPU: the cases of tests/test_block_manager.py on port objects, held against
 the JAX package where both have the piece — the block gather bit for
 bit, the packed int8 rows byte for byte, and the G2 rows two engines
 offer for the same prompts byte for byte with equal CRCs. Tiny-test in
@@ -191,6 +190,74 @@ async def test_offload_drain_is_bounded():
     mgr._tasks.add(stale)  # done, never discarded by a callback
     await asyncio.wait_for(mgr.drain(timeout_s=1.0), 2.0)
     assert not mgr._tasks
+
+
+async def test_g4_remote_blockset_export_import():
+    """Two workers (own runtimes, one shared control plane): worker A
+    exports its host-tier blockset; worker B discovers it, fetches the
+    blocks over the request plane byte for byte, and lands them in its
+    own host tier; a dead exporter's blockset vanishes with its lease."""
+    from dynamo_tpu_torch.block_manager.remote import (
+        RemoteBlockClient,
+        RemoteBlockServer,
+    )
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    main = await DistributedRuntime.in_process()
+    drt_a = await DistributedRuntime.in_process(store=main.store, bus=main.bus)
+    drt_b = await DistributedRuntime.in_process(store=main.store, bus=main.bus)
+    layout = {"head_dim": 16, "dtype": "float32"}
+    mgr_a = await KvBlockManager(KvbmConfig(layout=LAYOUT, host_blocks=8)).start()
+    mgr_b = await KvBlockManager(KvbmConfig(layout=LAYOUT, host_blocks=8)).start()
+
+    # A holds a 3-block chain.
+    for i, (h, parent) in enumerate([(100, None), (200, 100), (300, 200)]):
+        mgr_a.offer(h, parent, [i] * 4, _data(float(i + 1)))
+    await mgr_a.drain_offers()
+    assert mgr_a.stats()["host_registered"] == 3
+
+    server = await RemoteBlockServer(
+        drt_a, drt_a.namespace("kv").component("torch"), mgr_a, layout=layout,
+        refresh_s=0.05).start()
+    client = await RemoteBlockClient(
+        drt_b, drt_b.namespace("kv").component("torch"), layout=layout).start()
+
+    hashes = [100, 200, 300, 999]
+    deadline = asyncio.get_running_loop().time() + 5
+    while client.best_peer(hashes)[1] < 3:
+        assert asyncio.get_running_loop().time() < deadline, client._blocksets
+        await asyncio.sleep(0.05)
+
+    # A direct fetch: byte fidelity.
+    wid, n = client.best_peer(hashes)
+    assert n == 3
+    blocks = await client.fetch(wid, hashes[:n])
+    assert [b[0] for b in blocks] == [100, 200, 300]
+    assert [b[1] for b in blocks] == [None, 100, 200]
+    np.testing.assert_array_equal(blocks[1][3], _data(2.0))
+
+    # The import path: B's host tier gains the prefix; a re-import is a no-op.
+    assert await client.onboard_into(mgr_b, hashes) == 3
+    await mgr_b.drain_offers()
+    got = mgr_b.match_host([100, 200, 300])
+    assert [g[0] for g in got] == [100, 200, 300]
+    np.testing.assert_array_equal(got[2][3], _data(3.0))
+    assert await client.onboard_into(mgr_b, [100, 200, 300]) == 0
+
+    # A dead exporter's blockset vanishes with its lease.
+    await server.stop()
+    await drt_a.shutdown()
+    deadline = asyncio.get_running_loop().time() + 10
+    while client.best_peer([100])[0] is not None:
+        assert asyncio.get_running_loop().time() < deadline, (
+            "dead worker's blockset never expired")
+        await asyncio.sleep(0.1)
+
+    await client.stop()
+    await mgr_a.stop()
+    await mgr_b.stop()
+    await drt_b.shutdown()
+    await main.shutdown()
 
 
 async def test_cross_engine_prefix_restore_via_host_tier():

@@ -176,6 +176,22 @@ def test_router_default_link_is_the_calibrated_channel():
     assert KvRouterConfig().default_link_gbps == t_cal.HANDOFF_GBPS
 
 
+def test_peer_pricing_fallback_is_the_calibrated_channel():
+    """With no measured pull EMA and no peer advertisement, the G4 pricing
+    law falls back to the recorded channel: in the port, the H100
+    record's pinned host→device rate."""
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.block_manager.peer import PeerBlockClient
+
+    drt = SimpleNamespace(primary_lease_id=0xAA)
+    comp = SimpleNamespace(namespace=SimpleNamespace(name="kv"), name="torch")
+    client = PeerBlockClient(drt, comp, None)
+    assert client.effective_bps("nobody") == t_cal.HANDOFF_GBPS * 1e9
+    rec = json.loads((Path(t_cal.__file__).parent / "calibration_h100.json").read_text())
+    assert t_cal.HANDOFF_GBPS == t_cal.derive(rec).handoff_gbps
+
+
 def test_handoff_rate_has_exactly_one_source():
     """No module of the port but calibration.py carries the measured
     rate: every consumer reads ``HANDOFF_GBPS``."""

@@ -6,8 +6,8 @@ rows, the G3 promotion verify, the background scrubber, crash-consistent
 sidecar recovery with the torn-write faults, a kill -9 mid-offload
 restart drill, the disagg layout handshake and the metric surfaces —
 with the JAX package's envelope as the reference for the checksum and
-the rows. (The G4 blockset refusal waits for the port's G4 tier.)
-Block bytes and checksums are compared exactly."""
+the rows, and the G4 blockset refusal of a legacy peer. Block bytes and
+checksums are compared exactly."""
 
 import asyncio
 import dataclasses
@@ -433,6 +433,32 @@ def test_disagg_layout_checksum_handshake(caplog):
             {"request_id": "r1", "layout": {**base, "checksum": "crc32-v0"}})
     assert not ok
     assert "mixed integrity fleet" in caplog.text
+
+
+def test_legacy_peer_blockset_refused(caplog):
+    """A checksumming worker REFUSES a legacy peer's blockset loudly — its
+    rows are unverifiable here; a same-algorithm peer is accepted."""
+    from dynamo_tpu_torch.block_manager.peer import layout_fingerprint
+    from dynamo_tpu_torch.block_manager.remote import RemoteBlockClient
+    from dynamo_tpu_torch.runtime.transports import wire
+
+    ours = layout_fingerprint(LAYOUT)
+    assert ours["checksum"] == CHECKSUM_ALGO == j_integrity.CHECKSUM_ALGO
+    comp = SimpleNamespace(name="torch", namespace=SimpleNamespace(name="kv"))
+    client = RemoteBlockClient(None, comp, layout=ours)
+
+    legacy = dict(ours)
+    del legacy["checksum"]  # a pre-envelope build's fingerprint
+    with caplog.at_level(logging.WARNING, logger="dynamo_tpu_torch.block_manager.remote"):
+        client._apply(client._prefix + "beef",
+                      wire.packb({"hashes": [1, 2, 3], "layout": legacy}))
+    assert "beef" not in client._blocksets
+    assert "REFUSED: checksum algorithm" in caplog.text
+
+    # Same-algorithm peer: accepted.
+    client._apply(client._prefix + "cafe",
+                  wire.packb({"hashes": [1, 2], "layout": dict(ours)}))
+    assert client._blocksets["cafe"] == {1, 2}
 
 
 def test_layout_handshake_accepts_an_equal_peer_and_refuses_a_padded_one():

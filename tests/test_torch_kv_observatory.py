@@ -598,7 +598,15 @@ async def test_kvbm_stats_counters_and_disk_origin(tmp_path):
     from dynamo_tpu.block_manager import KvbmConfig as JKvbmConfig
     from dynamo_tpu.block_manager import KvBlockManager as JKvBlockManager
     from dynamo_tpu.block_manager import KvLayoutConfig as JKvLayoutConfig
+    from dynamo_tpu.block_manager.integrity import INTEGRITY as J_INTEGRITY
     from dynamo_tpu_torch.block_manager import KvbmConfig, KvBlockManager, KvLayoutConfig
+    from dynamo_tpu_torch.block_manager.integrity import INTEGRITY
+
+    # Both integrity ledgers are process-wide and part of the digests: an
+    # earlier test's detections in the same process must not enter this
+    # step-by-step comparison.
+    INTEGRITY.reset()
+    J_INTEGRITY.reset()
 
     async def run(mgr_cls, cfg_cls, lay_cls, path):
         mgr = await mgr_cls(cfg_cls(layout=lay_cls(**_LAYOUT8), host_blocks=4,

@@ -6,7 +6,8 @@ replica cases of tests/test_ingress_scale.py on port mocker workers.
 A killed replica's in-flight requests fail over to the survivor through
 the frontend's FailoverEngine with the streams any healthy path makes
 (the deterministic mocker); the rejoined replica's missed-event lag is
-measured. The ingress tool's trace is the JAX synthesizer's, token for
+measured, and the re-announce its rejoin asks for rebuilds the fresh
+radix view. The ingress tool's trace is the JAX synthesizer's, token for
 token, and its small run passes its full gate set."""
 
 from __future__ import annotations
@@ -140,6 +141,141 @@ async def test_replica_kill_fails_over_and_rejoin_staleness_measured():
         for inst, eng in workers:
             await inst.stop()
             await eng.stop()
+        await drt0.shutdown()
+
+
+async def test_rejoin_reannounce_rebuilds_the_fresh_radix_view():
+    """The re-announce half of the JAX package's replica-rejoin case: each
+    worker runs a ``Reannouncer`` over its host tier, and the rejoined
+    replica's fresh radix view must re-cover a prefix stored BEFORE its
+    downtime — events its subscription can never replay — before any
+    post-rejoin traffic could have re-published it; then the replica's
+    own route decisions predict the prefix again."""
+    from dynamo_tpu_torch.block_manager import KvbmConfig, KvBlockManager, KvLayoutConfig
+    from dynamo_tpu_torch.block_manager.peer import Reannouncer
+    from dynamo_tpu_torch.llm.kv_router.audit import ROUTE_OBS
+    from dynamo_tpu_torch.llm.kv_router.publisher import (
+        KvEventPublisher,
+        WorkerMetricsPublisher,
+    )
+    from dynamo_tpu_torch.llm.kv_router.replicas import RouterReplicaSet
+    from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+    from dynamo_tpu_torch.mocker import MockerConfig, MockerEngine
+    from dynamo_tpu_torch.runtime.egress import PushRouter
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.failover import FailoverEngine
+    from dynamo_tpu_torch.utils.tracing import tracer
+
+    vocab = 997
+    drt0 = await DistributedRuntime.in_process()
+
+    async def sub_drt():
+        return await DistributedRuntime.in_process(
+            store=drt0.store, bus=drt0.bus, runtime=drt0.runtime)
+
+    # 8-float rows: the mocker runner's simulated KV geometry.
+    layout = KvLayoutConfig(num_layers=1, page_size=1, num_kv_heads=1, head_dim=4,
+                            dtype="float32")
+    workers = []
+    for i in range(2):
+        drt = await sub_drt()
+        comp = drt.namespace("rt").component("w")
+        kvbm = await KvBlockManager(KvbmConfig(layout=layout, host_blocks=64)).start()
+        eng = MockerEngine(
+            _cfg(num_blocks=256, enable_prefix_caching=True),
+            MockerConfig(vocab_size=vocab, seed=i, deterministic_tokens=True,
+                         decode_time_per_step_us=4000.0),
+            block_manager=kvbm)
+        pub = KvEventPublisher(drt, comp, drt.primary_lease_id)
+        wm = WorkerMetricsPublisher()
+        eng._external_kv_event = pub.publish_engine_event
+        eng._on_metrics = wm.publish
+        await eng.start()
+        inst = await comp.endpoint("generate").serve(eng)
+        await wm.create_endpoint(comp)
+        # interval_s far out: only the rejoin's broadcast may drive the
+        # announce, so convergence proves the trigger path.
+        ann = await Reannouncer(drt, comp, pub, kvbm.host_entries,
+                                interval_s=3600.0).start()
+        workers.append((inst, eng, ann, kvbm))
+    rs = await RouterReplicaSet(sub_drt, "rt.w.generate").start(2)
+    push = await PushRouter.create(drt0, "rt.router.generate", connect_timeout_s=2.0)
+    front = FailoverEngine(push)
+
+    async def one(i: int, osl: int = 10):
+        prompt = [(i * 7 + j) % (vocab - 1) + 1 for j in range(24)]
+        req = PreprocessedRequest(token_ids=prompt, sampling=SamplingOptions(temperature=0.0),
+                                  stop=StopConditions(max_tokens=osl, ignore_eos=True))
+        ctx = Context(req.to_wire())
+        out = []
+        async for item in front.generate(ctx):
+            out += item.get("token_ids", [])
+        tracer().finish(ctx.id)
+        assert out == _expected(prompt, osl, vocab)
+
+    # The probe prefix: request 0's prompt, served (and its KV events
+    # published) strictly BEFORE the kill; its full block is what the
+    # rejoined replica must re-learn from the re-announce alone.
+    probe = [(0 * 7 + j) % (vocab - 1) + 1 for j in range(24)]
+    probe_hashes = TokenBlockSequence.from_tokens(probe, block_size=16).sequence_hashes()
+    assert probe_hashes
+
+    async def _wait(pred, timeout_s: float, what: str):
+        deadline = asyncio.get_running_loop().time() + timeout_s
+        while not pred():
+            assert asyncio.get_running_loop().time() < deadline, f"timed out: {what}"
+            await asyncio.sleep(0.02)
+
+    try:
+        await asyncio.gather(*[one(i) for i in range(4)])
+        await _wait(lambda: any(probe_hashes[0] in {e[0] for e in kvbm.host_entries()}
+                                for _, _, _, kvbm in workers),
+                    5.0, "probe block host offload")
+
+        async def killer():
+            await asyncio.sleep(0.02)
+            await rs.kill(rs.replicas[0])
+
+        await asyncio.gather(asyncio.gather(*[one(10 + i) for i in range(6)]), killer())
+        await asyncio.gather(*[one(30 + i) for i in range(4)])
+        announces_before = sum(a.announces_total for _, _, a, _ in workers)
+        rejoined = await rs.rejoin(rs.replicas[0])
+
+        # Before any post-rejoin traffic: the rejoin's broadcast reached the
+        # Reannouncers, and their stored events rebuilt the probe prefix.
+        deadline = asyncio.get_running_loop().time() + 5.0
+        while True:
+            m = await rejoined.service.kv_router.indexer.find_matches(probe_hashes)
+            if max(m.values(), default=0) >= 1:
+                break
+            assert asyncio.get_running_loop().time() < deadline, (
+                "rejoined radix view never re-covered the pre-kill prefix")
+            await asyncio.sleep(0.02)
+        assert sum(a.announces_total for _, _, a, _ in workers) > announces_before
+
+        # The rejoined replica's own decisions predict the probe prefix
+        # again (not pinned at the stale zero a rejoin without re-announce
+        # would carry).
+        routes_before = ROUTE_OBS.routes_total
+        rejoined_overlap = None
+        for _ in range(12):
+            await one(0)
+            snap = ROUTE_OBS.snapshot(64)
+            fresh = snap["recent"][-(snap["routes_total"] - routes_before):]
+            recs = [r for r in fresh if r["replica_id"] == 0
+                    and r["isl_blocks"] == (len(probe) + 15) // 16]
+            if recs:
+                rejoined_overlap = max(r["overlap_blocks"] for r in recs)
+                break
+        assert rejoined_overlap is not None, "rejoined replica never decided a probe"
+        assert rejoined_overlap >= len(probe_hashes)
+    finally:
+        await rs.stop()
+        for inst, eng, ann, kvbm in workers:
+            await ann.stop()
+            await inst.stop()
+            await eng.stop()
+            await kvbm.stop()
         await drt0.shutdown()
 
 

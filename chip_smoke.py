@@ -316,15 +316,50 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 decision to the new lease and to its first token, TTFT
                 p50 before and after, the crash gap.
 
+12. families  — the dense model families at full width (budget: 120 s of
+                wall time and 40 GB of peak device memory, both printed
+                and gated; each model freed before the next; random bf16
+                weights from a seed with the QK-norm and sandwich-norm
+                gains and the qkv biases moved off identity). Kernel
+                cases: the ragged kernel at gemma3-1b's (H, kvH, D) = (4,
+                1, 256) with window 512 in a mixed batch and at
+                mistral-7b's (32, 8, 128) with window 4096 at contexts
+                4200–4700 over 320-column tables, bf16 and int8, against
+                the plain version, unowned rows zero; each again with
+                every span's table entries behind its window set to the 0
+                sentinel and block 0 filled with NaN (int8: scales inf),
+                which must leave the output finite and equal; the
+                unpoisoned cases timed beside the fair SDPA call.
+                gemma3-1b (26 layers, vocab 262144): 8 prompts of
+                300–1200 tokens, 32 greedy tokens, bf16 and int8 KV; one
+                streaming completion through the OpenAI server built by
+                the CLI on ``preset:gemma3-1b``; prefill_batch +
+                decode_multi on 4 lanes. mistral-7b (32 layers): 2
+                prompts of 4300–4500 tokens for 256 greedy tokens, with
+                the rolling buffer's eviction on and off: the streams
+                byte-identical, the live blocks of the second half at
+                most 2 × (ceil(window/bs) + 1 + pipeline slack + 1) with
+                it and at least the context's blocks without it.
+                qwen3-0.6b and qwen2.5-0.5b: 8 prompts of 64–512 tokens.
+                Every serve: phase 8's teacher-forced gates, every graph
+                captured before traffic, the ragged kernel num_layers
+                times per dispatch on the tile and split paths; a
+                profiled serve of fresh prompts gives device ms per
+                dispatch. Reported per model: tok/s, TTFT p50, device ms
+                per dispatch, peak bytes, the card.
+
 Each path's launch counts are set to 0 just before it and read just
 after. Then the card's name and power limit, the kernels line, and the
-last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
-of the JAX package. Needs one CUDA device.
+last line ``{"ok": true, "device": {...}}``. When any gate of any phase
+fails (or anything raises), the script prints one line ``{"failed":
+{"phase", "gate", "value", "limit"}}`` and exits non-zero. Imports
+nothing of JAX or of the JAX package. Needs one CUDA device.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -367,6 +402,40 @@ FIRST_LOGPROB_TOL = 0.02
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# The phase running now: a failed gate names it in the failure line.
+CURRENT = {"phase": "start"}
+
+
+class GateFailed(SystemExit):
+    """A gate that did not hold: the phase, the gate, its value and its
+    limit, printed by ``main`` as one JSON line before the exit."""
+
+    def __init__(self, gate: str, value=None, limit=None, phase: str | None = None):
+        super().__init__(gate)
+        self.record = {"phase": phase or CURRENT["phase"], "gate": gate,
+                       "value": value, "limit": limit}
+
+
+def fail(gate: str, value=None, limit=None, phase: str | None = None):
+    raise GateFailed(gate, value, limit, phase)
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase (a coroutine function runs in its own event loop),
+    named in the failure line if a gate of it fails."""
+    CURRENT["phase"] = name
+    out = fn(*args)
+    return asyncio.run(out) if asyncio.iscoroutine(out) else out
+
+
+def failure_record(exc: BaseException) -> dict:
+    """The failure line's content for whatever ended the run."""
+    if isinstance(exc, GateFailed):
+        return exc.record
+    gate = str(exc) if isinstance(exc, SystemExit) else f"{type(exc).__name__}: {exc}"
+    return {"phase": CURRENT["phase"], "gate": gate[-4000:], "value": None, "limit": None}
 
 
 def device_ms(fn, iters: int) -> float:
@@ -425,7 +494,7 @@ def check(phase: str, case: str, errs: dict, tol: float, **extra) -> float:
     ok = bool(np.isfinite(worst)) and worst <= tol and flag
     emit({"phase": phase, "case": case, **errs, "tol": tol, **extra, "ok": ok})
     if not ok:
-        raise SystemExit(f"{phase} case {case} disagrees with the plain version")
+        fail(f"{phase} case {case} disagrees with the plain version", worst, tol)
     return worst
 
 
@@ -537,12 +606,13 @@ def striped_tables(rng, rows, max_blocks, num_blocks, sp=SP):
     return tables
 
 
-def gather_dense(k, v, tables, L, bs=BS):
-    """Each row's first L keys gathered dense, heads repeated for GQA:
-    [rows, H, L, D] — the library yardstick's input, built once."""
+def gather_dense(k, v, tables, L, bs=BS, g=G):
+    """Each row's first L keys gathered dense, heads repeated for GQA
+    (``g`` query heads per kv head): [rows, H, L, D] — the library
+    yardstick's input, built once."""
     keys = torch.arange(L, device=DEVICE)
     slots = tables.long()[:, keys // bs] * bs + keys % bs        # [rows, L]
-    return tuple(x[slots].permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    return tuple(x[slots].permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
                  for x in (k, v))
 
 
@@ -574,7 +644,7 @@ def make_case(rng, spans, T, dtype, num_blocks=1024, max_blocks=48,
         q=t_(rng.standard_normal((T, h, d))).to(dtype), tables=t_(tables),
         q_start=t_(q_start), q_len=t_(q_len), kv_len=t_(q_start + q_len),
         row_start=t_(row_start), token_seq=t_(token_seq),
-        token_pos=t_(token_pos), spans=spans, bs=bs,
+        token_pos=t_(token_pos), spans=spans, bs=bs, dims=dims,
     )
     return c
 
@@ -596,7 +666,7 @@ def run_kernel(c, window=0):
     moved = tuple(b - a for a, b in zip(before, (fn.launches_tc, fn.launches_walk,
                                                  fn.launches_split)))
     if moved != (int(bf16), int(not bf16), 1):
-        raise SystemExit(f"ragged {c['q'].dtype} call launched the paths {moved}")
+        fail(f"ragged {c['q'].dtype} call launched the paths {moved}")
     return out
 
 
@@ -613,6 +683,7 @@ def ragged_work(c, window=0):
     """(bytes, flops) the function must move and do on these inputs:
     each span's visible K/V (and, for int8, its pages' scales) read once,
     q read once, out written once."""
+    h, kvh, d, bs = c["dims"]
     el_q, el_kv = c["q"].element_size(), c["k"].element_size()
     T = c["q"].shape[0]
     kv_bytes, flops = 0, 0
@@ -620,13 +691,13 @@ def ragged_work(c, window=0):
         if ql == 0:
             continue
         first = max(0, qs - window + 1) if window else 0
-        kv_bytes += (qs + ql - first) * KVH * D * el_kv * 2
+        kv_bytes += (qs + ql - first) * kvh * d * el_kv * 2
         if "ks" in c:
-            kv_bytes += (-(-(qs + ql) // BS) - first // BS) * KVH * 4 * 2
+            kv_bytes += (-(-(qs + ql) // bs) - first // bs) * kvh * 4 * 2
         for pos in range(qs, qs + ql):
             lo = max(0, pos - window + 1) if window else 0
-            flops += 4 * (pos + 1 - lo) * H * D
-    io = 2 * T * H * D * el_q + c["tables"].numel() * 4 + 4 * 4 * len(c["spans"])
+            flops += 4 * (pos + 1 - lo) * h * d
+    io = 2 * T * h * d * el_q + c["tables"].numel() * 4 + 4 * 4 * len(c["spans"])
     return kv_bytes + io, flops
 
 
@@ -647,7 +718,8 @@ def ragged_library(c, window=0):
     rows = (c["row_start"].long()[:, None] + i).clamp(max=T - 1)          # [S, Qmax]
     owned = i[None, :] < c["q_len"].long()[:, None]
     qd = c["q"][rows].permute(0, 2, 1, 3).contiguous()                     # [S, H, Qmax, D]
-    kd, vd = gather_dense(*dense_kv(c), c["tables"], L, c["bs"])
+    kd, vd = gather_dense(*dense_kv(c), c["tables"], L, c["bs"],
+                          c["q"].shape[1] // c["k"].shape[1])
     keys = torch.arange(L, device=DEVICE)
     pos = c["q_start"].long()[:, None] + i                                  # [S, Qmax]
     mask = (keys <= pos[..., None]) & (keys < c["kv_len"].long()[:, None, None])
@@ -976,7 +1048,7 @@ def prefill_kernel(c, window=0, **kw):
              window=window, **kw)
     want_tc = 1 if c["q"].dtype == torch.bfloat16 else 0
     if fn.launches_tc - tc0 != want_tc:
-        raise SystemExit(f"prefill {c['q'].dtype} call took the wrong entry point")
+        fail(f"prefill {c['q'].dtype} call took the wrong entry point")
     return out
 
 
@@ -1245,7 +1317,7 @@ async def phase_tiny() -> None:
           "quantum": ecfg.unified_prefill_quantum, "streams_equal_reference": ok,
           "dispatches": engine.unified_dispatches})
     if not ok:
-        raise SystemExit(f"tiny engine streams {streams} != reference {want}")
+        fail(f"tiny engine streams {streams} != reference {want}")
 
     int8 = await serve_once(dataclasses.replace(ecfg, kv_quant="int8"), params,
                             prompts, n)
@@ -1253,7 +1325,7 @@ async def phase_tiny() -> None:
     emit({"phase": "tiny_int8", "model": cfg.name, "kv_quant": "int8",
           "greedy_match_rate_vs_unquantized": rate, "gate": 0.7, "ok": rate >= 0.7})
     if rate < 0.7:
-        raise SystemExit(f"tiny int8 serve matched {rate:.2f} < 0.7")
+        fail(f"tiny int8 serve matched {rate:.2f} < 0.7")
 
     runner = ModelRunner(ecfg, params=params, device=DEVICE)
     split, _ = phase_split(runner, prompts, n - 1)
@@ -1261,7 +1333,7 @@ async def phase_tiny() -> None:
     emit({"phase": "tiny_phases", "model": cfg.name, "dtype": "float32",
           "prefill_batch_decode_multi_equal_reference": ok})
     if not ok:
-        raise SystemExit(f"tiny prefill_batch + decode_multi {split} != {want}")
+        fail(f"tiny prefill_batch + decode_multi {split} != {want}")
 
 
 def full_width_config(**kw):
@@ -1336,16 +1408,17 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         emit(profile)
     check_capture(phase, capture)
     if launches != cfg.num_layers * dispatches or dispatches == 0:
-        raise SystemExit(
-            f"{phase}: kernel launched {launches} times for {dispatches} "
-            f"dispatches x {cfg.num_layers} layers"
-        )
+        fail(f"{phase}: ragged launches for {dispatches} dispatches x "
+             f"{cfg.num_layers} layers", launches, cfg.num_layers * dispatches)
     # bf16 q: every call runs the multi-row spans on the tensor-core tile
     # and the one-row spans on the split path; the f32 walk never runs.
     if paths != {"tc": launches, "split": launches, "walk": 0}:
-        raise SystemExit(f"{phase}: ragged paths launched {paths} for {launches} calls")
+        fail(f"{phase}: ragged paths launched", paths,
+             {"tc": launches, "split": launches, "walk": 0})
     if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]):
-        raise SystemExit(f"{phase}: served streams failed their checks")
+        fail(f"{phase}: served streams failed their checks",
+             {"full_length": full, "in_vocab": in_vocab,
+              "finite": ref["logits_finite"], "shape": ref["logits_shape_ok"]}, True)
     result["recorded"] = recorded.calls
     return result, engine, streams
 
@@ -1370,12 +1443,11 @@ def check_capture(phase: str, capture: dict) -> None:
     of traffic: none is captured mid-traffic."""
     if capture["graphs_captured"] != capture["warmup_programs"] or not capture[
             "graphs_captured"]:
-        raise SystemExit(f"{phase}: {capture['graphs_captured']} graphs captured "
-                         f"for {capture['warmup_programs']} warmup programs")
+        fail(f"{phase}: graphs captured against warmup programs",
+             capture["graphs_captured"], capture["warmup_programs"])
     if capture["mid_traffic_compiles_total"]:
-        raise SystemExit(f"{phase}: {capture['mid_traffic_compiles_total']} "
-                         f"mid-traffic captures after warmup: "
-                         f"{capture['mid_traffic_keys']}")
+        fail(f"{phase}: mid-traffic captures after warmup "
+             f"{capture['mid_traffic_keys']}", capture["mid_traffic_compiles_total"], 0)
 
 
 class record_dispatches:
@@ -1535,7 +1607,7 @@ def phase_graphs(params, recorded, kv_quant, phase) -> dict:
     }
     emit(result)
     if token_mismatch or where is not None:
-        raise SystemExit(f"{phase}: replays differ from the eager body "
+        fail(f"{phase}: replays differ from the eager body "
                          f"(dispatches {token_mismatch[:8]}; {where})")
     del graph, eager
     torch.cuda.empty_cache()
@@ -1659,7 +1731,7 @@ async def phase_spec(prompts, max_tokens) -> dict:
                                     "gap_max": NEAR_TIE_NATS}}
     emit(result)
     if failures:
-        raise SystemExit("spec: " + "; ".join(failures))
+        fail("spec: " + "; ".join(failures))
     return result
 
 
@@ -1722,7 +1794,7 @@ async def phase_extras(port, engine, tapped, prompts, max_tokens) -> dict:
         tapped.clear()
         resp = await fetch("127.0.0.1", port, "POST", path, {**greedy, **body})
         if resp.status != 200:
-            raise SystemExit(f"extras: {name} answered {resp.status}: {resp.body[:300]}")
+            fail(f"extras: {name} answered {resp.status}: {resp.body[:300]}")
         (prompt_ids, ids), = tapped.items()
         lp = resp.json()["choices"][0]["logprobs"]
         if path.endswith("chat/completions"):
@@ -1770,20 +1842,20 @@ async def phase_extras(port, engine, tapped, prompts, max_tokens) -> dict:
         if (r["tokens"] != max_tokens or r["logprobs_returned"] != max_tokens
                 or not set(r["top_per_token"]) <= set(want_top)
                 or r["max_logprob_err_vs_reference"] > FIRST_LOGPROB_TOL):
-            raise SystemExit(f"extras: {name} failed its gates: "
+            fail(f"extras: {name} failed its gates: "
                              f"{ {k: v for k, v in r.items() if k != 'stream'} }")
     for kind, a in agreement.items():
         if a["agreement"] < PHASES_AGREEMENT or a["max_gap"] > NEAR_TIE_NATS:
-            raise SystemExit(f"extras: {kind} streams vs the reference {a}")
+            fail(f"extras: {kind} streams vs the reference {a}")
     # A stream with no repeated token is left as it was by the penalties;
     # one at least must show them at work.
     if not any(differs):
-        raise SystemExit(f"extras: the penalized streams equal the plain ones {differs}")
+        fail(f"extras: the penalized streams equal the plain ones {differs}")
     if launches != cfg.num_layers * dispatches or not dispatches:
-        raise SystemExit(f"extras: kernel launched {launches} times for "
+        fail(f"extras: kernel launched {launches} times for "
                          f"{dispatches} dispatches")
     if result["mid_traffic_compiles_total"]:
-        raise SystemExit("extras: a program was captured mid-traffic")
+        fail("extras: a program was captured mid-traffic")
     return result
 
 
@@ -1825,7 +1897,7 @@ def stream_summary(timed) -> dict:
             continue
         chunk = json.loads(ev.data)
         if "error" in chunk:
-            raise SystemExit(f"http: stream error {chunk}")
+            fail(f"http: stream error {chunk}")
         for ch in chunk.get("choices", []):
             times.append(t)
             text += ch.get("text") or ""
@@ -1976,27 +2048,27 @@ async def phase_http(prompts, serve_streams, max_tokens, served, more_prompts) -
     emit(result)
     result["streams"] = http_streams
     if any(code != 200 for code in statuses) or result["models"] != [cfg.name]:
-        raise SystemExit(f"http: statuses {statuses}, models {result['models']}")
+        fail(f"http: statuses {statuses}, models {result['models']}")
     if not (counts_ok and texts_ok and result["metrics_has_requests_total"]
             and result["metrics_has_capture_gauges"]):
-        raise SystemExit("http: token counts, finish reasons, streamed text or "
+        fail("http: token counts, finish reasons, streamed text or "
                          "/metrics wrong")
     if result["capture"]["mid_traffic_compiles_total"] or not result["capture"][
             "graphs_captured"]:
-        raise SystemExit(f"http: capture {result['capture']}")
+        fail(f"http: capture {result['capture']}")
     if launches != cfg.num_layers * dispatches or dispatches == 0:
-        raise SystemExit(f"http: kernel launched {launches} times for {dispatches} "
+        fail(f"http: kernel launched {launches} times for {dispatches} "
                          f"dispatches x {cfg.num_layers} layers")
     if paths != {"tc": launches, "split": launches, "walk": 0}:
-        raise SystemExit(f"http: ragged paths launched {paths} for {launches} calls")
+        fail(f"http: ragged paths launched {paths} for {launches} calls")
     if not (ref["logits_finite"] and ref["logits_shape_ok"]
             and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
             and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
-        raise SystemExit("http: streams disagree with the no-cache reference")
+        fail("http: streams disagree with the no-cache reference")
     d = result["drain"]
     if (d["inflight_status"], d["inflight_tokens"], d["refused_status"]) != (
             200, max_tokens, 503) or not (d["service_drained"] and d["engine_drained"]):
-        raise SystemExit(f"http: drain {d}")
+        fail(f"http: drain {d}")
     return result
 
 
@@ -2016,10 +2088,10 @@ def batch_cli(max_tokens: int) -> dict:
         )
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     if proc.returncode != 0 or not lines:
-        raise SystemExit(f"batch CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        fail(f"batch CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
     report = json.loads(lines[-1])
     if report["requests"] != 4 or not report["tokens_out_per_s"] > 0:
-        raise SystemExit(f"batch CLI report {report}")
+        fail(f"batch CLI report {report}")
     return {"report": report, "process_s": time.monotonic() - t0}
 
 
@@ -2071,7 +2143,7 @@ async def observe_stream(port, body, headers, events):
                 continue
             chunk = json.loads(ev.data)
             if "error" in chunk:
-                raise SystemExit(f"observe: stream error {chunk}")
+                fail(f"observe: stream error {chunk}")
             for ch in chunk.get("choices", []):
                 events.append((t, ch.get("finish_reason")))
 
@@ -2098,7 +2170,7 @@ async def observe_leg(port, model, prompts, burst, tapped, tokens=None,
     if burst:
         while min(len(ev) for ev in events) < 32:
             if any(s.done() for s in streams):
-                raise SystemExit("observe: a stream ended before the burst")
+                fail("observe: a stream ended before the burst")
             await asyncio.sleep(0.001)
         t_burst = time.perf_counter()
         burst_events = [[] for _ in burst]
@@ -2111,7 +2183,7 @@ async def observe_leg(port, model, prompts, burst, tapped, tokens=None,
     resps = await asyncio.gather(*streams)
     statuses = [r.status for r in resps] + ([r.status for r in burst_resps] if burst else [])
     if any(c != 200 for c in statuses):
-        raise SystemExit(f"observe: statuses {statuses}")
+        fail(f"observe: statuses {statuses}")
     gaps_all, gaps_burst = [], []
     for ev in events:
         times = [t for t, _ in ev]
@@ -2198,7 +2270,9 @@ def scan_trace(path: str, engine_tid: int) -> dict:
             "kernel_events": len(kernels), "ragged_kernel_events": len(ragged),
             "cpu_op_events": sum(1 for e in events if e.get("cat") == "cpu_op"),
             "engine_thread_cpu_ops": len(engine_ops),
-            "engine_thread_op_names": sorted({e["name"] for e in engine_ops})[:6]}
+            "engine_thread_op_names": sorted({e["name"] for e in engine_ops})[:6],
+            "event_categories": dict(collections.Counter(
+                str(e.get("cat")) for e in events).most_common(8))}
 
 
 def metric_value(text: str, name: str) -> float | None:
@@ -2385,7 +2459,7 @@ async def phase_observe(vocab: int) -> dict:
                                     for q in running)):
                         break
                     if time.monotonic() - t0 > 10.0:
-                        raise SystemExit("observe: the burst never filled the slots")
+                        fail("observe: the burst never filled the slots")
                     await asyncio.sleep(0.0002)
                 prof = asyncio.create_task(fetch(
                     "127.0.0.1", port, "GET", "/debug/profile?seconds=1"))
@@ -2395,12 +2469,18 @@ async def phase_observe(vocab: int) -> dict:
                 # Keep the engine dispatching until the window closes: the
                 # profiler's start holds the loop for a time that varies
                 # from call to call, and the burst can end before it opens.
-                while not prof.done():
-                    await fetch("127.0.0.1", port, "POST", "/v1/completions", {
-                        "model": model, "prompt": prompts[1][::-1], "max_tokens": 16,
-                        "temperature": 0})
+                # Two requests at a time; their statuses are reported.
+                async def keep_busy(i):
+                    while not prof.done():
+                        r = await fetch("127.0.0.1", port, "POST", "/v1/completions", {
+                            "model": model, "prompt": prompts[1 + i][::-1],
+                            "max_tokens": 16, "temperature": 0})
+                        busy[r.status] = busy.get(r.status, 0) + 1
+
+                await asyncio.gather(keep_busy(0), keep_busy(1))
                 return late, await prof
 
+            busy: dict[int, int] = {}   # statuses of the window's filler requests
             legs["deadline_profile"], (late, prof) = await observe_leg(
                 port, model, prompts, burst, tapped, tokens=96,
                 during_burst=during_burst)
@@ -2418,7 +2498,7 @@ async def phase_observe(vocab: int) -> dict:
                 "flight_steps_total")} | {
                 "trace_histograms": "dyntpu_trace_itl_ms_bucket" in m1}
             profile = prof.json()
-            result["profile"] = {"status": prof.status, **{
+            result["profile"] = {"status": prof.status, "filler_statuses": busy, **{
                 k: profile.get(k) for k in ("seconds", "device_events")}}
             if prof.status == 200:
                 result["profile"].update(scan_trace(profile["trace"],
@@ -2471,9 +2551,9 @@ async def phase_observe(vocab: int) -> dict:
     if not (full and ref["logits_finite"] and ref["logits_shape_ok"]
             and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
             and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
-        raise SystemExit("observe: streams short or disagreeing with the reference")
+        fail("observe: streams short or disagreeing with the reference")
     if any(mid.values()):
-        raise SystemExit(f"observe: graphs captured mid-traffic {mid}")
+        fail(f"observe: graphs captured mid-traffic {mid}")
     # The controller's contract on every leg: the quantum starts at 256
     # and never goes below the floor; the static one never moves; an
     # adaptive one falls only after a sample over its SLO was counted
@@ -2490,34 +2570,36 @@ async def phase_observe(vocab: int) -> dict:
         else:
             ok = not moved or leg["violations_before_first_fall"]
         if not traj or traj[0] != OBSERVE_QUANTUM or min(traj) < 16 or not ok:
-            raise SystemExit(
+            fail(
                 f"observe: {name} quantum trajectory {leg['quantum_trajectory']} "
                 f"(violations at start {leg['violations_at_start']}, at the first "
                 f"fall {leg['violations_at_first_fall']}; compose-time EMA crossed "
                 f"the SLO: {leg['ema_crossed_slo']}, peak {leg['ema_peak_ms']} ms)")
     if min(q for q, _ in legs["adaptive_tight"]["quantum_trajectory"]) >= OBSERVE_QUANTUM:
-        raise SystemExit("observe: the tight SLO was never pressured")
+        fail("observe: the tight SLO was never pressured")
     if any(f != d for _, f, d in checks) or not dispatches:
-        raise SystemExit(f"observe: flight records vs dispatches {checks}")
+        fail(f"observe: flight records vs dispatches {checks}")
     if result["trace_merge"]["assert_complete_exit"] != 0 or result["trace_merge"][
             "orphan_traces"]:
-        raise SystemExit(f"observe: trace merge {result['trace_merge']}")
+        fail(f"observe: trace merge {result['trace_merge']}")
     d = result["deadline"]
     if (d["status"], d["error_type"], d["deadline_exceeded_total_delta"]) != (
             504, "deadline_exceeded", 1.0):
-        raise SystemExit(f"observe: deadline {d}")
+        fail(f"observe: deadline {d}")
     if result["profile"]["status"] != 200 or not result["profile"].get("ragged_symbols"):
-        raise SystemExit(f"observe: profile {result['profile']}")
+        fail(f"observe: profile {result['profile']}")
     if not all(result["metrics_has"].values()):
-        raise SystemExit(f"observe: /metrics {result['metrics_has']}")
+        fail(f"observe: /metrics {result['metrics_has']}")
     if launches != cfg.num_layers * dispatches:
-        raise SystemExit(f"observe: kernel launched {launches} times for "
+        fail(f"observe: kernel launched {launches} times for "
                          f"{dispatches} dispatches x {cfg.num_layers} layers")
     return result
 
 
-def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
-    """The phase-split entry points at full width on the serve's weights,
+def phase_phases(params, prompts, unified_streams, max_tokens, ecfg=None,
+                 phase="phases") -> dict:
+    """The phase-split entry points at full width on the serve's weights
+    (``ecfg``: the serve's engine settings, llama3.2-1b's by default),
     each kernel's launches counted over exactly this run."""
     from dynamo_tpu_torch.engine.runner import ModelRunner
     from dynamo_tpu_torch.ops.kernels.paged_decode_attention import (
@@ -2527,7 +2609,7 @@ def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
         paged_prefill_attention_cuda,
     )
 
-    ecfg = full_width_config()
+    ecfg = ecfg or full_width_config()
     runner = ModelRunner(ecfg, params=params, device=DEVICE)
     paged_prefill_attention_cuda.launches = 0
     paged_prefill_attention_cuda.launches_tc = 0
@@ -2551,7 +2633,7 @@ def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
           and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS
           and lp_err <= FIRST_LOGPROB_TOL)
     result = {
-        "phase": "phases", "model": ecfg.model.name, "dtype": ecfg.dtype,
+        "phase": phase, "model": ecfg.model.name, "dtype": ecfg.dtype,
         "lanes": len(prompts), "prompt_lens": [len(p) for p in prompts],
         "decode_steps": max_tokens, **times,
         "prefill_kernel_launches": prefill_launches,
@@ -2565,15 +2647,16 @@ def phase_phases(params, prompts, unified_streams, max_tokens) -> dict:
     emit(result)
     if (prefill_launches != L or prefill_launches_tc != L
             or decode_launches != L * max_tokens):
-        raise SystemExit(
-            f"phases: prefill kernel launched {prefill_launches} times, "
-            f"{prefill_launches_tc} on tensor cores (want {L}), "
-            f"decode kernel {decode_launches} (want {L * max_tokens})"
-        )
+        fail(f"{phase}: prefill (all, tensor cores) and decode kernel launches",
+             [prefill_launches, prefill_launches_tc, decode_launches],
+             [L, L, L * max_tokens])
     if not in_vocab:
-        raise SystemExit("phases: tokens out of the vocabulary")
+        fail(f"{phase}: tokens out of the vocabulary", in_vocab, True)
     if not ok:
-        raise SystemExit("phases: streams disagree with the no-cache reference")
+        fail(f"{phase}: streams disagree with the no-cache reference",
+             {"agreement": ref["greedy_agreement_vs_no_cache_reference"],
+              "gap": ref["max_logprob_gap_at_disagreement"],
+              "first_logprob_err": lp_err}, gates)
     return result
 
 
@@ -2636,11 +2719,11 @@ class Child:
                     return m, t
             seen = len(self.lines)
             if self._reader.done():
-                raise SystemExit(f"fleet: {self.name} ended (rc {self.proc.returncode}) "
+                fail(f"fleet: {self.name} ended (rc {self.proc.returncode}) "
                                  f"before {pattern!r}:\n{self.tail()}")
             left = deadline - time.monotonic()
             if left <= 0:
-                raise SystemExit(f"fleet: {self.name} gave no {pattern!r} in "
+                fail(f"fleet: {self.name} gave no {pattern!r} in "
                                  f"{timeout:.0f} s:\n{self.tail()}")
             self._more.clear()
             try:
@@ -2652,7 +2735,7 @@ class Child:
         try:
             await asyncio.wait_for(self.proc.wait(), timeout)
         except asyncio.TimeoutError:
-            raise SystemExit(f"fleet: {self.name} did not exit in {timeout:.0f} s:\n"
+            raise GateFailed(f"fleet: {self.name} did not exit in {timeout:.0f} s:\n"
                              f"{self.tail()}") from None
         await self._reader
         return self.proc.returncode
@@ -2706,7 +2789,7 @@ async def wait_leases(drt, want: set[int], timeout: float = 30.0) -> float:
     t0 = time.monotonic()
     while await instance_leases(drt) != want:
         if time.monotonic() - t0 > timeout:
-            raise SystemExit(f"fleet: instances {await instance_leases(drt)} != {want}")
+            fail(f"fleet: instances {await instance_leases(drt)} != {want}")
         await asyncio.sleep(0.02)
     return time.monotonic() - t0
 
@@ -2876,7 +2959,7 @@ async def kv_route_leg(addr, stack, obs, bf16, cfg, params, port, tap, tapped, g
                         and sizes[-1] == sizes[-3] > 0):
                     return
                 if time.monotonic() - t0 > 30:
-                    raise SystemExit(f"fleet: kv_route: the indexer never settled {g}")
+                    fail(f"fleet: kv_route: the indexer never settled {g}")
                 await asyncio.sleep(0.05)
 
         async def reused() -> dict[int, float]:
@@ -3030,7 +3113,7 @@ async def kv_route_leg(addr, stack, obs, bf16, cfg, params, port, tap, tapped, g
             "exits": exits == [0, 0],
         }
         if not all(gates.values()):
-            raise SystemExit(f"fleet: kv_route gates {gates}")
+            fail(f"fleet: kv_route gates {gates}")
         return result
     finally:
         for child in children:
@@ -3046,7 +3129,7 @@ async def worker_exit(child, timeout: float = 120.0) -> dict:
     rc = await child.exit_code(timeout)
     m, _ = await child.wait_for(r"^worker report (\{.*\})", 5)
     if rc != 0:
-        raise SystemExit(f"fleet: {child.name} exited {rc}:\n{child.tail()}")
+        fail(f"fleet: {child.name} exited {rc}:\n{child.tail()}")
     report = json.loads(m.group(1))
     report["exit_code"] = rc
     report["drain_complete_s"] = t_done - child.t_spawn
@@ -3200,11 +3283,11 @@ async def phase_fleet(prompts, max_tokens, http, params, seed: int = 1) -> dict:
             counts_ok = served["counts_ok"]
             emit({"phase": "fleet_serve", **result["serve"]})
             if not counts_ok or sorted(split) != [4.0, 4.0]:
-                raise SystemExit(f"fleet: serve counts {counts_ok}, split {split}")
+                fail(f"fleet: serve counts {counts_ok}, split {split}")
             if not (ref["logits_finite"] and ref["logits_shape_ok"]
                     and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
                     and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
-                raise SystemExit("fleet: streams disagree with the no-cache reference")
+                fail("fleet: streams disagree with the no-cache reference")
 
             # -- kv_route: the KV-aware router on the same two workers -------
             result["kv_route"] = await kv_route_leg(
@@ -3229,7 +3312,7 @@ async def phase_fleet(prompts, max_tokens, http, params, seed: int = 1) -> dict:
                 await until(lambda: len(tapped.get(tuple(prompt), {}).get("tokens", [])) >= 8
                             or inflight.done(), 60, f"{how}: 8 tokens in flight")
                 if inflight.done():
-                    raise SystemExit(f"fleet: {how} stream ended early: {inflight.result()[0].status}")
+                    fail(f"fleet: {how} stream ended early: {inflight.result()[0].status}")
                 lease = tapped[tuple(prompt)]["workers"][0]
                 child = by_lease[lease][0]
                 if how == "drain_verb":
@@ -3263,7 +3346,7 @@ async def phase_fleet(prompts, max_tokens, http, params, seed: int = 1) -> dict:
                     # router finds no live instance (503).
                     ok &= r.status in (404, 503)
                 if not ok:
-                    raise SystemExit(f"fleet: {how} leg {leg}")
+                    fail(f"fleet: {how} leg {leg}")
                 if how == "drain_verb":
                     # The same 8 requests through the one worker left: the
                     # hop's cost beside the http phase's in-process serve,
@@ -3281,14 +3364,14 @@ async def phase_fleet(prompts, max_tokens, http, params, seed: int = 1) -> dict:
                             and one_ref["greedy_agreement_vs_no_cache_reference"]
                             >= PHASES_AGREEMENT
                             and one_ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
-                        raise SystemExit("fleet: one-worker serve failed its gates")
+                        fail("fleet: one-worker serve failed its gates")
             launches = {w: launches_ok(rep, walk_path=False) for w, rep in reports.items()}
             result["drain"] = legs
             result["bf16_workers"] = reports
             emit({"phase": "fleet_drain", "legs": legs, "worker_reports": reports,
                   "launches_ok": launches})
             if not all(launches.values()):
-                raise SystemExit(f"fleet: bf16 worker launches {launches}")
+                fail(f"fleet: bf16 worker launches {launches}")
 
             # -- leg 2: failover between two float32 workers -------------------
             f32 = await spawn_workers(addr, 2, "float32", "f32-")
@@ -3387,7 +3470,7 @@ async def phase_fleet(prompts, max_tokens, http, params, seed: int = 1) -> dict:
                     and fo["finish"] == "length" and fo["byte_identical_to_uninterrupted"]
                     and succ == 1 and len(workers_seen) == 2 and gap is not None
                     and fo["survivor_launches_ok"]):
-                raise SystemExit(f"fleet: failover leg {fo}")
+                fail(f"fleet: failover leg {fo}")
     finally:
         if obs is not None:
             await obs.shutdown()
@@ -3400,7 +3483,7 @@ async def until(cond, timeout: float, what: str) -> None:
     t0 = time.monotonic()
     while not cond():
         if time.monotonic() - t0 > timeout:
-            raise SystemExit(f"fleet: timed out waiting for {what}")
+            fail(f"fleet: timed out waiting for {what}")
         await asyncio.sleep(0.002)
 
 
@@ -3430,7 +3513,7 @@ async def wait_model(port: int, name: str, timeout: float = 30.0) -> None:
     while name not in [m["id"] for m in (await fetch(
             "127.0.0.1", port, "GET", "/v1/models")).json()["data"]]:
         if time.monotonic() - t0 > timeout:
-            raise SystemExit(f"fleet: the frontend never listed {name}")
+            fail(f"fleet: the frontend never listed {name}")
         await asyncio.sleep(0.05)
 
 
@@ -3475,8 +3558,10 @@ def stream_gates(leg: str, cfg, params, prompts, streams, finishes, max_tokens) 
     if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]
             and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
             and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
-        raise SystemExit(f"disagg {leg}: streams failed their checks "
-                         f"(full {full}, in vocab {in_vocab}, {ref})")
+        fail(f"{leg}: streams failed their checks (full {full}, in vocab "
+             f"{in_vocab})", {"agreement": ref["greedy_agreement_vs_no_cache_reference"],
+                              "gap": ref["max_logprob_gap_at_disagreement"]},
+             {"agreement_min": PHASES_AGREEMENT, "gap_max": NEAR_TIE_NATS})
     return ref
 
 
@@ -3572,21 +3657,21 @@ async def disagg_leg(name, decode, queue, transport, prompts, max_tokens, params
         "degraded_requests": decode.degraded_requests,
     }
     if (op.remote_count, op.local_count) != (4, 4):
-        raise SystemExit(f"disagg {name}: remote/local {op.remote_count}/{op.local_count}")
+        fail(f"disagg {name}: remote/local {op.remote_count}/{op.local_count}")
     if carried[transport] != want_blocks or sum(carried.values()) != want_blocks:
-        raise SystemExit(f"disagg {name}: blocks carried {carried}, want {want_blocks} "
+        fail(f"disagg {name}: blocks carried {carried}, want {want_blocks} "
                          f"on {transport} only")
     if out["integrity"]["integrity_failures_total"] or decode.degraded_requests:
-        raise SystemExit(f"disagg {name}: integrity {out['integrity']}, "
+        fail(f"disagg {name}: integrity {out['integrity']}, "
                          f"degraded {decode.degraded_requests}")
     if launches != cfg.num_layers * sum(dispatches) or 0 in dispatches:
-        raise SystemExit(f"disagg {name}: ragged kernel launched {launches} times for "
+        fail(f"disagg {name}: ragged kernel launched {launches} times for "
                          f"{dispatches} dispatches x {cfg.num_layers} layers")
     want_paths = {"tc": launches, "split": launches, "walk": 0}
     if decode.cfg.dtype == "bfloat16" and paths != want_paths:
-        raise SystemExit(f"disagg {name}: ragged paths {paths}")
+        fail(f"disagg {name}: ragged paths {paths}")
     if any(out["mid_traffic_compiles"]):
-        raise SystemExit(f"disagg {name}: graphs captured mid-traffic "
+        fail(f"disagg {name}: graphs captured mid-traffic "
                          f"{out['mid_traffic_compiles']}")
     out.update(stream_gates(name, cfg, params, prompts, streams, finishes, max_tokens))
     out["streams"] = streams
@@ -3608,7 +3693,7 @@ async def worker_done(child, leg: str, served: int) -> dict:
     if (rc != 0 or rep["requests"] != served or rep["mid_traffic_compiles"]
             or launches != rep["num_layers"] * rep["unified_dispatches"]
             or not rep["unified_dispatches"]):
-        raise SystemExit(f"disagg {leg}: prefill worker rc {rc}, report {rep}")
+        fail(f"disagg {leg}: prefill worker rc {rc}, report {rep}")
     return rep
 
 
@@ -3660,7 +3745,7 @@ async def kvbm_leg(vocab: int, max_tokens: int, params) -> dict:
             rd = engine.readiness()
             dispatches = engine.unified_dispatches - d0
             if fn.launches != ecfg.model.num_layers * dispatches or not dispatches:
-                raise SystemExit(f"disagg kvbm {name}: ragged kernel launched "
+                fail(f"disagg kvbm {name}: ragged kernel launched "
                                  f"{fn.launches} times for {dispatches} dispatches")
             out["ragged_launches"] = out.get("ragged_launches", 0) + fn.launches
             out[name] = {
@@ -3728,7 +3813,7 @@ async def kvbm_leg(vocab: int, max_tokens: int, params) -> dict:
             or out["stats"]["promotions_requested_total"] == 0
             or out["stats"]["promoted_blocks_total"] == 0
             or out["integrity"]["integrity_failures_total"]):
-        raise SystemExit(f"disagg kvbm: gates failed {out}")
+        fail(f"disagg kvbm: gates failed {out}")
     return out
 
 
@@ -3809,7 +3894,7 @@ async def g4_leg(vocab: int, max_tokens: int, params, address: str) -> dict:
         await eng.wait_drained(30)
         dispatches = eng.unified_dispatches - d0
         if fn.launches != L * dispatches or not dispatches or mid_traffic(eng):
-            raise SystemExit(f"disagg g4 {name}: ragged kernel launched {fn.launches} "
+            fail(f"disagg g4 {name}: ragged kernel launched {fn.launches} "
                              f"times for {dispatches} dispatches, "
                              f"{mid_traffic(eng)} graphs captured mid-traffic")
         out["ragged_launches"] = out.get("ragged_launches", 0) + fn.launches
@@ -3817,7 +3902,7 @@ async def g4_leg(vocab: int, max_tokens: int, params, address: str) -> dict:
         return streams, ttft, wall
 
     def fail(part):
-        raise SystemExit(f"disagg g4 {part}: gates failed {json.dumps(out, default=str)}")
+        fail(f"disagg g4 {part}: gates failed {json.dumps(out, default=str)}")
 
     def parks(eng) -> list:
         """Record each admission's park decision."""
@@ -4051,7 +4136,7 @@ async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
         leg["sender_vs_receiver_blocks"] = device_crc_match(prefill, decode, prompts[:4])
         c = leg["sender_vs_receiver_blocks"]
         if not c["blocks_compared"] or c["blocks_crc_equal"] != c["blocks_compared"]:
-            raise SystemExit(f"disagg device: received blocks differ from sent {c}")
+            fail(f"disagg device: received blocks differ from sent {c}")
         result["device"] = leg
         emit({"phase": "disagg_leg", **leg})
         for e in (decode, prefill):
@@ -4105,7 +4190,7 @@ async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
         leg.pop("streams")
         lay = decode.runner._quant_layout()
         if leg["bytes_received"]["tcp"] != leg["expected_blocks"] * lay.block_bytes:
-            raise SystemExit(f"disagg int8: {leg['bytes_received']} bytes for "
+            fail(f"disagg int8: {leg['bytes_received']} bytes for "
                              f"{leg['expected_blocks']} packed rows of {lay.block_bytes}")
         result["int8"] = leg
         emit({"phase": "disagg_leg", **leg})
@@ -4133,7 +4218,7 @@ async def phase_disagg(vocab: int, max_tokens: int, params) -> dict:
         leg["kv_transfer_gbps"] = moved / (sum(s) / 1e3) / 1e9 if s else None
     shutil.rmtree(tmp, ignore_errors=True)
     if [len(s) for s in per_leg.values()] != [4, 4, 4, 4]:
-        raise SystemExit(f"disagg: kv_transfer spans per leg "
+        fail(f"disagg: kv_transfer spans per leg "
                          f"{ {k: len(v) for k, v in per_leg.items()} }")
     result["wall_s"] = time.monotonic() - t_phase
     emit({"phase": "disagg", **{k: v for k, v in result.items()
@@ -4283,7 +4368,7 @@ async def calibration_leg(card: str, vocab: int) -> dict:
     finally:
         await engine.stop()
     if not all(len(s) == osl for s in streams) or mid:
-        raise SystemExit(f"planner calibration: headline streams {[len(s) for s in streams]}, "
+        fail(f"planner calibration: headline streams {[len(s) for s in streams]}, "
                          f"{mid} captures mid-traffic")
     record = {
         "schema": cal.SCHEMA, "card": card, "model": ecfg.model.name, "dtype": ecfg.dtype,
@@ -4391,7 +4476,7 @@ class LogFile:
                 if m:
                     return m, time.monotonic()
             if time.monotonic() > deadline:
-                raise SystemExit(f"planner: {self.name} gave no {pattern!r} in "
+                fail(f"planner: {self.name} gave no {pattern!r} in "
                                  f"{timeout:.0f} s:\n{self.tail()}")
             await asyncio.sleep(0.05)
 
@@ -4474,7 +4559,7 @@ async def wait_decision(path: str, pool: str | None, decision: str, after: float
                     and (pool is None or d.get("pool") == pool)):
                 return d
         if time.monotonic() - t0 > timeout:
-            raise SystemExit(f"planner: no {decision!r} decision ({pool}) in {timeout:.0f} s: "
+            fail(f"planner: no {decision!r} decision ({pool}) in {timeout:.0f} s: "
                              f"{decisions(path)[-6:]}")
         await asyncio.sleep(0.05)
 
@@ -4493,7 +4578,7 @@ async def retire(pid: int, log: LogFile) -> dict:
     t0 = time.monotonic()
     while pid_alive(pid):
         if time.monotonic() - t0 > 60:
-            raise SystemExit(f"planner: pid {pid} did not exit after its report")
+            fail(f"planner: pid {pid} did not exit after its report")
         await asyncio.sleep(0.05)
     return rep
 
@@ -4652,13 +4737,13 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
         if not (full and ref["logits_finite"] and ref["logits_shape_ok"]
                 and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
                 and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
-            raise SystemExit(f"planner aggregated: streams failed their gates {result}")
+            fail(f"planner aggregated: streams failed their gates {result}")
         if not (down["ts"] - t_stop <= 5 * PLANNER_ADJUST and report2["requests"] >= 1
                 and rc2 == "0"
                 and all(result["launches_ok"].values()) and planner_rc == 0
                 and result["adopted_worker_alive_after_sigterm"]
                 and len(adopted_alive) == 1):
-            raise SystemExit(f"planner aggregated: {result}")
+            fail(f"planner aggregated: {result}")
     finally:
         import signal as _signal
 
@@ -4828,7 +4913,7 @@ async def two_pool_leg(tmp: str, cfg, params, vocab: int) -> dict:
                 and integrity["integrity_failures_total"] == 0
                 and not decode.degraded_requests and planner_rc == 0
                 and result["remote_count"] >= 2 * POOL_CLIENTS):
-            raise SystemExit(f"planner two_pool: {result}")
+            fail(f"planner two_pool: {result}")
     finally:
         for pid in pids:
             with contextlib.suppress(ProcessLookupError):
@@ -4883,6 +4968,392 @@ async def phase_planner(vocab: int, params) -> dict:
     return result
 
 
+# -- phase 12: the dense model families ----------------------------------------
+FAMILIES_BUDGET_S = 120.0     # the phase's wall time ...
+FAMILIES_PEAK_BYTES = 40e9    # ... and peak device memory, at most
+GEMMA_LENS = (300, 1201)      # gemma3-1b prompts: local layers mask, global do not
+MISTRAL_LENS = (4300, 4501)   # mistral-7b prompts: with 256 new tokens ...
+MISTRAL_NEW = 256             # ... past the 4096 window
+MISTRAL_REQUESTS = 2
+QWEN_LENS = (64, 513)
+FAMILY_HTTP_ARGS = [
+    "run", "--out", "torch", "--model-path", "preset:gemma3-1b",
+    "--num-blocks", "1024", "--max-num-seqs", "8", "--max-model-len", "2048",
+    "--prefill-batch", "4", "--unified-token-budget", "256",
+    "--unified-prefill-quantum", "64",
+]
+
+
+def family_config(model, **kw):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    return EngineConfig(**{
+        "model": model, "dtype": "bfloat16", "block_size": 16, "num_blocks": 1024,
+        "max_num_seqs": 8, "max_model_len": 2048, "prefill_batch": 4,
+        "unified_token_budget": 256, "unified_prefill_quantum": 64, "seed": 0, **kw,
+    })
+
+
+def live_params(cfg, seed: int):
+    """Random bf16 weights from ``seed`` on the card, then the family
+    weights that start at identity (QK-norm and sandwich-norm gains, qkv
+    biases) moved off it, so every family feature changes the served
+    function."""
+    from dynamo_tpu_torch.models import llama
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    params = llama.init_params(cfg, g, dtype=torch.bfloat16, device=DEVICE)
+    for layer in params["layers"]:
+        for k in ("ln_q_head", "ln_k_head", "ln_post_attn", "ln_post_mlp", "bq", "bk", "bv"):
+            if k in layer:
+                noise = torch.randn(layer[k].shape, generator=g, device=DEVICE)
+                layer[k] += (0.1 * noise).to(layer[k].dtype)
+    return params
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def poison_behind_window(c, window: int) -> int:
+    """The rolling buffer's picture on a kernel case: each span's table
+    entries wholly behind its first row's window become the 0 sentinel,
+    and block 0 is filled with NaN (its int8 scales with inf), so a read
+    of any page behind a window shows in the output. Returns the entries
+    set to 0."""
+    tables = c["tables"].cpu().numpy()
+    bs, n = c["bs"], 0
+    for s, (qs, ql) in enumerate(c["spans"]):
+        first = max(qs - window + 1, 0) // bs if ql else 0
+        tables[s, :first] = 0
+        n += first
+    c["tables"] = t_(tables)
+    if "ks" in c:
+        c["k"][:bs] = 127
+        c["v"][:bs] = 127
+        c["ks"][0] = float("inf")
+        c["vs"][0] = float("inf")
+    else:
+        c["k"][:bs] = float("nan")
+        c["v"][:bs] = float("nan")
+    return n
+
+
+def family_kernel_cases() -> dict:
+    """The ragged kernel at the families' new shapes against its plain
+    version, bf16 and int8 legs, unowned rows zero: gemma3-1b's (H, kvH,
+    D) = (4, 1, 256) with window 512 in a mixed batch; mistral-7b's (32, 8,
+    128) with window 4096 at contexts 4200–4700 over 320-column tables;
+    each again with the entries behind every span's window set to the 0
+    sentinel and block 0 poisoned. The unpoisoned cases are timed beside
+    the fair library call."""
+    rng = np.random.default_rng(12)
+    bf16, int8 = torch.bfloat16, torch.int8
+    shapes = [
+        ("gemma_w512", (4, 1, 256, 16), 512, 256, 80, 1024,
+         [(c - 1, 1) for c in (300, 511, 513, 700, 1024, 1200)]
+         + [(0, 64), (480, 64), (900, 100), (0, 0)]),
+        ("mistral_w4096", (32, 8, 128, 16), 4096, 192, 320, 2304,
+         [(c - 1, 1) for c in (4200, 4350, 4511, 4700)]
+         + [(4300, 64), (4100, 96), (0, 0)]),
+    ]
+    timed = {}
+    for name, dims, window, T, max_blocks, num_blocks, spans in shapes:
+        for kv in (None, int8):
+            for poisoned in (False, True):
+                case = f"{name}{'_int8' if kv else ''}{'_sentinel_nan' if poisoned else ''}"
+                c = make_case(rng, spans, T, bf16, num_blocks=num_blocks,
+                              max_blocks=max_blocks, dims=dims, kv_dtype=kv)
+                zeroed = poison_behind_window(c, window) if poisoned else 0
+                got = run_kernel(c, window)
+                want = run_plain(c, window)
+                torch.cuda.synchronize()
+                finite = bool(torch.isfinite(got).all().item())
+                pad_zero = bool((got[c["token_pos"] < 0] == 0).all().item())
+                check("families", "ragged_" + case, {"max_abs_err": max_err(got, want)},
+                      KERNEL_TOL[bf16], ok=finite and pad_zero,
+                      kv_dtype=str(kv or bf16).split(".")[-1], T=T, spans=len(spans),
+                      window=window, H_kvH_D_bs=list(dims), max_blocks=max_blocks,
+                      splits_pages=ragged_plan(c, window), sentinel_entries=zeroed,
+                      output_finite=finite, unowned_rows_zero=pad_zero)
+                if not poisoned:
+                    nbytes, flops = ragged_work(c, window)
+                    library, rows = ragged_library(c, window)
+                    timed[case] = timing(
+                        "ragged_" + case, lambda c=c: run_kernel(c, window),
+                        lambda c=c: run_plain(c, window), library,
+                        run_plain(c, window)[rows], nbytes, flops, bf16)
+                del c
+                free_card()
+    return timed
+
+
+async def sample_blocks(engine, out: list) -> None:
+    """(seconds, kv_active_blocks) every 5 ms until cancelled."""
+    t0 = time.monotonic()
+    while True:
+        out.append((time.monotonic() - t0, engine.scheduler.metrics()["kv_active_blocks"]))
+        await asyncio.sleep(0.005)
+
+
+async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
+                       profile_prompts=None, profile_tokens=32) -> tuple[dict, list]:
+    """One family serve through ``TorchEngine.generate`` on given weights,
+    with the ragged kernel's launches counted over exactly this serve and
+    the phase 8 gates on its streams; optionally a profiled serve of
+    ``profile_prompts`` (``profile_tokens`` each) after it.
+    ``evict=False`` turns the rolling buffer's eviction off."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+
+    cfg = ecfg.model
+    engine = TorchEngine(ecfg, params=params, device=DEVICE)
+    await engine.start()
+    if not evict:
+        engine.scheduler.evict_behind_window = lambda *a, **k: 0
+    blocks: list = []
+    profile = None
+    try:
+        capture = await warm_up(engine)
+        reset_counts()
+        sampler = asyncio.create_task(sample_blocks(engine, blocks))
+        try:
+            streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
+        finally:
+            sampler.cancel()
+        capture["mid_traffic_compiles_total"] = mid_traffic(engine)
+        launches = fn.launches
+        paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
+        dispatches = engine.unified_dispatches
+        if profile_prompts is not None:
+            profile = await profile_serve(engine, profile_prompts, profile_tokens)
+    finally:
+        await engine.stop()
+    total = sum(len(s) for s in streams)
+    late = [b for t, b in blocks if t >= wall / 2]
+    result = {
+        "phase": phase, "model": cfg.name, "dtype": ecfg.dtype,
+        "kv_quant": ecfg.kv_quant, "requests": len(prompts),
+        "prompt_lens": [len(p) for p in prompts], "max_tokens": max_tokens,
+        "generated_tokens": total, "wall_s": wall, "tokens_per_s": total / wall,
+        "ttft_p50_ms": float(np.median(ttft)) * 1e3, "ttft_max_ms": max(ttft) * 1e3,
+        "unified_dispatches": dispatches, "kernel_launches": launches,
+        "kernel_launches_by_path": paths, "num_layers": cfg.num_layers,
+        "capture": capture, "rolling_buffer": cfg.rolling_buffer, "evict": evict,
+        "kv_active_blocks_max": max((b for _, b in blocks), default=0),
+        "kv_active_blocks_max_second_half": max(late, default=0),
+        "device_ms_per_dispatch": profile and profile["device_ms_per_dispatch"],
+        "device_busy_share": profile and profile["device_busy_share"],
+        "top_kernels_ms": profile and profile["top_kernels_ms"][:6],
+    }
+    try:
+        ref = stream_gates(phase, cfg, params, prompts, streams, finishes, max_tokens)
+    except GateFailed:
+        # The serve's line first, with the reference's numbers, then the
+        # failure.
+        ref = teacher_forced(cfg, params, prompts, streams)
+        ref.pop("first_token_ref_logprob")
+        emit({**result, **ref})
+        raise
+    result.update(ref)
+    emit(result)
+    check_capture(phase, capture)
+    if launches != cfg.num_layers * dispatches or dispatches == 0:
+        fail(f"{phase}: ragged launches for {dispatches} dispatches x "
+             f"{cfg.num_layers} layers", launches, cfg.num_layers * dispatches)
+    if paths != {"tc": launches, "split": launches, "walk": 0}:
+        fail(f"{phase}: ragged paths launched", paths,
+             {"tc": launches, "split": launches, "walk": 0})
+    return result, streams
+
+
+async def family_http(prompt, max_tokens) -> dict:
+    """One streaming completion through the OpenAI server built by the
+    CLI's own path on ``preset:gemma3-1b`` (its weights from the
+    engine's seed), with a Tap on the engine's token ids: 200, 32 tokens
+    with finish "length", the ragged kernel per dispatch, nothing
+    captured mid-traffic, the stream through the phase 8 gates."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.protocols.common import FinishReason
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+    from dynamo_tpu_torch.runtime.pipeline import Tap
+
+    args = cli.build_parser().parse_args(
+        FAMILY_HTTP_ARGS + ["--http-host", "127.0.0.1", "--http-port", "0"])
+    cli.refuse_unserved(args)
+    tapped: list[int] = []
+    tap = Tap(on_request=lambda ctx: None,
+              on_response=lambda ctx, item: tapped.extend(item["token_ids"]))
+    async with contextlib.AsyncExitStack() as stack:
+        service, engine = await cli.start_http(args, stack, engine_ops=(tap,))
+        reset_counts()
+        d0 = engine.unified_dispatches
+        resp, timed = await http_stream(
+            service.port, "/v1/completions",
+            {"model": engine.cfg.model.name, "prompt": prompt, "stream": True, "temperature": 0,
+             "max_tokens": max_tokens, "nvext": {"ignore_eos": True}})
+        summary = stream_summary(timed)
+        launches, dispatches = fn.launches, engine.unified_dispatches - d0
+        capture = {**engine.runner.compile_stats.capture_snapshot(),
+                   "mid_traffic_compiles_total": mid_traffic(engine)}
+        cfg, params = engine.cfg.model, engine.runner.params
+        finish = FinishReason.LENGTH if summary["finish"] == "length" else None
+        gates = stream_gates("families_http", cfg, params, [prompt], [tapped[:max_tokens]],
+                             [finish], max_tokens)
+    result = {"phase": "families_http", "model": cfg.name, "status": resp.status,
+              "tokens": len(tapped), "usage": summary["usage"],
+              "finish": summary["finish"], "ttft_ms": summary["times"][0] * 1e3,
+              "kernel_launches": launches, "unified_dispatches": dispatches,
+              "capture": capture, **gates}
+    emit(result)
+    if resp.status != 200 or len(tapped) != max_tokens:
+        fail("families_http: status and tapped tokens", [resp.status, len(tapped)],
+             [200, max_tokens])
+    if capture["mid_traffic_compiles_total"]:
+        fail("families_http: mid-traffic captures", capture["mid_traffic_compiles_total"], 0)
+    if launches != cfg.num_layers * dispatches or not dispatches:
+        fail("families_http: ragged launches", launches, cfg.num_layers * dispatches)
+    return result
+
+
+def phase_families(card: str) -> dict:
+    """The dense model families at full width: see the module docstring
+    (phase 12)."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = []
+
+    def take_peak() -> int:
+        """The peak since the last fresh window."""
+        peaks.append(torch.cuda.max_memory_allocated())
+        return peaks[-1]
+
+    def fresh_window() -> float:
+        """Free what the last model left, then a fresh peak window."""
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        return time.monotonic()
+
+    rng = np.random.default_rng(14)
+    out = {"kernels": family_kernel_cases()}
+    take_peak()
+    stage_s = {"kernel_cases": time.monotonic() - t_phase}
+    max_tokens = 32
+    launches, per_model = {}, {}
+
+    def model_line(name, served, t0):
+        per_model[name] = {
+            "tokens_per_s": served["tokens_per_s"], "ttft_p50_ms": served["ttft_p50_ms"],
+            "device_ms_per_dispatch": served["device_ms_per_dispatch"],
+            "peak_memory_bytes": take_peak(), "wall_s": time.monotonic() - t0}
+        emit({"phase": "families_model", "model": name, "card": card, **per_model[name]})
+
+    # gemma3-1b: bf16 and int8 KV, the OpenAI server, the phase split.
+    t0 = fresh_window()
+    gemma = ModelConfig.gemma3_1b()
+    params = live_params(gemma, 1)
+    prompts = [rng.integers(0, gemma.vocab_size, n).tolist()
+               for n in rng.integers(*GEMMA_LENS, 8)]
+    more = [rng.integers(0, gemma.vocab_size, n).tolist()
+            for n in rng.integers(*GEMMA_LENS, 4)]
+    ecfg = family_config(gemma)
+    served, streams = asyncio.run(serve_family(ecfg, params, prompts, max_tokens,
+                                               "families_gemma3-1b", profile_prompts=more))
+    launches["gemma3-1b"] = served["kernel_launches"]
+    served8, _ = asyncio.run(serve_family(family_config(gemma, kv_quant="int8"), params,
+                                          prompts, max_tokens, "families_gemma3-1b_int8"))
+    launches["gemma3-1b_int8"] = served8["kernel_launches"]
+    phases = phase_phases(params, prompts[:PHASE_LANES], streams[:PHASE_LANES], max_tokens,
+                          ecfg=family_config(gemma, prefill_chunk=2048),
+                          phase="families_gemma3-1b_phases")
+    out["phase_split"] = {k: phases[k] for k in (
+        "prefill_kernel_launches", "decode_kernel_launches")}
+    model_line("gemma3-1b", served, t0)
+    del params
+    fresh_window()
+    http = asyncio.run(family_http(prompts[0], max_tokens))
+    launches["gemma3-1b_http"] = http["kernel_launches"]
+    take_peak()
+    stage_s["gemma3-1b_http"] = time.monotonic() - t0 - per_model["gemma3-1b"]["wall_s"]
+
+    # mistral-7b: the rolling buffer past its window, eviction on and off.
+    t0 = fresh_window()
+    mistral = ModelConfig.mistral_7b()
+    params = live_params(mistral, 2)
+    prompts = [rng.integers(0, mistral.vocab_size, n).tolist()
+               for n in rng.integers(*MISTRAL_LENS, MISTRAL_REQUESTS)]
+    more = [rng.integers(0, mistral.vocab_size, n).tolist()
+            for n in rng.integers(*MISTRAL_LENS, MISTRAL_REQUESTS)]
+    ecfg = family_config(mistral, num_blocks=768, max_num_seqs=4, prefill_batch=2,
+                         max_model_len=5120, unified_token_budget=1024,
+                         unified_prefill_quantum=512)
+    on, on_streams = asyncio.run(serve_family(ecfg, params, prompts, MISTRAL_NEW,
+                                              "families_mistral-7b", profile_prompts=more))
+    off, off_streams = asyncio.run(serve_family(ecfg, params, prompts, MISTRAL_NEW,
+                                                "families_mistral-7b_no_evict", evict=False))
+    launches["mistral-7b"] = on["kernel_launches"]
+    bs, w = ecfg.block_size, mistral.sliding_window
+    plateau = MISTRAL_REQUESTS * (-(-w // bs) + 1 + (2 * ecfg.pipeline_depth) // bs + 1)
+    grown = sum((len(p) + MISTRAL_NEW - 8) // bs for p in prompts)
+    rolling = {"phase": "families_rolling_buffer", "model": mistral.name,
+               "streams_identical": on_streams == off_streams,
+               "kv_active_blocks_second_half": [on["kv_active_blocks_max_second_half"],
+                                                off["kv_active_blocks_max_second_half"]],
+               "plateau_bound": plateau, "grown_at_least": grown,
+               "table_columns": ecfg.max_blocks_per_seq}
+    emit(rolling)
+    if not rolling["streams_identical"]:
+        fail("families_rolling_buffer: streams with and without eviction differ",
+             match_rate(on_streams, off_streams), 1.0)
+    if on["kv_active_blocks_max_second_half"] > plateau:
+        fail("families_rolling_buffer: live blocks with eviction",
+             on["kv_active_blocks_max_second_half"], plateau)
+    if off["kv_active_blocks_max"] < grown:
+        fail("families_rolling_buffer: live blocks without eviction", off[
+            "kv_active_blocks_max"], grown)
+    model_line("mistral-7b", on, t0)
+    del params
+
+    # qwen3-0.6b and qwen2.5-0.5b: one bf16 serve each.
+    for seed, model in ((3, ModelConfig.qwen3_06b()), (4, ModelConfig.qwen25_05b())):
+        t0 = fresh_window()
+        params = live_params(model, seed)
+        prompts = [rng.integers(0, model.vocab_size, n).tolist()
+                   for n in rng.integers(*QWEN_LENS, 8)]
+        more = [rng.integers(0, model.vocab_size, n).tolist()
+                for n in rng.integers(*QWEN_LENS, 4)]
+        served, _ = asyncio.run(serve_family(family_config(model), params, prompts,
+                                             max_tokens, f"families_{model.name}",
+                                             profile_prompts=more))
+        launches[model.name] = served["kernel_launches"]
+        model_line(model.name, served, t0)
+        del params
+
+    wall = time.monotonic() - t_phase
+    peak = max(peaks)
+    stage_s.update({name: m["wall_s"] for name, m in per_model.items()})
+    out.update({"phase": "families", "card": card, "wall_s": wall, "stage_s": stage_s,
+                "peak_memory_bytes": peak, "models": per_model,
+                "ragged_launches": launches,
+                "budget": {"wall_s": FAMILIES_BUDGET_S, "peak_bytes": FAMILIES_PEAK_BYTES}})
+    emit({k: v for k, v in out.items() if k != "kernels"})
+    if peak > FAMILIES_PEAK_BYTES:
+        fail("families: peak device memory", peak, FAMILIES_PEAK_BYTES)
+    if wall > FAMILIES_BUDGET_S:
+        fail("families: wall seconds", wall, FAMILIES_BUDGET_S)
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4890,8 +5361,16 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     if not out:
-        raise SystemExit("nvidia-smi reported no card")
+        fail("nvidia-smi reported no card")
     return out
+
+
+def family_timing(families: dict, leg: str) -> dict:
+    """The ragged kernel's times at the families' shapes, one leg."""
+    return {name: {k: t[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by")}
+            for name, t in families["kernels"].items()
+            if name.endswith("_int8") == (leg == "_int8")}
 
 
 def kernel_entry(name, source, replaces, launches, t, design, **extra) -> dict:
@@ -4908,6 +5387,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    try:
+        return run_all()
+    except BaseException as exc:
+        # One line naming the phase, the gate, its value and its limit; the
+        # exit stays non-zero.
+        emit({"failed": failure_record(exc)})
+        raise
+
+
+def run_all() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4922,27 +5411,28 @@ def main() -> int:
     max_tokens = 32
     phase_lens = [int(n) for n in lens[:PHASE_LANES]]
 
-    phase_build()
-    t_ragged, t_int8 = phase_ragged()
-    t_decode = phase_decode(phase_lens, max_tokens)
-    t_prefill = phase_prefill(phase_lens, max_tokens)
-    asyncio.run(phase_tiny())
+    run_phase("build", phase_build)
+    t_ragged, t_int8 = run_phase("ragged", phase_ragged)
+    t_decode = run_phase("decode", phase_decode, phase_lens, max_tokens)
+    t_prefill = run_phase("prefill", phase_prefill, phase_lens, max_tokens)
+    run_phase("tiny", phase_tiny)
 
-    served, engine, streams = asyncio.run(serve_full(
-        full_width_config(), prompts, max_tokens, "serve", profile_prompts=more))
-    phase_graphs(engine.runner.params, served.pop("recorded"), None, "graphs")
-    served_int8, _, streams_int8 = asyncio.run(serve_full(
-        full_width_config(kv_quant="int8"), prompts, max_tokens, "serve_int8",
-        profile_prompts=more))
+    served, engine, streams = run_phase("serve", serve_full, full_width_config(), prompts,
+                                        max_tokens, "serve", more)
+    run_phase("graphs", phase_graphs, engine.runner.params, served.pop("recorded"), None,
+              "graphs")
+    served_int8, _, streams_int8 = run_phase(
+        "serve_int8", serve_full, full_width_config(kv_quant="int8"), prompts,
+        max_tokens, "serve_int8", more)
     emit({"phase": "serve_int8_vs_bf16",
           "greedy_match_rate": match_rate(streams_int8, streams)})
-    phase_graphs(engine.runner.params, served_int8.pop("recorded"), "int8",
-                 "graphs_int8")
-    asyncio.run(phase_spec(prompts + repeated_prompts(rng, vocab), max_tokens))
-    http = asyncio.run(phase_http(prompts, streams, max_tokens, served, more[:2]))
-    observe = asyncio.run(phase_observe(vocab))
-    phases = phase_phases(engine.runner.params, prompts[:PHASE_LANES],
-                          streams[:PHASE_LANES], max_tokens)
+    run_phase("graphs_int8", phase_graphs, engine.runner.params,
+              served_int8.pop("recorded"), "int8", "graphs_int8")
+    run_phase("spec", phase_spec, prompts + repeated_prompts(rng, vocab), max_tokens)
+    http = run_phase("http", phase_http, prompts, streams, max_tokens, served, more[:2])
+    observe = run_phase("observe", phase_observe, vocab)
+    phases = run_phase("phases", phase_phases, engine.runner.params,
+                       prompts[:PHASE_LANES], streams[:PHASE_LANES], max_tokens)
     # The fleet's workers are processes of their own on this card: free
     # this process's engines first, keeping the serve's weights (the
     # workers make the same ones from the same seed) for the gates.
@@ -4950,11 +5440,14 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    fleet = asyncio.run(phase_fleet(prompts, max_tokens, http, params))
-    disagg = asyncio.run(phase_disagg(vocab, max_tokens, params))
+    fleet = run_phase("fleet", phase_fleet, prompts, max_tokens, http, params)
+    disagg = run_phase("disagg", phase_disagg, vocab, max_tokens, params)
     gc.collect()
     torch.cuda.empty_cache()
-    planner = asyncio.run(phase_planner(vocab, params))
+    planner = run_phase("planner", phase_planner, vocab, params)
+    del params
+    free_card()
+    families = run_phase("families", phase_families, card)
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
@@ -4978,7 +5471,10 @@ def main() -> int:
                          "prefill_worker": disagg["worker_bf16"]["ragged_launches"],
                          "kvbm": disagg["kvbm"]["ragged_launches"],
                          "g4": disagg["g4"]["ragged_launches"]},
-                     planner_worker_launches=planner["worker_launches"]),
+                     planner_worker_launches=planner["worker_launches"],
+                     families_launches={k: v for k, v in families["ragged_launches"].items()
+                                        if not k.endswith("_int8")},
+                     families_timing=family_timing(families, "")),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
                      served_int8["kernel_launches"], t_int8,
@@ -4987,18 +5483,25 @@ def main() -> int:
                          "kernel_launches_by_path"],
                      disagg_launches={"tcp": disagg["int8"]["kernel_launches"],
                                       "prefill_worker": disagg["worker_int8"][
-                                          "ragged_launches"]}),
+                                          "ragged_launches"]},
+                     families_launches={k: v for k, v in families["ragged_launches"].items()
+                                        if k.endswith("_int8")},
+                     families_timing=family_timing(families, "_int8")),
         kernel_entry("paged_decode_attention",
                      "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:91",
                      phases["decode_kernel_launches"], t_decode,
-                     "split-KV over table columns, cp.async ring, merge kernel"),
+                     "split-KV over table columns, cp.async ring, merge kernel",
+                     families_launches={"gemma3-1b": families["phase_split"][
+                         "decode_kernel_launches"]}),
         kernel_entry("paged_prefill_attention",
                      "dynamo_tpu_torch/csrc/paged_prefill_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:405",
                      phases["prefill_kernel_launches"], t_prefill,
                      "bf16: mma.sync m16n8k16 tile of 128 query vectors "
-                     "(paged_attention_tc.cuh); f32: the walk"),
+                     "(paged_attention_tc.cuh); f32: the walk",
+                     families_launches={"gemma3-1b": families["phase_split"][
+                         "prefill_kernel_launches"]}),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

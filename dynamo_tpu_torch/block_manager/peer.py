@@ -53,7 +53,10 @@ from dynamo_tpu_torch.block_manager.remote import (
     KV_BLOCKS_ENDPOINT,
     RemoteBlockClient,
     RemoteBlockServer,
+    block_frame,
     block_record,
+    match_bytes,
+    off_loop,
 )
 from dynamo_tpu_torch.llm.kv_router.protocols import (
     KV_REANNOUNCE_PLANE,
@@ -145,27 +148,44 @@ class PeerBlockServer(RemoteBlockServer):
 
     async def generate(self, request):
         hashes = list(request.payload.get("hashes") or [])
+        frames = bool(request.payload.get("frames"))
         t0 = time.monotonic()
-        blocks = await asyncio.to_thread(self._manager.match_host, hashes)
+        blocks = await off_loop(match_bytes(self._manager, len(hashes)),
+                                self._manager.match_host, hashes)
         total = 0
         owed = 0.0  # link time served but not slept yet
-        for h, parent, tokens, data in blocks:
-            record, nbytes = block_record(h, parent, tokens, data)
+        batch, held = [], 0  # blocks of the frame being built
+        for row in blocks:
+            if frames:
+                nbytes = np.asarray(row[3]).nbytes
+                batch.append(row)
+                held += nbytes
+            else:
+                record, nbytes = block_record(*row)
+                yield record
+            total += nbytes
             if self.serve_link_gbps > 0:
                 # The link's time for these bytes, slept in installments of
                 # at least PACE_QUANTUM_S: a sleep per small block would
                 # cost an event-loop pass each, far more than the link.
                 owed += nbytes / (self.serve_link_gbps * 1e9)
-                if owed >= PACE_QUANTUM_S:
-                    await asyncio.sleep(owed)
-                    owed = 0.0
-            total += nbytes
-            yield record
+            pace = owed >= PACE_QUANTUM_S
+            if batch and (pace or held >= FRAME_BYTES):
+                yield block_frame(batch)  # what the link carried so far
+                batch, held = [], 0
+            if pace:
+                await asyncio.sleep(owed)
+                owed = 0.0
+        if batch:
+            yield block_frame(batch)
         if owed > 0:
             await asyncio.sleep(owed)
         if total:
             self._serve_rate.note(total, max(time.monotonic() - t0, 1e-9))
 
+
+#: Block bytes one batched frame of a PeerBlockServer carries at most.
+FRAME_BYTES = 4 << 20
 
 #: Smallest pacing sleep of a PeerBlockServer on a simulated link.
 PACE_QUANTUM_S = 1e-3
@@ -327,7 +347,7 @@ class PeerBlockClient(RemoteBlockClient):
             return 0
         nbytes = sum(int(np.asarray(d).nbytes) for *_meta, d in blocks)
         self._pull_rate.note(nbytes, max(time.monotonic() - t0, 1e-9))
-        imported = await asyncio.to_thread(manager.import_peer_blocks, blocks)
+        imported = await off_loop(nbytes, manager.import_peer_blocks, blocks)
         self.pulls_total += 1
         self.pull_bytes_total += nbytes
         return imported

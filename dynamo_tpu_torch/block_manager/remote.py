@@ -19,6 +19,13 @@ A mixed fleet shares no hash space anyway (BLAKE2b, llm/tokens.py).
 
 Layout compatibility rides the export record, and a peer whose layout
 differs is refused loudly, never reinterpreted.
+
+A port client asks for batched frames (``"frames": True`` beside the
+hashes): a peer server (block_manager/peer.py) then packs up to
+``peer.FRAME_BYTES`` of block bytes into one response item, field by
+field (``block_frame``), instead of one item per block. Each block keeps its
+own bytes and CRC. A server that does not know the flag sends per-block
+records, which the client reads too.
 """
 
 from __future__ import annotations
@@ -39,18 +46,43 @@ logger = logging.getLogger(__name__)
 
 BLOCKSET_ROOT = "blocksets/"
 KV_BLOCKS_ENDPOINT = "kv_blocks"
+# A host-tier copy this small runs on the event loop: handing it to a
+# worker thread and back costs two thread switches, which on a loaded
+# host take longer than the copy itself.
+INLINE_BYTES = 1 << 20
 
 
-def block_record(h, parent, tokens, data) -> tuple[dict, int]:
-    """One served block as its wire record, and its byte count. The CRC
-    covers the bytes as serialised; ``kvbm.corrupt_frame`` mutates them
-    between serialising and sending, so the importer's check must refuse
-    the record."""
+async def off_loop(nbytes: int | None, fn, *args):
+    """``fn(*args)`` on the loop when it copies at most INLINE_BYTES, in a
+    worker thread otherwise (or when the size is unknown): a long copy
+    must not stall the loop."""
+    if nbytes is not None and nbytes <= INLINE_BYTES:
+        return fn(*args)
+    return await asyncio.to_thread(fn, *args)
+
+
+def match_bytes(manager, n: int) -> int | None:
+    """Bytes a ``match_host`` of n blocks copies at most, when the
+    manager says its layout."""
+    layout = getattr(getattr(manager, "cfg", None), "layout", None)
+    return None if layout is None else n * layout.block_bytes
+
+
+def _block_bytes(data) -> tuple[np.ndarray, bytes, int]:
+    """(array, bytes as sent, CRC of the bytes as serialised) of one
+    served block. ``kvbm.corrupt_frame`` mutates the bytes between
+    serialising and sending, so the importer's check must refuse them."""
     arr = np.ascontiguousarray(data)
     payload = arr.tobytes()
     crc = block_checksum(payload)
     if FAULTS.active:
         payload = FAULTS.corrupt("kvbm.corrupt_frame", payload)
+    return arr, payload, crc
+
+
+def block_record(h, parent, tokens, data) -> tuple[dict, int]:
+    """One served block as its wire record, and its byte count."""
+    arr, payload, crc = _block_bytes(data)
     return {
         "hash": h,
         "parent": parent,
@@ -60,6 +92,49 @@ def block_record(h, parent, tokens, data) -> tuple[dict, int]:
         "data": payload,
         "crc": crc,
     }, arr.nbytes
+
+
+def block_frame(rows) -> dict:
+    """Several served blocks (``match_host`` tuples: rows of one host
+    arena, so of one dtype and shape) as ONE response item, field by
+    field, the tokens as one int64 buffer: one frame and one codec pass
+    per batch instead of per block (per-block items cost the response
+    plane ~0.1 ms each on both ends, of the order of recomputing a
+    block). Each block keeps its own bytes and CRC."""
+    payloads, crcs = [], []
+    for *_meta, data in rows:
+        arr, payload, crc = _block_bytes(data)
+        payloads.append(payload)
+        crcs.append(crc)
+    return {"blocks": {
+        "hash": [r[0] for r in rows],
+        "parent": [r[1] for r in rows],
+        "ntok": [len(r[2]) for r in rows],
+        "tokens": np.asarray(
+            [t for r in rows for t in r[2]], np.int64
+        ).tobytes(),
+        "dtype": str(arr.dtype),
+        "shape": list(arr.shape),
+        "data": payloads,
+        "crc": crcs,
+    }}
+
+
+def frame_records(item: dict):
+    """(hash, parent, tokens, dtype, shape, bytes, crc) of each block of
+    one response item: a batched frame's in order, or the item itself
+    when it is one record."""
+    cols = item.get("blocks")
+    if cols is None:
+        yield (item["hash"], item["parent"], item["tokens"], item["dtype"],
+               item["shape"], item["data"], item.get("crc"))
+        return
+    tokens = np.frombuffer(cols["tokens"], np.int64).tolist()
+    at = 0
+    for i, n in enumerate(cols["ntok"]):
+        yield (cols["hash"][i], cols["parent"][i], tokens[at:at + n],
+               cols["dtype"], cols["shape"], cols["data"][i], cols["crc"][i])
+        at += n
 
 
 class RemoteBlockServer:
@@ -140,8 +215,10 @@ class RemoteBlockServer:
     async def generate(self, request: Context) -> AsyncIterator[dict]:
         hashes = list(request.payload.get("hashes") or [])
         # match_host copies block bytes under the manager lock — off the
-        # event loop, or a long fetch stalls this worker's engine thread.
-        blocks = await asyncio.to_thread(self._manager.match_host, hashes)
+        # event loop when it is long, or the fetch stalls this worker's
+        # engine thread.
+        blocks = await off_loop(match_bytes(self._manager, len(hashes)),
+                                self._manager.match_host, hashes)
         for h, parent, tokens, data in blocks:
             yield block_record(h, parent, tokens, data)[0]
 
@@ -258,26 +335,22 @@ class RemoteBlockClient:
         tuples) — the body both this class's fetch and the peer tier's
         fault-instrumented fetch (block_manager/peer.py) wrap."""
         out = []
-        ctx = Context({"hashes": list(hashes)})
+        ctx = Context({"hashes": list(hashes), "frames": True})
         async for item in self._router.direct(ctx, int(wid, 16)):
-            crc = item.get("crc")
-            if crc is not None and block_checksum(item["data"]) != crc:
-                # Corrupt frame: stop the imported prefix HERE (a child of
-                # a dropped block can never prefix-match) and let the
-                # requester recompute the tail. Checked BEFORE frombuffer
-                # — a truncated payload must not raise.
-                INTEGRITY.note_failure("peer")
-                logger.warning(
-                    "peer %s block %x failed checksum in flight; "
-                    "dropping the rest of the pull", wid, item["hash"],
-                )
-                break
-            arr = np.frombuffer(
-                item["data"], dtype=np.dtype(item["dtype"])
-            ).reshape(item["shape"])
-            out.append(
-                (item["hash"], item["parent"], tuple(item["tokens"]), arr)
-            )
+            for h, parent, tokens, dtype, shape, data, crc in frame_records(item):
+                if crc is not None and block_checksum(data) != crc:
+                    # Corrupt block: stop the imported prefix HERE (a
+                    # child of a dropped block can never prefix-match) and
+                    # let the requester recompute the tail. Checked BEFORE
+                    # frombuffer — a truncated payload must not raise.
+                    INTEGRITY.note_failure("peer")
+                    logger.warning(
+                        "peer %s block %x failed checksum in flight; "
+                        "dropping the rest of the pull", wid, h,
+                    )
+                    return out
+                arr = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)
+                out.append((h, parent, tuple(tokens), arr))
         return out
 
     async def fetch(

@@ -16,6 +16,9 @@ import torch
 from dynamo_tpu_torch.models.config import ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# One H100's device memory: the weights of a model served on one card
+# must fit in it.
+CARD_BYTES = 80e9
 
 
 @dataclass
@@ -187,6 +190,15 @@ class EngineConfig:
                 f"model {self.model.name}: {', '.join(missing)} not served "
                 "by this slice of the port"
             )
+        if self.dtype in DTYPES:
+            weight_bytes = self.model.param_count() * DTYPES[self.dtype].itemsize
+            if weight_bytes > CARD_BYTES:
+                raise ValueError(
+                    f"model {self.model.name}: {weight_bytes / 1e9:.1f} GB of "
+                    f"{self.dtype} weights exceed one {CARD_BYTES / 1e9:.0f} GB "
+                    "card: not served by this slice of the port (a model "
+                    "sharded over cards is the parallel slice, ROADMAP A4)"
+                )
         if not self.kvbm_peer_timeout_s > 0:
             raise ValueError(
                 f"kvbm_peer_timeout_s={self.kvbm_peer_timeout_s} must be > 0 "

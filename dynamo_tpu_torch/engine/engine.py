@@ -1037,6 +1037,7 @@ class TorchEngine:
                 if seq.status not in (SeqStatus.PREFILLING, SeqStatus.RUNNING):
                     continue  # aborted mid-prompt; KV writes were harmless
                 self.scheduler.register_filled_blocks(seq, start + n)
+                self.scheduler.evict_behind_window(seq, start + n)
                 if deliver and seq.status is SeqStatus.RUNNING:
                     if self.kvbm is not None:
                         # Prompt fully fed: stage its blocks into G2.
@@ -1047,6 +1048,8 @@ class TorchEngine:
             if seq.defer_release and seq.inflight_chunks == 0:
                 seq.defer_release = False
                 self.scheduler._release(seq)
+            elif seq.status is SeqStatus.RUNNING:
+                self.scheduler.evict_behind_window(seq, seq.total_len)
         self._spec_accepted += n_accepted
         if drafted:
             # dispatch_ms stays the issue-side compose time, as on every
@@ -1495,6 +1498,10 @@ class TorchEngine:
         for idx in range(full):
             h = seq.hashes.blocks[idx]
             if self.kvbm.has_host(h.sequence_hash):
+                continue
+            if seq.block_ids[idx] == 0:
+                # A rolling-buffer evicted page: gathering the trash block
+                # would poison the host tier under a valid hash.
                 continue
             todo.append((seq.block_ids[idx], h))
         if not todo:

@@ -205,11 +205,13 @@ class Scheduler:
         bs = self.cfg.block_size
         P = len(seq.prompt_tokens)
 
+        # The prompt's block hashes, once: the prefix probe and the
+        # sequence's own chain.
+        probe = TokenBlockSequence.from_tokens(seq.prompt_tokens, block_size=bs)
         seq.hashes = TokenBlockSequence(block_size=bs)
         # Prefix match on full prompt blocks, capped so ≥1 token is computed.
         matched: list[int] = []
         if self.cfg.enable_prefix_caching:
-            probe = TokenBlockSequence.from_tokens(seq.prompt_tokens, block_size=bs)
             limit = (P - 1) // bs
             matched = self.allocator.match_prefix(probe.sequence_hashes()[:limit])
         cached_tokens = len(matched) * bs
@@ -230,7 +232,7 @@ class Scheduler:
 
         seq.block_ids = matched + new_blocks
         seq.num_cached_prefix = cached_tokens
-        seq.hashes.extend(seq.prompt_tokens)
+        seq.hashes = probe
         seq.sched_len = seq.total_len
         seq.slot = self._free_slots.pop()
         seq.status = SeqStatus.RUNNING
@@ -246,13 +248,41 @@ class Scheduler:
         full = covered_tokens // bs
         hashes = seq.hashes.blocks
         for idx in range(full):
+            block = seq.block_ids[idx]
+            if block == 0:
+                continue  # a rolling-buffer evicted page (the sentinel)
             h = hashes[idx]
             self.allocator.register(
-                seq.block_ids[idx],
+                block,
                 h.sequence_hash,
                 parent_hash=h.parent_sequence_hash,
                 token_ids=list(h.tokens),
             )
+
+    def evict_behind_window(self, seq: Sequence, covered: int) -> int:
+        """Rolling-buffer eviction for fully windowed models (Mistral):
+        release the blocks whose every position lies behind the window of
+        every query the sequence can still issue (the earliest is at
+        ``covered - 1`` or later, so keys below ``covered - window`` are
+        dead). Their table entries become the 0 sentinel, which a
+        windowed scan never reaches, so the tables stay valid without
+        compaction. A registered block lands in the allocator's reusable
+        pool: its KV stays valid and findable by hash for prefix hits.
+        Returns the number of blocks released."""
+        if not self.cfg.model.rolling_buffer:
+            return 0
+        w = self.cfg.model.sliding_window
+        upto = min(max(covered - w, 0) // self.cfg.block_size,
+                   len(seq.block_ids))
+        n = 0
+        for i in range(seq.evicted_pages, upto):
+            b = seq.block_ids[i]
+            if b:
+                self.allocator.release(b)
+                seq.block_ids[i] = 0
+                n += 1
+        seq.evicted_pages = max(seq.evicted_pages, upto)
+        return n
 
     # -- decode -------------------------------------------------------------
     def decode_batch(self, lookahead: int = 1) -> list[Sequence]:
@@ -329,6 +359,7 @@ class Scheduler:
         seq.hashes = None
         seq.num_cached_prefix = 0
         seq.sched_len = 0
+        seq.evicted_pages = 0  # re-admission funds the whole prompt again
         # Re-admission may land in a slot whose count-buffer row holds
         # another sequence's history: re-arm the reset.
         seq.counts_reset_pending = True
@@ -371,7 +402,8 @@ class Scheduler:
 
     def _release(self, seq: Sequence) -> None:
         for b in seq.block_ids:
-            self.allocator.release(b)
+            if b:  # 0: a rolling-buffer evicted page, already released
+                self.allocator.release(b)
         seq.block_ids = []
         if seq.slot is not None:
             del self.running[seq.slot]

@@ -60,6 +60,12 @@ class Sequence:
     inflight_chunks: int = 0
     sched_len: int = 0           # device-side length (total_len + issued)
     defer_release: bool = False  # finished while chunks were in flight
+    # Rolling-buffer eviction (fully windowed models): logical pages
+    # [0, evicted_pages) went back to the allocator, and their block_ids
+    # entries hold the 0 sentinel (the trash block, never allocated and
+    # never scanned: a windowed scan starts above them). See
+    # Scheduler.evict_behind_window.
+    evicted_pages: int = 0
     # Tokens delivered before a preemption folded them into the prompt
     # (Scheduler.requeue_for_recompute): they still count toward
     # max_tokens / min_tokens.

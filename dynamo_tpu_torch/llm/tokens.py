@@ -21,8 +21,17 @@ DEFAULT_BLOCK_SIZE = 16
 HASH_SEED = 1337
 
 
+# The keyed hasher of the default seed, copied per hash: cheaper than
+# keying a new one each time.
+_SEEDED = hashlib.blake2b(digest_size=8, key=struct.pack("<Q", HASH_SEED))
+
+
 def compute_hash(data: bytes, seed: int = HASH_SEED) -> int:
-    h = hashlib.blake2b(data, digest_size=8, key=struct.pack("<Q", seed))
+    if seed == HASH_SEED:
+        h = _SEEDED.copy()
+        h.update(data)
+    else:
+        h = hashlib.blake2b(data, digest_size=8, key=struct.pack("<Q", seed))
     return int.from_bytes(h.digest(), "little")
 
 
@@ -60,10 +69,13 @@ class TokenBlock:
     @staticmethod
     def build(tokens: Sequence[int], parent_sequence_hash: int) -> "TokenBlock":
         toks = tuple(tokens)
+        raw = _tokens_bytes(toks)  # packed once for both hashes
         return TokenBlock(
             tokens=toks,
-            block_hash=compute_block_hash(toks),
-            sequence_hash=compute_sequence_hash(parent_sequence_hash, toks),
+            block_hash=compute_hash(raw),
+            sequence_hash=compute_hash(
+                struct.pack("<Q", parent_sequence_hash) + raw
+            ),
             parent_sequence_hash=parent_sequence_hash,
         )
 
@@ -113,10 +125,21 @@ class TokenBlockSequence:
         return None
 
     def extend(self, tokens: Iterable[int]) -> list[TokenBlock]:
-        """Append many tokens; returns all newly completed blocks."""
+        """Append many tokens; returns all newly completed blocks. Whole
+        blocks are hashed from slices, not token by token (a long prompt
+        is hashed at admission on the engine thread)."""
+        tokens = list(tokens)
         completed: list[TokenBlock] = []
-        for t in tokens:
+        bs = self.block_size
+        i = min(bs - len(self.partial), len(tokens)) if self.partial else 0
+        for t in tokens[:i]:
             b = self.append(t)
             if b is not None:
                 completed.append(b)
+        while i + bs <= len(tokens):
+            block = TokenBlock.build(tokens[i:i + bs], self.last_sequence_hash)
+            self.blocks.append(block)
+            completed.append(block)
+            i += bs
+        self.partial.extend(tokens[i:])
         return completed

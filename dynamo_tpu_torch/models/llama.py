@@ -1,5 +1,8 @@
 """Llama-family transformer over a paged KV cache (port of
-dynamo_tpu/models/llama.py, dense GQA trunk).
+dynamo_tpu/models/llama.py, the dense families: Llama, Qwen2's qkv bias,
+Qwen3's QK-norm, Mistral's sliding window, Gemma-3's GeGLU, (1+w) and
+sandwich norms, scaled embeddings, local/global windows with a local
+rope base and the query scale fold).
 
 Plain functions over a params dictionary with the reference's keys and
 ``[in, out]`` weight layout, so a JAX params tree carries over unchanged
@@ -29,16 +32,22 @@ from dynamo_tpu_torch.ops.kernels.paged_prefill_attention import (
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import (
     embed_lookup,
+    head_mm,
     qdot,
     quantize_kv_write,
     tied_head_mm,
 )
-from dynamo_tpu_torch.ops.rope import rope_angles, rotate
+from dynamo_tpu_torch.ops.rope import rope_tables, rotate
 
 Params = dict[str, Any]
 
 LAYER_KEYS = (
     "wq", "wk", "wv", "wo", "ln_attn", "ln_mlp", "w_gate", "w_up", "w_down",
+)
+# The families' optional layer weights: Gemma's sandwich norms, Qwen2's
+# qkv bias, the per-head QK-norm gains.
+OPTIONAL_LAYER_KEYS = (
+    "ln_post_attn", "ln_post_mlp", "bq", "bk", "bv", "ln_q_head", "ln_k_head",
 )
 
 
@@ -47,7 +56,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not served by this slice of "
-            "the port (dense GQA Llama trunk only)"
+            "the port (the dense families only)"
         )
 
 
@@ -65,9 +74,10 @@ def init_params(
     device: torch.device | str | None = None,
 ) -> Params:
     """Random-init params with 1/sqrt(fan_in) scaling (the reference's
-    law; the draws come from ``generator``, which must live on the
-    target device, and differ from JAX's). ``device`` defaults to the
-    card (``resolve_device``)."""
+    law, ``init_layer_params`` layer by layer: norms start at identity,
+    zeros for Gemma's (1+w) norms, qkv biases at zero; the draws come
+    from ``generator``, which must live on the target device, and differ
+    from JAX's). ``device`` defaults to the card (``resolve_device``)."""
     check_supported(cfg)
     device = resolve_device(device)
     D, H, kvH, hd = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -77,26 +87,38 @@ def init_params(
     def dense(shape):
         return _dense_init(g, shape, dtype, device)
 
-    def ones(n):
-        return torch.ones((n,), dtype=dtype, device=device)
+    def norm(n):
+        fill = torch.zeros if cfg.norm_offset else torch.ones
+        return fill((n,), dtype=dtype, device=device)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dtype, device=device)
+
+    def layer():
+        p = {
+            "wq": dense((D, H * hd)),
+            "wk": dense((D, kvH * hd)),
+            "wv": dense((D, kvH * hd)),
+            "wo": dense((H * hd, D)),
+            "ln_attn": norm(D),
+            "ln_mlp": norm(D),
+        }
+        if cfg.post_norms:
+            p["ln_post_attn"] = norm(D)
+            p["ln_post_mlp"] = norm(D)
+        p["w_gate"] = dense((D, I))
+        p["w_up"] = dense((D, I))
+        p["w_down"] = dense((I, D))
+        if cfg.qkv_bias:
+            p.update(bq=zeros(H * hd), bk=zeros(kvH * hd), bv=zeros(kvH * hd))
+        if cfg.qk_norm:
+            p.update(ln_q_head=norm(hd), ln_k_head=norm(hd))
+        return p
 
     params: Params = {
         "embed": dense((cfg.vocab_size, D)),
-        "layers": [
-            {
-                "wq": dense((D, H * hd)),
-                "wk": dense((D, kvH * hd)),
-                "wv": dense((D, kvH * hd)),
-                "wo": dense((H * hd, D)),
-                "ln_attn": ones(D),
-                "ln_mlp": ones(D),
-                "w_gate": dense((D, I)),
-                "w_up": dense((D, I)),
-                "w_down": dense((I, D)),
-            }
-            for _ in range(cfg.num_layers)
-        ],
-        "ln_f": ones(D),
+        "layers": [layer() for _ in range(cfg.num_layers)],
+        "ln_f": norm(D),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense((D, cfg.vocab_size))
@@ -136,63 +158,137 @@ def params_from_jax(
         "layers": [],
     }
     for layer in tree["layers"]:
-        extra = set(layer) - set(LAYER_KEYS)
+        extra = set(layer) - set(LAYER_KEYS) - set(OPTIONAL_LAYER_KEYS)
         if extra:
             raise NotImplementedError(
                 f"layer weights {sorted(extra)} belong to model families "
-                "this slice of the port does not serve"
+                "this slice of the port does not serve (MoE, MLA)"
             )
-        out["layers"].append(
-            {k: _to_torch(layer[k], dtype, device) for k in LAYER_KEYS}
-        )
+        out["layers"].append({
+            k: _to_torch(layer[k], dtype, device)
+            for k in LAYER_KEYS + OPTIONAL_LAYER_KEYS if k in layer
+        })
     if "lm_head" in tree:
         out["lm_head"] = _to_torch(tree["lm_head"], dtype, device)
     return out
 
 
-def _embed(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
-    return embed_lookup(params["embed"], token_ids)
+def _ln(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm with the family's scale: Gemma checkpoints store w and
+    scale by (1 + w), computed in float32 before the norm."""
+    if cfg.norm_offset:
+        w = 1.0 + w.float()
+    return rms_norm(x, w, cfg.rms_eps)
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` on the host, so that multiplying by
+    it matches the reference's multiply by a scalar of the activation
+    dtype without making a tensor on the card."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _layer_rope(cfg: ModelConfig, li: int) -> tuple:
+    """(theta, scaling) of layer li: Gemma-3's windowed (local) layers run
+    on rope_local_theta with no position scaling; the others keep
+    rope_theta and rope_scaling."""
+    if cfg.rope_local_theta and cfg.layer_window(li):
+        return cfg.rope_local_theta, None
+    return cfg.rope_theta, cfg.rope_scaling
+
+
+def _embed(params: Params, cfg: ModelConfig, token_ids: torch.Tensor) -> torch.Tensor:
+    x = embed_lookup(params["embed"], token_ids)
+    if cfg.embed_scale:
+        # The normalizer in the activation dtype before the multiply: the
+        # bf16 rounding of sqrt(hidden) is part of Gemma's numerics.
+        x = x * _in_dtype(cfg.hidden_size ** 0.5, x.dtype)
+    return x
 
 
 def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig):
     T = x.shape[0]
-    q = qdot(x, layer["wq"]).reshape(T, cfg.num_heads, cfg.head_dim)
-    k = qdot(x, layer["wk"]).reshape(T, cfg.num_kv_heads, cfg.head_dim)
-    v = qdot(x, layer["wv"]).reshape(T, cfg.num_kv_heads, cfg.head_dim)
-    return q, k, v
+    q = qdot(x, layer["wq"])
+    k = qdot(x, layer["wk"])
+    v = qdot(x, layer["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    q = q.reshape(T, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(T, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        # Per-head RMSNorm over head_dim, before rope.
+        q = _ln(q, layer["ln_q_head"], cfg)
+        k = _ln(k, layer["ln_k_head"], cfg)
+    if cfg.query_pre_attn_scalar:
+        # The kernels scale scores by 1/sqrt(head_dim): fold the family's
+        # 1/sqrt(query_pre_attn_scalar) into q.
+        q = q * _in_dtype(
+            (cfg.head_dim / cfg.query_pre_attn_scalar) ** 0.5, q.dtype
+        )
+    return q, k, v.reshape(T, cfg.num_kv_heads, cfg.head_dim)
 
 
-def _swiglu(layer: Params, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(qdot(x, layer["w_gate"]))
+def _swiglu(layer: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    # "silu": Llama's SwiGLU; "gelu_tanh": Gemma's GeGLU.
+    gate = qdot(x, layer["w_gate"])
+    gate = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
     return qdot(gate * qdot(x, layer["w_up"]), layer["w_down"])
 
 
+def _residual_attn(x, layer: Params, attn_out, cfg: ModelConfig):
+    """Attention residual add; Gemma's post-attention norm sits on the
+    branch."""
+    if cfg.post_norms:
+        attn_out = _ln(attn_out, layer["ln_post_attn"], cfg)
+    return x + attn_out
+
+
+def _residual_mlp(x, layer: Params, cfg: ModelConfig):
+    """Pre-norm, gated MLP, Gemma's post-norm, residual add (the norm's
+    output in the weights' dtype, whatever the residual stream's)."""
+    h = _ln(x, layer["ln_mlp"], cfg).to(layer["w_up"].dtype)
+    m = _swiglu(layer, h, cfg.hidden_act)
+    if cfg.post_norms:
+        m = _ln(m, layer["ln_post_mlp"], cfg)
+    return x + m
+
+
 def _logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, params["ln_f"], cfg.rms_eps)
+    """Final norm, then the head in float32 (``head_mm``)."""
+    h = _ln(h, params["ln_f"], cfg)
     if cfg.tie_word_embeddings:
-        return tied_head_mm(h, params["embed"]).float()
-    return qdot(h, params["lm_head"]).float()
+        return tied_head_mm(h, params["embed"])
+    return head_mm(h, params["lm_head"])
 
 
 def _layers(
     cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
     positions: torch.Tensor, attend,
 ) -> torch.Tensor:
-    """The decoder stack over flat rows: embed, then per layer RMSNorm,
-    q/k/v, RoPE at ``positions``, ``attend(li, q, k, v) -> [rows, H, D]``
-    (which writes the layer's cache first where there is one), ``wo``,
-    SwiGLU. Returns the pre-final-norm hidden states [rows, D]."""
+    """The decoder stack over flat rows: embed, then per layer the
+    family's norm, q/k/v, RoPE at ``positions`` with the layer's
+    ``(theta, scaling)``, ``attend(li, q, k, v) -> [rows, H, D]`` (which
+    writes the layer's cache first where there is one), ``wo``, the
+    residuals and the gated MLP. The residual stream is float32 whatever
+    the weights' dtype: each norm's output and every matmul stay in the
+    weights' dtype. (Rounded to bf16 at each of 2 adds per layer, the
+    stream of a cached serve and of the no-cache reference drift apart:
+    on mistral-7b's 32 layers, 0.03–0.09 nats at the top logits.)
+    Returns the pre-final-norm hidden states [rows, D], float32."""
     check_supported(cfg)
     rows = token_ids.shape[0]
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-    x = _embed(params, token_ids.long())
+    tables = rope_tables(
+        positions, cfg.head_dim,
+        [_layer_rope(cfg, li) for li in range(len(params["layers"]))],
+    )
+    x = _embed(params, cfg, token_ids.long()).float()
     for li, layer in enumerate(params["layers"]):
-        h = rms_norm(x, layer["ln_attn"], cfg.rms_eps)
-        q, k, v = _qkv(layer, h, cfg)
+        q, k, v = _qkv(layer, _ln(x, layer["ln_attn"], cfg).to(layer["wq"].dtype), cfg)
+        cos, sin = tables[li]
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         attn = attend(li, q, k, v)
-        x = x + qdot(attn.reshape(rows, -1), layer["wo"])
-        x = x + _swiglu(layer, rms_norm(x, layer["ln_mlp"], cfg.rms_eps))
+        x = _residual_attn(x, layer, qdot(attn.reshape(rows, -1), layer["wo"]), cfg)
+        x = _residual_mlp(x, layer, cfg)
     return x
 
 
@@ -362,7 +458,8 @@ def decode(
 def hidden_states(
     cfg: ModelConfig, params: Params, token_ids: torch.Tensor
 ) -> torch.Tensor:
-    """Full no-cache trunk [T] -> pre-final-norm hidden states [T, D]."""
+    """Full no-cache trunk [T] -> pre-final-norm hidden states [T, D]
+    (float32, the residual stream's dtype)."""
     positions = torch.arange(token_ids.shape[0], device=token_ids.device)
     return _layers(
         cfg, params, token_ids, positions,

@@ -33,8 +33,27 @@ def embed_lookup(embed, token_ids: torch.Tensor) -> torch.Tensor:
 
 
 def tied_head_mm(h: torch.Tensor, embed) -> torch.Tensor:
-    """``h @ embed.T`` (tied lm_head)."""
-    return h @ _plain(embed).T
+    """``h @ embed.T`` (tied lm_head), float32 out (``head_mm``)."""
+    return head_mm(h, _plain(embed).T)
+
+
+def head_mm(h: torch.Tensor, w) -> torch.Tensor:
+    """The LM head ``h @ w`` with its sums and its output in float32 and
+    the operands in ``w``'s dtype. A bf16 output would round the logits
+    to steps of 1/32 at magnitudes of 4–8, coarser than the differences
+    greedy sampling and the no-cache reference check look at. On the card
+    one cuBLAS product with a float32 output; on the CPU the operands
+    are widened first (the same products and sums)."""
+    w = _plain(w)
+    lead = h.shape[:-1]
+    h = h.reshape(-1, h.shape[-1]).to(w.dtype)
+    if w.dtype == torch.float32:
+        out = h @ w
+    elif h.is_cuda:
+        out = torch.mm(h, w, out_dtype=torch.float32)
+    else:
+        out = h.float() @ w.float()
+    return out.reshape(*lead, -1)
 
 
 # ---------------------------------------------------------------------------

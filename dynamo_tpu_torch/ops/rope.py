@@ -111,9 +111,24 @@ def rope_angles(
     return torch.cos(ang), torch.sin(ang)
 
 
+def rope_tables(
+    positions: torch.Tensor,
+    head_dim: int,
+    pairs: list[tuple[float, RopeScaling | None]],
+) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``rope_angles`` for each layer's ``(theta, scaling)``, one table
+    per distinct pair (Gemma-3's local layers share theirs, its global
+    layers theirs); returns one (cos, sin) per entry of ``pairs``."""
+    made: dict = {}
+    for pair in pairs:
+        if pair not in made:
+            made[pair] = rope_angles(positions, head_dim, *pair)
+    return [made[pair] for pair in pairs]
+
+
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate q or k [..., n_heads, head_dim] by precomputed ``rope_angles``
-    tables (the model computes them once per forward for all layers)."""
+    tables (the model computes them once per forward: ``rope_tables``)."""
     cos = cos[..., None, :]  # broadcast over heads
     sin = sin[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -170,9 +170,11 @@ def test_params_from_jax_refuses_what_the_slice_does_not_serve():
     quant = dict(tree, embed={"q": tree["embed"], "s": tree["ln_f"]})
     with pytest.raises(NotImplementedError, match="weight-quant"):
         t_llama.params_from_jax(quant, device="cpu")
-    biased = dict(tree, layers=[dict(tree["layers"][0], bq=tree["ln_f"])])
+    # A routed-experts layer (MoE, not served yet); the dense families'
+    # optional weights carry across (tests/test_torch_families.py).
+    routed = dict(tree, layers=[dict(tree["layers"][0], w_router=tree["ln_f"])])
     with pytest.raises(NotImplementedError, match="families"):
-        t_llama.params_from_jax(biased, device="cpu")
+        t_llama.params_from_jax(routed, device="cpu")
 
 
 def test_init_params_shapes_match_jax():

@@ -397,8 +397,15 @@ def test_engine_config_refuses_unserved_features(field, value, extra, match):
 
 
 @pytest.mark.parametrize("change", [
-    {"sliding_window": 32}, {"num_experts": 4}, {"kv_lora_rank": 32},
-    {"qkv_bias": True}, {"qk_norm": True}, {"hidden_act": "gelu_tanh"},
+    # MoE, MLA and the yarn rope the MLA models carry (ROADMAP A1b); the
+    # dense families are served (tests/test_torch_families.py).
+    {"num_experts": 4}, {"kv_lora_rank": 32},
+    {"kv_lora_rank": 32, "q_lora_rank": 48},
+    {"num_experts": 4, "n_shared_experts": 1},
+    {"rope_scaling": t_rope.RopeScaling(kind="yarn", factor=40.0)},
+    # llama3-70b's widths: 141 GB of bf16 weights, over one card (A4).
+    {"hidden_size": 8192, "intermediate_size": 28672, "num_layers": 80,
+     "num_heads": 64, "num_kv_heads": 8, "head_dim": 128, "vocab_size": 128256},
 ])
 def test_engine_config_refuses_unserved_models(change):
     model = ModelConfig.tiny_test().scaled(**change)

@@ -131,6 +131,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 controller; the compose-time EMA peak is reported); the
                 tight leg's must fall; one flight
                 record per unified dispatch; the 1 ms request answers 504
+                (or, reaching the engine within the millisecond, 200 with
+                fewer than its 8 tokens and a deadline_exceeded finish)
                 and deadline_exceeded_total grows by one; the profile's
                 Chrome trace names the ragged kernel; /metrics carries the
                 new counters and the trace histograms; the port's
@@ -347,6 +349,41 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 profiled serve of fresh prompts gives device ms per
                 dispatch. Reported per model: tok/s, TTFT p50, device ms
                 per dispatch, peak bytes, the card.
+13. mla       — DeepSeek-V2-Lite (15.7B: MLA, yarn rope, 64 routed experts
+                top-6 + 2 shared after one dense layer) at full width
+                (budget: 150 s of wall time and 45 GB of peak device
+                memory, both printed and gated; each model freed before
+                the next; random weights from a seed drawn on the card
+                tensor by tensor). Kernel cases: the ragged kernel at
+                MLA's (H, kvH, D) = (16, 1, 576), block size 16, bf16,
+                int8 and float32 caches, each in a mixed T=256 batch (8
+                decode spans at contexts 600–2100, a 3-row verify span,
+                prefill spans, an idle row), a tile-only and a split-only
+                batch, against the plain version, unowned rows zero; the
+                mixed cases timed beside one SDPA call (the backends that
+                take D = 576 printed) and the bound. Witnesses at full
+                width, drop-free (``moe_dispatch="dense"``), 8 prompts of
+                256–1024 tokens, 32 greedy tokens, under phase 8's
+                teacher-forced gates: float32 at 2 layers (layer 0 dense,
+                layer 1 MoE) and 8 layers, bf16 at 2 layers (the wide
+                tile and the bf16 expert products inside a serve). 27
+                layers in bf16: drop-free,
+                the preset's ``auto`` (capacity at rungs with T·k >= 2E,
+                dense below; one recorded capacity-rung dispatch replayed
+                through its graph and eagerly must give equal tokens and
+                K/V bytes) and ``auto`` with int8 KV, each on the same
+                prompts with every graph captured before traffic and the
+                ragged kernel 27 times per dispatch on the tile and split
+                paths; one streaming completion through the OpenAI server
+                the CLI builds on ``preset:deepseek-v2-lite``. These 27-
+                layer streams are held to the no-cache reference at
+                per-leg limits (``MLA_BF16_LIMITS``: each leg's repeated
+                reading less a margin) instead of phase 8's: with random
+                weights the top-k router turns bf16 rounding that depends
+                on a product's shape into other experts
+                (tools/layer_divergence.py measures it). A profiled serve
+                of fresh prompts gives device ms per dispatch and the top
+                device ops.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Then the card's name and power limit, the kernels line, and the
@@ -726,8 +763,13 @@ def ragged_library(c, window=0):
     if window:
         mask &= keys > pos[..., None] - window
     mask = (mask | (~mask.any(-1, keepdim=True) & (keys == 0)))[:, None]   # [S, 1, Qmax, L]
-    return (lambda: (F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
-                     .permute(0, 2, 1, 3), owned)), rows
+
+    def call():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask).permute(
+            0, 2, 1, 3), owned
+
+    call.inputs = (qd, kd, vd, mask)
+    return call, rows
 
 
 def phase_ragged() -> tuple[dict, dict]:
@@ -2485,9 +2527,13 @@ async def phase_observe(vocab: int) -> dict:
                 port, model, prompts, burst, tapped, tokens=96,
                 during_burst=during_burst)
             m1 = (await fetch("127.0.0.1", port, "GET", "/metrics")).body.decode()
+            body = late.json()
+            choice = (body.get("choices") or [{}])[0]
             result["deadline"] = {
                 "status": late.status,
-                "error_type": (late.json().get("error") or {}).get("type"),
+                "error_type": (body.get("error") or {}).get("type"),
+                "finish_reason": choice.get("finish_reason"),
+                "completion_tokens": (body.get("usage") or {}).get("completion_tokens"),
                 "deadline_exceeded_total_delta":
                     metric_value(m1, "deadline_exceeded_total")
                     - metric_value(m0, "deadline_exceeded_total"),
@@ -2582,9 +2628,15 @@ async def phase_observe(vocab: int) -> dict:
     if result["trace_merge"]["assert_complete_exit"] != 0 or result["trace_merge"][
             "orphan_traces"]:
         fail(f"observe: trace merge {result['trace_merge']}")
+    # The 1 ms deadline expires before admission (504) or, when the front
+    # hands the request over within the millisecond, at its first token:
+    # the tokens delivered stream out with a deadline finish (the engine's
+    # mid-generation rule). Either way it is counted once.
     d = result["deadline"]
-    if (d["status"], d["error_type"], d["deadline_exceeded_total_delta"]) != (
-            504, "deadline_exceeded", 1.0):
+    before_output = (d["status"], d["error_type"]) == (504, "deadline_exceeded")
+    mid_generation = (d["status"] == 200 and d["finish_reason"] == "deadline_exceeded"
+                      and 0 < (d["completion_tokens"] or 0) < 8)
+    if not (before_output or mid_generation) or d["deadline_exceeded_total_delta"] != 1.0:
         fail(f"observe: deadline {d}")
     if result["profile"]["status"] != 200 or not result["profile"].get("ragged_symbols"):
         fail(f"observe: profile {result['profile']}")
@@ -3544,10 +3596,12 @@ def disagg_prompts(seed: int, vocab: int) -> list[list[int]]:
     return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
-def stream_gates(leg: str, cfg, params, prompts, streams, finishes, max_tokens) -> dict:
+def stream_gates(leg: str, cfg, params, prompts, streams, finishes, max_tokens,
+                 limits=None) -> dict:
     """Full-length greedy streams in the vocabulary, held to the no-cache
     reference as the phase-split run is: agreement >= 0.9, every
-    disagreement a near tie."""
+    disagreement a near tie; or, where given, to ``limits`` = (agreement
+    at least, largest gap at a disagreement at most)."""
     from dynamo_tpu_torch.llm.protocols.common import FinishReason
 
     ref = teacher_forced(cfg, params, prompts, streams)
@@ -3555,13 +3609,14 @@ def stream_gates(leg: str, cfg, params, prompts, streams, finishes, max_tokens) 
     full = all(len(s) == max_tokens for s in streams) and all(
         f is FinishReason.LENGTH for f in finishes)
     in_vocab = all(0 <= t < cfg.vocab_size for s in streams for t in s)
+    agree_min, gap_max = limits or (PHASES_AGREEMENT, NEAR_TIE_NATS)
     if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]
-            and ref["greedy_agreement_vs_no_cache_reference"] >= PHASES_AGREEMENT
-            and ref["max_logprob_gap_at_disagreement"] <= NEAR_TIE_NATS):
+            and ref["greedy_agreement_vs_no_cache_reference"] >= agree_min
+            and ref["max_logprob_gap_at_disagreement"] <= gap_max):
         fail(f"{leg}: streams failed their checks (full {full}, in vocab "
              f"{in_vocab})", {"agreement": ref["greedy_agreement_vs_no_cache_reference"],
                               "gap": ref["max_logprob_gap_at_disagreement"]},
-             {"agreement_min": PHASES_AGREEMENT, "gap_max": NEAR_TIE_NATS})
+             {"agreement_min": agree_min, "gap_max": gap_max})
     return ref
 
 
@@ -5099,12 +5154,15 @@ async def sample_blocks(engine, out: list) -> None:
 
 
 async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
-                       profile_prompts=None, profile_tokens=32) -> tuple[dict, list]:
+                       profile_prompts=None, profile_tokens=32, limits=None,
+                       record=False) -> tuple[dict, list]:
     """One family serve through ``TorchEngine.generate`` on given weights,
     with the ragged kernel's launches counted over exactly this serve and
     the phase 8 gates on its streams; optionally a profiled serve of
     ``profile_prompts`` (``profile_tokens`` each) after it.
-    ``evict=False`` turns the rolling buffer's eviction off."""
+    ``evict=False`` turns the rolling buffer's eviction off; ``limits``
+    replaces phase 8's (``stream_gates``); ``record`` keeps the serve's
+    dispatches under ``result["recorded"]``."""
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
         ragged_paged_attention_cuda as fn,
@@ -5120,12 +5178,15 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
     profile = None
     try:
         capture = await warm_up(engine)
+        recorded = record_dispatches(engine.runner) if record else None
         reset_counts()
         sampler = asyncio.create_task(sample_blocks(engine, blocks))
         try:
             streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
         finally:
             sampler.cancel()
+            if recorded is not None:
+                recorded.stop()
         capture["mid_traffic_compiles_total"] = mid_traffic(engine)
         launches = fn.launches
         paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
@@ -5151,8 +5212,16 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
         "device_busy_share": profile and profile["device_busy_share"],
         "top_kernels_ms": profile and profile["top_kernels_ms"][:6],
     }
+    if cfg.is_moe and cfg.moe_dispatch != "dense":
+        # Beside the reference with the serve's own dispatch, the
+        # drop-free one: how far the batch-dependent drops moved it.
+        free = teacher_forced(cfg.scaled(moe_dispatch="dense"), params, prompts, streams)
+        result["drop_free_reference"] = {k: free[k] for k in (
+            "greedy_agreement_vs_no_cache_reference", "disagreements",
+            "max_logprob_gap_at_disagreement")}
     try:
-        ref = stream_gates(phase, cfg, params, prompts, streams, finishes, max_tokens)
+        ref = stream_gates(phase, cfg, params, prompts, streams, finishes, max_tokens,
+                           limits)
     except GateFailed:
         # The serve's line first, with the reference's numbers, then the
         # failure.
@@ -5166,18 +5235,24 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
     if launches != cfg.num_layers * dispatches or dispatches == 0:
         fail(f"{phase}: ragged launches for {dispatches} dispatches x "
              f"{cfg.num_layers} layers", launches, cfg.num_layers * dispatches)
-    if paths != {"tc": launches, "split": launches, "walk": 0}:
-        fail(f"{phase}: ragged paths launched", paths,
-             {"tc": launches, "split": launches, "walk": 0})
+    # Multi-row spans on the tensor-core tile in bf16, on the walk in f32.
+    tile = "walk" if ecfg.dtype == "float32" else "tc"
+    want = {"tc": 0, "walk": 0, tile: launches, "split": launches}
+    if paths != want:
+        fail(f"{phase}: ragged paths launched", paths, want)
+    if recorded is not None:
+        result["recorded"] = recorded.calls
     return result, streams
 
 
-async def family_http(prompt, max_tokens) -> dict:
+async def family_http(prompt, max_tokens, argv=FAMILY_HTTP_ARGS, phase="families_http",
+                      limits=None) -> dict:
     """One streaming completion through the OpenAI server built by the
-    CLI's own path on ``preset:gemma3-1b`` (its weights from the
-    engine's seed), with a Tap on the engine's token ids: 200, 32 tokens
-    with finish "length", the ragged kernel per dispatch, nothing
-    captured mid-traffic, the stream through the phase 8 gates."""
+    CLI's own path on ``argv``'s preset (``preset:gemma3-1b``; its
+    weights from the engine's seed), with a Tap on the engine's token
+    ids: 200, 32 tokens with finish "length", the ragged kernel per
+    dispatch, nothing captured mid-traffic, the stream through the phase
+    8 gates (or ``limits``, as ``stream_gates`` takes them)."""
     from dynamo_tpu_torch import cli
     from dynamo_tpu_torch.llm.protocols.common import FinishReason
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
@@ -5187,7 +5262,7 @@ async def family_http(prompt, max_tokens) -> dict:
     from dynamo_tpu_torch.runtime.pipeline import Tap
 
     args = cli.build_parser().parse_args(
-        FAMILY_HTTP_ARGS + ["--http-host", "127.0.0.1", "--http-port", "0"])
+        argv + ["--http-host", "127.0.0.1", "--http-port", "0"])
     cli.refuse_unserved(args)
     tapped: list[int] = []
     tap = Tap(on_request=lambda ctx: None,
@@ -5206,21 +5281,21 @@ async def family_http(prompt, max_tokens) -> dict:
                    "mid_traffic_compiles_total": mid_traffic(engine)}
         cfg, params = engine.cfg.model, engine.runner.params
         finish = FinishReason.LENGTH if summary["finish"] == "length" else None
-        gates = stream_gates("families_http", cfg, params, [prompt], [tapped[:max_tokens]],
-                             [finish], max_tokens)
-    result = {"phase": "families_http", "model": cfg.name, "status": resp.status,
+        gates = stream_gates(phase, cfg, params, [prompt], [tapped[:max_tokens]], [finish],
+                             max_tokens, limits)
+    result = {"phase": phase, "model": cfg.name, "status": resp.status,
               "tokens": len(tapped), "usage": summary["usage"],
               "finish": summary["finish"], "ttft_ms": summary["times"][0] * 1e3,
               "kernel_launches": launches, "unified_dispatches": dispatches,
               "capture": capture, **gates}
     emit(result)
     if resp.status != 200 or len(tapped) != max_tokens:
-        fail("families_http: status and tapped tokens", [resp.status, len(tapped)],
+        fail(f"{phase}: status and tapped tokens", [resp.status, len(tapped)],
              [200, max_tokens])
     if capture["mid_traffic_compiles_total"]:
-        fail("families_http: mid-traffic captures", capture["mid_traffic_compiles_total"], 0)
+        fail(f"{phase}: mid-traffic captures", capture["mid_traffic_compiles_total"], 0)
     if launches != cfg.num_layers * dispatches or not dispatches:
-        fail("families_http: ragged launches", launches, cfg.num_layers * dispatches)
+        fail(f"{phase}: ragged launches", launches, cfg.num_layers * dispatches)
     return result
 
 
@@ -5354,6 +5429,286 @@ def phase_families(card: str) -> dict:
     return out
 
 
+# -- phase 13: DeepSeek-V2-Lite (MLA, yarn, routed + shared experts) ---------
+MLA_DIMS = (16, 1, 576, 16)   # (H, kvH, D, bs): MLA's one latent head of 512 + 64
+
+
+def sdpa_backends(call) -> dict:
+    """Which scaled_dot_product_attention backends take the library
+    yardstick's inputs: the one PyTorch picks (``_fused_sdp_choice``) and
+    each that runs when forced."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    usable = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                call()
+            torch.cuda.synchronize()
+            usable.append(b.name)
+        except RuntimeError:
+            pass
+    return {"usable": usable, "picked": picked_sdpa(call)}
+
+
+def picked_sdpa(call) -> str | None:
+    """The backend PyTorch's own choice gives the call's inputs (the
+    last call's captured tensors), or None where it cannot be asked."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        q, k, v, mask = call.inputs
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0, False)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        return None
+
+
+def mla_kernel_cases() -> dict:
+    """The ragged kernel at MLA's (H, kvH, D) = (16, 1, 576), block size
+    16, against its plain version, on every leg (bf16 caches, int8 caches
+    under bf16 q, float32) and path: a mixed T=256 batch (8 decode spans
+    at contexts 600–2100, a 3-row verify span, prefill spans of 64, 64
+    and 100 rows behind prefixes, an idle row), a tile-only batch
+    (prefill spans; the walk in f32) and a split-only one (decode and
+    verify spans). Unowned rows must be exactly zero. The mixed cases are
+    timed beside one SDPA call over the gathered dense K/V."""
+    rng = np.random.default_rng(15)
+    bf16, f32, int8 = torch.bfloat16, torch.float32, torch.int8
+    decode = [(c - 1, 1) for c in (600, 830, 1100, 1350, 1600, 1850, 2000, 2100)]
+    prefill = [(0, 64), (700, 64), (1500, 100)]
+    batches = {
+        "mixed": (decode + [(1000, 3)] + prefill + [(0, 0)], 256),
+        "tile": (prefill + [(0, 0)], 256),
+        "split": (decode + [(1000, 3), (0, 0)], 16),
+    }
+    timed = {}
+    for leg, dtype, kv in (("bf16", bf16, None), ("int8", bf16, int8), ("f32", f32, None)):
+        for name, (spans, T) in batches.items():
+            c = make_case(rng, spans, T, dtype, num_blocks=1800, max_blocks=136,
+                          dims=MLA_DIMS, kv_dtype=kv)
+            got = run_kernel(c)
+            want = run_plain(c)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all().item())
+            pad_zero = bool((got[c["token_pos"] < 0] == 0).all().item())
+            check("mla", f"ragged_{leg}_{name}", {"max_abs_err": max_err(got, want)},
+                  KERNEL_TOL[dtype], ok=finite and pad_zero, T=T, spans=len(spans),
+                  H_kvH_D_bs=list(MLA_DIMS), splits_pages=ragged_plan(c),
+                  output_finite=finite, unowned_rows_zero=pad_zero)
+            if name == "mixed":
+                nbytes, flops = ragged_work(c)
+                library, rows = ragged_library(c)
+                timed[leg] = timing(
+                    f"ragged_mla_{leg}", lambda c=c: run_kernel(c), lambda c=c: run_plain(c),
+                    library, run_plain(c)[rows], nbytes, flops, dtype)
+                timed[leg]["max_abs_err"] = max_err(got, want)
+                timed[leg]["sdpa"] = sdpa_backends(library)
+                emit({"phase": "mla", "case": f"sdpa_{leg}", **timed[leg]["sdpa"]})
+            del c
+            free_card()
+    return timed
+
+
+MLA_BUDGET_S = 150.0          # the phase's wall time ...
+MLA_PEAK_BYTES = 45e9         # ... and peak device memory, at most
+MLA_LENS = (256, 1025)        # deepseek-v2-lite prompts
+MLA_WITNESS_LAYERS = 8        # the deeper float32 witness: ~18 GB of weights
+# The 27-layer bf16 legs' (agreement at least, largest gap in nats at
+# most) against the no-cache reference. Phase 8's (0.9, 0.02) do not
+# hold there: with random weights the top-k router turns bf16 rounding
+# that depends on a product's shape into other experts (PERF.md §6,
+# tools/layer_divergence.py). Each limit is the leg's reading on the H100
+# (repeated exactly across runs: agreement 0.766, 0.598, 0.453, 0.656;
+# gap 0.249, 1.025, 1.308, 0.385 nats) with a margin of 0.05 in
+# agreement (0.1 for the one 32-token request) and about 0.25 nats in
+# gap; a wrong expert path or model reads near 0 and several nats.
+MLA_BF16_LIMITS = {
+    "mla_bf16_dense": (0.71, 0.5),
+    "mla_bf16_auto": (0.54, 1.3),
+    "mla_bf16_auto_int8": (0.40, 1.55),
+    "mla_http": (0.55, 0.65),
+}
+MLA_HTTP_ARGS = [
+    "run", "--out", "torch", "--model-path", "preset:deepseek-v2-lite",
+    "--num-blocks", "1024", "--max-num-seqs", "8", "--max-model-len", "2048",
+    "--prefill-batch", "4", "--unified-token-budget", "256",
+    "--unified-prefill-quantum", "64",
+]
+
+
+def seeded_params(cfg, seed: int, dtype):
+    """Random weights from ``seed``, drawn on the card tensor by tensor
+    (one float32 draw at a time, cast there)."""
+    from dynamo_tpu_torch.models import llama
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return llama.init_params(cfg, g, dtype=dtype, device=DEVICE)
+
+
+def moe_rungs(ecfg) -> dict:
+    """The expert formulation each budget rung's graphs capture."""
+    from dynamo_tpu_torch.models.llama import moe_config
+
+    mcfg = moe_config(ecfg.model)
+    rungs, t = {}, 16
+    while t <= ecfg.unified_token_budget:
+        rungs[t] = "capacity" if mcfg.uses_capacity(t) else "dense"
+        t *= 2
+    return rungs
+
+
+def capacity_replay(ecfg, params, recorded) -> dict:
+    """The serve's first dispatch at a capacity rung (with the dispatches
+    before it) through two fresh runners on the serve's weights: one
+    replays its CUDA graphs, the other runs the eager step body. The
+    sampled tokens and the K/V bytes outside trash block 0 must be
+    identical."""
+    from dynamo_tpu_torch.engine.runner import ModelRunner
+    from dynamo_tpu_torch.models.llama import moe_config
+
+    mcfg = moe_config(ecfg.model)
+    rows = [sum(len(lane[0]) for lane in call[0]) for call in recorded]
+    first = next((i for i, n in enumerate(rows) if mcfg.uses_capacity(n)), None)
+    if first is None:
+        fail("mla_graphs: no recorded dispatch at a capacity rung", rows[:8], "T*k >= 2E")
+    calls = recorded[:first + 1]
+    graph = ModelRunner(ecfg, params=params, device=DEVICE)
+    eager = ModelRunner(ecfg, params=params, device=DEVICE)
+    got = replay_recorded(graph, graph.unified_step, calls, depth=1)[0]
+    want = replay_recorded(eager, eager.unified_step_eager, calls, depth=1)[0]
+    torch.cuda.synchronize()
+    mismatch = [i for i, (a, b) in enumerate(zip(got, want)) if not np.array_equal(a, b)]
+    where = cache_difference(graph, eager, ecfg.block_size)
+    result = {"phase": "mla_graphs", "dispatch": first, "dispatch_rows": rows[first],
+              "capacity": mcfg.capacity(rows[first]), "replayed": len(calls),
+              "graphs_captured": graph.compile_stats.capture_snapshot()["graphs_captured"],
+              "tokens_identical": not mismatch,
+              "kv_bytes_identical_outside_trash_block": where is None,
+              "first_difference": where}
+    emit(result)
+    if mismatch or where is not None:
+        fail(f"mla_graphs: the graph replay differs from the eager body ({where})",
+             mismatch, [])
+    del graph, eager
+    free_card()
+    return result
+
+
+def phase_mla(card: str) -> dict:
+    """DeepSeek-V2-Lite at full width (phase 13): see the module
+    docstring."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    t_phase = time.monotonic()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    # What earlier phases still hold counts toward this phase's peak.
+    held_at_start = torch.cuda.memory_allocated()
+    peaks, stage_s, per_leg = [], {}, {}
+
+    def take_peak() -> int:
+        peaks.append(torch.cuda.max_memory_allocated())
+        return peaks[-1]
+
+    def leg_line(name, served, t0):
+        per_leg[name] = {
+            "tokens_per_s": served["tokens_per_s"], "ttft_p50_ms": served["ttft_p50_ms"],
+            "device_ms_per_dispatch": served["device_ms_per_dispatch"],
+            "greedy_agreement_vs_no_cache_reference":
+                served["greedy_agreement_vs_no_cache_reference"],
+            "max_logprob_gap_at_disagreement": served["max_logprob_gap_at_disagreement"],
+            "ragged_launches": served["kernel_launches"],
+            "unified_dispatches": served["unified_dispatches"],
+            "peak_memory_bytes": take_peak(), "wall_s": time.monotonic() - t0}
+        emit({"phase": "mla_leg", "leg": name, "card": card, **per_leg[name]})
+        free_card()   # the leg's engine, its cache and graph pool
+
+    out = {"kernels": mla_kernel_cases()}
+    take_peak()
+    stage_s["kernel_cases"] = time.monotonic() - t_phase
+    lite = ModelConfig.deepseek_v2_lite()
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, lite.vocab_size, n).tolist()
+               for n in rng.integers(*MLA_LENS, 8)]
+    more = [rng.integers(0, lite.vocab_size, n).tolist()
+            for n in rng.integers(*MLA_LENS, 4)]
+    max_tokens = 32
+
+    # Witnesses at full width, drop-free, under phase 8's gates: float32
+    # at 2 layers (layer 0 dense, layer 1 MoE) and MLA_WITNESS_LAYERS deep
+    # (the walk, float32 products), and bf16 at 2 layers (the wide tile,
+    # the bf16 expert products).
+    for depth, dtype in ((2, "float32"), (MLA_WITNESS_LAYERS, "float32"), (2, "bfloat16")):
+        t0 = time.monotonic()
+        name = f"{'f32' if dtype == 'float32' else 'bf16'}_witness_{depth}"
+        witness = lite.scaled(num_layers=depth, moe_dispatch="dense")
+        params = seeded_params(witness, 1, getattr(torch, dtype))
+        served, _ = asyncio.run(serve_family(family_config(witness, dtype=dtype), params,
+                                             prompts, max_tokens, f"mla_{name}"))
+        leg_line(name, served, t0)
+        del params
+        free_card()
+
+    # 27 layers in bf16: drop-free, then the preset's auto, then int8 KV.
+    t0 = time.monotonic()
+    params = seeded_params(lite, 2, torch.bfloat16)
+    stage_s["bf16_weights"] = time.monotonic() - t0
+    dense = lite.scaled(moe_dispatch="dense")
+    served, _ = asyncio.run(serve_family(
+        family_config(dense), params, prompts, max_tokens, "mla_bf16_dense",
+        profile_prompts=more, limits=MLA_BF16_LIMITS["mla_bf16_dense"]))
+    leg_line("bf16_dense", served, t0)
+    out["profile"] = {"device_ms_per_dispatch": served["device_ms_per_dispatch"],
+                      "device_busy_share": served["device_busy_share"],
+                      "top_kernels_ms": served["top_kernels_ms"]}
+    t0 = time.monotonic()
+    ecfg = family_config(lite)
+    served, _ = asyncio.run(serve_family(ecfg, params, prompts, max_tokens, "mla_bf16_auto",
+                                         limits=MLA_BF16_LIMITS["mla_bf16_auto"],
+                                         record=True))
+    recorded = served.pop("recorded")
+    leg_line("bf16_auto", served, t0)
+    out["rungs"] = moe_rungs(ecfg)
+    out["graphs"] = capacity_replay(ecfg, params, recorded)
+    del recorded
+    t0 = time.monotonic()
+    served, _ = asyncio.run(serve_family(family_config(lite, kv_quant="int8"), params,
+                                         prompts, max_tokens, "mla_bf16_auto_int8",
+                                         limits=MLA_BF16_LIMITS["mla_bf16_auto_int8"]))
+    leg_line("bf16_auto_int8", served, t0)
+    del params
+    free_card()
+
+    t0 = time.monotonic()
+    http = asyncio.run(family_http(prompts[0], max_tokens, MLA_HTTP_ARGS, "mla_http",
+                                   MLA_BF16_LIMITS["mla_http"]))
+    take_peak()
+    stage_s["http"] = time.monotonic() - t0
+    free_card()
+
+    wall = time.monotonic() - t_phase
+    peak = max(peaks)
+    stage_s.update({name: leg["wall_s"] for name, leg in per_leg.items()})
+    out.update({"phase": "mla", "card": card, "model": lite.name,
+                "params": lite.param_count(), "wall_s": wall, "stage_s": stage_s,
+                "peak_memory_bytes": peak, "held_at_start_bytes": held_at_start,
+                "legs": per_leg,
+                "http": {k: http[k] for k in ("ttft_ms", "kernel_launches",
+                                              "unified_dispatches",
+                                              "greedy_agreement_vs_no_cache_reference",
+                                              "max_logprob_gap_at_disagreement")},
+                "bf16_limits [agreement at least, gap at most]": MLA_BF16_LIMITS,
+                "budget": {"wall_s": MLA_BUDGET_S, "peak_bytes": MLA_PEAK_BYTES}})
+    emit({k: v for k, v in out.items() if k != "kernels"})
+    if peak > MLA_PEAK_BYTES:
+        fail("mla: peak device memory", peak, MLA_PEAK_BYTES)
+    if wall > MLA_BUDGET_S:
+        fail("mla: wall seconds", wall, MLA_BUDGET_S)
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5448,6 +5803,7 @@ def run_all() -> int:
     del params
     free_card()
     families = run_phase("families", phase_families, card)
+    mla = run_phase("mla", phase_mla, card)
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
@@ -5487,6 +5843,17 @@ def run_all() -> int:
                      families_launches={k: v for k, v in families["ragged_launches"].items()
                                         if k.endswith("_int8")},
                      families_timing=family_timing(families, "_int8")),
+        kernel_entry("ragged_paged_attention_mla", ragged_src,
+                     "dynamo_tpu/ops/pallas/ragged_attention.py:67",
+                     mla["legs"]["bf16_dense"]["ragged_launches"], mla["kernels"]["bf16"],
+                     "at MLA's (H, kvH, D) = (16, 1, 576): spans of <= 4 rows split-KV "
+                     "(paged_split.cuh, 2-stage ring, 72 accumulators a thread) beside "
+                     "the wide tile (paged_attention_wide.cuh: 16 query vectors, S by "
+                     "warp over 8 keys, P in shared memory, P.V by warp over 144 "
+                     "columns), then the merge",
+                     launches_by_leg={k: v["ragged_launches"] for k, v in mla["legs"].items()},
+                     http_launches=mla["http"]["kernel_launches"],
+                     int8=mla["kernels"]["int8"], f32=mla["kernels"]["f32"]),
         kernel_entry("paged_decode_attention",
                      "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:91",

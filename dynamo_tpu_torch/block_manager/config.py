@@ -48,15 +48,16 @@ class KvLayoutConfig:
     ) -> "KvLayoutConfig":
         """The layout of one of an engine's G1 blocks — ONE definition
         shared by the runner's packed-row wire form, the mocker's
-        advertised precision ratio and the disagg staging arena. The
-        head dim is the model's own: the port's cache is never
-        lane-padded."""
+        advertised precision ratio and the disagg staging arena. Its
+        heads and head dim are the cache's own (MLA: one shared latent
+        entry of kv_lora_rank + qk_rope_head_dim); the port's cache is
+        never lane-padded."""
         m = engine_cfg.model
         return cls(
             num_layers=m.num_layers,
             page_size=engine_cfg.block_size,
-            num_kv_heads=m.num_kv_heads,
-            head_dim=m.head_dim,
+            num_kv_heads=m.num_cache_heads,
+            head_dim=m.kv_cache_head_dim,
             dtype=engine_cfg.dtype,
             quant=quant,
         )

@@ -52,6 +52,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 32;            // keys staged per step: one per lane
 constexpr float kNegInf = -1e30f;     // the reference's NEG_INF
 constexpr int kMaxHeadDim = 256;
+// The ragged kernel's wide entry: head dims in (256, 576], multiples of
+// 64 (MLA's one shared [latent ‖ roped k_pe] head: 512 + 64).
+constexpr int kMaxWideHeadDim = 576;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -122,7 +125,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Query vectors each warp keeps in registers: acc holds NQ x DPL floats
 // per lane (DPL = head-dim elements per lane: ceil(D / 32) rounded up to
-// a power of two, so four instantiations cover every D up to 256).
+// a power of two, so four instantiations cover every D up to 256; past
+// 256, ceil(D / 32) itself, 18 at D = 576, one vector per warp).
 template <int DPL>
 struct Tile {
   static constexpr int NQ = (16 / DPL) > 0 ? (16 / DPL) : 1;
@@ -130,6 +134,7 @@ struct Tile {
 };
 
 inline int dpl_for(int D) {
+  if (D > kMaxHeadDim) return (D + 31) / 32;
   int dpl = 1;
   while (dpl * 32 < D) dpl *= 2;
   return dpl;
@@ -345,6 +350,12 @@ cudaError_t launch_tiles(Kernel kernel, dim3 grid, int D, cudaStream_t stream, A
 
 inline bool head_dim_ok(int D, int H, int kvH) {
   return D > 0 && D <= kMaxHeadDim && D % 16 == 0 && kvH > 0 && H % kvH == 0;
+}
+
+// The ragged kernel also takes the wide entry.
+inline bool ragged_head_dim_ok(int D, int H, int kvH) {
+  return head_dim_ok(D, H, kvH) || (D > kMaxHeadDim && D <= kMaxWideHeadDim && D % 64 == 0 &&
+                                    kvH > 0 && H % kvH == 0);
 }
 
 }  // namespace paged

@@ -15,7 +15,8 @@
 //   itself. Splits past the keys its rows can see, or wholly behind their
 //   window, write m = -1e30, l = 0 and exit.
 // - Staging. 32-key chunks are staged by 16-byte cp.async into a ring of
-//   kStages (4 bf16 and int8, 3 f32), so up to 128 keys are in flight;
+//   kStages (4 bf16 and int8, 3 f32; at head dims past 256, 2 bf16 and
+//   1 f32: Ring<C, true>), so up to 128 keys are in flight;
 //   keys outside the block's visible range are zero-filled, never read.
 //   An int8 cache stages 16 values per copy, and each key's page scales
 //   (k_scales/v_scales, per (block, kv head), read by physical page id)
@@ -52,10 +53,14 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kN = 32;                 // keys per chunk: one per lane
 
-template <typename C> struct Ring;
-template <> struct Ring<__nv_bfloat16> { static constexpr int kStages = 4; };
-template <> struct Ring<float> { static constexpr int kStages = 3; };
-template <> struct Ring<int8_t> { static constexpr int kStages = 4; };
+// Ring depth per cache type; kWide: head dims past 256 (MLA's 576-wide
+// entry), where a 32-key stage of K and V takes 73 KB in bf16 and 145 KB
+// in f32, so the ring holds 2 and 1 stages (a block then takes one SM's
+// shared memory, ~188 KB with q).
+template <typename C, bool kWide = false> struct Ring;
+template <bool W> struct Ring<__nv_bfloat16, W> { static constexpr int kStages = W ? 2 : 4; };
+template <bool W> struct Ring<float, W> { static constexpr int kStages = W ? 1 : 3; };
+template <bool W> struct Ring<int8_t, W> { static constexpr int kStages = 4; };
 
 template <typename C>
 constexpr bool kIsInt8 = std::is_same<C, int8_t>::value;
@@ -97,9 +102,9 @@ __host__ __device__ inline int stage_bytes(int D) {
   return 2 * kN * SD * (int)sizeof(C) + (kIsInt8<C> ? 2 * kN * (int)sizeof(float) : 0);
 }
 
-template <typename C, int VB>
+template <typename C, int VB, bool kWide = false>
 size_t split_smem_bytes(int D) {
-  return (size_t)Ring<C>::kStages * stage_bytes<C>(D) + (size_t)VB * D * sizeof(float) +
+  return (size_t)Ring<C, kWide>::kStages * stage_bytes<C>(D) + (size_t)VB * D * sizeof(float) +
          (size_t)VB * kN * sizeof(float) + (size_t)VB * 3 * sizeof(float);
 }
 
@@ -118,15 +123,20 @@ __device__ __forceinline__ float2 pair_f(const int8_t* p) {
 // One split of one vector group of a span (see the header note). kRows:
 // the span may hold more than one row, so each vector masks by its own
 // row's causal and window bounds (a one-row span's bounds are the key
-// range itself).
-template <typename T, typename C, int VB, bool kRows>
+// range itself). kWide: head dims up to paged::kMaxWideHeadDim (the
+// accumulators grow to VB x 576 / 2 pairs over 128 threads, 72 floats a
+// thread, so the caller's kernel takes one block per SM), with the
+// shallower ring of Ring<C, true>; a one-stage ring loads each chunk
+// after the last one is consumed.
+template <typename T, typename C, int VB, bool kRows, bool kWide = false>
 __device__ __forceinline__ void split_block(const SplitArgs<T, C>& a, const SplitSpan& sp,
                                             int s, int vg, int h) {
-  constexpr int kStages = Ring<C>::kStages;
+  constexpr int kStages = Ring<C, kWide>::kStages;
   constexpr int VEC = 16 / sizeof(C);
   constexpr bool kInt8 = kIsInt8<C>;
   constexpr int kVW = VB / kWarps;                              // vectors per warp
-  constexpr int kPairs = VB * paged::kMaxHeadDim / 2 / kThreads;
+  constexpr int kMaxD = kWide ? paged::kMaxWideHeadDim : paged::kMaxHeadDim;
+  constexpr int kPairs = VB * kMaxD / 2 / kThreads;
   const int G = a.H / a.kvH;
   const int v0 = vg * VB;
   const int NV = min(VB, sp.nrows * G - v0);                    // vectors of this block
@@ -229,10 +239,18 @@ __device__ __forceinline__ void split_block(const SplitArgs<T, C>& a, const Spli
   for (int i = 0; i < kPairs; ++i) acc[i][0] = acc[i][1] = 0.f;
 
   for (int c = 0; c < chunks; ++c) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-    __syncthreads();   // chunk c landed everywhere; chunk c - 1 fully consumed
-    if (c + kStages - 1 < chunks) issue(c + kStages - 1);
-    asm volatile("cp.async.commit_group;\n");
+    if constexpr (kStages == 1) {
+      __syncthreads();   // chunk c - 1 fully consumed: its stage is free
+      issue(c);
+      asm volatile("cp.async.commit_group;\n");
+      asm volatile("cp.async.wait_group 0;\n");
+      __syncthreads();   // chunk c landed everywhere
+    } else {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+      __syncthreads();   // chunk c landed everywhere; chunk c - 1 fully consumed
+      if (c + kStages - 1 < chunks) issue(c + kStages - 1);
+      asm volatile("cp.async.commit_group;\n");
+    }
 
     const C* ks = k_stage(c);
     const C* vs = ks + kN * SD;

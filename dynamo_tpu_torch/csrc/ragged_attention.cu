@@ -39,9 +39,16 @@
 //   counts, each span's heaviest (last) tile first. The slots cover any
 //   q_len: sum over spans of ceil(q_len*G/128) <= ceil(T*G/128) + the
 //   spans that can hold more than split_rows rows.
+// - Longer spans, bf16 q, head dims past 256 (MLA's one 576-wide
+//   latent head for 16 query heads): the wide tile of
+//   paged_attention_wide.cuh (16 query vectors a block, scores, P and
+//   the P.V columns split over its 4 warps), picked by the same scan.
 // - Longer spans, f32 q: the CUDA-core walk attend_tile
 //   (paged_attention.cuh), grid (query tile, span, kv head): a float32
-//   product on tensor cores would be TF32 and miss the 1e-4 tolerance.
+//   product on tensor cores would be TF32 and miss the 1e-4 tolerance
+//   (at D = 576: 18 dims a lane, one query vector a warp).
+// - Head dims past 256 also take the split path's wide instantiation
+//   (72 accumulators a thread, a shallower ring, one block per SM).
 // - int8 caches take the same paths with the scales folded into the f32
 //   side of the products (S = (q.k_int) k_s, O += (P v_s) v_int): the tile
 //   converts int8 pages to bf16 unscaled, which is exact, and the split
@@ -65,6 +72,7 @@
 
 #include "paged_attention.cuh"
 #include "paged_attention_tc.cuh"
+#include "paged_attention_wide.cuh"
 #include "paged_split.cuh"
 
 namespace {
@@ -88,19 +96,14 @@ struct SpanMeta {
   int S, max_blocks, split_rows;
 };
 
-// -- multi-row spans, bf16 q: the tensor-core tile --------------------------
-template <typename C, int DP>
-__global__ void __launch_bounds__(paged_tc::kThreads, DP <= 64 ? 2 : 1)
-ragged_tc_kernel(const TileArgs<C> a, const SpanMeta m) {
-  constexpr int kM = paged_tc::kM;
-  // The picked span's (index, tile counted from its last, row_start,
-  // q_len, q_start, kv_len).
-  __shared__ int pick[6];
-  const int G = a.H / a.kvH;
+// Warp 0 scans the spans' tile counts (ceil(q_len * G / kTileM) for each
+// span of more than split_rows rows), 32 spans a step, for the span whose
+// tiles hold slot blockIdx.x; each lane reads its span's metadata at
+// once, so the pick costs one round of loads. pick = (span or -1, tile
+// counted from its last, row_start, q_len, q_start, kv_len).
+template <int kTileM>
+__device__ __forceinline__ void pick_tile(const SpanMeta& m, int G, int* pick) {
   if (threadIdx.x < 32) {
-    // Warp 0 scans the spans' tile counts, 32 spans a step, for the span
-    // whose tiles hold slot j; each lane reads its span's metadata at
-    // once, so the pick costs one round of loads.
     const int lane = threadIdx.x;
     const int j = blockIdx.x;
     int base = 0;
@@ -113,7 +116,7 @@ ragged_tc_kernel(const TileArgs<C> a, const SpanMeta m) {
         rs = m.row_start[s];
         q0 = m.q_start[s];
         kv = m.kv_len[s];
-        n = ql > m.split_rows ? (ql * G + kM - 1) / kM : 0;
+        n = ql > m.split_rows ? (ql * G + kTileM - 1) / kTileM : 0;
       }
       int inc = n;
 #pragma unroll
@@ -137,12 +140,38 @@ ragged_tc_kernel(const TileArgs<C> a, const SpanMeta m) {
     if (lane == 0 && !found) pick[0] = -1;
   }
   __syncthreads();
+}
+
+// -- multi-row spans, bf16 q: the tensor-core tile --------------------------
+template <typename C, int DP>
+__global__ void __launch_bounds__(paged_tc::kThreads, DP <= 64 ? 2 : 1)
+ragged_tc_kernel(const TileArgs<C> a, const SpanMeta m) {
+  constexpr int kM = paged_tc::kM;
+  __shared__ int pick[6];
+  const int G = a.H / a.kvH;
+  pick_tile<kM>(m, G, pick);
   const int s = pick[0];
   if (s < 0) return;   // a slot past every span's tiles
   const int ql = pick[3];
   const int ntiles = (ql * G + kM - 1) / kM;
   const TileSpan sp{pick[2], ql, pick[4], pick[5], 0, m.tables + (size_t)s * m.max_blocks};
   paged_tc::tc_tile<C, DP>(a, sp, blockIdx.y, (ntiles - 1 - pick[1]) * kM);
+}
+
+// -- multi-row spans, bf16 q, head dims past 256: the wide tile -------------
+template <typename C>
+__global__ void __launch_bounds__(paged_wide::kThreads, 1)
+ragged_wide_kernel(const TileArgs<C> a, const SpanMeta m) {
+  constexpr int kM = paged_wide::kM;
+  __shared__ int pick[6];
+  const int G = a.H / a.kvH;
+  pick_tile<kM>(m, G, pick);
+  const int s = pick[0];
+  if (s < 0) return;
+  const int ql = pick[3];
+  const int ntiles = (ql * G + kM - 1) / kM;
+  const TileSpan sp{pick[2], ql, pick[4], pick[5], 0, m.tables + (size_t)s * m.max_blocks};
+  paged_wide::wide_tile<C>(a, sp, blockIdx.y, (ntiles - 1 - pick[1]) * kM);
 }
 
 // -- multi-row spans, f32 q: the walk ---------------------------------------
@@ -159,9 +188,11 @@ ragged_walk_kernel(paged::Call<float, C> a, const SpanMeta m) {
 
 // -- short spans: split-KV ----------------------------------------------------
 // At most 128 registers a thread, so 4 blocks share an SM: the plan aims
-// for 4 blocks per SM (ragged_split_plan).
-template <typename T, typename C>
-__global__ void __launch_bounds__(paged_split::kThreads, 4)
+// for 4 blocks per SM (ragged_split_plan). kWide (head dims past 256):
+// one block per SM, its accumulators and shared memory being 4 times as
+// large.
+template <typename T, typename C, bool kWide>
+__global__ void __launch_bounds__(paged_split::kThreads, kWide ? 1 : 4)
 ragged_split_kernel(const SplitArgs<T, C> a, const SpanMeta m) {
   const int span = blockIdx.y;
   const int ql = m.q_len[span];
@@ -170,7 +201,7 @@ ragged_split_kernel(const SplitArgs<T, C> a, const SpanMeta m) {
   const int vg = blockIdx.x - s * a.vec_groups;
   const SplitSpan sp{m.row_start[span], span * m.split_rows, ql, m.q_start[span],
                      m.kv_len[span], 0, m.tables + (size_t)span * m.max_blocks};
-  paged_split::split_block<T, C, kSplitVecs, true>(a, sp, s, vg, blockIdx.z);
+  paged_split::split_block<T, C, kSplitVecs, true, kWide>(a, sp, s, vg, blockIdx.z);
 }
 
 // -- the merge pass -----------------------------------------------------------
@@ -248,23 +279,32 @@ cudaError_t side_for_current_device(Side** out) {
   return cudaSuccess;
 }
 
+// The split kernel at the call's width on `stream`.
+template <typename T, typename C, bool kWide>
+cudaError_t launch_split(const SplitArgs<T, C>& a, const SpanMeta& m, const Plan& p,
+                         cudaStream_t stream) {
+  const size_t smem = paged_split::split_smem_bytes<C, kSplitVecs, kWide>(a.D);
+  cudaError_t err = paged_split::set_smem(ragged_split_kernel<T, C, kWide>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.num_splits * a.vec_groups, m.S, a.kvH);
+  ragged_split_kernel<T, C, kWide><<<grid, paged_split::kThreads, smem, stream>>>(a, m);
+  return cudaGetLastError();
+}
+
 // The split kernel on the side stream, `body` (the tile or the walk) on
 // `st`, then, once both are done, the merge pass on `st`.
 template <typename T, typename C, typename Body>
 cudaError_t run_paths(const SplitArgs<T, C>& a, const SpanMeta& m, const Plan& p,
                       cudaStream_t st, Body body) {
-  const size_t smem = paged_split::split_smem_bytes<C, kSplitVecs>(a.D);
-  cudaError_t err = paged_split::set_smem(ragged_split_kernel<T, C>, smem);
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
   Side* side = nullptr;
   if (m.S > 0) {
     err = side_for_current_device(&side);
     if (err == cudaSuccess) err = cudaEventRecord(side->fork, st);
     if (err == cudaSuccess) err = cudaStreamWaitEvent(side->stream, side->fork, 0);
     if (err != cudaSuccess) return err;
-    const dim3 grid(p.num_splits * a.vec_groups, m.S, a.kvH);
-    ragged_split_kernel<T, C><<<grid, paged_split::kThreads, smem, side->stream>>>(a, m);
-    err = cudaGetLastError();
+    err = a.D > paged::kMaxHeadDim ? launch_split<T, C, true>(a, m, p, side->stream)
+                                   : launch_split<T, C, false>(a, m, p, side->stream);
     if (err != cudaSuccess) return err;
   }
   err = body();
@@ -290,6 +330,19 @@ cudaError_t launch_tc(const TileArgs<C>& a, const SpanMeta& m, int T_rows, cudaS
                     std::min(m.S, T_rows / (m.split_rows + 1));
   if (slots == 0) return cudaSuccess;
   ragged_tc_kernel<C, DP><<<dim3(slots, a.kvH), paged_tc::kThreads, smem, st>>>(a, m);
+  return cudaGetLastError();
+}
+
+template <typename C>
+cudaError_t launch_wide(const TileArgs<C>& a, const SpanMeta& m, int T_rows, cudaStream_t st) {
+  const size_t smem = paged_wide::smem_bytes<C>(a.D);
+  cudaError_t err = paged_tc::set_tile_smem(ragged_wide_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  const int G = a.H / a.kvH;
+  const int slots = (T_rows * G + paged_wide::kM - 1) / paged_wide::kM +
+                    std::min(m.S, T_rows / (m.split_rows + 1));
+  if (slots == 0) return cudaSuccess;
+  ragged_wide_kernel<C><<<dim3(slots, a.kvH), paged_wide::kThreads, smem, st>>>(a, m);
   return cudaGetLastError();
 }
 
@@ -329,6 +382,7 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v, const float* k
   return run_paths(
       split_args<bf16, C>(q, k, v, ks, vs, out, po, pm, pl, m, p, H, kvH, D, bs, window), m,
       p, st, [&]() {
+        if (D > paged::kMaxHeadDim) return launch_wide<C>(ta, m, p.T_rows, st);
         switch (paged_tc::dp_for(D)) {
           case 16: return launch_tc<C, 16>(ta, m, p.T_rows, st);
           case 32: return launch_tc<C, 32>(ta, m, p.T_rows, st);
@@ -357,6 +411,7 @@ cudaError_t run_f32(const void* q, const void* k, const void* v, const float* ks
           case 2: return launch_walk<C, 2>(wa, m, p.T_rows, st);
           case 4: return launch_walk<C, 4>(wa, m, p.T_rows, st);
           case 8: return launch_walk<C, 8>(wa, m, p.T_rows, st);
+          case 18: return launch_walk<C, 18>(wa, m, p.T_rows, st);   // D = 576
           default: return cudaErrorInvalidValue;
         }
       });
@@ -379,7 +434,8 @@ int ragged_paged_attention(const void* q, const void* k_cache, const void* v_cac
                            int max_blocks, int block_size, int window, int num_splits,
                            int pages_per_split, int split_rows, int dtype, int kv_int8,
                            void* stream) {
-  if (!paged::head_dim_ok(D, H, kvH) || block_size < 1 || max_blocks < 1 || split_rows < 1)
+  if (!paged::ragged_head_dim_ok(D, H, kvH) || block_size < 1 || max_blocks < 1 ||
+      split_rows < 1)
     return cudaErrorInvalidValue;
   if (kv_int8 && (k_scales == nullptr || v_scales == nullptr)) return cudaErrorInvalidValue;
   if (num_splits < 1 || pages_per_split < 1 ||

@@ -77,15 +77,15 @@ class DecodeOperator:
     def _layout(self) -> dict:
         """KV block layout advertised in queue entries, so a prefill worker
         with a different one rejects the pair instead of shipping bytes
-        this cache cannot hold. The head dim is the model's own (the
-        port's cache is never lane-padded), so a TPU engine's padded
+        this cache cannot hold. Heads and head dim are the cache's own
+        (MLA: one latent entry; the port's cache is never lane-padded), so a TPU engine's padded
         layout is refused; a JAX engine on the CPU advertises the same
         one. ``tp`` and ``kv_sp`` are 1: the port has no mesh yet."""
         m = self.engine.cfg.model
         return {
             "num_layers": m.num_layers,
-            "num_kv_heads": m.num_kv_heads,
-            "head_dim": m.head_dim,
+            "num_kv_heads": m.num_cache_heads,
+            "head_dim": m.kv_cache_head_dim,
             "block_size": self.engine.cfg.block_size,
             "dtype": str(self.engine.cfg.dtype),
             # KV precision (docs/architecture/kv_quant.md): quantized
@@ -393,8 +393,8 @@ class PrefillWorker:
             return True
         cfg, m = self.engine.cfg, self.engine.cfg.model
         mine = {
-            "num_layers": m.num_layers, "num_kv_heads": m.num_kv_heads,
-            "head_dim": m.head_dim, "block_size": cfg.block_size,
+            "num_layers": m.num_layers, "num_kv_heads": m.num_cache_heads,
+            "head_dim": m.kv_cache_head_dim, "block_size": cfg.block_size,
             "dtype": cfg.dtype, "kv_quant": cfg.kv_quant,
         }
         hard = all(layout.get(k, v) == v for k, v in mine.items())

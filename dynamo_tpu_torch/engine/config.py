@@ -184,12 +184,6 @@ class EngineConfig:
                 raise ValueError(
                     f"{what} is not served by this slice of the port"
                 )
-        missing = self.model.unsupported_features()
-        if missing:
-            raise ValueError(
-                f"model {self.model.name}: {', '.join(missing)} not served "
-                "by this slice of the port"
-            )
         if self.dtype in DTYPES:
             weight_bytes = self.model.param_count() * DTYPES[self.dtype].itemsize
             if weight_bytes > CARD_BYTES:

@@ -129,7 +129,8 @@ class UnifiedOut:
 
 def _params_to(params: Any, device: torch.device, dtype: torch.dtype):
     if isinstance(params, dict):
-        return {k: _params_to(v, device, dtype) for k, v in params.items()}
+        return {k: _params_to(v, device, torch.float32 if k in llama.FLOAT32_KEYS else dtype)
+                for k, v in params.items()}
     if isinstance(params, list):
         return [_params_to(v, device, dtype) for v in params]
     return params.to(device=device, dtype=dtype)
@@ -237,7 +238,10 @@ class ModelRunner(WarmupPlanMixin):
         # compute (activations, q, dequantized pages) stays in `dtype`.
         self.kv_quant = cfg.kv_quant
         self.kv_dtype = torch.int8 if cfg.kv_quant == "int8" else self.dtype
-        kv_shape = (cfg.num_blocks * cfg.block_size, m.num_kv_heads, m.head_dim)
+        # MLA caches one shared [latent ‖ k_pe] entry per token: 1 head of
+        # kv_lora_rank + qk_rope_head_dim.
+        kv_shape = (cfg.num_blocks * cfg.block_size, m.num_cache_heads,
+                    m.kv_cache_head_dim)
         self.kv_caches = [
             (
                 torch.zeros(kv_shape, dtype=self.kv_dtype, device=self.device),
@@ -252,7 +256,7 @@ class ModelRunner(WarmupPlanMixin):
         self.kv_scales = None
         if cfg.kv_quant == "int8":
             self.kv_scales = torch.zeros(
-                (m.num_layers, 2, cfg.num_blocks, m.num_kv_heads),
+                (m.num_layers, 2, cfg.num_blocks, m.num_cache_heads),
                 dtype=torch.float32, device=self.device,
             )
         self.last_logprobs = None
@@ -607,7 +611,8 @@ class ModelRunner(WarmupPlanMixin):
     # -- block IO (KVBM tiers, disaggregation) -------------------------------
     def _block_shape(self, n: int | None = None) -> tuple:
         m = self.cfg.model
-        shape = (m.num_layers, 2, self.cfg.block_size, m.num_kv_heads, m.head_dim)
+        shape = (m.num_layers, 2, self.cfg.block_size, m.num_cache_heads,
+                 m.kv_cache_head_dim)
         return shape if n is None else (n, *shape)
 
     def _normalize_block_host(self, data) -> np.ndarray:

@@ -3,11 +3,13 @@
 The field list is the reference's, so a config describes the same model
 in both packages. The port serves the dense families: the Llama trunk,
 Qwen2's qkv bias and window gate, Qwen3's QK-norm, Mistral's sliding
-window with its rolling buffer, and the Gemma-3 knobs (GeGLU, (1+w)
+window with its rolling buffer, the Gemma-3 knobs (GeGLU, (1+w)
 norms, sandwich norms, scaled embeddings, local/global windows with a
-local rope base, the query scale fold). ``EngineConfig.validate``
-refuses what it does not serve yet: MLA (with its yarn rope) and MoE,
-and a model whose weights outgrow one card.
+local rope base, the query scale fold), and the DeepSeek family: MLA's
+latent cache with its yarn rope, and Mixtral/DeepSeek routed experts
+with DeepSeek's shared experts and dense leading layers.
+``EngineConfig.validate`` refuses a model whose weights outgrow one
+card (``param_count``).
 """
 
 from __future__ import annotations
@@ -74,12 +76,22 @@ class ModelConfig:
 
     @property
     def kv_cache_head_dim(self) -> int:
-        """Per-head cache width (the dense families: the head dim)."""
-        return self.head_dim
+        """Per-head cache width: the head dim, or MLA's one shared entry
+        [latent ‖ roped k_pe] of kv_lora_rank + qk_rope_head_dim."""
+        return (
+            self.kv_lora_rank + self.qk_rope_head_dim
+            if self.is_mla
+            else self.head_dim
+        )
 
     @property
     def num_cache_heads(self) -> int:
-        return self.num_kv_heads
+        return 1 if self.is_mla else self.num_kv_heads
+
+    def moe_layer(self, layer_idx: int) -> bool:
+        """Does this layer use the routed-experts MLP (DeepSeek keeps its
+        first first_k_dense_replace layers dense)?"""
+        return self.is_moe and layer_idx >= self.first_k_dense_replace
 
     @property
     def rolling_buffer(self) -> bool:
@@ -94,22 +106,47 @@ class ModelConfig:
         )
 
     def param_count(self) -> int:
-        """Weights of the dense trunk (embedding, layers, final norm, an
-        untied head)."""
+        """Weights of the model as ``init_params`` makes them: embedding,
+        per layer the attention (GQA projections, or MLA's down/up
+        projections and norms) and the MLP (a dense SwiGLU, or a router
+        with its routed and shared experts), the final norm and an untied
+        head."""
         D, H, kvH, hd = (
             self.hidden_size, self.num_heads, self.num_kv_heads, self.head_dim
         )
-        layer = (
-            D * H * hd + 2 * D * kvH * hd + H * hd * D   # q, k, v, o
-            + 3 * D * self.intermediate_size             # gate, up, down
-            + (4 if self.post_norms else 2) * D
+        if self.is_mla:
+            dn, dr, dc = self.qk_nope_head_dim, self.qk_rope_head_dim, self.kv_lora_rank
+            attn = (
+                D * (dc + dr) + dc                          # w_dkv, ln_kv
+                + H * dn * dc + H * self.v_head_dim * dc    # w_uk, w_uv
+                + H * self.v_head_dim * D                   # wo
+            )
+            if self.q_lora_rank:
+                attn += D * self.q_lora_rank + self.q_lora_rank  # w_dq, ln_q
+                attn += self.q_lora_rank * H * (dn + dr)         # w_uq
+            else:
+                attn += D * H * (dn + dr)                        # wq
+        else:
+            attn = D * H * hd + 2 * D * kvH * hd + H * hd * D   # q, k, v, o
+            if self.qkv_bias:
+                attn += (H + 2 * kvH) * hd
+            if self.qk_norm:
+                attn += 2 * hd
+        norms = (4 if self.post_norms else 2) * D
+        dense_mlp = 3 * D * self.intermediate_size
+        Im = self.moe_intermediate_size or self.intermediate_size
+        moe_mlp = (
+            D * self.num_experts                             # w_router
+            + (self.num_experts if self.gating == "sigmoid" else 0)
+            + self.num_experts * 3 * D * Im                  # routed experts
+            + 3 * D * Im * self.n_shared_experts             # shared experts
         )
-        if self.qkv_bias:
-            layer += (H + 2 * kvH) * hd
-        if self.qk_norm:
-            layer += 2 * hd
+        layers = sum(
+            attn + norms + (moe_mlp if self.moe_layer(li) else dense_mlp)
+            for li in range(self.num_layers)
+        )
         head = 0 if self.tie_word_embeddings else D * self.vocab_size
-        return self.vocab_size * D + self.num_layers * layer + D + head
+        return self.vocab_size * D + layers + D + head
 
     def layer_window(self, layer_idx: int) -> int:
         """Sliding-window size for one layer (0 = full attention): Qwen2
@@ -124,18 +161,6 @@ class ModelConfig:
         if layer_idx >= self.max_window_layers:
             return self.sliding_window
         return 0
-
-    def unsupported_features(self) -> list[str]:
-        """Architecture features the port does not serve yet (ROADMAP
-        A1b: MLA with its yarn rope, and MoE)."""
-        out = []
-        if self.is_mla:
-            out.append("MLA (kv_lora_rank)")
-        if self.is_moe:
-            out.append("MoE (num_experts)")
-        if self.rope_scaling is not None and self.rope_scaling.kind == "yarn":
-            out.append("yarn rope scaling")
-        return out
 
     # -- presets ------------------------------------------------------------
     @staticmethod
@@ -347,6 +372,156 @@ class ModelConfig:
             query_pre_attn_scalar=32.0,
         )
 
+    @staticmethod
+    def tiny_moe_test(vocab_size: int = 384) -> "ModelConfig":
+        """Hermetic Mixtral-style MoE test model."""
+        return ModelConfig(
+            name="tiny-moe-test",
+            vocab_size=vocab_size,
+            hidden_size=64,
+            intermediate_size=96,
+            num_layers=2,
+            num_heads=4,
+            num_kv_heads=2,
+            head_dim=16,
+            rope_theta=10000.0,
+            max_position=512,
+            num_experts=4,
+            num_experts_per_tok=2,
+        )
+
+    @staticmethod
+    def tiny_mla_test(vocab_size: int = 384) -> "ModelConfig":
+        """Hermetic DeepSeek-style test model: MLA + shared/routed experts
+        with sigmoid gating and one leading dense layer (the V3/R1 layer
+        plan in miniature)."""
+        return ModelConfig(
+            name="tiny-mla-test",
+            vocab_size=vocab_size,
+            hidden_size=64,
+            intermediate_size=128,
+            num_layers=3,
+            num_heads=4,
+            num_kv_heads=4,
+            head_dim=16,
+            rope_theta=10000.0,
+            max_position=512,
+            kv_lora_rank=32,
+            q_lora_rank=48,
+            qk_nope_head_dim=16,
+            qk_rope_head_dim=8,
+            v_head_dim=16,
+            num_experts=4,
+            num_experts_per_tok=2,
+            n_shared_experts=1,
+            moe_intermediate_size=48,
+            first_k_dense_replace=1,
+            gating="sigmoid",
+            routed_scaling_factor=2.5,
+        )
+
+    @staticmethod
+    def _deepseek_yarn(mscale: float) -> "object":
+        from dynamo_tpu_torch.ops.rope import RopeScaling
+
+        return RopeScaling(
+            kind="yarn",
+            factor=40.0,
+            original_max_position=4096,
+            beta_fast=32.0,
+            beta_slow=1.0,
+            mscale=mscale,
+            mscale_all_dim=mscale,
+        )
+
+    @staticmethod
+    def deepseek_v2_lite() -> "ModelConfig":
+        """DeepSeek-V2-Lite 15.7B (HF deepseek-ai/DeepSeek-V2-Lite: MLA
+        without q-lora, 64 routed experts top-6 with softmax gating, 2
+        shared experts, one leading dense layer, yarn rope)."""
+        return ModelConfig(
+            name="deepseek-v2-lite",
+            vocab_size=102400,
+            hidden_size=2048,
+            intermediate_size=10944,
+            num_layers=27,
+            num_heads=16,
+            num_kv_heads=16,
+            head_dim=128,
+            rope_theta=10000.0,
+            max_position=163840,
+            kv_lora_rank=512,
+            q_lora_rank=0,
+            qk_nope_head_dim=128,
+            qk_rope_head_dim=64,
+            v_head_dim=128,
+            num_experts=64,
+            num_experts_per_tok=6,
+            n_shared_experts=2,
+            moe_intermediate_size=1408,
+            first_k_dense_replace=1,
+            gating="softmax",
+            norm_topk_prob=False,
+            routed_scaling_factor=1.0,
+            n_group=1,
+            topk_group=1,
+            rope_scaling=ModelConfig._deepseek_yarn(0.707),
+        )
+
+    @staticmethod
+    def deepseek_r1() -> "ModelConfig":
+        """DeepSeek-R1/V3 671B (MLA + q-lora, sigmoid gating over 256
+        experts in 8 groups). Listed so that it resolves; its weights
+        outgrow one card, and the engine refuses it."""
+        return ModelConfig(
+            name="deepseek-r1",
+            vocab_size=129280,
+            hidden_size=7168,
+            intermediate_size=18432,
+            num_layers=61,
+            num_heads=128,
+            num_kv_heads=128,
+            head_dim=128,
+            rope_theta=10000.0,
+            max_position=163840,
+            kv_lora_rank=512,
+            q_lora_rank=1536,
+            qk_nope_head_dim=128,
+            qk_rope_head_dim=64,
+            v_head_dim=128,
+            num_experts=256,
+            num_experts_per_tok=8,
+            n_shared_experts=1,
+            moe_intermediate_size=2048,
+            first_k_dense_replace=3,
+            gating="sigmoid",
+            norm_topk_prob=True,
+            routed_scaling_factor=2.5,
+            n_group=8,
+            topk_group=4,
+            rope_scaling=ModelConfig._deepseek_yarn(1.0),
+        )
+
+    @staticmethod
+    def mixtral_8x7b() -> "ModelConfig":
+        """Mixtral-8x7B (8 experts top-2 on every layer). Listed so that
+        it resolves; its ~93 GB of bf16 weights outgrow one card, and
+        the engine refuses it."""
+        return ModelConfig(
+            name="mixtral-8x7b",
+            vocab_size=32000,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_layers=32,
+            num_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=1e6,
+            max_position=32768,
+            num_experts=8,
+            num_experts_per_tok=2,
+        )
+
     def scaled(self, **kwargs) -> "ModelConfig":
         return replace(self, **kwargs)
 
@@ -354,6 +529,11 @@ class ModelConfig:
 PRESETS = {
     "tiny-test": ModelConfig.tiny_test,
     "tiny-gemma-test": ModelConfig.tiny_gemma_test,
+    "tiny-moe-test": ModelConfig.tiny_moe_test,
+    "tiny-mla-test": ModelConfig.tiny_mla_test,
+    "deepseek-v2-lite": ModelConfig.deepseek_v2_lite,
+    "deepseek-r1": ModelConfig.deepseek_r1,
+    "mixtral-8x7b": ModelConfig.mixtral_8x7b,
     "llama3.2-1b": ModelConfig.llama32_1b,
     "llama3-8b": ModelConfig.llama3_8b,
     "llama3.1-8b": ModelConfig.llama31_8b,

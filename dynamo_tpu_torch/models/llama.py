@@ -1,8 +1,10 @@
 """Llama-family transformer over a paged KV cache (port of
-dynamo_tpu/models/llama.py, the dense families: Llama, Qwen2's qkv bias,
-Qwen3's QK-norm, Mistral's sliding window, Gemma-3's GeGLU, (1+w) and
-sandwich norms, scaled embeddings, local/global windows with a local
-rope base and the query scale fold).
+dynamo_tpu/models/llama.py: Llama, Qwen2's qkv bias, Qwen3's QK-norm,
+Mistral's sliding window, Gemma-3's GeGLU, (1+w) and sandwich norms,
+scaled embeddings, local/global windows with a local rope base and the
+query scale fold; DeepSeek's MLA with the absorbed latent attention and
+yarn rope; routed experts (Mixtral, DeepSeekMoE with shared experts and
+dense leading layers, models/moe.py)).
 
 Plain functions over a params dictionary with the reference's keys and
 ``[in, out]`` weight layout, so a JAX params tree carries over unchanged
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.moe import MoeConfig, moe_mlp
 from dynamo_tpu_torch.ops.attention import full_causal_attention, ragged_attention
 from dynamo_tpu_torch.ops.kernels.paged_decode_attention import (
     paged_decode_attention_cuda,
@@ -34,6 +37,7 @@ from dynamo_tpu_torch.ops.quant import (
     embed_lookup,
     head_mm,
     qdot,
+    qeinsum,
     quantize_kv_write,
     tied_head_mm,
 )
@@ -49,21 +53,20 @@ LAYER_KEYS = (
 OPTIONAL_LAYER_KEYS = (
     "ln_post_attn", "ln_post_mlp", "bq", "bk", "bv", "ln_q_head", "ln_k_head",
 )
+# MLA's projections and norms (its layers have no wk/wv, and wq only
+# without q-lora); a MoE layer's router, the sigmoid router's selection
+# bias and the shared experts (its w_gate/w_up/w_down are stacked).
+MLA_KEYS = ("w_dkv", "ln_kv", "w_uk", "w_uv", "w_dq", "ln_q", "w_uq")
+MOE_KEYS = ("w_router", "router_bias", "w_shared_gate", "w_shared_up", "w_shared_down")
+ALL_LAYER_KEYS = LAYER_KEYS + OPTIONAL_LAYER_KEYS + MLA_KEYS + MOE_KEYS
+# Kept in float32 whatever the weights' dtype, as the reference keeps it.
+FLOAT32_KEYS = ("router_bias",)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    missing = cfg.unsupported_features()
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not served by this slice of "
-            "the port (the dense families only)"
-        )
-
-
-def _dense_init(g: torch.Generator, shape, dtype, device) -> torch.Tensor:
+def _dense_init(g: torch.Generator, shape, dtype, device, fan_in=None) -> torch.Tensor:
     return (
         torch.randn(shape, generator=g, dtype=torch.float32, device=device)
-        / (shape[0] ** 0.5)
+        / ((fan_in or shape[0]) ** 0.5)
     ).to(dtype)
 
 
@@ -74,41 +77,73 @@ def init_params(
     device: torch.device | str | None = None,
 ) -> Params:
     """Random-init params with 1/sqrt(fan_in) scaling (the reference's
-    law, ``init_layer_params`` layer by layer: norms start at identity,
-    zeros for Gemma's (1+w) norms, qkv biases at zero; the draws come
-    from ``generator``, which must live on the target device, and differ
-    from JAX's). ``device`` defaults to the card (``resolve_device``)."""
-    check_supported(cfg)
+    law, ``init_layer_params`` layer by layer, with its key set: norms
+    start at identity, zeros for Gemma's (1+w) norms, qkv biases and the
+    sigmoid router's bias at zero; the draws come from ``generator``,
+    which must live on the target device, and differ from JAX's). Each
+    tensor is drawn on the device in float32 and cast there, so a model
+    near the card's size never has a float32 copy of more than one
+    weight. ``device`` defaults to the card (``resolve_device``)."""
     device = resolve_device(device)
     D, H, kvH, hd = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     I = cfg.intermediate_size
     g = generator
 
-    def dense(shape):
-        return _dense_init(g, shape, dtype, device)
+    def dense(shape, fan_in=None):
+        return _dense_init(g, shape, dtype, device, fan_in)
 
     def norm(n):
         fill = torch.zeros if cfg.norm_offset else torch.ones
         return fill((n,), dtype=dtype, device=device)
 
-    def zeros(n):
-        return torch.zeros((n,), dtype=dtype, device=device)
+    def zeros(n, dt=dtype):
+        return torch.zeros((n,), dtype=dt, device=device)
 
-    def layer():
+    def attention():
+        if not cfg.is_mla:
+            return {"wq": dense((D, H * hd)), "wk": dense((D, kvH * hd)),
+                    "wv": dense((D, kvH * hd)), "wo": dense((H * hd, D))}
+        # MLA: the latent KV down-projection with the decoupled rope
+        # dims, the per-head up-projections absorbed at run time.
+        dn, dr, dc = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
         p = {
-            "wq": dense((D, H * hd)),
-            "wk": dense((D, kvH * hd)),
-            "wv": dense((D, kvH * hd)),
-            "wo": dense((H * hd, D)),
-            "ln_attn": norm(D),
-            "ln_mlp": norm(D),
+            "w_dkv": dense((D, dc + dr)),
+            "ln_kv": torch.ones((dc,), dtype=dtype, device=device),
+            "w_uk": dense((H, dn, dc), dn),
+            "w_uv": dense((H, cfg.v_head_dim, dc), dc),
+            "wo": dense((H * cfg.v_head_dim, D)),
         }
+        if cfg.q_lora_rank:
+            p["w_dq"] = dense((D, cfg.q_lora_rank))
+            p["ln_q"] = torch.ones((cfg.q_lora_rank,), dtype=dtype, device=device)
+            p["w_uq"] = dense((cfg.q_lora_rank, H * (dn + dr)))
+        else:
+            p["wq"] = dense((D, H * (dn + dr)))
+        return p
+
+    def mlp(li):
+        if not cfg.moe_layer(li):
+            return {"w_gate": dense((D, I)), "w_up": dense((D, I)),
+                    "w_down": dense((I, D))}
+        E, Im = cfg.num_experts, cfg.moe_intermediate_size or I
+        p = {"w_router": dense((D, E))}
+        if cfg.gating == "sigmoid":
+            p["router_bias"] = zeros(E, torch.float32)
+        p["w_gate"] = dense((E, D, Im), D)
+        p["w_up"] = dense((E, D, Im), D)
+        p["w_down"] = dense((E, Im, D), Im)
+        if cfg.n_shared_experts:
+            Is = Im * cfg.n_shared_experts
+            p.update(w_shared_gate=dense((D, Is)), w_shared_up=dense((D, Is)),
+                     w_shared_down=dense((Is, D)))
+        return p
+
+    def layer(li):
+        p = {**attention(), "ln_attn": norm(D), "ln_mlp": norm(D)}
         if cfg.post_norms:
             p["ln_post_attn"] = norm(D)
             p["ln_post_mlp"] = norm(D)
-        p["w_gate"] = dense((D, I))
-        p["w_up"] = dense((D, I))
-        p["w_down"] = dense((I, D))
+        p.update(mlp(li))
         if cfg.qkv_bias:
             p.update(bq=zeros(H * hd), bk=zeros(kvH * hd), bv=zeros(kvH * hd))
         if cfg.qk_norm:
@@ -117,7 +152,7 @@ def init_params(
 
     params: Params = {
         "embed": dense((cfg.vocab_size, D)),
-        "layers": [layer() for _ in range(cfg.num_layers)],
+        "layers": [layer(li) for li in range(cfg.num_layers)],
         "ln_f": norm(D),
     }
     if not cfg.tie_word_embeddings:
@@ -158,15 +193,15 @@ def params_from_jax(
         "layers": [],
     }
     for layer in tree["layers"]:
-        extra = set(layer) - set(LAYER_KEYS) - set(OPTIONAL_LAYER_KEYS)
+        extra = set(layer) - set(ALL_LAYER_KEYS)
         if extra:
             raise NotImplementedError(
-                f"layer weights {sorted(extra)} belong to model families "
-                "this slice of the port does not serve (MoE, MLA)"
+                f"layer weights {sorted(extra)} are not part of any model "
+                "family the port serves"
             )
         out["layers"].append({
-            k: _to_torch(layer[k], dtype, device)
-            for k in LAYER_KEYS + OPTIONAL_LAYER_KEYS if k in layer
+            k: _to_torch(layer[k], torch.float32 if k in FLOAT32_KEYS else dtype, device)
+            for k in ALL_LAYER_KEYS if k in layer
         })
     if "lm_head" in tree:
         out["lm_head"] = _to_torch(tree["lm_head"], dtype, device)
@@ -228,11 +263,82 @@ def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v.reshape(T, cfg.num_kv_heads, cfg.head_dim)
 
 
-def _swiglu(layer: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def _qkv_mla(layer: Params, x: torch.Tensor, cfg: ModelConfig, cos, sin):
+    """DeepSeek MLA projections with the absorbed-matrix trick: queries
+    are projected INTO the latent space (q_nope·(W_uk c) ≡ (W_uk^T
+    q_nope)·c), so the paged cache holds one shared entry [latent ‖ roped
+    k_pe] per token and attention runs as MQA over kv_lora_rank +
+    qk_rope_head_dim dims (576 at DeepSeek's widths) through the same
+    kernels. Returns q [T, H, dc+dr], k_entry [T, 1, dc+dr] and v_entry
+    [T, 1, dc+dr], the latent zero-padded to the key width (its tail
+    reads nothing; ``_mla_out`` up-projects). The kernels scale scores by
+    1/sqrt(dc+dr); MLA's scale is 1/sqrt(dn+dr) times yarn's mscale²,
+    folded into q."""
+    H = cfg.num_heads
+    dn, dr, dc = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    T = x.shape[0]
+    if cfg.q_lora_rank:
+        cq = rms_norm(qdot(x, layer["w_dq"]), layer["ln_q"], cfg.rms_eps)
+        q = qdot(cq, layer["w_uq"])
+    else:
+        q = qdot(x, layer["wq"])
+    q = q.reshape(T, H, dn + dr)
+    q_pe = rotate(q[..., dn:], cos, sin)
+    q_lat = qeinsum("thn,hnc->thc", q[..., :dn], layer["w_uk"])
+    ckr = qdot(x, layer["w_dkv"])                                 # [T, dc + dr]
+    c = rms_norm(ckr[:, :dc], layer["ln_kv"], cfg.rms_eps)
+    k_pe = rotate(ckr[:, None, dc:], cos, sin)[:, 0]              # one shared head
+    corr = ((dc + dr) / (dn + dr)) ** 0.5
+    if cfg.rope_scaling is not None:
+        corr *= cfg.rope_scaling.attn_mscale() ** 2
+    q_full = torch.cat([q_lat, q_pe], dim=-1) * corr
+    k_entry = torch.cat([c, k_pe], dim=-1)[:, None, :]
+    v_entry = F.pad(c, (0, dr))[:, None, :]
+    return q_full.to(x.dtype), k_entry, v_entry
+
+
+def _mla_out(layer: Params, attn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Attention output [T, H, dc+dr] → the latent part up-projected per
+    head (the absorbed W_uv), then the output projection."""
+    o = qeinsum("thc,hvc->thv", attn[..., : cfg.kv_lora_rank], layer["w_uv"])
+    return qdot(o.reshape(o.shape[0], -1).to(attn.dtype), layer["wo"])
+
+
+def _swiglu(
+    layer: Params, x: torch.Tensor, act: str = "silu", prefix: str = "w_"
+) -> torch.Tensor:
     # "silu": Llama's SwiGLU; "gelu_tanh": Gemma's GeGLU.
-    gate = qdot(x, layer["w_gate"])
+    gate = qdot(x, layer[f"{prefix}gate"])
     gate = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
-    return qdot(gate * qdot(x, layer["w_up"]), layer["w_down"])
+    return qdot(gate * qdot(x, layer[f"{prefix}up"]), layer[f"{prefix}down"])
+
+
+def moe_config(cfg: ModelConfig) -> MoeConfig:
+    """The routed experts' settings of a MoE model."""
+    return MoeConfig(
+        hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.moe_intermediate_size or cfg.intermediate_size,
+        num_experts=cfg.num_experts,
+        num_experts_per_tok=cfg.num_experts_per_tok,
+        gating=cfg.gating,
+        norm_topk_prob=cfg.norm_topk_prob,
+        routed_scaling_factor=cfg.routed_scaling_factor,
+        n_group=cfg.n_group,
+        topk_group=cfg.topk_group,
+        dispatch=cfg.moe_dispatch,
+        capacity_factor=cfg.moe_capacity_factor,
+    )
+
+
+def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The family's gated MLP, or, in a layer with a router, the routed
+    experts (float32 out) plus DeepSeekMoE's always-on shared experts."""
+    if "w_router" not in layer:
+        return _swiglu(layer, x, cfg.hidden_act)
+    out = moe_mlp(layer, x, moe_config(cfg))
+    if "w_shared_gate" in layer:
+        out = out + _swiglu(layer, x, prefix="w_shared_")
+    return out
 
 
 def _residual_attn(x, layer: Params, attn_out, cfg: ModelConfig):
@@ -247,7 +353,7 @@ def _residual_mlp(x, layer: Params, cfg: ModelConfig):
     """Pre-norm, gated MLP, Gemma's post-norm, residual add (the norm's
     output in the weights' dtype, whatever the residual stream's)."""
     h = _ln(x, layer["ln_mlp"], cfg).to(layer["w_up"].dtype)
-    m = _swiglu(layer, h, cfg.hidden_act)
+    m = _mlp(layer, h, cfg)
     if cfg.post_norms:
         m = _ln(m, layer["ln_post_mlp"], cfg)
     return x + m
@@ -263,7 +369,7 @@ def _logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _layers(
     cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
-    positions: torch.Tensor, attend,
+    positions: torch.Tensor, attend, on_layer=None,
 ) -> torch.Tensor:
     """The decoder stack over flat rows: embed, then per layer the
     family's norm, q/k/v, RoPE at ``positions`` with the layer's
@@ -274,21 +380,31 @@ def _layers(
     weights' dtype. (Rounded to bf16 at each of 2 adds per layer, the
     stream of a cached serve and of the no-cache reference drift apart:
     on mistral-7b's 32 layers, 0.03–0.09 nats at the top logits.)
-    Returns the pre-final-norm hidden states [rows, D], float32."""
-    check_supported(cfg)
+    Returns the pre-final-norm hidden states [rows, D], float32.
+    MLA layers (``_qkv_mla``) rotate inside their projections, over
+    qk_rope_head_dim, and attend over the shared latent entry.
+    ``on_layer(li, x_attn, x_out)``, where given, sees each layer's
+    residual after its attention and after its MLP (a divergence probe,
+    tools/layer_divergence.py)."""
     rows = token_ids.shape[0]
     tables = rope_tables(
-        positions, cfg.head_dim,
+        positions, cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim,
         [_layer_rope(cfg, li) for li in range(len(params["layers"]))],
     )
     x = _embed(params, cfg, token_ids.long()).float()
     for li, layer in enumerate(params["layers"]):
-        q, k, v = _qkv(layer, _ln(x, layer["ln_attn"], cfg).to(layer["wq"].dtype), cfg)
+        h = _ln(x, layer["ln_attn"], cfg).to(layer["wo"].dtype)
         cos, sin = tables[li]
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        attn = attend(li, q, k, v)
-        x = _residual_attn(x, layer, qdot(attn.reshape(rows, -1), layer["wo"]), cfg)
+        if cfg.is_mla:
+            x = x + _mla_out(layer, attend(li, *_qkv_mla(layer, h, cfg, cos, sin)), cfg)
+        else:
+            q, k, v = _qkv(layer, h, cfg)
+            attn = attend(li, rotate(q, cos, sin), rotate(k, cos, sin), v)
+            x = _residual_attn(x, layer, qdot(attn.reshape(rows, -1), layer["wo"]), cfg)
+        x_attn = x
         x = _residual_mlp(x, layer, cfg)
+        if on_layer is not None:
+            on_layer(li, x_attn, x)
     return x
 
 

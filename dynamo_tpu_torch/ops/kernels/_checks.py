@@ -8,13 +8,39 @@ import torch
 SUPPORTED_BLOCK_SIZES = (4, 16)
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+# The ragged kernel's wide entry: head dims in (256, 576], multiples of
+# 64 (MLA's one shared [latent ‖ roped k_pe] head of 512 + 64).
+MAX_WIDE_HEAD_DIM = 576
+
+
+def check_head_dim(D: int, wide: bool) -> None:
+    """Head dims every kernel takes: multiples of 16 up to 256; with
+    ``wide`` (the ragged kernel) also the wide entry. The decode and
+    prefill kernels refuse the wide entry by name."""
+    if 0 < D <= MAX_HEAD_DIM and D % 16 == 0:
+        return
+    if MAX_HEAD_DIM < D <= MAX_WIDE_HEAD_DIM and D % 64 == 0:
+        if wide:
+            return
+        raise ValueError(
+            f"head dim {D}: the decode and prefill kernels stop at "
+            f"{MAX_HEAD_DIM}; MLA's {MAX_WIDE_HEAD_DIM}-wide entry in them is "
+            "ROADMAP B8 (the unified step's ragged kernel takes it)"
+        )
+    top = MAX_WIDE_HEAD_DIM if wide else MAX_HEAD_DIM
+    raise ValueError(
+        f"head dim {D} must be a multiple of 16 up to {MAX_HEAD_DIM}"
+        + (f", or of 64 up to {top}" if wide else "")
+    )
 
 
 def check_paged_args(
     q, k_cache, v_cache, block_tables, meta, block_size: int, window: int,
     k_scales=None, v_scales=None, page_offset=None, page_stride: int = 1,
+    wide: bool = False,
 ) -> None:
-    """q ``[..., H, D]``; caches ``[slots, kvH, D]`` in q's dtype, or
+    """q ``[..., H, D]``; caches ``[slots, kvH, D]`` (``check_head_dim``:
+    ``wide`` for the ragged kernel) in q's dtype, or
     int8 together with f32 scales ``[num_blocks, kvH]``; int32 block
     tables ``[S, max_blocks]`` and per-row metadata ``[S]``; an optional
     ``[1]`` int32 page offset. All on one device, contiguous, the caches
@@ -27,8 +53,7 @@ def check_paged_args(
         raise ValueError("k_cache and v_cache shapes differ")
     if Dc != D:
         raise ValueError(f"cache head dim {Dc} != query head dim {D}")
-    if D % 16 or D > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} must be a multiple of 16 up to {MAX_HEAD_DIM}")
+    check_head_dim(D, wide)
     if H % kvH:
         raise ValueError(f"{H} query heads do not group over {kvH} kv heads")
     if block_size not in SUPPORTED_BLOCK_SIZES:

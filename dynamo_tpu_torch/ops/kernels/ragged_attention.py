@@ -10,7 +10,8 @@ bytes each span must read divided by the H100's 3.35 TB/s.
 Each block of the kernels finds its span's kind on the card from
 ``q_len``: spans of at most ``SPLIT_ROWS`` rows (decode lanes, short
 spec-verify spans) take the split-KV path (``csrc/paged_split.cuh``),
-longer spans the tensor-core tile (bf16 q, ``csrc/paged_attention_tc.cuh``)
+longer spans the tensor-core tile (bf16 q, ``csrc/paged_attention_tc.cuh``;
+at head dims past 256, MLA's 576-wide entry, ``csrc/paged_attention_wide.cuh``)
 or the CUDA-core walk (float32 q, ``csrc/paged_attention.cuh``), and a
 merge pass combines the splits and zeroes rows no span owns. Three
 launches per call, the split kernel on a second stream beside the tile
@@ -99,7 +100,7 @@ def check_kernel_args(
         raise ValueError("q must be [T, H, D]")
     check_paged_args(
         q, k_cache, v_cache, block_tables, (q_start, q_len, kv_len, row_start),
-        block_size, window, k_scales, v_scales,
+        block_size, window, k_scales, v_scales, wide=True,
     )
     check_lane_args(q, block_tables)
 

@@ -1,8 +1,9 @@
 """Weight access sites and the int8 KV write law (port of
 dynamo_tpu/ops/quant.py: the unquantized arms of
-``qdot``/``embed_lookup``/``tied_head_mm``, and ``quantize_kv_write``).
+``qdot``/``qeinsum``/``embed_lookup``/``tied_head_mm``, the stacked
+experts' products of dynamo_tpu/models/moe.py, and ``quantize_kv_write``).
 
-Every matmul on the unified path goes through these three functions, as
+Every matmul on the unified path goes through these functions, as
 in the reference, so the weight-quantization slice (ROADMAP queue A7)
 changes only this module. Until then a quantized ``{"q", "s"}`` weight
 raises ``NotImplementedError``.
@@ -25,6 +26,27 @@ def _plain(w):
 def qdot(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` with ``w`` in the reference's ``[in, out]`` layout."""
     return x @ _plain(w)
+
+
+def qeinsum(pattern: str, x: torch.Tensor, w) -> torch.Tensor:
+    """Einsum against a per-head weight (MLA's absorbed ``w_uk`` and
+    ``w_uv``), in the weight's dtype."""
+    return torch.einsum(pattern, x, _plain(w))
+
+
+def expert_mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Stacked experts' products ``[E, N, in] @ [E, in, out]`` with a
+    float32 output and the operands in ``w``'s dtype: on the card one
+    cuBLAS batched product with float32 sums and output, so the stacked
+    bf16 weights are never copied to float32; on the CPU the operands
+    are widened first (the same products and sums)."""
+    w = _plain(w)
+    x = x.to(w.dtype)
+    if w.dtype == torch.float32:
+        return torch.bmm(x, w)
+    if x.is_cuda:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
 
 
 def embed_lookup(embed, token_ids: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,9 @@
 
 Llama-style half-rotation layout computed on the fly from positions.
 Llama-3.1+ checkpoints apply the ``llama3`` frequency-band scaling;
-Gemma-3 global layers use ``linear`` position interpolation. The ``yarn``
-recipe belongs to the MLA models, which arrive with a later slice: a
-``yarn`` config parses, and rotating with it raises.
+Gemma-3 global layers use ``linear`` position interpolation; the
+DeepSeek MLA models ``yarn`` (NTK-by-parts interpolation with its
+attention-temperature correction, ``mscale``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 @dataclass(frozen=True)
 class RopeScaling:
     """HF ``rope_scaling`` block: ``llama3`` frequency bands, ``linear``
-    interpolation, or ``yarn`` (parsed only; see module docstring)."""
+    interpolation, or ``yarn`` (DeepSeek-V2/V3/R1 long context)."""
 
     kind: str = "llama3"
     factor: float = 8.0
@@ -65,12 +65,69 @@ class RopeScaling:
             )
         raise ValueError(f"unsupported rope_scaling {d!r}")
 
+    def attn_mscale(self) -> float:
+        """Score-scale multiplier DeepSeek folds into the softmax scale
+        under yarn (the model applies it to q, models/llama.py
+        ``_qkv_mla``): yarn_get_mscale(factor, mscale_all_dim)."""
+        if self.kind != "yarn":
+            return 1.0
+        return _yarn_mscale(self.factor, self.mscale_all_dim)
+
+    def embed_mscale(self) -> float:
+        """cos/sin magnitude correction of the rotary embedding (HF
+        DeepseekV2YarnRotaryEmbedding: the mscale / mscale_all_dim ratio,
+        1.0 on the shipped DeepSeek configs, where the two are equal)."""
+        if self.kind != "yarn":
+            return 1.0
+        return _yarn_mscale(self.factor, self.mscale) / _yarn_mscale(
+            self.factor, self.mscale_all_dim
+        )
+
+
+def _yarn_mscale(scale: float, mscale: float) -> float:
+    if scale <= 1.0 or mscale <= 0.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _log_f32(x: float) -> float:
+    """log(x) in float32, as the reference computes it, on the host (a
+    device scalar would cost a synchronous copy per call)."""
+    return torch.log(torch.tensor(x, dtype=torch.float32)).item()
+
+
+def _yarn_freqs(freqs: torch.Tensor, s: RopeScaling) -> torch.Tensor:
+    """YaRN NTK-by-parts: high-frequency dims (below the beta_fast
+    correction point) keep their frequency, low-frequency dims (above
+    beta_slow) interpolate by 1/factor, with a linear ramp between (HF
+    DeepseekV2YarnRotaryEmbedding). Device tensor ops throughout, in the
+    reference's order, so nothing is read back to the host."""
+    half = freqs.shape[0]
+    dim = 2 * half
+    # theta recovered from the frequency ladder: freqs[i] = theta^(-i/half).
+    log_theta = -torch.log(freqs[1]) * half if half > 1 else freqs.new_zeros(())
+
+    def correction_dim(num_rotations: float) -> torch.Tensor:
+        ratio = s.original_max_position / (num_rotations * 2 * math.pi)
+        return dim * _log_f32(ratio) / (2 * log_theta)
+
+    # HF clamps low to [0, half-1] (it indexes the ramp start) and high
+    # to [0, dim-1] only.
+    low = torch.clamp(torch.floor(correction_dim(s.beta_fast)), 0, half - 1)
+    high = torch.clamp(torch.ceil(correction_dim(s.beta_slow)), 0, dim - 1)
+    ramp = torch.clamp(
+        (torch.arange(half, dtype=torch.float32, device=freqs.device) - low)
+        / torch.clamp(high - low, min=1e-3),
+        0.0,
+        1.0,
+    )
+    extrapolation_mask = 1.0 - ramp
+    return freqs / s.factor * (1.0 - extrapolation_mask) + freqs * extrapolation_mask
+
 
 def _scaled_freqs(freqs: torch.Tensor, s: RopeScaling) -> torch.Tensor:
     if s.kind == "yarn":
-        raise NotImplementedError(
-            "yarn rope scaling arrives with the MLA model slice"
-        )
+        return _yarn_freqs(freqs, s)
     if s.kind == "linear":
         return freqs / s.factor
     # Frequency-dependent stretch (the Llama-3.1 formula): wavelengths
@@ -96,18 +153,20 @@ def rope_angles(
     theta: float,
     scaling: RopeScaling | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions [...]: returns cos/sin of shape [..., head_dim//2]."""
+    """positions [...]: returns cos/sin of shape [..., head_dim//2] (yarn
+    multiplies both by its ``embed_mscale``)."""
     half = head_dim // 2
     dev = positions.device
-    # log(theta) in float32 as the reference computes it, on the host: a
-    # device scalar here would cost a synchronous copy per call.
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32)).item()
+    log_theta = _log_f32(theta)
     freqs = torch.exp(
         -log_theta * (torch.arange(half, dtype=torch.float32, device=dev) / half)
     )
     if scaling is not None:
         freqs = _scaled_freqs(freqs, scaling)
     ang = positions.float()[..., None] * freqs
+    m = scaling.embed_mscale() if scaling is not None else 1.0
+    if m != 1.0:
+        return torch.cos(ang) * m, torch.sin(ang) * m
     return torch.cos(ang), torch.sin(ang)
 
 

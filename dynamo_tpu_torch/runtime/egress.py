@@ -9,7 +9,10 @@ stream. A dispatch that finds a dead worker, or a stream whose socket
 dies, evicts the instance at once (the mark-dead fast path) instead of
 waiting out its lease, and fires the ``on_dead`` hooks: a KV selector's
 owning router is wired there on its own, so the corpse also leaves the
-router's metrics and radix index in the same step.
+router's metrics and radix index in the same step. A worker that began
+draining after it was picked refuses before its first frame; the request
+is then routed to another instance, and the refusal reaches the caller
+only when no other instance is left.
 
 Instance selection and the envelope publish are the request's ``route``
 span; the envelope carries the trace context (``trace``), so the worker's
@@ -324,8 +327,24 @@ class PushRouter:
                     ) from exc
                 continue
             request.annotations["worker_id"] = instance.instance_id
-            async for item in self._relay(instance, receiver, request):
-                yield item
+            relayed = False
+            try:
+                async for item in self._relay(instance, receiver, request):
+                    relayed = True
+                    yield item
+            except ShedError as exc:
+                # A worker that began draining after it was picked refuses
+                # before its first frame: nothing reached the caller, so
+                # re-pick among the others, as the refusal asks.
+                tried.add(instance.instance_id)
+                if (relayed or not exc.draining or instance_id is not None
+                        or len(tried) >= MAX_DISPATCH_ATTEMPTS
+                        or not any(i.instance_id not in tried
+                                   for i in self.client.instances())):
+                    raise
+                logger.info("worker %#x is draining — re-routing request %s",
+                            instance.instance_id, request.id)
+                continue
             return
 
     async def direct(self, request: Context, instance_id: int) -> AsyncIterator[Any]:

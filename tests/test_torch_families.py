@@ -339,11 +339,16 @@ def test_engine_config_validates_the_dense_families(name):
 
 
 @pytest.mark.parametrize("model,match", [
-    (ModelConfig.tiny_test().scaled(num_experts=4), "MoE"),
-    (ModelConfig.tiny_test().scaled(kv_lora_rank=32), "MLA"),
+    (ModelConfig.tiny_test().scaled(num_experts=4), None),
+    (ModelConfig.tiny_test().scaled(kv_lora_rank=32), None),
     (ModelConfig.llama3_70b(), "A4"),
 ], ids=["moe", "mla", "llama3-70b"])
 def test_engine_config_refuses_moe_mla_and_a_model_over_one_card(model, match):
+    """MoE and MLA configurations validate (they are served since the
+    DeepSeek slice); a model over one card is still refused."""
+    if match is None:
+        EngineConfig(model=model).validate()
+        return
     with pytest.raises(ValueError, match=match):
         EngineConfig(model=model).validate()
 

@@ -404,7 +404,8 @@ async def test_torn_write_crash_drill(tmp_path):
 def _prefill_worker(head_dim=16, kv_quant=None):
     pw = PrefillWorker.__new__(PrefillWorker)
     pw.engine = SimpleNamespace(cfg=SimpleNamespace(
-        model=SimpleNamespace(num_layers=2, num_kv_heads=2, head_dim=head_dim),
+        model=SimpleNamespace(num_layers=2, num_kv_heads=2, head_dim=head_dim,
+                              num_cache_heads=2, kv_cache_head_dim=head_dim),
         block_size=16, dtype="float32", kv_quant=kv_quant))
     return pw
 
@@ -414,7 +415,7 @@ def _decode_layout(operator_cls, head_dim, runner_head_dim=None, kv_quant=None):
     engine of the tiny geometry)."""
     op = operator_cls.__new__(operator_cls)
     model = SimpleNamespace(num_layers=2, num_kv_heads=2, num_cache_heads=2,
-                            head_dim=head_dim)
+                            head_dim=head_dim, kv_cache_head_dim=head_dim)
     op.engine = SimpleNamespace(
         cfg=SimpleNamespace(model=model, block_size=16, dtype="float32",
                             kv_quant=kv_quant, kv_sp=False),

@@ -170,11 +170,14 @@ def test_params_from_jax_refuses_what_the_slice_does_not_serve():
     quant = dict(tree, embed={"q": tree["embed"], "s": tree["ln_f"]})
     with pytest.raises(NotImplementedError, match="weight-quant"):
         t_llama.params_from_jax(quant, device="cpu")
-    # A routed-experts layer (MoE, not served yet); the dense families'
-    # optional weights carry across (tests/test_torch_families.py).
+    # A routed-experts layer's router carries across now (MoE is served:
+    # tests/test_torch_moe.py); a key no family has is refused.
     routed = dict(tree, layers=[dict(tree["layers"][0], w_router=tree["ln_f"])])
-    with pytest.raises(NotImplementedError, match="families"):
-        t_llama.params_from_jax(routed, device="cpu")
+    got = t_llama.params_from_jax(routed, device="cpu")
+    np.testing.assert_array_equal(got["layers"][0]["w_router"].numpy(), tree["ln_f"])
+    unknown = dict(tree, layers=[dict(tree["layers"][0], w_unknown=tree["ln_f"])])
+    with pytest.raises(NotImplementedError, match="family"):
+        t_llama.params_from_jax(unknown, device="cpu")
 
 
 def test_init_params_shapes_match_jax():
@@ -191,6 +194,12 @@ def test_init_params_shapes_match_jax():
 
 
 def test_unserved_model_is_refused():
+    """A MoE configuration, refused before the DeepSeek slice, now inits
+    with the JAX package's stacked expert shapes."""
     cfg = ModelConfig.tiny_test().scaled(num_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_llama.init_params(cfg, torch.Generator())
+    tparams = t_llama.init_params(cfg, torch.Generator(), device="cpu")
+    jparams = j_llama.init_params(jax.random.PRNGKey(0), JCfg.tiny_test().scaled(num_experts=4))
+    for tl, jl in zip(tparams["layers"], jparams["layers"]):
+        assert {k: tuple(v.shape) for k, v in tl.items()} == {
+            k: tuple(v.shape) for k, v in jl.items()}
+    assert tparams["layers"][0]["w_gate"].shape == (4, 64, 128)

@@ -150,9 +150,16 @@ def test_rope_scaling_from_hf_matches_jax(d):
 
 
 def test_yarn_rotation_is_refused():
-    s = t_rope.RopeScaling(kind="yarn", factor=40.0)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        t_rope.apply_rope(torch.zeros(2, 1, 8), torch.arange(2), 10000.0, s)
+    """Yarn rotation, refused before the MLA slice, now rotates as the
+    JAX package does (tests/test_torch_mla.py holds its frequencies and
+    mscales)."""
+    kw = dict(kind="yarn", factor=40.0)
+    x = np.random.default_rng(0).standard_normal((2, 1, 8)).astype(np.float32)
+    want = np.asarray(j_rope.apply_rope(jnp.asarray(x), jnp.arange(2), 10000.0,
+                                        j_rope.RopeScaling(**kw)))
+    got = t_rope.apply_rope(torch.from_numpy(x), torch.arange(2), 10000.0,
+                            t_rope.RopeScaling(**kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_llama32_1b_preset_matches_jax():
@@ -397,8 +404,8 @@ def test_engine_config_refuses_unserved_features(field, value, extra, match):
 
 
 @pytest.mark.parametrize("change", [
-    # MoE, MLA and the yarn rope the MLA models carry (ROADMAP A1b); the
-    # dense families are served (tests/test_torch_families.py).
+    # MoE, MLA and the yarn rope the MLA models carry validate since the
+    # DeepSeek slice (tests/test_torch_moe.py, test_torch_mla.py).
     {"num_experts": 4}, {"kv_lora_rank": 32},
     {"kv_lora_rank": 32, "q_lora_rank": 48},
     {"num_experts": 4, "n_shared_experts": 1},
@@ -408,7 +415,12 @@ def test_engine_config_refuses_unserved_features(field, value, extra, match):
      "num_heads": 64, "num_kv_heads": 8, "head_dim": 128, "vocab_size": 128256},
 ])
 def test_engine_config_refuses_unserved_models(change):
+    """Only a model over one card is refused now; the MoE, MLA and yarn
+    configurations validate."""
     model = ModelConfig.tiny_test().scaled(**change)
+    if model.param_count() * 2 <= 80e9:
+        EngineConfig(model=model).validate()
+        return
     with pytest.raises(ValueError, match="not served"):
         EngineConfig(model=model).validate()
 

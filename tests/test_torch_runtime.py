@@ -498,6 +498,38 @@ async def test_engine_error_propagates_typed(pkg, case):
     await drt.shutdown()
 
 
+class _Draining:
+    """A worker that began draining: it refuses before its first frame."""
+
+    async def generate(self, ctx):
+        raise t_common.ShedError("engine draining — retry another instance",
+                                 draining=True)
+        yield  # pragma: no cover — an async generator that never yields
+
+
+@pytest.mark.parametrize("others", [0, 1])
+async def test_router_reroutes_a_draining_refusal(others):
+    """A worker picked just as it began draining refuses before any
+    frame: the port's router sends the request to another instance, and
+    the typed refusal reaches the caller only when no other is left."""
+    drt, _ = await _worker("torch", engine=_Draining())
+    spare = [await _worker("torch", drt, engine=_Who("b")) for _ in range(others)]
+    router = await t_egress.PushRouter.create(drt, "ns.c.gen")
+    assert len(await router.client.wait_for_instances()) == 1 + others
+    for _ in range(4):
+        if others:
+            got = [item async for item in router.generate(Context({}))]
+            assert got == [{"who": "b"}]
+        else:
+            with pytest.raises(t_common.ShedError) as info:
+                async for _item in router.generate(Context({})):
+                    pass
+            assert info.value.draining
+    for d, _ in spare:
+        await d.shutdown()
+    await drt.shutdown()
+
+
 async def test_tcp_error_frames_retype_as_the_jax_package_does():
     from dynamo_tpu.runtime.transports import tcp as j_tcp
     from dynamo_tpu_torch.runtime.transports import tcp as t_tcp

@@ -130,10 +130,9 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 its itl_slo_violations_total rose (a 2 ms poll of the
                 controller; the compose-time EMA peak is reported); the
                 tight leg's must fall; one flight
-                record per unified dispatch; the 1 ms request answers 504
-                (or, reaching the engine within the millisecond, 200 with
-                fewer than its 8 tokens and a deadline_exceeded finish)
-                and deadline_exceeded_total grows by one; the profile's
+                record per unified dispatch; the 1 ms request, sent once
+                every slot is running, answers 504 and
+                deadline_exceeded_total grows by one; the profile's
                 Chrome trace names the ragged kernel; /metrics carries the
                 new counters and the trace histograms; the port's
                 trace_merge --assert-complete passes on the capture; the
@@ -292,7 +291,10 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 (the serve's settings, each output in a file); 24
                 closed-loop clients (prompts of 64–512 tokens, 64 greedy
                 tokens): the decision log must show the scale up, the
-                second worker's lease appear and it serve requests,
+                second worker's lease appear and it serve requests (a
+                worker the law retires under load, its queue run dry
+                while a new worker starts, is counted and the next one
+                the planner adds is followed),
                 then with the load stopped a scale down within 5
                 adjustments, the drained worker printing its report,
                 "drain complete" and exiting 0 (the planner logs its
@@ -384,6 +386,44 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 (tools/layer_divergence.py measures it). A profiled serve
                 of fresh prompts gives device ms per dispatch and the top
                 device ops.
+14. multimodal — image chat through a vision encode worker and
+                /v1/embeddings on llama3.2-1b at full width (budget:
+                MM_BUDGET_S of wall time and MM_PEAK_BYTES of peak device
+                memory, printed and gated). The encoder: the shared
+                VisionConfig at ViT-B/16's widths (224 px, 16 px patches,
+                hidden 768, 12 layers and heads, out 2048: 196 patches,
+                ~87M weights, random from a seed on the card),
+                ``encode_image`` in bf16 against the same weights in
+                float32 (each soft-prompt row's relative error within
+                MM_ENCODER_TOL), device and eager ms per image. The
+                serve: llama3.2-1b bf16 with ``multimodal=True`` (every
+                graph, unified_mm greedy and sampled included, captured
+                by the warmup), served with the encode worker on an
+                in-process runtime plane through
+                examples/multimodal.py's ``deploy``; 8 concurrent
+                streaming chats of 64–256 text tokens and 1 or 2 .npy
+                images each (224 x 224 uint8, one 300 x 200 that the
+                worker resizes), 32 greedy tokens: 2 images (392 rows)
+                straddle the 256-token dispatches. Gates: every reply 200,
+                nothing captured mid-traffic, the ragged kernel 16 times
+                per dispatch on the tile and split paths and 16 times per
+                mm dispatch, phase 8's teacher-forced gates with the same
+                embeddings spliced into ``reference_forward`` (and at
+                most 0.5 against the reference without them); then, each
+                alone, one image request twice gives byte-identical
+                streams, the same text with two other images reuses no
+                block, and a text-only request equals the stream of an
+                engine without ``multimodal``. The raw entry point: one
+                ``runner.prefill(mm_embeds=)``, the paged prefill kernel
+                once per layer, its first token the reference's argmax.
+                Embeddings: ``run --in http --out torch --model-type
+                embeddings --model-path preset:llama3.2-1b`` as a
+                process of its own (started with the phase), 8 inputs of
+                16–2048 tokens (text and token ids): unit norms within
+                1e-3, cosine >= 0.995 against ``embed_forward`` in float32
+                on the same seeded weights, ms per request and tok/s.
+                Reported: tok/s, TTFT p50 of the image chats and the
+                text-only one, device ms per mm dispatch.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Then the card's name and power limit, the kernels line, and the
@@ -1259,21 +1299,24 @@ def greedy_reference(cfg, params, prompt, n):
     return out
 
 
-def teacher_forced(cfg, params, prompts, streams) -> dict:
+def teacher_forced(cfg, params, prompts, streams, mm=None) -> dict:
     """The no-cache reference (reference_forward) over each prompt and
     its stream, fed the stream's own tokens: finite logits of shape
     [T, V]; how often its argmax is the stream's next token; where it is
     not, how far the stream's token lies below the reference's top in
     log-probability (a near tie shows rounding, a wide gap a fault);
     the median gap between the reference's top two tokens, for scale;
-    and the reference's log-probability of each stream's first token."""
+    and the reference's log-probability of each stream's first token.
+    ``mm``, where given, holds each prompt's soft-prompt segments
+    ((offset, [n, D] rows)), spliced into the reference at the same rows."""
     from dynamo_tpu_torch.models import llama
 
     hits, n, gaps, top2, first_lp = 0, 0, [], [], []
     finite = shape_ok = True
-    for p, s in zip(prompts, streams):
+    for i, (p, s) in enumerate(zip(prompts, streams)):
         seq = torch.tensor(p + s, device=DEVICE)
-        logits = llama.reference_forward(cfg, params, seq)
+        embeds, mask = mm_rows(len(seq), mm[i] if mm else None)
+        logits = llama.reference_forward(cfg, params, seq, embeds, mask)
         finite &= bool(torch.isfinite(logits).all().item())
         shape_ok &= tuple(logits.shape) == (len(seq), cfg.vocab_size)
         lp = torch.log_softmax(logits[len(p) - 1:-1].float(), dim=-1)
@@ -1501,7 +1544,7 @@ class record_dispatches:
         self.runner, self.calls = runner, []
         step = runner.unified_step
 
-        def recording(lanes, feed=None, draft_lens=None, extras=None):
+        def recording(lanes, feed=None, draft_lens=None, extras=None, mm=None):
             fed = None if feed is None else (
                 feed[0] is not None, np.array(feed[1]), np.array(feed[2]))
             self.calls.append((
@@ -1509,7 +1552,7 @@ class record_dispatches:
                 fed, None if draft_lens is None else list(draft_lens),
                 None if extras is None else {k: list(v) for k, v in extras.items()},
             ))
-            return step(lanes, feed=feed, draft_lens=draft_lens, extras=extras)
+            return step(lanes, feed=feed, draft_lens=draft_lens, extras=extras, mm=mm)
 
         runner.unified_step = recording
 
@@ -2486,38 +2529,51 @@ async def phase_observe(vocab: int) -> dict:
                 port, engine, model, prompts, burst, tapped, slo_tight, "adaptive_tight")
             m0 = (await fetch("127.0.0.1", port, "GET", "/metrics")).body.decode()
 
+            # The deadline probe needs every slot running, which the tight
+            # SLO never lets happen (the controller holds the burst's
+            # prompts in waiting, deferral by deferral): this leg runs
+            # with the SLO off, so the controller admits every prompt and
+            # holds its quantum (the tight leg's floor, which keeps the
+            # burst prefilling for dozens of dispatches).
+            engine.coloc.slo_ms = 0.0
+
             async def during_burst():
-                # Send once the running and waiting sequences fill every
-                # slot and none of the running ones is within 3 tokens of
+                # Send once every slot is running (read from the engine)
+                # and none of the running sequences is within 3 tokens of
                 # its end: the 1 ms request then waits for a slot that
                 # frees 2+ dispatches later, and expires in the waiting
-                # list before any output.
+                # list before any output. (Running plus waiting filling
+                # the slots left one free: the request could take it and
+                # reach its first token within the millisecond.)
                 t0 = time.monotonic()
                 while True:
                     running = list(engine.scheduler.running.values())
-                    queued = len(engine.scheduler.waiting)
-                    if (len(running) + queued >= engine.cfg.max_num_seqs
+                    if (len(running) == engine.cfg.max_num_seqs
                             and all(len(q.output_tokens) + 3 <= q.stop.max_tokens
                                     for q in running)):
                         break
                     if time.monotonic() - t0 > 10.0:
                         fail("observe: the burst never filled the slots")
                     await asyncio.sleep(0.0002)
-                prof = asyncio.create_task(fetch(
-                    "127.0.0.1", port, "GET", "/debug/profile?seconds=1"))
                 late = await fetch("127.0.0.1", port, "POST", "/v1/completions", {
                     "model": model, "prompt": prompts[0][::-1], "max_tokens": 8,
                     "temperature": 0}, {"X-Request-Timeout-Ms": "1"})
+                prof = asyncio.create_task(fetch(
+                    "127.0.0.1", port, "GET", "/debug/profile?seconds=1"))
                 # Keep the engine dispatching until the window closes: the
                 # profiler's start holds the loop for a time that varies
                 # from call to call, and the burst can end before it opens.
-                # Two requests at a time; their statuses are reported.
+                # Two requests at a time, each followed by a pause: back to
+                # back they kept the engine dispatching all through the
+                # window, whose trace then held ~5x the events and took
+                # ~20 s longer to export. Their statuses are reported.
                 async def keep_busy(i):
                     while not prof.done():
                         r = await fetch("127.0.0.1", port, "POST", "/v1/completions", {
                             "model": model, "prompt": prompts[1 + i][::-1],
                             "max_tokens": 16, "temperature": 0})
                         busy[r.status] = busy.get(r.status, 0) + 1
+                        await asyncio.sleep(0.5)
 
                 await asyncio.gather(keep_busy(0), keep_busy(1))
                 return late, await prof
@@ -2628,15 +2684,11 @@ async def phase_observe(vocab: int) -> dict:
     if result["trace_merge"]["assert_complete_exit"] != 0 or result["trace_merge"][
             "orphan_traces"]:
         fail(f"observe: trace merge {result['trace_merge']}")
-    # The 1 ms deadline expires before admission (504) or, when the front
-    # hands the request over within the millisecond, at its first token:
-    # the tokens delivered stream out with a deadline finish (the engine's
-    # mid-generation rule). Either way it is counted once.
+    # The 1 ms deadline expires in the waiting list, before any output:
+    # 504, counted once.
     d = result["deadline"]
-    before_output = (d["status"], d["error_type"]) == (504, "deadline_exceeded")
-    mid_generation = (d["status"] == 200 and d["finish_reason"] == "deadline_exceeded"
-                      and 0 < (d["completion_tokens"] or 0) < 8)
-    if not (before_output or mid_generation) or d["deadline_exceeded_total_delta"] != 1.0:
+    if ((d["status"], d["error_type"]) != (504, "deadline_exceeded")
+            or d["deadline_exceeded_total_delta"] != 1.0):
         fail(f"observe: deadline {d}")
     if result["profile"]["status"] != 200 or not result["profile"].get("ragged_symbols"):
         fail(f"observe: profile {result['profile']}")
@@ -2797,11 +2849,76 @@ class Child:
             self.proc.send_signal(sig)
 
     async def kill(self) -> None:
+        """SIGKILL the process and every process below it: a planner's
+        workers run in sessions of their own and would outlive it."""
         if self.proc is not None and self.proc.returncode is None:
+            below = descendants(self.proc.pid)
             self.proc.kill()
+            kill_pids(below)
             await self.proc.wait()
         if self._reader is not None:
             await self._reader
+
+
+def descendants(pid: int) -> list[int]:
+    """Every live (not zombie) process below ``pid``, read from /proc."""
+    children: dict[int, list[int]] = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(entry))
+    found, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            found.append(child)
+            todo.append(child)
+    return found
+
+
+def kill_pids(pids) -> None:
+    import signal
+
+    for pid in pids:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+
+
+def become_subreaper() -> None:
+    """Processes orphaned below this one (a killed planner's workers) are
+    re-parented to it rather than to init, so ``stop_leftovers`` finds
+    them. Linux's PR_SET_CHILD_SUBREAPER, on this process only."""
+    import ctypes
+
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+
+
+def stop_leftovers(timeout: float = 10.0) -> list[str]:
+    """SIGKILL every process still below this one and wait until none is
+    left; the command lines of those it found."""
+    left = descendants(os.getpid())
+    names = []
+    for pid in left:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                names.append(f"{pid}: " + f.read().replace(b"\0", b" ").decode(errors="replace"))
+        except OSError:
+            names.append(str(pid))
+    kill_pids(left)
+    deadline = time.monotonic() + timeout
+    while left and time.monotonic() < deadline:
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(-1, os.WNOHANG)[0]:
+                pass
+        time.sleep(0.05)
+        left = descendants(os.getpid())
+        kill_pids(left)
+    return names
 
 
 def free_port() -> int:
@@ -3597,14 +3714,15 @@ def disagg_prompts(seed: int, vocab: int) -> list[list[int]]:
 
 
 def stream_gates(leg: str, cfg, params, prompts, streams, finishes, max_tokens,
-                 limits=None) -> dict:
+                 limits=None, mm=None) -> dict:
     """Full-length greedy streams in the vocabulary, held to the no-cache
     reference as the phase-split run is: agreement >= 0.9, every
     disagreement a near tie; or, where given, to ``limits`` = (agreement
-    at least, largest gap at a disagreement at most)."""
+    at least, largest gap at a disagreement at most). ``mm`` as
+    ``teacher_forced`` takes it."""
     from dynamo_tpu_torch.llm.protocols.common import FinishReason
 
-    ref = teacher_forced(cfg, params, prompts, streams)
+    ref = teacher_forced(cfg, params, prompts, streams, mm)
     ref.pop("first_token_ref_logprob")
     full = all(len(s) == max_tokens for s in streams) and all(
         f is FinishReason.LENGTH for f in finishes)
@@ -4577,11 +4695,14 @@ def worker_cmd(tmp: str, tag: str, argv: list[str]) -> str:
 class ClosedLoop:
     """``clients`` concurrent requests: each client sends its next one
     when its last ends, drawing prompts in turn, until ``stop()``.
-    Every result is kept with its send and first-token times."""
+    Every result is kept with its send and first-token times. A request
+    that raises (a failed gate too: a SystemExit escaping a task would
+    stop the event loop) is printed at once and fails ``stop()``."""
 
     def __init__(self, send, prompts, clients: int) -> None:
         self.send, self.prompts, self.clients = send, prompts, clients
         self.results: list[dict] = []
+        self.errors: list[str] = []
         self._stop = asyncio.Event()
         self._n = 0
         self._tasks: list = []
@@ -4590,7 +4711,12 @@ class ClosedLoop:
         while not self._stop.is_set():
             i = self._n
             self._n += 1
-            self.results.append(await self.send(i, self.prompts[i % len(self.prompts)]))
+            try:
+                self.results.append(await self.send(i, self.prompts[i % len(self.prompts)]))
+            except (Exception, GateFailed) as exc:
+                self.errors.append(f"request {i}: {type(exc).__name__}: {exc}"[:2000])
+                print(f"closed loop: {self.errors[-1]}", file=sys.stderr, flush=True)
+                return
 
     def start(self) -> "ClosedLoop":
         self._tasks = [asyncio.ensure_future(self._client()) for _ in range(self.clients)]
@@ -4599,7 +4725,15 @@ class ClosedLoop:
     async def stop(self) -> list[dict]:
         self._stop.set()
         await asyncio.gather(*self._tasks)
+        if self.errors:
+            fail(f"closed loop: {len(self.errors)} request(s) raised", self.errors[:4])
         return self.results
+
+    async def cancel(self) -> None:
+        """End every client now (a leg that failed before ``stop()``)."""
+        for task in self._tasks:
+            task.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
 
 
 
@@ -4638,6 +4772,62 @@ async def retire(pid: int, log: LogFile) -> dict:
     return rep
 
 
+def dump_logs(leg: str, children=(), logs=(), n: int = 25) -> None:
+    """On a failed leg, on stderr: each process's last ``n`` lines and,
+    before them, its lines that name an error, a lease, a death or a
+    slow callback."""
+    import re
+
+    keep = re.compile(r"error|traceback|lease|took \d|stall|died|dead|warn", re.I)
+    outputs = [(c.name, [t for _, t in c.lines]) for c in children if c is not None]
+    outputs += [(log.name, log.lines()) for log in logs]
+    for name, lines in outputs:
+        lines = [line.rstrip("\n") for line in lines]
+        flagged = [line for line in lines[:-n] if keep.search(line)][-n:]
+        print(f"--- {leg}: {name}, {len(lines)} lines; flagged:", *flagged,
+              "--- its tail:", *lines[-n:], sep="\n", file=sys.stderr, flush=True)
+
+
+def agg_logs(tmp: str) -> list:
+    """The aggregated leg's worker logs, in spawn order."""
+    import re
+
+    names = [n for n in os.listdir(tmp) if re.fullmatch(r"agg-\d+\.log", n)]
+    names.sort(key=lambda n: int(n[4:-4]))
+    return [LogFile(os.path.join(tmp, n), f"aggregated worker {n[4:-4]}") for n in names]
+
+
+async def joined_worker(tmp: str, state: str, obs, lease1: int, deadline: float):
+    """(pid, lease, log) of the worker the planner added, once the store
+    holds its lease beside ``lease1`` and the state file its pid."""
+    import re
+
+    while True:
+        pids = state_pids(state)
+        if len(pids) == 2:
+            leases = await instance_leases(obs)
+            for log in agg_logs(tmp)[1:]:
+                m = next(filter(None, (re.search(r"\(lease (0x[0-9a-f]+)\)", line)
+                                       for line in log.lines())), None)
+                if m and leases == {lease1, int(m.group(1), 16)}:
+                    return pids[-1], int(m.group(1), 16), log
+        if time.monotonic() > deadline:
+            fail(f"planner: no second worker joined: pids {pids}, "
+                 f"instances {await instance_leases(obs)}")
+        await asyncio.sleep(0.05)
+
+
+async def until_or(cond, gone, deadline: float, what: str) -> bool:
+    """True once ``cond()`` holds; False if ``gone()`` does first."""
+    while not cond():
+        if gone():
+            return False
+        if time.monotonic() > deadline:
+            fail(f"planner: timed out waiting for {what}")
+        await asyncio.sleep(0.01)
+    return True
+
+
 def unique_prompt(base: list[int], i: int, vocab: int) -> list[int]:
     """``base`` with its first token set from ``i``: each request of a
     closed loop has a prompt of its own (the Tap keys streams by it)."""
@@ -4672,8 +4862,7 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
     greedy = {"temperature": 0, "nvext": {"ignore_eos": True}}
     state = os.path.join(tmp, "agg-state.json")
     dlog = os.path.join(tmp, "agg-decisions.jsonl")
-    logs = [LogFile(os.path.join(tmp, f"agg-{i}.log"), f"aggregated worker {i}")
-            for i in (1, 2)]
+    log1 = LogFile(os.path.join(tmp, "agg-1.log"), "aggregated worker 1")
     children: list = []
     result: dict = {"leg": "aggregated"}
     obs = None
@@ -4704,9 +4893,9 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
             children.append(planner)
             await planner.start()
             await planner.wait_for(r"^planner running", 60)
-            lease1 = int((await logs[0].wait_for(r"\(lease (0x[0-9a-f]+)\)", FLEET_WAIT_S))[0]
+            lease1 = int((await log1.wait_for(r"\(lease (0x[0-9a-f]+)\)", FLEET_WAIT_S))[0]
                          .group(1), 16)
-            await logs[0].wait_for(r"worker serving ", FLEET_WAIT_S)
+            await log1.wait_for(r"worker serving ", FLEET_WAIT_S)
             await wait_leases(obs, {lease1})
             await wait_model(port, cfg.name)
             result["worker_1_ready_s"] = time.monotonic() - t_leg
@@ -4725,27 +4914,51 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
 
             t_load = time.time()
             load = ClosedLoop(send, bases, PLANNER_CLIENTS).start()
-            up = await wait_decision(dlog, None, "up", t_load, 60)
-            m, _ = await logs[1].wait_for(r"\(lease (0x[0-9a-f]+)\)", FLEET_WAIT_S)
-            lease2 = int(m.group(1), 16)
-            await wait_leases(obs, {lease1, lease2}, timeout=FLEET_WAIT_S)
-            t_lease = time.time()
+            # Runs before the HTTP service stops (the stack unwinds in
+            # reverse), so a failed leg leaves no stream to break.
+            stack.push_async_callback(load.cancel)
+            first_up = await wait_decision(dlog, None, "up", t_load, 60)
+            # The worker the planner added, followed until it has served
+            # and two more rounds of the clients ran on two workers (the
+            # TTFT after). The watermark law reads only the workers'
+            # queues, and they can run dry while a new worker starts
+            # (PERF.md §6): a scale-down under load then retires it
+            # and a later scale-up adds another. Each such retirement is
+            # counted and reported; the gates hold for the one that stays.
+            deadline = time.monotonic() + FLEET_WAIT_S + 240
+            retired: list[int] = []
+            while True:
+                pid2, lease2, log2 = await joined_worker(tmp, state, obs, lease1, deadline)
+                t_lease = time.time()
 
-            def served_by_2():
-                return [r for r in tapped.values() if lease2 in r["workers"] and r["first"]]
+                def served_by_2():
+                    return [r for r in tapped.values()
+                            if lease2 in r["workers"] and r["first"]]
 
-            await until(lambda: len(served_by_2()) >= 1, 120, "the second worker's streams")
-            t_first2 = min(r["first"] for r in served_by_2())
-            # Two more rounds of the clients on two workers: the TTFT after.
-            n_first2 = len(load.results)
-            await until(lambda: len(load.results) >= n_first2 + 2 * PLANNER_CLIENTS, 120,
-                        "requests after the second worker joined")
-            pid2 = state_pids(state)[-1]
-            results = await load.stop()
+                def left():
+                    return pid2 not in state_pids(state)
+
+                if not await until_or(lambda: len(served_by_2()) >= 1, left, deadline,
+                                      "the second worker's streams"):
+                    retired.append(pid2)
+                    continue
+                t_first2 = min(r["first"] for r in served_by_2())
+                n_first2 = len(load.results)
+                if not await until_or(
+                        lambda: len(load.results) >= n_first2 + 2 * PLANNER_CLIENTS, left,
+                        deadline, "requests after the second worker joined"):
+                    retired.append(pid2)
+                    continue
+                break
+            up = [d for d in decisions(dlog) if d["decision"] == "up"
+                  and d["ts"] <= t_lease][-1]
+            # The load stops when the clients stop sending: a scale-down
+            # while the last streams finish counts as after it.
             t_stop = time.time()
+            results = await load.stop()
             down = await wait_decision(dlog, None, "down", t_stop, 5 * PLANNER_ADJUST + 10)
-            report2 = await report_of(logs[1])
-            await logs[1].wait_for(r"^drain complete", 5)
+            report2 = await report_of(log2)
+            await log2.wait_for(r"^drain complete", 5)
             m, _ = await planner.wait_for(rf"worker pid {pid2} exited \(code (\S+)\)", 60)
             rc2 = m.group(1)
             await wait_leases(obs, {lease1})
@@ -4753,9 +4966,9 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
             planner_rc = await planner.exit_code(60)
             pids = state_pids(state)
             adopted_alive = [pid_alive(p) for p in pids]
-            report1 = await retire(pids[0], logs[0]) if pids else {}
+            report1 = await retire(pids[0], log1) if pids else {}
             pids = []
-        ttft_before = [r["ttft_ms"] for r in results if r["t_send"] < up["ts"]
+        ttft_before = [r["ttft_ms"] for r in results if r["t_send"] < first_up["ts"]
                        and r["ttft_ms"] is not None]
         ttft_after = [r["ttft_ms"] for r in results if r["t_send"] >= t_first2
                       and r["ttft_ms"] is not None]
@@ -4774,8 +4987,9 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
             "leases": [f"{lease1:#x}", f"{lease2:#x}"],
             "requests_by_worker": {f"{w:#x}": sum(1 for r in results if tapped[tuple(
                 r["prompt"])]["workers"] == [w]) for w in (lease1, lease2)},
-            "decision_up": up, "decision_down": down,
+            "decision_up": up, "decision_down": down, "first_decision_up": first_up,
             "decisions": [d["decision"] for d in dec],
+            "retired_under_load": len(retired),
             "up_to_lease_s": t_lease - up["ts"],
             "up_to_new_worker_first_token_s": t_first2 - up["ts"],
             "load_stop_to_down_s": down["ts"] - t_stop,
@@ -4799,6 +5013,9 @@ async def aggregated_leg(tmp: str, cfg, params, vocab: int) -> dict:
                 and result["adopted_worker_alive_after_sigterm"]
                 and len(adopted_alive) == 1):
             fail(f"planner aggregated: {result}")
+    except BaseException:
+        dump_logs("planner aggregated", children, agg_logs(tmp))
+        raise
     finally:
         import signal as _signal
 
@@ -4849,6 +5066,7 @@ async def two_pool_leg(tmp: str, cfg, params, vocab: int) -> dict:
     planner = None
     decode = None
     op = None
+    loads: list = []
     pids: list[int] = []
     try:
         pcmd = worker_cmd(tmp, "prefill", [
@@ -4896,6 +5114,7 @@ async def two_pool_leg(tmp: str, cfg, params, vocab: int) -> dict:
 
         t_load = time.time()
         load = ClosedLoop(send, bases, POOL_CLIENTS).start()
+        loads.append(load)
         # Crash heal: the decode pool's worker killed, shell and child.
         victim = state_pids(state, "decode")[0]
         seen_before = len(planner.lines)
@@ -4969,10 +5188,15 @@ async def two_pool_leg(tmp: str, cfg, params, vocab: int) -> dict:
                 and not decode.degraded_requests and planner_rc == 0
                 and result["remote_count"] >= 2 * POOL_CLIENTS):
             fail(f"planner two_pool: {result}")
+    except BaseException:
+        dump_logs("planner two_pool", [planner], plogs + dlogs)
+        raise
     finally:
         for pid in pids:
             with contextlib.suppress(ProcessLookupError):
                 os.kill(pid, signal.SIGKILL)
+        for load in loads:
+            await load.cancel()
         if op is not None:
             await op.stop()
         if planner is not None:
@@ -5709,6 +5933,450 @@ def phase_mla(card: str) -> dict:
     return out
 
 
+# -- phase 14: multimodal (vision encode worker, unified_mm) and embeddings --
+MM_BUDGET_S = 200.0           # the phase's wall time ...
+MM_PEAK_BYTES = 30e9          # ... and peak device memory, at most
+# ViT-B/16's published widths (Dosovitskiy et al. 2021, table 1) in the
+# port's VisionConfig (the JAX package's fields): 196 patches an image,
+# ~87M weights; its output is llama3.2-1b's hidden size.
+MM_VISION = dict(image_size=224, patch_size=16, hidden_size=768, num_layers=12,
+                 num_heads=12, mlp_ratio=4, out_dim=2048)
+# The bf16 encoder's soft-prompt rows against the float32 encoder's on
+# the same weights: the largest relative L2 error of a row (read 0.0105
+# on the H100; three times that).
+MM_ENCODER_TOL = 0.03
+MM_REQUESTS = 8               # concurrent image chats ...
+MM_TEXT = (64, 257)           # ... with this many text tokens ...
+MM_TOKENS = 32                # ... and this many greedy tokens each
+MM_EMBED_LENS = (16, 2049)    # embeddings inputs: 8 of this many tokens
+MM_EMBED_COSINE = 0.995
+
+
+def mm_url(arr: np.ndarray) -> str:
+    import base64
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return "data:application/x-npy;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def mm_rows(n: int, segs) -> tuple:
+    """A prompt's soft-prompt rows: (embeds [n, D] float32, mask [n])
+    on the card from (offset, [k, D]) segments, or (None, None)."""
+    if not segs:
+        return None, None
+    D = segs[0][1].shape[1]
+    embeds = torch.zeros((n, D), device=DEVICE)
+    mask = torch.zeros(n, dtype=torch.bool, device=DEVICE)
+    for off, arr in segs:
+        embeds[off:off + len(arr)] = torch.from_numpy(np.array(arr)).to(DEVICE)
+        mask[off:off + len(arr)] = True
+    return embeds, mask
+
+
+def mm_encoder_check(vcfg, seed: int) -> tuple[dict, dict]:
+    """``encode_image`` in bf16 against the same weights in float32 on
+    seeded images; the bf16 encoder's ms per image. Returns (record, the
+    bf16 params)."""
+    from dynamo_tpu_torch.models.vision import encode_image, init_vision_params
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    f32 = init_vision_params(g, vcfg, dtype=torch.float32, device=DEVICE)
+    bf16 = {k: ([{n: w.bfloat16() for n, w in layer.items()} for layer in v]
+                if k == "layers" else v.bfloat16()) for k, v in f32.items()}
+    rng = np.random.default_rng(seed)
+    errs = []
+    for _ in range(4):
+        img = rng.random((vcfg.image_size, vcfg.image_size, 3), dtype=np.float32)
+        want = encode_image(f32, vcfg, img)
+        got = encode_image(bf16, vcfg, img)
+        if tuple(got.shape) != (vcfg.num_patches, vcfg.out_dim) or not torch.isfinite(got).all():
+            fail("multimodal: encoder output", list(got.shape), [vcfg.num_patches, vcfg.out_dim])
+        errs.append(float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max()))
+    img = torch.from_numpy(rng.random((vcfg.image_size,) * 2 + (3,), dtype=np.float32)).to(DEVICE)
+    ms = device_ms(lambda: encode_image(bf16, vcfg, img), 20)
+    eager_ms = host_ms(lambda: encode_image(bf16, vcfg, img), 10)
+    params = sum(w.numel() for k, v in f32.items()
+                 for w in ([x for layer in v for x in layer.values()] if k == "layers" else [v]))
+    del f32
+    rec = {"vision": dict(MM_VISION), "params": params, "param_count": vcfg.param_count(),
+           "patches": vcfg.num_patches, "max_row_rel_err_bf16_vs_f32": max(errs),
+           "tol": MM_ENCODER_TOL, "encode_device_ms_per_image_bf16": ms,
+           "encode_eager_wall_ms_per_image_bf16": eager_ms}
+    if max(errs) > MM_ENCODER_TOL:
+        fail("multimodal: bf16 encoder rows against float32", max(errs), MM_ENCODER_TOL)
+    return rec, bf16
+
+
+def mm_chat(model: str, text: str, urls: list[str], max_tokens: int) -> dict:
+    content = [{"type": "text", "text": text}]
+    content += [{"type": "image_url", "image_url": {"url": u}} for u in urls]
+    return {"model": model, "messages": [{"role": "user", "content": content}],
+            "max_tokens": max_tokens, "temperature": 0, "stream": True,
+            "nvext": {"ignore_eos": True}}
+
+
+class MmTap:
+    """The engine side of each request (a Tap before the router): its
+    spliced prompt, its soft-prompt segments, its tokens and when the
+    first one came."""
+
+    def __init__(self) -> None:
+        self.seen: dict[str, dict] = {}
+
+    def op(self):
+        from dynamo_tpu_torch.runtime.pipeline import Tap
+
+        return Tap(self._request, self._response)
+
+    def _request(self, ctx) -> None:
+        segs = [(int(s["offset"]), np.frombuffer(s["data"], np.float32).reshape(s["shape"]))
+                for s in ctx.payload.get("mm_segments") or []]
+        self.seen[ctx.id] = {"prompt": list(ctx.payload["token_ids"]), "mm": segs,
+                             "tokens": [], "t_first": None}
+
+    def _response(self, ctx, item) -> None:
+        rec = self.seen[ctx.id]
+        if item.get("token_ids") and rec["t_first"] is None:
+            rec["t_first"] = time.perf_counter()
+        rec["tokens"].extend(item.get("token_ids") or [])
+
+    def of(self, text: str, since: int = 0) -> dict:
+        """The one request recorded after the first ``since`` whose
+        prompt holds ``text``'s tokens."""
+        from dynamo_tpu_torch.llm.multimodal import _find_sub
+        from dynamo_tpu_torch.llm.tokenizer import ToyTokenizer
+
+        needle = ToyTokenizer().encode(text)
+        hits = [r for r in list(self.seen.values())[since:] if _find_sub(r["prompt"], needle) >= 0]
+        if len(hits) != 1:
+            fail("multimodal: tapped requests for one text", len(hits), 1)
+        return hits[0]
+
+
+async def mm_send(port: int, bodies: list[dict]) -> tuple[list, list, float]:
+    """POST the streaming chats together; (responses, send times, wall)."""
+    sent = [0.0] * len(bodies)
+
+    async def one(i, body):
+        sent[i] = time.perf_counter()
+        resp, timed = await http_stream(port, "/v1/chat/completions", body)
+        return resp, stream_summary(timed)
+
+    t0 = time.perf_counter()
+    out = await asyncio.gather(*(one(i, b) for i, b in enumerate(bodies)))
+    return out, sent, time.perf_counter() - t0
+
+
+async def mm_serve_leg(vcfg, vparams, rng) -> dict:
+    """Image chats through the OpenAI server, the multimodal pipeline over
+    an encode worker on the runtime plane, and the engine's unified_mm
+    program; then the raw ``runner.prefill(mm_embeds=)`` entry point."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.examples.multimodal import deploy
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.multimodal import VisionEncodeEngine
+    from dynamo_tpu_torch.llm.protocols.common import FinishReason
+    from dynamo_tpu_torch.ops.kernels.paged_prefill_attention import (
+        paged_prefill_attention_cuda as prefill_fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+
+    ecfg = full_width_config(multimodal=True)
+    cfg = ecfg.model
+    L = cfg.num_layers
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+
+    def text(n):
+        return "".join(rng.choice(letters, n))
+
+    side = vcfg.image_size
+    images = [rng.integers(0, 256, (side, side, 3), dtype=np.uint8) for _ in range(10)]
+    odd = rng.integers(0, 256, (300, 200, 3), dtype=np.uint8)   # resized by the worker
+    urls = [mm_url(im) for im in images] + [mm_url(odd)]
+    bodies, texts = [], []
+    for i in range(MM_REQUESTS):
+        texts.append(text(int(rng.integers(*MM_TEXT))))
+        n_img = 2 if i % 2 else 1
+        chosen = [urls[-1]] if i == 0 else [urls[(2 * i + k) % 8] for k in range(n_img)]
+        bodies.append(mm_chat(cfg.name, texts[-1], chosen, MM_TOKENS))
+
+    engine = TorchEngine(ecfg, device=DEVICE)
+    await engine.start()
+    tap = MmTap()
+    out: dict = {}
+    try:
+        capture = await warm_up(engine)
+        mm_graphs = sorted(k for k in engine.runner.compile_stats.capture_s
+                           if k.startswith("unified_mm"))
+        encoder = await asyncio.to_thread(VisionEncodeEngine, vcfg, params=vparams,
+                                          device=DEVICE)
+        dep = await deploy(engine, encoder, ModelDeploymentCard(
+            name=cfg.name, context_length=ecfg.max_model_len), engine_ops=(tap.op(),))
+        step = engine.runner.unified_step
+        mm_calls = {"dispatches": 0, "launches": 0, "events": []}
+
+        def counting(lanes, feed=None, draft_lens=None, extras=None, mm=None):
+            if mm is None or not any(mm):
+                return step(lanes, feed=feed, draft_lens=draft_lens, extras=extras, mm=mm)
+            before = fn.launches
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            res = step(lanes, feed=feed, draft_lens=draft_lens, extras=extras, mm=mm)
+            e1.record()
+            mm_calls["dispatches"] += 1
+            mm_calls["launches"] += fn.launches - before
+            mm_calls["events"].append((e0, e1))
+            return res
+
+        engine.runner.unified_step = counting
+        try:
+            port = dep.service.port
+            reset_counts()
+            d0, p0 = engine.unified_dispatches, engine.unified_prefill_tokens
+            resps, sent, wall = await mm_send(port, bodies)
+            launches, dispatches = fn.launches, engine.unified_dispatches - d0
+            paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
+            torch.cuda.synchronize()
+            mm_ms = [a.elapsed_time(b) for a, b in mm_calls["events"]]
+            recs = [tap.of(t) for t in texts]
+            ttft = [r["t_first"] - s for r, s in zip(recs, sent)]
+            streams = [r["tokens"][:MM_TOKENS] for r in recs]
+            finishes = [FinishReason.LENGTH if s["finish"] == "length" else None
+                        for _, s in resps]
+            n_seen = len(tap.seen)
+            # One image request alone, twice; the same text with another image.
+            alone = []
+            reused0 = engine._reused_device_blocks
+            for body in (bodies[1], bodies[1],
+                         mm_chat(cfg.name, texts[1], [urls[8], urls[9]], MM_TOKENS)):
+                await mm_send(port, [body])
+                alone.append(tap.of(texts[1], n_seen + len(alone))["tokens"])
+            reused = engine._reused_device_blocks - reused0
+            # A text-only request alone on the mm engine.
+            plain_text = text(int(rng.integers(*MM_TEXT)))
+            (plain_resp,), plain_sent, _ = await mm_send(
+                port, [mm_chat(cfg.name, plain_text, [], MM_TOKENS)])
+            plain = tap.of(plain_text)
+            plain_ttft = plain["t_first"] - plain_sent[0]
+            capture["mid_traffic_compiles_total"] = mid_traffic(engine)
+            capture["mid_traffic_keys"] = engine.runner.compile_stats.capture_snapshot()[
+                "mid_traffic_keys"]
+        finally:
+            del engine.runner.unified_step
+            await dep.stop()
+        params = engine.runner.params
+    finally:
+        await engine.stop()
+    gates = stream_gates("multimodal", cfg, params, [r["prompt"] for r in recs], streams,
+                         finishes, MM_TOKENS, mm=[r["mm"] for r in recs])
+    # The control: the same streams against the reference with the
+    # placeholder tokens' own embeddings (no image rows spliced).
+    unspliced = teacher_forced(cfg, params, [r["prompt"] for r in recs], streams)
+    total = sum(len(s) for s in streams)
+    out.update({
+        "model": cfg.name, "requests": MM_REQUESTS, "images": [len(b["messages"][0]["content"]) - 1
+                                                               for b in bodies],
+        "prompt_lens": [len(r["prompt"]) for r in recs], "max_tokens": MM_TOKENS,
+        "statuses": [r.status for r, _ in resps], "wall_s": wall, "tokens_per_s": total / wall,
+        "ttft_p50_ms_mm": float(np.median(ttft)) * 1e3, "ttft_max_ms_mm": max(ttft) * 1e3,
+        "ttft_ms_text_only": plain_ttft * 1e3,
+        "unified_dispatches": dispatches, "mm_dispatches": mm_calls["dispatches"],
+        "prefill_tokens": engine.unified_prefill_tokens - p0,
+        "device_ms_per_mm_dispatch": float(np.mean(mm_ms)) if mm_ms else None,
+        "kernel_launches": launches, "kernel_launches_by_path": paths,
+        "mm_kernel_launches": mm_calls["launches"], "capture": capture,
+        "unified_mm_graphs": mm_graphs, "encoder_images": encoder.images,
+        "alone_twice_identical": alone[0] == alone[1],
+        "other_image_differs": alone[2] != alone[0],
+        "kv_reused_device_blocks_delta": reused, **gates,
+        "agreement_vs_reference_without_images":
+            unspliced["greedy_agreement_vs_no_cache_reference"]})
+    if any(r.status != 200 for r, _ in resps) or plain_resp[0].status != 200:
+        fail("multimodal: statuses", out["statuses"] + [plain_resp[0].status], 200)
+    check_capture("multimodal", capture)
+    if mm_graphs != ["unified_mm:t256:greedy", "unified_mm:t256:sampled"]:
+        fail("multimodal: unified_mm graphs captured before traffic", mm_graphs,
+             ["unified_mm:t256:greedy", "unified_mm:t256:sampled"])
+    if launches != L * dispatches or not dispatches:
+        fail("multimodal: ragged launches", launches, L * dispatches)
+    if paths != {"tc": launches, "split": launches, "walk": 0}:
+        fail("multimodal: ragged paths", paths, {"tc": launches, "split": launches, "walk": 0})
+    if mm_calls["launches"] != L * mm_calls["dispatches"] or mm_calls["dispatches"] < MM_REQUESTS:
+        fail("multimodal: ragged launches in mm dispatches", mm_calls["launches"],
+             L * mm_calls["dispatches"])
+    if alone[0] != alone[1] or len(alone[0]) != MM_TOKENS:
+        fail("multimodal: one image request alone twice", alone[:2], "byte-identical")
+    if reused:
+        fail("multimodal: blocks reused across images", reused, 0)
+    # The images reach the model: the streams part from the reference
+    # that keeps the placeholder tokens' own embeddings.
+    if out["agreement_vs_reference_without_images"] > 0.5:
+        fail("multimodal: agreement with the reference without the images",
+             out["agreement_vs_reference_without_images"], 0.5)
+    out["raw_prefill"] = await asyncio.to_thread(
+        mm_raw_prefill, ecfg, params, min((r for r in recs if len(r["mm"]) == 1),
+                                          key=lambda r: len(r["prompt"])), prefill_fn)
+    # The same text-only request, alone, on an engine without multimodal.
+    other = TorchEngine(full_width_config(), device=DEVICE)
+    await other.start()
+    try:
+        await warm_up(other)
+        got, *_ = await serve(other, [plain["prompt"]], MM_TOKENS)
+    finally:
+        await other.stop()
+    out["text_only_equal_to_plain_engine"] = got[0] == plain["tokens"][:MM_TOKENS]
+    if not out["text_only_equal_to_plain_engine"]:
+        fail("multimodal: text-only stream against the engine without multimodal",
+             plain["tokens"][:MM_TOKENS], got[0])
+    return out
+
+
+def mm_raw_prefill(ecfg, params, rec, prefill_fn) -> dict:
+    """One ``runner.prefill(..., mm_embeds=)`` at full width on a runner
+    of its own (the served weights): the paged prefill kernel once per
+    layer, and its first token the reference's argmax with the same rows
+    spliced."""
+    from dynamo_tpu_torch.engine.runner import ModelRunner
+    from dynamo_tpu_torch.models import llama
+
+    runner = ModelRunner(dataclasses.replace(ecfg, num_blocks=64), params=params, device=DEVICE)
+    prompt, segs = rec["prompt"], rec["mm"]
+    blocks = list(range(1, (len(prompt) + ecfg.block_size - 1) // ecfg.block_size + 1))
+    before = prefill_fn.launches
+    tok = runner.prefill(prompt, blocks, 0, (0.0, 0, 1.0), mm_embeds=segs)
+    launches = prefill_fn.launches - before
+    embeds, mask = mm_rows(len(prompt), segs)
+    logits = llama.reference_forward(ecfg.model, params, torch.tensor(prompt, device=DEVICE),
+                                     embeds, mask)[-1].float()
+    lp = torch.log_softmax(logits, -1)
+    want = int(lp.argmax())
+    text_only = llama.reference_forward(ecfg.model, params,
+                                        torch.tensor(prompt, device=DEVICE))[-1].float()
+    out = {"prompt_len": len(prompt), "image_rows": sum(len(a) for _, a in segs),
+           "prefill_mm": launches, "token": tok, "reference_argmax": want,
+           "logprob_gap": float(lp[want] - lp[tok]),
+           "max_abs_logit_change_from_the_images": float((logits - text_only).abs().max())}
+    del runner
+    if launches != ecfg.model.num_layers:
+        fail("multimodal: raw mm prefill kernel launches", launches, ecfg.model.num_layers)
+    if tok != want:
+        fail("multimodal: raw mm prefill first token against the reference", tok, want)
+    return out
+
+
+async def embeddings_leg(child, port: int, rng) -> dict:
+    """8 inputs of 16–2048 tokens through ``run --model-type embeddings``
+    (text and token ids, one POST each kind, every input its own request
+    inside): unit norm, and cosine against ``embed_forward`` in float32
+    on the card with the same (seeded) weights."""
+    from dynamo_tpu_torch.llm.embedding import embed_forward
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.llm.tokenizer import ToyTokenizer
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.llama32_1b()
+    lens = sorted(int(n) for n in rng.integers(*MM_EMBED_LENS, 8))
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz "))
+    texts = ["".join(rng.choice(letters, n)) for n in lens[::2]]
+    ids = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens[1::2]]
+    await child.wait_for(r"OpenAI server on", 240.0)
+    posts, walls = [], []
+    for inputs in (texts, ids):
+        t0 = time.perf_counter()
+        resp = await fetch("127.0.0.1", port, "POST", "/v1/embeddings",
+                           {"model": cfg.name, "input": inputs})
+        walls.append(time.perf_counter() - t0)
+        if resp.status != 200:
+            fail("multimodal: /v1/embeddings status", resp.status, 200)
+        posts.append(resp.json())
+    vecs = [d["embedding"] for p in posts for d in p["data"]]
+    inputs = [ToyTokenizer().encode(t) for t in texts] + ids
+    # The server's weights: EmbeddingEngine's seed 0 on the card, bf16;
+    # the reference widens them to float32.
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    params = llama.init_params(cfg, g, dtype=torch.bfloat16, device=DEVICE)
+    params = {k: ([{n: w.float() for n, w in layer.items()} for layer in v]
+                  if k == "layers" else v.float()) for k, v in params.items()}
+    norms, cosines = [], []
+    with torch.inference_mode():
+        for vec, toks in zip(vecs, inputs):
+            got = torch.tensor(vec, device=DEVICE)
+            want = embed_forward(cfg, params, torch.tensor(toks, device=DEVICE), len(toks))
+            norms.append(float(got.norm()))
+            cosines.append(float(torch.dot(got, want) / (got.norm() * want.norm())))
+    del params
+    tokens = sum(len(t) for t in inputs)
+    out = {"inputs": len(vecs), "tokens": [len(t) for t in inputs],
+           "usage_prompt_tokens": [p["usage"]["prompt_tokens"] for p in posts],
+           "norms": norms, "cosine_vs_f32": cosines, "min_cosine": min(cosines),
+           "ms_per_request": 1e3 * sum(walls) / len(vecs), "tokens_per_s": tokens / sum(walls)}
+    if len(vecs) != 8 or any(abs(n - 1.0) > 1e-3 for n in norms):
+        fail("multimodal: embeddings norms", norms, "1 ± 1e-3")
+    if min(cosines) < MM_EMBED_COSINE:
+        fail("multimodal: embeddings cosine against float32", min(cosines), MM_EMBED_COSINE)
+    usage = [sum(len(t) for t in inputs[:len(texts)]), sum(len(t) for t in ids)]
+    if out["usage_prompt_tokens"] != usage:
+        fail("multimodal: embeddings usage", out["usage_prompt_tokens"], usage)
+    return out
+
+
+def phase_multimodal(card: str) -> dict:
+    """Image chat through a vision encode worker and /v1/embeddings on
+    llama3.2-1b at full width (phase 14): see the module docstring."""
+    from dynamo_tpu_torch.models.vision import VisionConfig
+
+    t_phase = time.monotonic()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    held_at_start = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(16)
+    vcfg = VisionConfig(**MM_VISION)
+    encoder, vparams = mm_encoder_check(vcfg, 16)
+    emit({"phase": "multimodal_encoder", "card": card, **encoder})
+
+    async def run() -> tuple[dict, dict]:
+        import signal
+
+        port = free_port()
+        child = await Child("embeddings", [
+            "run", "--in", "http", "--out", "torch", "--model-type", "embeddings",
+            "--model-path", "preset:llama3.2-1b", "--http-host", "127.0.0.1",
+            "--http-port", str(port)]).start()
+        try:
+            serve_out = await mm_serve_leg(vcfg, vparams, rng)
+            free_card()
+            emb = await embeddings_leg(child, port, rng)
+        finally:
+            child.signal(signal.SIGTERM)
+            with contextlib.suppress(GateFailed):
+                await child.exit_code(60.0)
+            await child.kill()
+        return serve_out, emb
+
+    serve_out, emb = asyncio.run(run())
+    del vparams
+    free_card()
+    wall = time.monotonic() - t_phase
+    peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "multimodal", "card": card, "encoder": encoder, **serve_out,
+           "embeddings": emb, "phase_wall_s": wall, "peak_memory_bytes": peak,
+           "held_at_start_bytes": held_at_start,
+           "budget": {"wall_s": MM_BUDGET_S, "peak_bytes": MM_PEAK_BYTES}}
+    emit(out)
+    if peak > MM_PEAK_BYTES:
+        fail("multimodal: peak device memory", peak, MM_PEAK_BYTES)
+    if wall > MM_BUDGET_S:
+        fail("multimodal: wall seconds", wall, MM_BUDGET_S)
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5742,13 +6410,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    become_subreaper()
     try:
         return run_all()
     except BaseException as exc:
-        # One line naming the phase, the gate, its value and its limit; the
-        # exit stays non-zero.
-        emit({"failed": failure_record(exc)})
+        # One line naming the phase, the gate, its value and its limit, on
+        # both streams; the exit stays non-zero.
+        line = json.dumps({"failed": failure_record(exc)})
+        print(line, flush=True)
+        print(line, file=sys.stderr, flush=True)
         raise
+    finally:
+        # No process this script started outlives it, whatever failed.
+        for name in stop_leftovers():
+            print(f"chip_smoke: stopped a process left running: {name[:300]}",
+                  file=sys.stderr, flush=True)
 
 
 def run_all() -> int:
@@ -5804,6 +6480,7 @@ def run_all() -> int:
     free_card()
     families = run_phase("families", phase_families, card)
     mla = run_phase("mla", phase_mla, card)
+    mm = run_phase("multimodal", phase_multimodal, card)
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
@@ -5830,7 +6507,9 @@ def run_all() -> int:
                      planner_worker_launches=planner["worker_launches"],
                      families_launches={k: v for k, v in families["ragged_launches"].items()
                                         if not k.endswith("_int8")},
-                     families_timing=family_timing(families, "")),
+                     families_timing=family_timing(families, ""),
+                     multimodal_launches=mm["kernel_launches"],
+                     multimodal_mm_dispatch_launches=mm["mm_kernel_launches"]),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
                      served_int8["kernel_launches"], t_int8,
@@ -5868,7 +6547,8 @@ def run_all() -> int:
                      "bf16: mma.sync m16n8k16 tile of 128 query vectors "
                      "(paged_attention_tc.cuh); f32: the walk",
                      families_launches={"gemma3-1b": families["phase_split"][
-                         "prefill_kernel_launches"]}),
+                         "prefill_kernel_launches"]},
+                     prefill_mm=mm["raw_prefill"]["prefill_mm"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -422,6 +422,7 @@ class KvBlockManager:
             staging, out = out, []
             try:
                 for i, b in enumerate(matched):
+                    # dynalint: allow[DT010] deliberate: the bytes must be captured under the lock — released, the LRU could evict and rewrite the block and the copy would carry another prefix's KV
                     row = self.host_pool.storage.read_block(b.idx)
                     if staging is None:
                         data = row.copy()
@@ -751,6 +752,7 @@ class KvBlockManager:
             if layout.quant == "int8":
                 self._quant_stored_blocks += 1
             block = self.host_pool.allocate_blocks(1)[0]
+            # dynalint: allow[DT010] deliberate: allocate+write+register must be atomic against the engine thread's match (a half-written block must never match), and the in-lock timing keeps the link-rate EMA honest
             self.host_pool.storage.write_block(block.idx, data)
             block = self.host_pool.register_block(
                 block, h, parent, tokens, checksum=crc
@@ -832,6 +834,7 @@ class KvBlockManager:
                 ):
                     continue
                 scanned += 1
+                # dynalint: allow[DT010] deliberate: the verify must read the same bytes the pool says are registered — released, an evict+rewrite could race the read and misattribute rot
                 arr = np.asarray(pool.storage.read_block(b.idx))
                 if block_checksum(arr) == b.checksum:
                     continue

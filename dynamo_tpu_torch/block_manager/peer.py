@@ -120,6 +120,8 @@ class PeerBlockServer(RemoteBlockServer):
         # fleet's pull timings, and the client's measured rate EMA,
         # reflect the configured link instead of loopback memcpy speed.
         self.serve_link_gbps = serve_link_gbps
+        # Seconds of that pacing slept so far: the simulated link's time.
+        self.paced_s = 0.0
         self._serve_rate = RateEMA()
         self._published_bps = 0.0
 
@@ -174,11 +176,13 @@ class PeerBlockServer(RemoteBlockServer):
                 yield block_frame(batch)  # what the link carried so far
                 batch, held = [], 0
             if pace:
+                self.paced_s += owed
                 await asyncio.sleep(owed)
                 owed = 0.0
         if batch:
             yield block_frame(batch)
         if owed > 0:
+            self.paced_s += owed
             await asyncio.sleep(owed)
         if total:
             self._serve_rate.note(total, max(time.monotonic() - t0, 1e-9))

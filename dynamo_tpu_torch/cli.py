@@ -351,8 +351,9 @@ def refuse_unserved(args) -> None:
         (args.weight_quant is not None,
          "--weight-quant: weight quantization is not served yet"),
         (args.speculative_k < 0, "--speculative-k must be >= 0"),
-        (args.model_type != "chat",
-         f"--model-type {args.model_type}: only chat models are served"),
+        (args.model_type == "embeddings" and args.output in ("echo_core", "echo_full"),
+         "--model-type embeddings: the echo engines serve chat; embeddings "
+         "need --out torch"),
         (args.config is not None or args.overrides,
          "--config/--set: layered configs are not served yet"),
     ]
@@ -854,6 +855,8 @@ async def _start_engine(args, stack, hooks=None):
         return engine, ModelDeploymentCard(
             name=args.model_name or args.output, model_path=None
         ), None
+    if args.model_type == "embeddings":
+        return await _start_embeddings(args)
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
     if args.unified:
@@ -876,6 +879,25 @@ async def _start_engine(args, stack, hooks=None):
     return engine, local.card, engine
 
 
+async def _start_embeddings(args):
+    """``--model-type embeddings``: the pooled-forward engine
+    (llm/embedding.py) of the preset's weights, built off the event loop
+    and, unless --no-warmup, run once; its card says ``embeddings``."""
+    from dynamo_tpu_torch.llm.embedding import EmbeddingEngine
+
+    local, _ecfg = _local_and_cfg(args)
+
+    def build():
+        engine = EmbeddingEngine(local.config, dtype=args.dtype, device=args.device)
+        if not args.no_warmup:
+            engine._run([1] * 8)
+        return engine
+
+    engine = await asyncio.to_thread(build)
+    local.card.model_type = "embeddings"
+    return engine, local.card, None
+
+
 async def start_pipeline(args, stack, engine_ops=()):
     """(ModelManager, the local TorchEngine or None). Without a runtime
     the manager serves the local engine in process; with one (a control
@@ -889,7 +911,7 @@ async def start_pipeline(args, stack, engine_ops=()):
     if drt is None:
         engine, card, torch_engine = await _start_engine(args, stack)
         manager = ModelManager()
-        manager.add_model(card.name, build_serving_pipeline(card, engine, engine_ops))
+        manager.add_model(card.name, build_serving_pipeline(card, engine, engine_ops), card)
         return manager, torch_engine
     torch_engine = None
     if args.output != "dyn":

@@ -354,7 +354,8 @@ def default_shape_grid(cfg) -> list[ShapeSpec]:
     spec-verify program) plus ONE top-rung program per configured
     variant: "unified_full" (sampling extras — penalties and logprobs;
     unreachable on a speculative engine, which refuses extras) and
-    "unified_mm" (multimodal, which the port does not serve yet)."""
+    "unified_mm" (multimodal: the extras program plus the soft-prompt
+    splice, on an engine with ``cfg.multimodal``)."""
     top = _bucket(cfg.unified_token_budget)
     specs: list[ShapeSpec] = [
         ("unified", b, 0, 0, 0)

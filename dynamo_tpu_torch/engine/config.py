@@ -114,6 +114,8 @@ class EngineConfig:
     weight_quant: str | None = None
     mesh_shape: dict[str, int] = field(default_factory=dict)
     kv_sp: bool = False
+    # Serve image requests (llm/multimodal.py): warmup also makes the
+    # unified_mm program, the soft-prompt variant of the step.
     multimodal: bool = False
 
     @property
@@ -177,7 +179,6 @@ class EngineConfig:
             (self.quant or self.weight_quant, "weight quantization"),
             (self.mesh_shape, "a device mesh"),
             (self.kv_sp, "kv_sp"),
-            (self.multimodal, "multimodal"),
         ]
         for on, what in refused:
             if on:

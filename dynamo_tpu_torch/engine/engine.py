@@ -75,8 +75,15 @@ delivers (``on_remote_block(s)``, checked against the sequence's
 completeness ledger) and activates it at ``on_remote_finish``. A lost,
 corrupt or late transfer degrades the request to local recompute.
 
-Not in this port yet: multimodal (ROADMAP queue A). Requests that ask
-for it are refused with ``RequestError``.
+Multimodal (llm/multimodal.py): a request's ``mm_segments`` (patch
+embeddings from the encode worker, at absolute prompt offsets) ride its
+sequence; each prefill quantum takes the rows it covers
+(``_mm_for_chunk``, chunk-relative, so an image may straddle dispatches)
+and a dispatch with any runs the ``unified_mm`` program. Placeholder
+tokens hash alike across different images, so an mm sequence never
+matches, registers, offloads, onboards or parks for a peer pull; a
+dispatch with mm lanes composes no speculative drafts; the remote
+prefill serves mm lanes one by one, apart from the batch.
 """
 
 from __future__ import annotations
@@ -513,9 +520,16 @@ class TorchEngine:
                 "frequency_penalty/presence_penalty/logprobs are not "
                 "supported with speculative decoding"
             )
-        if pre.mm_segments:
-            raise RequestError(
-                "not served by this engine yet: multimodal segments")
+        D = self.cfg.model.hidden_size
+        for seg in pre.mm_segments:
+            shape = list(seg.get("shape") or ())
+            off = int(seg.get("offset", -1))
+            if (len(shape) != 2 or shape[1] != D or seg.get("dtype", "float32") != "float32"
+                    or len(seg.get("data") or b"") != 4 * shape[0] * D
+                    or off < 0 or off + shape[0] > len(pre.token_ids)):
+                raise RequestError(
+                    f"malformed multimodal segment (offset {off}, shape {shape}): "
+                    f"want float32 [n, {D}] rows inside the prompt")
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -562,6 +576,7 @@ class TorchEngine:
             logprobs=pre.logprobs,
             deadline=pre.deadline,
             slo_class=_request_class(pre),
+            mm_segments=_decode_mm_segments(pre.mm_segments),
         )
         tracer().adopt(request.id, pre.trace)
         tracer().mark(request.id, "engine_queued")
@@ -808,14 +823,16 @@ class TorchEngine:
             if s.status is SeqStatus.PREFILLING
         ]
         # Draft rows ride only the budget-ladder program; a step that
-        # needs the extras program composes plain decode spans (extras
-        # requests are refused on a speculative engine anyway).
+        # needs the extras or mm program composes plain decode spans
+        # (extras requests are refused on a speculative engine anyway; an
+        # mm prefill beside spec lanes costs them one plain step).
         has_extras = cfg.sampling_extras and (
             any(s.needs_extras for s in decode_ready)
             or any(s.needs_extras for s, _ in prefill_items)
         )
+        has_mm = any(s.mm_segments for s, _ in prefill_items)
         draft_map: dict[int, list[int]] = {}
-        if spec_on and not has_extras:
+        if spec_on and not has_extras and not has_mm:
             for seq in decode_ready:
                 if seq.inflight_chunks > 0:
                     continue  # token not host-known yet
@@ -869,9 +886,13 @@ class TorchEngine:
             roles.append((seq, "decode", n - 1, 1, True))
             seq.inflight_chunks += 1
             seq.sched_len = n + 1
+        mm_rows: list = []
         for seq, n in prefill_take:
             start = seq.prefill_cursor
             toks = seq.prompt_tokens[start : start + n]
+            if seq.mm_segments:
+                mm_rows += [None] * (len(lanes) - len(mm_rows))
+                mm_rows.append(_mm_for_chunk(seq, start, n))
             lanes.append((toks, seq.block_ids, start, self._lane_sampling(seq)))
             draft_lens.append(0)
             seq.prefill_cursor = start + n
@@ -903,10 +924,11 @@ class TorchEngine:
         # Dispatch start, paired with the retire time for the coloc ITL
         # sample (the runner issues asynchronously: the device time shows
         # up as the inter-retire interval).
+        mm = mm_rows if any(mm_rows) else None
         t_dispatch = self._clock()
         out = self.runner.unified_step(
             lanes, feed=(self._prev_unified_out, prev_row, use_prev),
-            draft_lens=draft_lens if n_drafted else None, extras=extras,
+            draft_lens=draft_lens if n_drafted else None, extras=extras, mm=mm,
         )
         t_issue = self._clock()
         self._prev_unified_out = out.last
@@ -919,18 +941,18 @@ class TorchEngine:
         self.unified_decode_tokens += n_dec
         self.unified_prefill_tokens += n_pre
         self._spec_drafted += n_drafted
-        # Fill against the rung actually run: an extras dispatch pads to
-        # the top rung.
+        # Fill against the rung actually run: an extras or mm dispatch
+        # pads to the top rung.
         total_toks = n_dec + n_pre + n_drafted
         padded = (
-            _bucket(cfg.unified_token_budget) if extras is not None
+            _bucket(cfg.unified_token_budget) if extras is not None or mm is not None
             else token_budget(total_toks, cfg.unified_token_budget)
         )
         self._unified_fill_ratio = total_toks / padded
         # Whether this dispatch's decode lanes feed the auto-gate's window
         # is fixed AT ISSUE: plain dispatches in flight when a re-probe
         # turns the gate on must not count as spec steps.
-        spec_counted = spec_on and not has_extras
+        spec_counted = spec_on and not has_extras and not has_mm
         compose_ms = 1000.0 * (time.monotonic() - t_compose)
         stats = (n_dec, n_pre, t_issue, t_dispatch, n_drafted, compose_ms,
                  self._unified_fill_ratio)
@@ -1231,7 +1253,8 @@ class TorchEngine:
             return False
         seq.peer_pull_tried = True
         kvbm = self.kvbm
-        if not kvbm.has_peer_client() or seq.hashes is None:
+        if (not kvbm.has_peer_client() or seq.hashes is None
+                or seq.mm_segments):   # mm KV never enters the tiers
             return False
         bs = self.cfg.block_size
         start = seq.num_cached_prefix // bs
@@ -1369,6 +1392,10 @@ class TorchEngine:
         their bytes into the sequence's already-allocated blocks, in
         place, then register them. Engine thread, before the prefill's
         first dispatch (stream order puts the scatter ahead of it)."""
+        if seq.mm_segments:
+            # Placeholder tokens hash alike across different images: a
+            # host-tier hit would serve another image's KV.
+            return
         bs = self.cfg.block_size
         P = len(seq.prompt_tokens)
         start = seq.num_cached_prefix // bs
@@ -1492,8 +1519,8 @@ class TorchEngine:
         the copy's event."""
         bs = self.cfg.block_size
         full = len(seq.prompt_tokens) // bs
-        if seq.hashes is None:
-            return
+        if seq.hashes is None or seq.mm_segments:
+            return  # mm KV must not enter the token-hash-keyed host tier
         todo = []
         for idx in range(full):
             h = seq.hashes.blocks[idx]
@@ -1595,6 +1622,7 @@ class TorchEngine:
                     stop=pre.stop,
                     emit=lambda t, f, lp=None: None,
                     slo_class=_request_class(pre),
+                    mm_segments=_decode_mm_segments(pre.mm_segments),
                 ),
                 device,
                 fut,
@@ -1676,7 +1704,21 @@ class TorchEngine:
                     resolve(fut, None)
             cursors: dict[int, int] = {}
             meta: dict[int, tuple] = {}
+            plain = []
             for seq, device, fut in admitted:
+                if seq.mm_segments:
+                    # Its embeddings ride its own dispatches, apart from
+                    # the batch's waves: one poison request fails itself.
+                    try:
+                        finish(seq, device, fut, self._prefill_mm_alone(seq))
+                    except Exception:  # noqa: BLE001 — fails ONE item: the decode side recomputes
+                        logger.exception("mm remote prefill failed for %s", seq.request_id)
+                        resolve(fut, None)
+                        done.add(id(seq))
+                        self.scheduler._release(seq)
+                        seq.status = SeqStatus.FINISHED
+                    continue
+                plain.append(seq)
                 if self.kvbm is not None:
                     self._onboard_host_prefix(seq)
                 self._prefix_lookups += 1
@@ -1689,7 +1731,7 @@ class TorchEngine:
             # programs, replayed: the first sequences keep their lanes
             # until their prompts complete, then the next takes the
             # freed budget.
-            pending = [seq for seq, _, _ in admitted]
+            pending = plain
             while pending:
                 items = [(s, len(s.prompt_tokens) - cursors[id(s)]) for s in pending]
                 _, take = compose_unified(
@@ -1730,6 +1772,30 @@ class TorchEngine:
                     self.scheduler._release(seq)
                     seq.status = SeqStatus.FINISHED
 
+    def _prefill_mm_alone(self, seq: Sequence) -> int:
+        """One mm prompt of a remote-prefill batch through back-to-back
+        unified spans of its own (each chunk's image rows in the
+        ``unified_mm`` program); returns its first sampled token. An mm
+        sequence holds no prefix hit and onboards nothing."""
+        self._prefix_lookups += 1
+        self._note_kv_actual(seq)
+        chunk = max(1, self.cfg.unified_token_budget)
+        P = len(seq.prompt_tokens)
+        token = 0
+        t0 = self._clock()
+        for start in range(0, P, chunk):
+            toks = seq.prompt_tokens[start:start + chunk]
+            mm = _mm_for_chunk(seq, start, len(toks))
+            out = self.runner.unified_step(
+                [(toks, seq.block_ids, start, self._lane_sampling(seq))],
+                mm=[mm] if mm else None)
+            token = int(out.tokens()[0])
+            self.unified_dispatches += 1
+            self.unified_prefill_tokens += len(toks)
+            self._note_step("unified", prefill_tokens=len(toks), lanes=1)
+        self._note_prefill_rate(P, self._clock() - t0)
+        return token
+
     # -- disaggregation: the decode side ---------------------------------------
     def begin_remote(self, request: Context, pre: PreprocessedRequest):
         """Admit ``request`` with remote KV. Returns an awaitable resolving
@@ -1759,6 +1825,7 @@ class TorchEngine:
             logprobs=pre.logprobs,
             deadline=pre.deadline,
             slo_class=_request_class(pre),
+            mm_segments=_decode_mm_segments(pre.mm_segments),
         )
         fut: asyncio.Future = loop.create_future()
         self._submit_q.put(("add_remote", (seq, fut)))
@@ -2061,6 +2128,28 @@ _KVBM_STATS = (
     "integrity_failures_peer", "integrity_failures_frame",
     "scrub_scanned_total", "scrub_detected_total",
 )
+
+
+def _decode_mm_segments(wire: list[dict]) -> list[tuple[int, np.ndarray]]:
+    """Wire mm segments → (absolute prompt offset, [n, D] float32 rows)."""
+    return [
+        (int(seg["offset"]),
+         np.frombuffer(seg["data"], dtype=np.dtype(seg.get("dtype", "float32")))
+         .reshape(seg["shape"]))
+        for seg in wire or []
+    ]
+
+
+def _mm_for_chunk(seq: Sequence, start: int, length: int) -> list | None:
+    """A sequence's mm segments cut to prompt chunk ``[start, start +
+    length)``, offsets chunk-relative (what ``unified_step``'s ``mm`` and
+    ``ModelRunner.prefill`` take); None when the chunk has no image row."""
+    out = []
+    for off, arr in seq.mm_segments:
+        lo, hi = max(off, start), min(off + len(arr), start + length)
+        if lo < hi:
+            out.append((lo - start, arr[lo - off:hi - off]))
+    return out or None
 
 
 def _request_class(pre: PreprocessedRequest) -> str:

@@ -1,7 +1,8 @@
 """ModelRunner: device state, the unified step's program family and the
 phase-split entry points (port of dynamo_tpu/engine/runner.py: the
-``unified``, spec-verify and ``unified_full`` variants, their warmup,
-``prefill``, ``prefill_batch``, ``decode``, ``decode_multi``).
+``unified``, spec-verify, ``unified_full`` and ``unified_mm`` variants,
+their warmup, ``prefill``, ``prefill_batch``, ``decode``,
+``decode_multi``).
 
 Owns the params and the paged KV cache on the device. ``unified_step``
 runs ONE ragged dispatch mixing decode lanes, chunked-prefill quanta and
@@ -22,14 +23,20 @@ greedy | sampled):
 - **unified_full**, one program at the top rung: frequency/presence
   penalties over the per-slot ``[max_num_seqs, vocab]`` count buffer,
   with logprob outputs. Taken only by batches that need it.
+- **unified_mm**, one program at the top rung on a multimodal engine
+  (``cfg.multimodal``): the ``unified_full`` program plus the soft-prompt
+  splice (models/llama.py ``embeds``), so mm and extras lanes co-batch.
+  Taken by every dispatch whose prefill quanta carry image rows.
 
 Every per-dispatch input lives in static buffers, one set per (variant,
 rung): one int32 block holding the metadata, the sampling parameters
 (floats viewed in place), the step's sampling key, drafts and extras
 rows, plus the feed buffer the previous dispatch's tokens are copied
-into. The host fills a pinned staging copy and enqueues one copy into
-the block before each dispatch. On the card each program is a CUDA graph
-of the step body (``_body``) captured over those buffers, and every
+into; ``unified_mm`` adds a float32 ``[T, D]`` embeddings buffer (its
+row mask rides in the int32 block). The host fills pinned staging
+copies and enqueues one copy into each before a dispatch. On the card
+each program is a CUDA graph of the step body (``_body``) captured over
+those buffers, and every
 dispatch replays one: ``warmup`` captures the plan of
 engine/compile_cache.py ahead of traffic, after an eager warm pass of the
 body that writes only trash block 0 (so lazy kernel setup happens outside
@@ -50,8 +57,7 @@ in-place scatters of whole blocks and their int8 scale rows
 step that wrote its blocks and a scatter precedes the replay that reads
 them. Host block bytes are numpy: bfloat16 as its uint16 bit pattern.
 
-Not in this port yet: the multimodal variant, weight quantization and
-meshes (ROADMAP queue A).
+Not in this port yet: weight quantization and meshes (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -157,12 +163,13 @@ def _unified_warm_lanes(
 class _StepBuffers:
     """The static inputs of one (variant, rung) program: ONE int32 block
     (metadata, sampling rows with the floats viewed in place, the key,
-    drafts, extras rows), copied from the host once per dispatch, and
-    the feed buffer ``prev`` the previous dispatch's tokens are copied
-    into on the device."""
+    drafts, extras rows, the mm row mask), copied from the host once per
+    dispatch, the feed buffer ``prev`` the previous dispatch's tokens are
+    copied into on the device, and for ``unified_mm`` the float32
+    soft-prompt rows ``embeds`` [T, D], copied in once per dispatch."""
 
     def __init__(self, kind: str, T: int, S: int, MB: int, K: int,
-                 device: torch.device) -> None:
+                 device: torch.device, hidden: int = 0) -> None:
         ints = [("token_ids", T), ("token_pos", T), ("slot_mapping", T),
                 ("token_seq", T), ("block_tables", S * MB), ("q_start", S),
                 ("q_len", S), ("kv_len", S), ("row_start", S), ("top_k", S),
@@ -170,9 +177,11 @@ class _StepBuffers:
         floats = [("temp", S), ("top_p", S)]
         if kind == "unified" and K:
             ints += [("draft_len", S), ("drafts", S * K)]
-        if kind == "unified_full":
+        if kind in ("unified_full", "unified_mm"):
             ints += [("span_slot", S), ("counts_add", S), ("reset", S)]
             floats += [("freq", S), ("pres", S)]
+        if kind == "unified_mm":
+            ints += [("embed_mask", T)]
         self.kind, self.T, self.S, self.MB, self.K = kind, T, S, MB, K
         self.fields: dict[str, tuple[int, int, bool]] = {}
         o = 0
@@ -184,6 +193,9 @@ class _StepBuffers:
         self.block = torch.zeros(o, dtype=torch.int32, device=device)
         self.prev = torch.zeros(S, dtype=torch.int32, device=device)
         self.dev = self._views(self.block)
+        self.embeds = None
+        if kind == "unified_mm":
+            self.embeds = torch.zeros((T, hidden), dtype=torch.float32, device=device)
 
     def _views(self, block) -> dict:
         """Named views into an int32 block (a tensor or its numpy twin),
@@ -203,6 +215,12 @@ class _StepBuffers:
         if "span_slot" in view:
             view["span_slot"][:] = -1
         return staged, view
+
+    def host_embeds(self, pinned: bool) -> torch.Tensor | None:
+        """A zeroed staging copy of ``embeds`` (None without one)."""
+        if self.embeds is None:
+            return None
+        return torch.zeros(self.embeds.shape, dtype=torch.float32, pin_memory=pinned)
 
 
 class _Program:
@@ -305,8 +323,12 @@ class ModelRunner(WarmupPlanMixin):
         return self._counts
 
     # -- the unified step -----------------------------------------------------
-    def _variant(self, total: int, extras) -> tuple[str, int]:
+    def _variant(self, total: int, extras, mm) -> tuple[str, int]:
         cfg = self.cfg
+        if mm is not None and any(mm):
+            # One program at the TOP rung: mm batches pad there, and carry
+            # the extras operands so extras lanes ride along.
+            return "unified_mm", _bucket(cfg.unified_token_budget)
         if extras is not None:
             # One program at the TOP rung: extras batches pad there.
             return "unified_full", _bucket(cfg.unified_token_budget)
@@ -317,16 +339,18 @@ class ModelRunner(WarmupPlanMixin):
         if b is None:
             b = _StepBuffers(kind, T, self.unified_slots,
                              self.cfg.max_blocks_per_seq,
-                             self.cfg.speculative_k, self.device)
+                             self.cfg.speculative_k, self.device,
+                             self.cfg.model.hidden_size)
             self._buffers[(kind, T)] = b
         return b
 
     def _stage(
         self, b: _StepBuffers, lanes, key, draft_lens=None, extras=None,
-        feed_rows=None,
-    ) -> tuple[torch.Tensor, bool]:
-        """Fill a staging block for ``lanes``; returns it and whether
-        every lane is greedy (the host-side branch of the step body)."""
+        feed_rows=None, mm=None,
+    ) -> tuple[tuple, bool]:
+        """Fill the staging copies for ``lanes``; returns them (the block,
+        and the embeddings or None) and whether every lane is greedy (the
+        host-side branch of the step body)."""
         cfg = self.cfg
         S, MB, bs = b.S, b.MB, cfg.block_size
         if len(lanes) > S:
@@ -368,14 +392,21 @@ class ModelRunner(WarmupPlanMixin):
             view["reset"][:n] = extras["reset"]
             view["freq"][:n] = extras["freq"]
             view["pres"][:n] = extras["pres"]
-        return staged, bool((view["temp"] <= 0.0).all())
+        embeds = b.host_embeds(self._cuda)
+        if mm is not None:
+            _stage_mm(embeds.numpy(), view["embed_mask"], view["row_start"],
+                      view["q_len"], mm)
+        return (staged, embeds), bool((view["temp"] <= 0.0).all())
 
-    def _load(self, b: _StepBuffers, staged: torch.Tensor, prev_toks=None) -> None:
-        """Enqueue the staged block's copy into the static buffers, and
-        the feed's device tokens into ``prev`` (stream-ordered, so the
+    def _load(self, b: _StepBuffers, staged: tuple, prev_toks=None) -> None:
+        """Enqueue the staged copies into the static buffers, and the
+        feed's device tokens into ``prev`` (stream-ordered, so the
         producing dispatch has written them and no later replay has
         overwritten them yet)."""
-        b.block.copy_(staged, non_blocking=True)
+        block, embeds = staged
+        b.block.copy_(block, non_blocking=True)
+        if embeds is not None:
+            b.embeds.copy_(embeds, non_blocking=True)
         if prev_toks is not None:
             b.prev.copy_(prev_toks, non_blocking=True)
 
@@ -391,6 +422,7 @@ class ModelRunner(WarmupPlanMixin):
             d["token_ids"], d["row_start"], d["use_prev"], d["prev_row"], b.prev,
         )
         spec = b.kind == "unified" and b.K > 0
+        mm = b.kind == "unified_mm"
         out = llama.unified(
             cfg.model, self.params, self.kv_caches, token_ids, d["token_pos"],
             d["slot_mapping"], d["token_seq"], d["block_tables"].view(S, b.MB),
@@ -398,6 +430,8 @@ class ModelRunner(WarmupPlanMixin):
             cfg.block_size, kv_scales=self.kv_scales,
             draft_len=d["draft_len"] if spec else None,
             verify_rows=b.K + 1 if spec else 1,
+            embeds=b.embeds if mm else None,
+            embed_mask=d["embed_mask"] > 0 if mm else None,
         )
         logits = out
         if self.kv_scales is not None:
@@ -407,7 +441,7 @@ class ModelRunner(WarmupPlanMixin):
                     top_p=d["top_p"], seed=d["seed"], all_greedy=greedy)
         if spec:
             return self._spec_law(b, logits, samp), None
-        if b.kind == "unified_full":
+        if b.kind in ("unified_full", "unified_mm"):
             return self._extras_law(b, logits, token_ids, samp)
         toks = sample_tokens(logits, sample_pos=d["kv_len"], **samp)
         return torch.where(d["q_len"] > 0, toks, 0).to(torch.int32), None
@@ -482,13 +516,15 @@ class ModelRunner(WarmupPlanMixin):
             T, self.unified_slots, cfg.max_model_len,
             [0] * cfg.max_blocks_per_seq, sampling,
         )
-        extras = None
-        if kind == "unified_full":
+        extras = mm = None
+        if kind in ("unified_full", "unified_mm"):
             self.ensure_counts()
             n = len(lanes)
             extras = {"slots": [0] * n, "counts_add": [False] * n,
                       "reset": [False] * n, "freq": [0.0] * n, "pres": [0.0] * n}
-        staged, _ = self._stage(b, lanes, (cfg.seed, 0), extras=extras)
+        if kind == "unified_mm":
+            mm = [[(0, np.zeros((1, cfg.model.hidden_size), np.float32))]]
+        staged, _ = self._stage(b, lanes, (cfg.seed, 0), extras=extras, mm=mm)
         with self.compile_stats.program(key):
             if not self._cuda:
                 self._load(b, staged)
@@ -537,6 +573,7 @@ class ModelRunner(WarmupPlanMixin):
         feed: tuple | None = None,
         draft_lens: list[int] | None = None,
         extras: dict | None = None,
+        mm: list | None = None,
     ) -> UnifiedOut:
         """ONE ragged dispatch for a mixed prefill+decode batch; on the
         card it replays the program's captured graph.
@@ -558,18 +595,25 @@ class ModelRunner(WarmupPlanMixin):
 
         ``extras``: {"slots", "counts_add", "reset", "freq", "pres"}
         per-lane lists — the unified_full variant at the top rung;
-        ``UnifiedOut.logprobs()`` carries its logprobs."""
-        return self._dispatch(lanes, feed, draft_lens, extras, program=True)
+        ``UnifiedOut.logprobs()`` carries its logprobs.
 
-    def unified_step_eager(self, lanes, feed=None, draft_lens=None, extras=None):
+        ``mm``: per-lane multimodal segment lists ((chunk-relative
+        offset, [n, D] float32 array) pairs, None for text lanes) — the
+        unified_mm variant at the top rung, which also takes ``extras``."""
+        return self._dispatch(lanes, feed, draft_lens, extras, mm, program=True)
+
+    def unified_step_eager(self, lanes, feed=None, draft_lens=None, extras=None,
+                           mm=None):
         """``unified_step`` through the eager body, never a replay and
         never counted as a program: the reference the replays are held
         against. The serving engine never calls it."""
-        return self._dispatch(lanes, feed, draft_lens, extras, program=False)
+        return self._dispatch(lanes, feed, draft_lens, extras, mm, program=False)
 
-    def _dispatch(self, lanes, feed, draft_lens, extras, program: bool) -> UnifiedOut:
+    def _dispatch(self, lanes, feed, draft_lens, extras, mm, program: bool) -> UnifiedOut:
         total = sum(len(t) for t, _, _, _ in lanes)
-        kind, T = self._variant(total, extras)
+        kind, T = self._variant(total, extras, mm)
+        if kind != "unified_mm":
+            mm = None
         if total > T:
             raise ValueError(
                 f"{total} tokens exceed the unified budget "
@@ -581,7 +625,7 @@ class ModelRunner(WarmupPlanMixin):
             prev_toks, prev_row, use_prev = feed
             feed_rows = (prev_row, use_prev)
         staged, greedy = self._stage(
-            b, lanes, self._next_key(), draft_lens, extras, feed_rows,
+            b, lanes, self._next_key(), draft_lens, extras, feed_rows, mm,
         )
         prog = self._program(kind, T, greedy) if program else None
         self._load(b, staged, prev_toks)
@@ -753,8 +797,8 @@ class ModelRunner(WarmupPlanMixin):
     def warmup(self, manifest=None) -> int:
         """Make the serving program set off the clock, in the order of
         ``warmup_plan``: every budget rung (the spec-verify program on a
-        speculative engine) and the extras program at the top rung, each
-        greedy and sampled. Writes land in trash block 0 only; the real
+        speculative engine), the extras program and, on a multimodal
+        engine, the mm program at the top rung, each greedy and sampled. Writes land in trash block 0 only; the real
         cache entries and the allocator are untouched. Returns the number
         of programs made (graphs captured on the card)."""
         hot, tail = self.warmup_plan(manifest)
@@ -766,9 +810,7 @@ class ModelRunner(WarmupPlanMixin):
         a rung S spans cannot fill."""
         cfg = self.cfg
         kind, t = spec[0], spec[1]
-        if kind not in ("unified", "unified_full"):
-            return None
-        if kind == "unified_full" and not cfg.sampling_extras:
+        if not _serves_variant(cfg, kind):
             return None
         if not _unified_warm_lanes(t, self.unified_slots, cfg.max_model_len,
                                    [0], (0.0, 0, 1.0)):
@@ -821,10 +863,14 @@ class ModelRunner(WarmupPlanMixin):
         block_ids: list[int],
         prefix_len: int,
         sampling: tuple,
+        mm_embeds: list[tuple[int, np.ndarray]] | None = None,
     ) -> int:
         """Run one sequence's prefill (the suffix after any prefix-cache
         hit); returns the first sampled token. ``sampling`` is (temp,
-        top_k, top_p[, seed]); ``last_logprobs`` holds its logprobs."""
+        top_k, top_p[, seed]); ``last_logprobs`` holds its logprobs.
+        ``mm_embeds``: multimodal soft-prompt segments, (offset in
+        ``new_tokens``, [n, D] float32 array) pairs whose rows replace the
+        placeholder tokens' embeddings."""
         self._phase_program("prefill")
         T = _bucket(len(new_tokens))
         if T > _bucket(max(1, self.cfg.prefill_chunk)):
@@ -840,12 +886,19 @@ class ModelRunner(WarmupPlanMixin):
             slot_mapping[i] = self.slot_of(block_ids, prefix_len + i)
         lens = np.array([prefix_len, prefix_len + len(new_tokens)], np.int32)
         dlens = self._to_device(lens)
+        mm_kw = {}
+        if mm_embeds:
+            embeds = np.zeros((T, self.cfg.model.hidden_size), np.float32)
+            mask = np.zeros(T, np.int32)
+            _stage_mm(embeds, mask, [0], [len(new_tokens)], [mm_embeds])
+            mm_kw = {"embeds": self._to_device(embeds),
+                     "embed_mask": self._to_device(mask) > 0}
         logits = llama.prefill(
             self.cfg.model, self.params, self.kv_caches,
             self._to_device(token_ids),
             self._to_device(self._pad_table(block_ids)),
             self._to_device(slot_mapping), dlens[0], dlens[1],
-            self.cfg.block_size,
+            self.cfg.block_size, **mm_kw,
         )[None]
         sample = self._sampler(*([x] for x in _norm_sampling(sampling)))
         tok = sample(logits, dlens[1:])
@@ -955,6 +1008,28 @@ class ModelRunner(WarmupPlanMixin):
             inc = active.to(torch.int32)
             pos, ctx = pos + inc, ctx + inc
         return torch.stack(out).cpu().numpy()
+
+
+def _serves_variant(cfg: EngineConfig, kind: str) -> bool:
+    """Whether an engine of ``cfg`` makes programs of ``kind``."""
+    return (kind == "unified"
+            or (kind == "unified_full" and cfg.sampling_extras)
+            or (kind == "unified_mm" and cfg.multimodal))
+
+
+def _stage_mm(embeds: np.ndarray, mask: np.ndarray, row_start, q_len, mm) -> None:
+    """Scatter per-lane mm segments ((lane-relative offset, [n, D])
+    pairs) into the flat soft-prompt rows and their mask; a segment's
+    rows past its lane's span are dropped (the rest of the image lands
+    in the sequence's next chunk)."""
+    for s, segs in enumerate(mm):
+        for off, seg in segs or ():
+            w = min(len(seg), max(0, int(q_len[s]) - off))
+            if w <= 0 or off < 0:
+                continue
+            r0 = int(row_start[s]) + off
+            embeds[r0:r0 + w] = seg[:w]
+            mask[r0:r0 + w] = 1
 
 
 def _norm_sampling(sampling) -> tuple[float, int, float, int]:

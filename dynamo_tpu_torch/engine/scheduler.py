@@ -210,8 +210,11 @@ class Scheduler:
         probe = TokenBlockSequence.from_tokens(seq.prompt_tokens, block_size=bs)
         seq.hashes = TokenBlockSequence(block_size=bs)
         # Prefix match on full prompt blocks, capped so ≥1 token is computed.
+        # Multimodal sequences opt out: their placeholder tokens hash alike
+        # across DIFFERENT images, so sharing blocks by token hash would
+        # serve one image's KV for another's prompt.
         matched: list[int] = []
-        if self.cfg.enable_prefix_caching:
+        if self.cfg.enable_prefix_caching and not seq.mm_segments:
             limit = (P - 1) // bs
             matched = self.allocator.match_prefix(probe.sequence_hashes()[:limit])
         cached_tokens = len(matched) * bs
@@ -241,8 +244,10 @@ class Scheduler:
 
     def register_filled_blocks(self, seq: Sequence, covered_tokens: int) -> None:
         """Register every block whose KV is now fully written (the first
-        `covered_tokens` positions)."""
-        if not self.cfg.enable_prefix_caching or seq.hashes is None:
+        `covered_tokens` positions). Never an mm sequence's: its blocks
+        would publish image KV under text hashes (to the cache and, as KV
+        events, to the router)."""
+        if not self.cfg.enable_prefix_caching or seq.hashes is None or seq.mm_segments:
             return
         bs = self.cfg.block_size
         full = covered_tokens // bs

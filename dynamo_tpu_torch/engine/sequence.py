@@ -5,7 +5,7 @@ from __future__ import annotations
 import enum
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
 from dynamo_tpu_torch.llm.protocols.common import (
     FinishReason,
@@ -76,6 +76,10 @@ class Sequence:
     # SLO class (llm/slo.py): "batch" sequences are the cheapest shed and
     # preemption victims.
     slo_class: str = "interactive"
+    # Multimodal soft-prompt segments: (absolute prompt offset, [n, D]
+    # float32 patch embeddings) from the encode worker; their rows replace
+    # the placeholder tokens' embeddings (engine ``_mm_for_chunk``).
+    mm_segments: list[tuple[int, Any]] = field(default_factory=list)
     # Disagg decode side completeness ledger (WAITING_REMOTE only): the
     # (start_block, num_blocks) span whose KV must arrive, and the block
     # indices that actually landed. Activation over a hole degrades to

@@ -9,7 +9,11 @@ detokenizer → ``FailoverEngine(PushRouter)`` to the worker endpoint, in
 KV mode with the selector ``kv_selector_factory`` makes for the
 endpoint's component — and register it with the ``ModelManager``; when the last instance of a
 model goes, they drop it. In one process, ``build_serving_pipeline``
-links the same operators onto a local engine.
+links the same operators onto a local engine. A card's ``model_type``
+picks the pipeline: ``embeddings`` tokenizes only
+(``EmbeddingPreprocessor``, no detokenizer: one pooled vector comes
+back); ``multimodal`` puts the ``MultimodalPreprocessor`` in front, over
+a ``PushRouter`` client of the card's ``extra["encode_endpoint"]``.
 """
 
 from __future__ import annotations
@@ -169,9 +173,17 @@ class ModelWatcher:
         push = await PushRouter.create(
             self._drt, entry.endpoint, self.router_mode, selector=selector
         )
+        encoder = None
+        if card.model_type == "multimodal":
+            encode_ep = card.extra.get("encode_endpoint")
+            if not encode_ep:
+                raise ValueError(
+                    f"multimodal card {card.name!r} missing extra.encode_endpoint")
+            encoder = await PushRouter.create(self._drt, encode_ep, RouterMode.ROUND_ROBIN)
         # Worker death mid-decode is a replay on a sibling, not an error
         # (runtime/failover.py).
-        pipeline = build_serving_pipeline(card, FailoverEngine(push), self._engine_ops)
+        pipeline = build_serving_pipeline(card, FailoverEngine(push), self._engine_ops,
+                                          encoder=encoder)
         self.manager.add_model(entry.name, pipeline, card)
         logger.info("model %s now served via %s", entry.name, entry.endpoint)
 
@@ -188,18 +200,29 @@ def build_serving_pipeline(
     card: ModelDeploymentCard,
     engine: AsyncEngine,
     engine_ops: tuple[Operator, ...] = (),
+    encoder: AsyncEngine | None = None,
 ) -> Pipeline:
     """preprocessor → detokenizer → ``engine_ops`` → ``engine`` (a local
     engine, or a FailoverEngine over a PushRouter). ``engine_ops`` see
-    the engine's own requests and outputs."""
-    if card.model_type != "chat":
-        raise ValueError(
-            f"model type {card.model_type!r} is not served by this slice"
-        )
+    the engine's own requests and outputs. An ``embeddings`` card gets
+    the tokenize-only operator; a ``multimodal`` one the image-aware
+    preprocessor over ``encoder`` (the encode worker's client)."""
     tokenizer = load_tokenizer(card.model_path)
-    return Pipeline.link(
-        OpenAIPreprocessor(card, tokenizer),
-        Detokenizer(tokenizer),
-        *engine_ops,
-        engine=engine,
-    )
+    if card.model_type == "embeddings":
+        from dynamo_tpu_torch.llm.embedding import EmbeddingPreprocessor
+
+        return Pipeline.link(EmbeddingPreprocessor(card, tokenizer), *engine_ops,
+                             engine=engine)
+    if card.model_type == "multimodal":
+        from dynamo_tpu_torch.llm.multimodal import MultimodalPreprocessor
+
+        if encoder is None:
+            raise ValueError(f"multimodal card {card.name!r} needs an encode worker")
+        pre = MultimodalPreprocessor(
+            card, tokenizer, encoder,
+            placeholder_token=int(card.extra.get("placeholder_token", 0)))
+    elif card.model_type == "chat":
+        pre = OpenAIPreprocessor(card, tokenizer)
+    else:
+        raise ValueError(f"model type {card.model_type!r} is not served by the port")
+    return Pipeline.link(pre, Detokenizer(tokenizer), *engine_ops, engine=engine)

@@ -49,17 +49,21 @@ unless a profile directory is configured, 409 while one runs). Both
 /metrics renderings carry the router gauges (``ROUTE_OBS``) and the
 planner's (``PLANNER_OBS``).
 
-Not in this port yet, refused rather than ignored: /v1/embeddings, 404
-with the reference's error body.
+/v1/embeddings fans each input of a request out to the model's
+embeddings pipeline (llm/embedding.py) and folds the vectors, as float
+lists or base64 little-endian float32, with the prompt tokens as usage;
+a model whose card is not an embeddings model answers 400.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
 import contextlib
 import email.utils
 import json
 import logging
+import struct
 from urllib.parse import parse_qsl
 
 from dynamo_tpu_torch.llm import slo
@@ -84,7 +88,9 @@ from dynamo_tpu_torch.llm.protocols.openai import (
     CompletionChoice,
     CompletionRequest,
     CompletionResponse,
+    EmbeddingData,
     EmbeddingRequest,
+    EmbeddingResponse,
     ModelInfo,
     ModelList,
     Usage,
@@ -441,6 +447,7 @@ class HttpService:
                     await handler
         if handler.cancelled():
             return False
+        # dynalint: allow[DT001] the handler task is done (asyncio.wait returned it, not cancelled): result() returns at once
         resp = handler.result()
         if resp is not None:
             await self._write(writer, resp, keep_alive, head_only=head)
@@ -593,16 +600,68 @@ class HttpService:
         return _json_response(result)
 
     async def _embeddings(self, req, _w) -> _Response:
+        """Each input fans out to its own request of the embeddings
+        pipeline; the vectors fold into one response (reference:
+        openai.rs:212)."""
         try:
             oai = EmbeddingRequest.model_validate(json.loads(req.body.decode()))
         except Exception as exc:  # noqa: BLE001
             return _error(400, f"invalid request: {exc}")
-        if self.manager.get(oai.model) is None:
+        engine = self.manager.get(oai.model)
+        if engine is None:
             return _error(404, f"model {oai.model!r} not found")
-        return _error(
-            404, f"model {oai.model!r} serves chat; embeddings are not "
-            "served by this slice"
-        )
+        card = self.manager.card(oai.model)
+        if card is None or card.model_type != "embeddings":
+            return _error(400, f"model {oai.model!r} is not an embeddings model")
+        raw = oai.input
+        if isinstance(raw, str) or (raw and isinstance(raw[0], int)):
+            inputs = [raw]   # one string or one pre-tokenized input
+        else:
+            inputs = list(raw)
+        if not inputs or any(not item for item in inputs):
+            return _error(400, "input must be non-empty")
+        # Admitted only after validation: no early return holds a permit.
+        try:
+            permit = self.admission.admit(request_class=slo.normalize_class(
+                req.headers.get(REQUEST_CLASS_HEADER),
+                self.admission.cfg.default_request_class))
+        except AdmissionRejected as exc:
+            return _shed_response(exc.reason, exc.retry_after_s, exc.draining)
+
+        async def one(idx: int, item):
+            ctx = Context({"token_ids": list(item)} if isinstance(item, list)
+                          else {"input": item})
+            try:
+                async for out in engine.generate(ctx):
+                    return idx, out
+                raise RuntimeError("embedding engine returned no output")
+            finally:
+                # Embeddings never reach the chat path's finish: close any
+                # trace a router opened for this Context.
+                tracer().finish(ctx.id)
+
+        with permit, self.metrics.guard(oai.model, "embeddings") as guard:
+            try:
+                results = await asyncio.gather(*(one(i, x) for i, x in enumerate(inputs)))
+            except ValueError as exc:
+                return _error(400, str(exc))
+            except Exception as exc:  # noqa: BLE001
+                logger.exception("embeddings failed")
+                return _error(500, str(exc))
+            guard.success()
+        if oai.encoding_format == "base64":
+            # The OpenAI contract: little-endian float32 bytes, base64.
+            def enc(vec):
+                return base64.b64encode(struct.pack(f"<{len(vec)}f", *vec)).decode()
+        else:
+            def enc(vec):
+                return vec
+        total = sum(out["prompt_tokens"] for _, out in results)
+        resp = EmbeddingResponse(
+            data=[EmbeddingData(index=i, embedding=enc(out["embedding"]))
+                  for i, out in sorted(results, key=lambda r: r[0])],
+            model=oai.model, usage=Usage(prompt_tokens=total, total_tokens=total))
+        return _json_response(resp.model_dump())
 
     async def _chat(self, req, w) -> _Response | None:
         return await self._serve(req, w, ChatCompletionRequest, "chat_completions")

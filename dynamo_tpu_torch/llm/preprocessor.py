@@ -128,6 +128,14 @@ class OpenAIPreprocessor(Operator):
             pre.annotations[ANNOTATION_FORMATTED_PROMPT] = prompt
         return pre
 
+    async def preprocess_async(
+        self, request: ChatCompletionRequest | CompletionRequest
+    ) -> PreprocessedRequest:
+        """The forward path as the operator runs it: a subclass that must
+        await a service while preprocessing (the multimodal encode worker,
+        llm/multimodal.py) overrides this; here it is ``preprocess``."""
+        return self.preprocess(request)
+
     # -- logprob rendering ---------------------------------------------------
     def _tok_str(self, token_id: int) -> str:
         return self.tokenizer.decode([token_id])
@@ -184,7 +192,7 @@ class OpenAIPreprocessor(Operator):
     ) -> AsyncIterator[Any]:
         oai: ChatCompletionRequest | CompletionRequest = request.payload
         with tracer().span(request.id, "tokenize"):
-            pre = self.preprocess(oai)
+            pre = await self.preprocess_async(oai)
         # The HTTP boundary parsed or defaulted the deadline and the class
         # onto the Context; from here they ride the wire.
         pre.deadline = request.annotations.get("deadline")

@@ -303,8 +303,8 @@ class CompletionRequest(_CommonRequest):
 
 @dataclass(kw_only=True)
 class EmbeddingRequest(_Model):
-    """Validated so that /v1/embeddings answers as the reference does
-    for a model it does not serve."""
+    """A /v1/embeddings request: one input (a string or token ids) or a
+    list of them."""
 
     _extra_allowed: ClassVar[bool] = True
     model: str
@@ -317,6 +317,22 @@ class Usage(_Model):
     prompt_tokens: int = 0
     completion_tokens: int = 0
     total_tokens: int = 0
+
+
+@dataclass(kw_only=True)
+class EmbeddingData(_Model):
+    object: Literal["embedding"] = "embedding"
+    index: int = 0
+    # A list for encoding_format=float, a str for base64 (LE f32 bytes).
+    embedding: list[float] | str = field(default_factory=list)
+
+
+@dataclass(kw_only=True)
+class EmbeddingResponse(_Model):
+    object: Literal["list"] = "list"
+    data: list[EmbeddingData] = field(default_factory=list)
+    model: str = ""
+    usage: Usage = field(default_factory=Usage)
 
 
 @dataclass(kw_only=True)

@@ -50,7 +50,7 @@ from dynamo_tpu_torch.engine.compile_cache import (
 )
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import TorchEngine
-from dynamo_tpu_torch.engine.runner import _unified_warm_lanes
+from dynamo_tpu_torch.engine.runner import _serves_variant, _unified_warm_lanes
 
 #: Fake top alternatives per token reported by an extras dispatch.
 _SIM_LOGPROBS = 8
@@ -188,9 +188,7 @@ class _SimRunner(WarmupPlanMixin):
         and sampled programs made."""
         cfg = self.cfg
         kind, t = spec[0], spec[1]
-        if kind not in ("unified", "unified_full"):
-            return None
-        if kind == "unified_full" and not cfg.sampling_extras:
+        if not _serves_variant(cfg, kind):
             return None
         if not _unified_warm_lanes(t, self.unified_slots, cfg.max_model_len,
                                    [0], (0.0, 0, 1.0)):
@@ -225,7 +223,7 @@ class _SimRunner(WarmupPlanMixin):
         return int(self._rng.integers(0, self.sim.vocab_size))
 
     # -- phase-split entry points ----------------------------------------------
-    def prefill(self, new_tokens, block_ids, prefix_len, sampling) -> int:
+    def prefill(self, new_tokens, block_ids, prefix_len, sampling, mm_embeds=None) -> int:
         n = len(new_tokens)
         self._charge(self._weight_pass_us(self.sim.prefill_dispatch_base_us)
                      + self._prefill_cost_us(n))
@@ -275,14 +273,16 @@ class _SimRunner(WarmupPlanMixin):
         ).astype(np.int32)
 
     # -- the unified step -----------------------------------------------------
-    def unified_step(self, lanes, feed=None, draft_lens=None, extras=None) -> _SimOut:
+    def unified_step(self, lanes, feed=None, draft_lens=None, extras=None,
+                     mm=None) -> _SimOut:
         """Sim twin of ModelRunner.unified_step: one mixed dispatch priced
         per phase (weight pass + each decode lane's KV read + the prefill
         tokens, draft rows priced as prefill tokens), counted on the
         budget ladder as the runner counts its programs. Under
         ``deterministic_tokens`` a verify span accepts exactly the drafts
         that match the closed-form chain, so the delivered tokens are the
-        chain whatever the drafts were."""
+        chain whatever the drafts were. An ``mm`` dispatch is the
+        unified_mm program at the top rung, priced as the extras one."""
         cfg = self.cfg
         dls = list(draft_lens) if draft_lens else [0] * len(lanes)
         dls += [0] * (len(lanes) - len(dls))
@@ -294,7 +294,9 @@ class _SimRunner(WarmupPlanMixin):
         ]
         prefill_tokens = total - len(decode) - drafted
         decode_ctx = sum(prefix + len(t) for t, prefix in decode)
-        if extras is not None:
+        if mm is not None and any(mm):
+            kind, T = "unified_mm", _bucket(cfg.unified_token_budget)
+        elif extras is not None:
             kind, T = "unified_full", _bucket(cfg.unified_token_budget)
         else:
             kind, T = "unified", token_budget(total, cfg.unified_token_budget)

@@ -369,7 +369,7 @@ def _logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _layers(
     cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
-    positions: torch.Tensor, attend, on_layer=None,
+    positions: torch.Tensor, attend, on_layer=None, embeds=None, embed_mask=None,
 ) -> torch.Tensor:
     """The decoder stack over flat rows: embed, then per layer the
     family's norm, q/k/v, RoPE at ``positions`` with the layer's
@@ -385,13 +385,18 @@ def _layers(
     qk_rope_head_dim, and attend over the shared latent entry.
     ``on_layer(li, x_attn, x_out)``, where given, sees each layer's
     residual after its attention and after its MLP (a divergence probe,
-    tools/layer_divergence.py)."""
+    tools/layer_divergence.py). ``embeds`` [rows, D] and ``embed_mask``
+    [rows] (bool), where given, replace the masked rows' token
+    embeddings (``_splice``)."""
     rows = token_ids.shape[0]
     tables = rope_tables(
         positions, cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim,
         [_layer_rope(cfg, li) for li in range(len(params["layers"]))],
     )
-    x = _embed(params, cfg, token_ids.long()).float()
+    x = _embed(params, cfg, token_ids.long())
+    if embeds is not None:
+        x = _splice(x, embeds, embed_mask)
+    x = x.float()
     for li, layer in enumerate(params["layers"]):
         h = _ln(x, layer["ln_attn"], cfg).to(layer["wo"].dtype)
         cos, sin = tables[li]
@@ -406,6 +411,15 @@ def _layers(
         if on_layer is not None:
             on_layer(li, x_attn, x)
     return x
+
+
+def _splice(x: torch.Tensor, embeds: torch.Tensor, embed_mask: torch.Tensor) -> torch.Tensor:
+    """The multimodal soft prompt: rows under ``embed_mask`` take
+    ``embeds`` (float32 patch embeddings from the encode worker) in place
+    of their placeholder tokens' embeddings, rounded to the embeddings'
+    dtype as the reference's ``jnp.where(embed_mask, embeds.astype(x.dtype),
+    x)`` rounds them; the residual stream then widens both alike."""
+    return torch.where(embed_mask[:, None], embeds.to(x.dtype), x)
 
 
 def _write_kv(cache: tuple[torch.Tensor, torch.Tensor], slots, k, v) -> None:
@@ -433,6 +447,8 @@ def unified(
     kv_scales: torch.Tensor | None = None,  # [L, 2, num_blocks, kvH] f32
     draft_len: torch.Tensor | None = None,  # [S] draft rows in each span tail
     verify_rows: int = 1,                   # logit rows per span (static)
+    embeds: torch.Tensor | None = None,     # [T, D] soft-prompt rows (f32)
+    embed_mask: torch.Tensor | None = None,  # [T] bool: rows taken from embeds
 ):
     """ONE forward for a mixed prefill+decode token batch (the unified
     step): embed, RoPE at ``token_pos``, K/V scatter at ``slot_mapping``,
@@ -452,7 +468,10 @@ def unified(
     With ``kv_scales`` (int8 caches) the K/V scatter goes through the
     write law (ops/quant.py ``quantize_kv_write``), attention dequantizes
     in the kernel or the plain version, and the return is
-    ``(logits, new_scales [L, 2, num_blocks, kvH])``."""
+    ``(logits, new_scales [L, 2, num_blocks, kvH])``.
+
+    ``embeds``/``embed_mask`` substitute multimodal soft-prompt rows into
+    the flat batch (the ``unified_mm`` program)."""
     T = token_ids.shape[0]
     slots = slot_mapping.long()
     new_scales = []
@@ -473,7 +492,8 @@ def unified(
             window=cfg.layer_window(li), **scale_kw,
         )
 
-    x = _layers(cfg, params, token_ids, torch.clamp(token_pos, min=0), attend)
+    x = _layers(cfg, params, token_ids, torch.clamp(token_pos, min=0), attend,
+                embeds=embeds, embed_mask=embed_mask)
     if verify_rows == 1:
         last = torch.clamp(row_start + q_len - 1, 0, T - 1).long()
         logits = _logits(params, cfg, x[last])
@@ -501,11 +521,13 @@ def prefill_batch(
     prefix_len: torch.Tensor,    # [N]
     total_len: torch.Tensor,     # [N] (0 = idle lane)
     block_size: int,
+    embeds: torch.Tensor | None = None,      # [N, T, D] soft-prompt rows (f32)
+    embed_mask: torch.Tensor | None = None,  # [N, T] bool
 ) -> torch.Tensor:
     """N sequences' prefills fused into one call: the projections and
     MLP run over all N*T rows, K/V scatter once, and the prefill kernel
     reads the shared cache through per-lane block tables. Returns
-    last-token logits [N, V]."""
+    last-token logits [N, V]. ``embeds``/``embed_mask`` as in ``unified``."""
     N, T = token_ids.shape
     positions = prefix_len[:, None] + torch.arange(T, device=token_ids.device)
     slots = slot_mapping.reshape(N * T).long()
@@ -519,7 +541,10 @@ def prefill_batch(
         )
         return out.reshape(N * T, *q.shape[1:])
 
-    x = _layers(cfg, params, token_ids.reshape(N * T), positions.reshape(N * T), attend)
+    if embeds is not None:
+        embeds, embed_mask = embeds.reshape(N * T, -1), embed_mask.reshape(N * T)
+    x = _layers(cfg, params, token_ids.reshape(N * T), positions.reshape(N * T), attend,
+                embeds=embeds, embed_mask=embed_mask)
     last = torch.clamp(total_len - prefix_len - 1, 0, T - 1).long()
     hs = x.reshape(N, T, -1)[torch.arange(N, device=x.device), last]
     return _logits(params, cfg, hs)
@@ -535,6 +560,8 @@ def prefill(
     prefix_len: torch.Tensor,    # scalar — prefix-cache hit length
     total_len: torch.Tensor,     # scalar — prefix + real new tokens
     block_size: int,
+    embeds: torch.Tensor | None = None,      # [T, D] soft-prompt rows (f32)
+    embed_mask: torch.Tensor | None = None,  # [T] bool
 ) -> torch.Tensor:
     """Prefill one sequence's new tokens (the suffix after any
     prefix-cache hit); returns the last real token's logits [V]."""
@@ -542,6 +569,8 @@ def prefill(
         cfg, params, kv_caches, token_ids[None], block_table[None],
         slot_mapping[None], prefix_len.reshape(1), total_len.reshape(1),
         block_size,
+        embeds=None if embeds is None else embeds[None],
+        embed_mask=None if embed_mask is None else embed_mask[None],
     )[0]
 
 
@@ -572,22 +601,26 @@ def decode(
 
 
 def hidden_states(
-    cfg: ModelConfig, params: Params, token_ids: torch.Tensor
+    cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
+    embeds: torch.Tensor | None = None, embed_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Full no-cache trunk [T] -> pre-final-norm hidden states [T, D]
-    (float32, the residual stream's dtype)."""
+    (float32, the residual stream's dtype); ``embeds``/``embed_mask`` as
+    in ``unified``."""
     positions = torch.arange(token_ids.shape[0], device=token_ids.device)
     return _layers(
         cfg, params, token_ids, positions,
         lambda li, q, k, v: full_causal_attention(
             q, k, v, window=cfg.layer_window(li)
         ),
+        embeds=embeds, embed_mask=embed_mask,
     )
 
 
 def reference_forward(
-    cfg: ModelConfig, params: Params, token_ids: torch.Tensor
+    cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
+    embeds: torch.Tensor | None = None, embed_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Full no-cache forward [T] -> logits [T, V]; the correctness oracle
-    the paged paths are tested against."""
-    return _logits(params, cfg, hidden_states(cfg, params, token_ids))
+    the paged paths are tested against, the multimodal ones included."""
+    return _logits(params, cfg, hidden_states(cfg, params, token_ids, embeds, embed_mask))

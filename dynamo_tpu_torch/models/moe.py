@@ -18,7 +18,8 @@ two formulations of the expert SwiGLUs.
 
 The JAX package computes the experts with XLA einsums, not a Pallas
 kernel; here they are batched matrix products (``ops/quant.py``
-``expert_mm``: the weights' dtype in, float32 out). Every shape follows
+``expert_mm``: the weights' dtype in, float32 out; ``expert_mm_f32``
+for ``w_down``, whose float32 input stays float32). Every shape follows
 from T, a host integer fixed per budget rung, so a dispatch never reads
 the card back and a CUDA graph captures either formulation.
 """
@@ -31,7 +32,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.ops.quant import expert_mm
+from dynamo_tpu_torch.ops.quant import expert_mm, expert_mm_f32
 
 # Dense runs E/topk times the selected FLOPs; capacity pays the gather
 # and scatter. E=16 is the reference's crossover.
@@ -136,12 +137,13 @@ def moe_router(params: dict, x: torch.Tensor, cfg: MoeConfig) -> torch.Tensor:
 
 def _experts(params: dict, buf: torch.Tensor) -> torch.Tensor:
     """The stacked SwiGLUs over per-expert rows ``buf`` [E, N, D] →
-    float32 [E, N, D]; the activations go back to the weights' dtype
-    before ``w_down``."""
-    w_down = params["w_down"]
-    buf = buf.to(w_down.dtype)
+    float32 [E, N, D]. The rows go to the weights' dtype for the gate
+    and up products (the reference's input is in that dtype); the
+    activation ``h`` stays float32 into ``w_down``, as in the reference
+    (``expert_mm_f32``)."""
+    buf = buf.to(params["w_down"].dtype)
     h = F.silu(expert_mm(buf, params["w_gate"])) * expert_mm(buf, params["w_up"])
-    return expert_mm(h.to(w_down.dtype), w_down)
+    return expert_mm_f32(h, params["w_down"])
 
 
 def moe_mlp(params: dict, x: torch.Tensor, cfg: MoeConfig) -> torch.Tensor:

@@ -34,19 +34,49 @@ def qeinsum(pattern: str, x: torch.Tensor, w) -> torch.Tensor:
     return torch.einsum(pattern, x, _plain(w))
 
 
-def expert_mm(x: torch.Tensor, w) -> torch.Tensor:
-    """Stacked experts' products ``[E, N, in] @ [E, in, out]`` with a
-    float32 output and the operands in ``w``'s dtype: on the card one
-    cuBLAS batched product with float32 sums and output, so the stacked
-    bf16 weights are never copied to float32; on the CPU the operands
-    are widened first (the same products and sums)."""
-    w = _plain(w)
-    x = x.to(w.dtype)
+def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with operands of one dtype, float32 sums and output: on
+    the card one cuBLAS batched product, so the stacked weights are never
+    copied to float32; on the CPU the operands are widened first (the
+    same products and sums)."""
     if w.dtype == torch.float32:
         return torch.bmm(x, w)
     if x.is_cuda:
         return torch.bmm(x, w, out_dtype=torch.float32)
     return torch.bmm(x.float(), w.float())
+
+
+def expert_mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Stacked experts' products ``[E, N, in] @ [E, in, out]`` with a
+    float32 output and the operands in ``w``'s dtype."""
+    w = _plain(w)
+    return _bmm_f32(x.to(w.dtype), w)
+
+
+def expert_mm_f32(h: torch.Tensor, w) -> torch.Tensor:
+    """Stacked experts' products with a float32 input kept in float32, as
+    the reference's ``_expert_einsum`` widens the weights: on the CPU the
+    weights are widened; on the card ``split_bmm``."""
+    w = _plain(w)
+    h = h.float()
+    if w.dtype == torch.float32 or not h.is_cuda:
+        return torch.bmm(h, w.float())
+    return split_bmm(h, w)
+
+
+def split_bmm(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 ``h [E, N, in]`` against a low-precision ``w`` without
+    widening ``w``: ``h`` splits into two terms of ``w``'s dtype, ``hi =
+    h`` rounded and ``lo = h - hi`` rounded, stacked along the rows as
+    ``[E, 2N, in]``, and one product with float32 sums gives both halves,
+    which are added. The stacked weights are read once (a widened copy
+    would cost 1.1 GB a deepseek-v2-lite layer); the rows' arithmetic
+    doubles. ``hi + lo`` carries ``h`` to about 16 bits of mantissa."""
+    hi = h.to(w.dtype)
+    lo = (h - hi.float()).to(w.dtype)
+    n = h.shape[1]
+    out = _bmm_f32(torch.cat([hi, lo], dim=1), w)
+    return out[:, :n] + out[:, n:]
 
 
 def embed_lookup(embed, token_ids: torch.Tensor) -> torch.Tensor:

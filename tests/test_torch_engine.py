@@ -385,6 +385,9 @@ from dynamo_tpu_torch import planner  # noqa: F401
 from dynamo_tpu_torch.planner import calibration, fleet, obs, pools, profiles, simulate  # noqa: F401
 from dynamo_tpu_torch.llm.kv_router import replicas  # noqa: F401
 from dynamo_tpu_torch.utils import concurrency, pool  # noqa: F401
+from dynamo_tpu_torch.llm import embedding, multimodal  # noqa: F401
+from dynamo_tpu_torch.models import vision  # noqa: F401
+from dynamo_tpu_torch.examples import multimodal as mm_example  # noqa: F401
 import chip_smoke  # noqa: F401
 
 

@@ -523,7 +523,9 @@ REFUSED = {
     "--quant": ["--quant", "int8"],
     "--weight-quant": ["--weight-quant", "int8"],
     "--speculative-k": ["--speculative-k", "-1"],
-    "--model-type embeddings": ["--model-type", "embeddings"],
+    # Served with --out torch (tests/test_torch_embedding.py); the echo
+    # engines serve chat only.
+    "--model-type embeddings": ["--model-type", "embeddings", "--out", "echo_core"],
     "--config": ["--config", "x.yaml"],
     "--set": ["--set", "Engine.x=1"],
 }

@@ -394,7 +394,9 @@ def test_unserved_headers_and_routes_are_refused():
     the JAX server does), and so is /debug/routes now (the name is kept
     from when it was refused): both servers give the same route records,
     totals and router gauges for the same decisions, and the same 400
-    for a bad ``n``. What stays refused is /v1/embeddings, 404 on both."""
+    for a bad ``n``. /v1/embeddings is served now
+    (tests/test_torch_embedding.py); for the echo chat model, which is no
+    embeddings model, the port answers 400."""
     from dynamo_tpu.llm.kv_router.audit import ROUTE_OBS as J_OBS
     from dynamo_tpu.llm.kv_router.audit import RouteAuditRecord as JRec
     from dynamo_tpu_torch.llm.kv_router.audit import ROUTE_OBS as T_OBS
@@ -436,7 +438,7 @@ def test_unserved_headers_and_routes_are_refused():
     assert got[:3] == [200, 200, 200] and got[3][:3] == (200, 3, 3)
     assert [r["trace"] for r in got[3][3]] == ["t1", "t2"] and got[3][4]
     assert got[4][0] == 400 and got[5] is True
-    assert _port_server(embeddings) == 404
+    assert _port_server(embeddings) == 400
 
 
 # -- tiny-test through both engines -----------------------------------------

@@ -268,6 +268,57 @@ def test_moe_bf16_matches_float32_within_tolerance():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-2)
 
 
+def _j_experts(jtree, buf):
+    """The reference's expert SwiGLUs (``_expert_einsum``: the weights
+    widened to float32, ``h`` kept in float32 into ``w_down``)."""
+    w = {k: jnp.asarray(jtree[k]) for k in ("w_gate", "w_up", "w_down")}
+    buf = jnp.asarray(buf)
+    h = (jax.nn.silu(j_moe._expert_einsum("end,edi->eni", buf, w["w_gate"]))
+         * j_moe._expert_einsum("end,edi->eni", buf, w["w_up"]))
+    return np.asarray(j_moe._expert_einsum("eni,eid->end", h, w["w_down"]))
+
+
+@pytest.mark.parametrize("dispatch", ["experts", "dense", "capacity"])
+def test_bf16_experts_keep_h_in_float32_as_jax_does(dispatch):
+    """At bf16 expert weights the port's SwiGLU keeps ``h`` in float32
+    into ``w_down``, as the reference's ``_expert_einsum`` path does:
+    ``_experts`` and both formulations of ``moe_mlp`` lie within 1e-5 of
+    JAX's on the same bf16 weights and bf16-valued rows (the bf16
+    engine's old law, ``h`` rounded to bf16 first, misses by more than
+    1e-3, printed with -s). The card's form of the down product
+    (``split_bmm``: ``h`` as two bf16 terms against the unwidened weights,
+    one float32-sum product) lies within 1e-4 of it."""
+    from dynamo_tpu_torch.ops import quant
+
+    jcfg, tcfg = _cfgs(dispatch="dense" if dispatch == "experts" else dispatch,
+                       capacity_factor=4.0)
+    jtree, tp = _params(jcfg, 5)
+    jb = {k: v.astype(jnp.bfloat16) if k.startswith("w_") and k != "w_router" else v
+          for k, v in jtree.items()}
+    tb = {k: torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16)
+          if k.startswith("w_") and k != "w_router" else torch.from_numpy(np.array(v))
+          for k, v in jb.items()}
+    if dispatch == "experts":
+        x = torch.from_numpy(_x(21, (4, 11, 32))).bfloat16().float()
+        want = _j_experts(jb, x.numpy())
+        got = t_moe._experts(tb, x)
+        w_down = tb["w_down"]
+        h = (torch.nn.functional.silu(quant.expert_mm(x, tb["w_gate"]))
+             * quant.expert_mm(x, tb["w_up"]))
+        old = quant.expert_mm(h.to(torch.bfloat16), w_down).numpy()
+        split = quant.split_bmm(h, w_down).numpy()
+        print(f"old law {np.abs(old - want).max():.2e}, split {np.abs(split - want).max():.2e}, "
+              f"new {np.abs(got.numpy() - want).max():.2e}")
+        assert np.abs(old - want).max() > 1e-3
+        np.testing.assert_allclose(split, want, rtol=1e-4, atol=1e-4)
+    else:
+        x = _x(22, (16, 32))
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+        want = np.asarray(j_moe.moe_mlp(jax.tree.map(jnp.asarray, jb), jnp.asarray(x), jcfg))
+        got = t_moe.moe_mlp(tb, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
 async def _collect(engine, proto, ctx_cls, prompt, n):
     pre = proto.PreprocessedRequest(
         token_ids=prompt, sampling=proto.SamplingOptions(temperature=0.0),

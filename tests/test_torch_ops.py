@@ -394,7 +394,10 @@ def test_token_block_sequence_chains_hashes():
     ("speculative_k", 2, {"block_size": 1, "num_blocks": 1024}, "block_size=1"),
     ("mesh_shape", {"tp": 2}, {}, "not served"),
     ("kv_sp", True, {}, "not served"),
-    ("multimodal", True, {}, "not served"),
+    # Multimodal is served since the multimodal slice
+    # (tests/test_torch_multimodal.py validates it); beside a mesh, the
+    # mesh is what is refused.
+    ("multimodal", True, {"mesh_shape": {"tp": 2}}, "a device mesh is not served"),
 ], ids=["kv_quant-fp8", "quant-int8", "weight_quant-int8", "speculative_k-2",
         "mesh_shape-value4", "kv_sp-True", "multimodal-True"])
 def test_engine_config_refuses_unserved_features(field, value, extra, match):

@@ -828,7 +828,14 @@ async def _flood(engine_cls, cfg_cls, model, sim, ctx_cls, proto, n):
                 return item["finish_reason"]
 
     tasks = [asyncio.ensure_future(one(i)) for i in range(n)]
-    await asyncio.sleep(0.3)
+    # The first finish comes when the n-th arrival overflows the queue;
+    # then every other request must be waiting in the engine. (Waits on
+    # the events, bounded, not on a fixed time: under load the arrivals
+    # take longer than any fixed read.)
+    await asyncio.wait(tasks, timeout=30.0, return_when=asyncio.FIRST_COMPLETED)
+    deadline = time.monotonic() + 30.0
+    while len(eng.scheduler.waiting) < n - 1 and time.monotonic() < deadline:
+        await asyncio.sleep(0.01)
     done = {i: t.result() for i, t in enumerate(tasks) if t.done()}
     for t in tasks:
         t.cancel()

@@ -147,6 +147,44 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 do not, as near ties), and prefill_batch's first-token
                 log-probabilities must match it; token-match rate
                 against the unified serve.
+   files      — serving from files, on the serve's llama3.2-1b weights:
+                they are written as an HF checkout (bf16, two safetensors
+                shards with their index, config.json with Llama-3.2's
+                rope_scaling, a tokenizer.json whose byte-level BPE is
+                learned here from a fixed text with Llama-3's Split
+                pattern and special tokens, a Llama-3-style Jinja chat
+                template, a generation_config.json with two eos ids),
+                read back with ``LocalModel.prepare`` and ``load_params``
+                on the card (bytes, seconds, GB/s): the config and every
+                weight equal the serve's, and the 8 prompts served from
+                the files give the streams of the same weights given in
+                memory, both engines holding admission while their
+                warmup runs and retiring each dispatch before the next, so
+                they dispatch the same batches (the serve phase's
+                arrivals race, so its streams are only compared);
+                ``run --in http --out torch --model-path DIR`` through the
+                CLI's own path serves the first prompt alone to the
+                stream the in-memory engine gives it alone.
+                A worker process ``run --in dyn://... --model-path DIR
+                --config FILE.yaml --set Run.model-name=...`` and the
+                CLI's frontend (``--in http --out dyn``) after the
+                worker's directory is removed: the frontend materializes
+                the shipped tokenizer files; 2 chats, each sent once to
+                fill the prefix cache, then aggregated and streamed:
+                prompt ids = the port's HfTokenizer's, usage counts them,
+                text = decode of the tapped ids = the streamed pieces
+                joined; the YAML's max-model-len and the --set name read
+                back from the worker's card; the worker's ragged launches
+                per dispatch on the tile and split paths. A GGUF (F16, 2
+                layers, the whole vocabulary embedded) and an F16
+                safetensors checkout of the same weights load equal and
+                serve equal streams, ``--model-path FILE.gguf`` over HTTP
+                too. DeepSeek-V2-Lite at full width and 2
+                layers (dense, then MoE) through the 576-wide ragged
+                entry, float32 and bf16 checkouts against the same
+                weights as a parameter tree: weights equal, streams equal
+                (bf16: or within MLA_BF16_LIMITS' dense leg against the
+                no-cache reference).
 9. fleet      — the runtime plane at full width, through the CLI's own
                 paths: a ``control-plane --port 0`` process; the frontend
                 ``run --in http --out dyn --control-plane ADDR`` built in
@@ -612,7 +650,15 @@ def phase_build() -> None:
     reports = _build.build_all(KERNEL_SOURCES)
     for module in (ragged_attention, paged_decode_attention, paged_prefill_attention):
         module.build()
-    emit({"phase": "build", "kernels": KERNEL_SOURCES,
+    try:
+        # Renders a model file's chat template (phase files); torch
+        # depends on it.
+        import jinja2
+
+        jinja = jinja2.__version__
+    except ImportError:
+        jinja = None
+    emit({"phase": "build", "kernels": KERNEL_SOURCES, "jinja2": jinja,
           "build_s": round(time.monotonic() - t0, 3),
           "nvcc_s": {name: float(text.rsplit("nvcc seconds:", 1)[1])
                      for name, text in reports.items()},
@@ -2762,6 +2808,454 @@ def phase_phases(params, prompts, unified_streams, max_tokens, ecfg=None,
               "gap": ref["max_logprob_gap_at_disagreement"],
               "first_logprob_err": lp_err}, gates)
     return result
+
+
+# -- phase: files ------------------------------------------------------------
+FILES_ENDPOINT = "dyn://dynamo.files.generate"
+FILES_MODEL_NAME = "llama-files"    # --set Run.model-name on the files worker
+FILES_MAX_LEN = 1024                # the worker's YAML: Common.max-model-len (CLI: 2048)
+FILES_MERGES = 200                  # BPE merges the checkout's tokenizer learns
+FILES_SHALLOW = 2                   # the GGUF and DeepSeek checkouts' depth
+FILES_CHATS = [
+    [{"role": "user", "content": "Write a haiku about serving models from their files."}],
+    [{"role": "system", "content": "You are terse."},
+     {"role": "user", "content": "What is 2048 + 128256? Über-quick, café-style 🙂"}],
+]
+FILES_YAML = f"""# the files worker's deployment config (chip_smoke.py phase files)
+Common:
+  max-model-len: {FILES_MAX_LEN}
+Run:
+  out: torch
+Engine:
+  common-configs: [max-model-len]
+  num-blocks: 1024
+  max-num-seqs: 8
+  prefill-batch: 4
+  unified-token-budget: 256
+  unified-prefill-quantum: 64
+"""
+
+
+async def held_serve(ecfg, params, prompts, max_tokens) -> dict:
+    """The prompts through a fresh TorchEngine whose admission is held
+    (``warmup_gate="hold"``) while they queue and its warmup runs, so the
+    first dispatch composes every prompt, and which retires each dispatch
+    before it composes the next (``pipeline_depth=1``: at depth 2 a
+    dispatch retires early when the card has finished it, so what the
+    next one holds follows timing): two engines with equal weights and
+    settings dispatch the same batches. The ragged launches counted over
+    the warmup and the serve: one call per layer per warm pass and per
+    dispatch."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+
+    engine = TorchEngine(dataclasses.replace(ecfg, warmup_gate="hold", pipeline_depth=1),
+                         params=params, device=DEVICE)
+    await engine.start()
+    try:
+        reset_counts()
+        task = asyncio.ensure_future(serve(engine, prompts, max_tokens))
+        for _ in range(20):
+            await asyncio.sleep(0)
+        programs = await engine.warmup()
+        streams, finishes, _ttft, wall = await task
+        warm = engine.runner.compile_stats.capture_snapshot()["graphs_captured"]
+        out = {"streams": streams, "wall_s": wall, "warmup_programs": programs,
+               "warm_passes": warm, "unified_dispatches": engine.unified_dispatches,
+               "kernel_launches": fn.launches,
+               "kernel_launches_by_path": {"tc": fn.launches_tc, "split": fn.launches_split,
+                                           "walk": fn.launches_walk},
+               "mid_traffic_compiles_total": mid_traffic(engine)}
+    finally:
+        await engine.stop()
+    L = ecfg.model.num_layers
+    want = L * (out["warm_passes"] + out["unified_dispatches"])
+    full = all(len(s) == max_tokens for s in streams)
+    if out["kernel_launches"] != want or out["unified_dispatches"] == 0 or not full:
+        fail("files: ragged launches (layers x (warm passes + dispatches)) or stream lengths",
+             [out["kernel_launches"], full], [want, True])
+    return out
+
+
+async def cli_http_serve(model_path: str, prompt: list[int], max_tokens: int) -> dict:
+    """``run --in http --out torch --model-path FILES`` through the CLI's
+    own path in this process (the serve's engine settings): one greedy
+    completion of token ids, its engine ids tapped, and the ragged
+    launches of the engine's warmup and this request."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import (
+        ragged_paged_attention_cuda as fn,
+    )
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+    from dynamo_tpu_torch.runtime.pipeline import Tap
+
+    tapped: list[int] = []
+    args = cli.build_parser().parse_args([
+        *HTTP_ARGS, "--in", "http", "--model-path", model_path,
+        "--http-host", "127.0.0.1", "--http-port", "0"])
+    cli._apply_config(args)
+    cli.refuse_unserved(args)
+    reset_counts()
+    async with contextlib.AsyncExitStack() as stack:
+        service, engine = await cli.start_http(
+            args, stack, engine_ops=(Tap(None, lambda ctx, item: tapped.extend(
+                item["token_ids"])),))
+        name = service.manager.models()[0]
+        resp = await fetch("127.0.0.1", service.port, "POST", "/v1/completions", {
+            "model": name, "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+            "nvext": {"ignore_eos": True}})
+        dispatches = engine.unified_dispatches
+        warm = engine.runner.compile_stats.capture_snapshot()["graphs_captured"]
+    return {"model": name, "status": resp.status, "tokens": tapped,
+            "unified_dispatches": dispatches, "warm_passes": warm,
+            "kernel_launches": fn.launches}
+
+
+def same_params(a, b) -> bool:
+    """Every tensor of two params trees equal bit for bit, with its dtype
+    and shape."""
+    def eq(x, y):
+        return x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(x, y))
+
+    if a.keys() != b.keys() or len(a["layers"]) != len(b["layers"]):
+        return False
+    return all(eq(a[k], b[k]) for k in a if k != "layers") and all(
+        la.keys() == lb.keys() and all(eq(la[k], lb[k]) for k in la)
+        for la, lb in zip(a["layers"], b["layers"]))
+
+
+def timed_load(local, dtype: str, nbytes: int) -> tuple[dict, dict]:
+    """(params, the load's bytes, seconds and GB/s): the files read and
+    moved to the card, each tensor transposed and cast there."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = local.load_params(dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return params, {"bytes": nbytes, "seconds": s, "gb_per_s": nbytes / s / 1e9}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+               if f.endswith(".safetensors"))
+
+
+async def files_fleet(src: str, tok, tmp: str) -> dict:
+    """A worker process serving the checkout under a --config file and a
+    --set, and the CLI's frontend (``--in http --out dyn``) with no model
+    files: the worker's directory is gone once it registers, so the
+    frontend materializes the tokenizer files the card shipped. Chats,
+    streamed and not, through the frontend."""
+    import shutil
+    import signal
+
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.http_client import fetch
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.pipeline import Tap
+
+    # The worker's own copy of the checkout (hard links), removed later.
+    wdir = os.path.join(tmp, "worker_copy")
+    os.makedirs(wdir)
+    for f in os.listdir(src):
+        os.link(os.path.join(src, f), os.path.join(wdir, f))
+    yaml_path = os.path.join(tmp, "files.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(FILES_YAML)
+    tapped: dict = {}
+
+    def on_request(ctx):
+        tapped[ctx.id] = {"prompt": list(ctx.payload["token_ids"]), "tokens": []}
+
+    def on_response(ctx, item):
+        tapped[ctx.id]["tokens"].extend(item["token_ids"])
+
+    children: list = []
+    cp = Child("files control plane", ["control-plane", "--host", "127.0.0.1", "--port", "0"])
+    children.append(cp)
+    obs = None
+    try:
+        await cp.start()
+        addr = (await cp.wait_for(r"control plane on (\S+)", 120))[0].group(1)
+        obs = await DistributedRuntime.connect(addr)
+        t0 = time.monotonic()
+        worker = Child("files worker", [
+            "run", "--in", FILES_ENDPOINT, "--out", "torch", "--model-path", wdir,
+            "--control-plane", addr, "--config", yaml_path,
+            "--set", f"Run.model-name={FILES_MODEL_NAME}"])
+        children.append(worker)
+        await worker.start()
+        await worker.wait_for(r"^worker serving ", FLEET_WAIT_S)
+        startup = time.monotonic() - t0
+        shutil.rmtree(wdir)
+        card = await ModelDeploymentCard.fetch(obs.bus, FILES_MODEL_NAME)
+        async with contextlib.AsyncExitStack() as stack:
+            args = cli.build_parser().parse_args([
+                "run", "--in", "http", "--out", "dyn", "--control-plane", addr,
+                "--http-host", "127.0.0.1", "--http-port", "0"])
+            cli._apply_config(args)
+            cli.refuse_unserved(args)
+            service, _ = await cli.start_http(args, stack, engine_ops=(Tap(on_request,
+                                                                              on_response),))
+            await wait_model(service.port, FILES_MODEL_NAME)
+            fe_card = service.manager.card(FILES_MODEL_NAME)
+            chats = []
+            for messages in FILES_CHATS:
+                body = {"model": FILES_MODEL_NAME, "messages": messages, "max_tokens": 32,
+                        "temperature": 0, "nvext": {"ignore_eos": True}}
+                # A first request of the prompt fills the prefix cache, so
+                # the two compared after it reuse the same cached blocks
+                # and compute the same rows (a bf16 prefill that reuses a
+                # prefix and one that does not may part at a near tie).
+                await fetch("127.0.0.1", service.port, "POST", "/v1/chat/completions",
+                            {**body, "max_tokens": 1})
+                before = set(tapped)
+                full = await fetch("127.0.0.1", service.port, "POST",
+                                   "/v1/chat/completions", body)
+                rid_full = (set(tapped) - before).pop()
+                before = set(tapped)
+                pieces = []
+                streamed = await fetch("127.0.0.1", service.port, "POST",
+                                       "/v1/chat/completions", {**body, "stream": True})
+                rid_stream = (set(tapped) - before).pop()
+                for ev in streamed.events():
+                    if ev.data == "[DONE]":
+                        continue
+                    for choice in json.loads(ev.data).get("choices", []):
+                        pieces.append((choice.get("delta") or {}).get("content") or "")
+                chats.append((messages, full, "".join(pieces), tapped[rid_full],
+                              tapped[rid_stream]))
+        worker.signal(signal.SIGTERM)
+        report = await worker_exit(worker)
+    finally:
+        if obs is not None:
+            await obs.shutdown()
+        for child in children:
+            await child.kill()
+    checks = []
+    for messages, full, joined, tap_full, tap_stream in chats:
+        rendered = tok.apply_chat_template(messages)
+        want_prompt = tok.encode(rendered)
+        body = full.json() if full.status == 200 else {}
+        text = body["choices"][0]["message"]["content"] if body else None
+        checks.append({
+            "status": full.status,
+            "prompt_tokens": body.get("usage", {}).get("prompt_tokens"),
+            "hf_tokenizer_prompt_tokens": len(want_prompt),
+            "prompt_ids_equal_hf_tokenizer": tap_full["prompt"] == want_prompt,
+            "completion_tokens": len(tap_full["tokens"]),
+            "text_equals_decode_of_ids": text == tok.decode(tap_full["tokens"]),
+            "streamed_pieces_join_into_text": joined == text,
+            "stream_ids_equal": tap_stream["tokens"] == tap_full["tokens"],
+            "text_chars": len(text or ""),
+        })
+    return {"worker_startup_s": startup, "card_context_length": card and card.context_length,
+            "card_artifacts": card and card.extra.get("artifacts"),
+            "frontend_model_path": fe_card and fe_card.model_path,
+            "chats": checks, "worker": report}
+
+
+def phase_files(params, prompts, streams, max_tokens, card: str) -> dict:
+    """Serving from files (see the module docstring)."""
+    import shutil
+
+    from dynamo_tpu_torch.llm.gguf import GgufTokenizer, read_gguf
+    from dynamo_tpu_torch.llm.local_model import LocalModel
+    from dynamo_tpu_torch.llm.tokenizer import HfTokenizer
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.tools import write_checkout as wc
+
+    t_phase = time.monotonic()
+    kernels.set_launch_counts({k: 0 for k in kernels.launch_counts()})
+    cfg = full_width_config().model
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    out: dict = {"phase": "files", "card": card}
+    launches: dict = {}
+    try:
+        # 1. The full-width llama3.2-1b checkout of the serve's weights.
+        src = os.path.join(tmp, "llama3.2-1b")
+        t0 = time.perf_counter()
+        nbytes = wc.write_weights(src, cfg, params, shards=2)
+        tok_json = wc.llama3_tokenizer(cfg.vocab_size, merges=FILES_MERGES)
+        ids = {t["content"]: t["id"] for t in tok_json["added_tokens"]}
+        eos = [ids["<|end_of_text|>"], ids["<|eot_id|>"]]
+        wc.write_tokenizer(src, tok_json, eos)
+        write_s = time.perf_counter() - t0
+        local = LocalModel.prepare(src)
+        tok = HfTokenizer(src)
+        loaded, load = timed_load(local, full_width_config().dtype, dir_bytes(src))
+        config_ok = dataclasses.replace(local.config, name=cfg.name) == cfg
+        bitwise = same_params(loaded, params)
+        ecfg = full_width_config(model=local.config)
+        mem = asyncio.run(held_serve(full_width_config(), params, prompts, max_tokens))
+        got = asyncio.run(held_serve(ecfg, loaded, prompts, max_tokens))
+        del loaded
+        free_card()
+        alone = asyncio.run(held_serve(full_width_config(), params, prompts[:1], max_tokens))
+        http = asyncio.run(cli_http_serve(src, prompts[0], max_tokens))
+        free_card()
+        launches["checkout"] = got["kernel_launches"]
+        launches["checkout_http"] = http["kernel_launches"]
+        out["checkout"] = {
+            "shards": sorted(f for f in os.listdir(src) if f.endswith(".safetensors")),
+            "write_s": write_s, "load": load, "config_equal": config_ok,
+            "params_bitwise_equal": bitwise, "tokenizer_vocab": tok.vocab_size,
+            "eos_token_ids": tok.eos_token_ids,
+            "streams_identical_to_params_engine": got["streams"] == mem["streams"],
+            "match_rate_vs_serve_phase": match_rate(got["streams"], streams),
+            "cli_http": {k: http[k] for k in ("model", "status", "unified_dispatches",
+                                              "kernel_launches")},
+            "cli_http_stream_equals_params_engine": http["tokens"] == alone["streams"][0],
+            **{k: got[k] for k in ("wall_s", "warm_passes", "unified_dispatches",
+                                   "kernel_launches", "kernel_launches_by_path")},
+        }
+        emit({"phase": "files_checkout", **out["checkout"]})
+        http_ok = (http["status"] == 200 and http["tokens"] == alone["streams"][0]
+                   and http["kernel_launches"] == cfg.num_layers * (
+                       http["warm_passes"] + http["unified_dispatches"]))
+        if not (config_ok and bitwise and got["streams"] == mem["streams"]
+                and tok.eos_token_ids == eos and http_ok):
+            fail("files: the checkout's config, weights or streams differ from the serve's",
+                 [config_ok, bitwise, got["streams"] == mem["streams"], tok.eos_token_ids,
+                  http_ok], [True, True, True, eos, True])
+
+        # 2. The process fleet: a worker under --config/--set, a frontend
+        # without the model's files.
+        fleet = asyncio.run(files_fleet(src, tok, tmp))
+        launches["fleet_worker"] = fleet["worker"]["kernel_launches"][
+            "ragged_paged_attention_cuda.launches"]
+        out["fleet"] = fleet
+        emit({"phase": "files_fleet", **fleet})
+        chats_ok = all(c["status"] == 200 and c["prompt_tokens"] == c[
+            "hf_tokenizer_prompt_tokens"] and c["prompt_ids_equal_hf_tokenizer"]
+            and c["completion_tokens"] == 32 and c["text_equals_decode_of_ids"]
+            and c["streamed_pieces_join_into_text"] and c["stream_ids_equal"]
+            and c["text_chars"] > 0 for c in fleet["chats"])
+        materialized = bool(fleet["frontend_model_path"]) and fleet[
+            "frontend_model_path"].startswith(tempfile.gettempdir())
+        if not (chats_ok and fleet["card_context_length"] == FILES_MAX_LEN and materialized
+                and launches_ok(fleet["worker"], walk_path=False)):
+            fail("files: the fleet's chats, its config values or its launches",
+                 {"chats": fleet["chats"], "context_length": fleet["card_context_length"],
+                  "frontend_model_path": fleet["frontend_model_path"]},
+                 {"context_length": FILES_MAX_LEN})
+        shutil.rmtree(src)
+
+        # 3. A GGUF (F16, FILES_SHALLOW layers, the whole vocabulary) and a
+        # safetensors checkout of the same F16 weights.
+        shallow = cfg.scaled(num_layers=FILES_SHALLOW)
+        sp = {"embed": params["embed"], "ln_f": params["ln_f"],
+              "layers": params["layers"][:FILES_SHALLOW]}
+        gguf_path = os.path.join(tmp, "llama3.2-1b-f16.gguf")
+        st_dir = os.path.join(tmp, "llama3.2-1b-f16")
+        t0 = time.perf_counter()
+        gguf_bytes = wc.write_gguf_checkout(gguf_path, shallow, sp, tok_json, eos[1],
+                                            dtype=torch.float16)
+        st_bytes = wc.write_weights(st_dir, shallow, sp, dtype=torch.float16)
+        write_s = time.perf_counter() - t0
+        g_local, s_local = LocalModel.prepare(gguf_path), LocalModel.prepare(st_dir)
+        from_gguf, g_load = timed_load(g_local, full_width_config().dtype, gguf_bytes)
+        from_st, s_load = timed_load(s_local, full_width_config().dtype, st_bytes)
+        bitwise = same_params(from_gguf, from_st)
+        gtok = GgufTokenizer(read_gguf(gguf_path, load_tensors_index=False))
+        text = FILES_CHATS[1][1]["content"]
+        g_cfg_ok = dataclasses.replace(g_local.config, name=shallow.name) == shallow
+        g = asyncio.run(held_serve(full_width_config(model=g_local.config), from_gguf,
+                                   prompts, max_tokens))
+        s = asyncio.run(held_serve(full_width_config(model=s_local.config), from_st,
+                                   prompts, max_tokens))
+        alone = asyncio.run(held_serve(full_width_config(model=s_local.config), from_st,
+                                       prompts[:1], max_tokens))
+        del from_gguf, from_st
+        free_card()
+        http = asyncio.run(cli_http_serve(gguf_path, prompts[0], max_tokens))
+        free_card()
+        launches["gguf"] = g["kernel_launches"]
+        launches["gguf_http"] = http["kernel_launches"]
+        out["gguf"] = {
+            "layers": FILES_SHALLOW, "write_s": write_s, "gguf_load": g_load,
+            "safetensors_f16_load": s_load, "config_equal": g_cfg_ok,
+            "params_bitwise_equal_to_safetensors": bitwise,
+            "embedded_vocab": gtok.vocab_size,
+            "embedded_tokenizer_round_trip": gtok.decode(gtok.encode(text)) == text,
+            "streams_identical_to_safetensors": g["streams"] == s["streams"],
+            "cli_http": {k: http[k] for k in ("model", "status", "unified_dispatches",
+                                              "kernel_launches")},
+            "cli_http_stream_equals_safetensors": http["tokens"] == alone["streams"][0],
+            **{k: g[k] for k in ("wall_s", "unified_dispatches", "kernel_launches",
+                                 "kernel_launches_by_path")},
+        }
+        emit({"phase": "files_gguf", **out["gguf"]})
+        http_ok = (http["status"] == 200 and http["tokens"] == alone["streams"][0]
+                   and http["kernel_launches"] == FILES_SHALLOW * (
+                       http["warm_passes"] + http["unified_dispatches"]))
+        if not (g_cfg_ok and bitwise and g["streams"] == s["streams"]
+                and out["gguf"]["embedded_tokenizer_round_trip"] and http_ok):
+            fail("files: the GGUF's config, weights, tokenizer or streams",
+                 [g_cfg_ok, bitwise, g["streams"] == s["streams"], http_ok],
+                 [True, True, True, True])
+        os.remove(gguf_path)
+        shutil.rmtree(st_dir)
+
+        # 4. DeepSeek-V2-Lite at full width, FILES_SHALLOW layers (the
+        # dense first layer and one MoE layer), through the 576-wide
+        # ragged entry: float32 and bf16 checkouts against the same
+        # weights given as a parameter tree.
+        lite = ModelConfig.deepseek_v2_lite().scaled(num_layers=FILES_SHALLOW)
+        rng = np.random.default_rng(15)
+        mla_prompts = [rng.integers(0, lite.vocab_size, n).tolist()
+                       for n in rng.integers(*MLA_LENS, 8)]
+        out["deepseek"] = {}
+        for dtype in ("float32", "bfloat16"):
+            tree = seeded_params(lite, 3, getattr(torch, dtype))
+            ds_dir = os.path.join(tmp, f"deepseek-v2-lite-{dtype}")
+            t0 = time.perf_counter()
+            nb = wc.write_weights(ds_dir, lite, tree, shards=2)
+            write_s = time.perf_counter() - t0
+            ds_local = LocalModel.prepare(ds_dir)
+            ds_loaded, ds_load = timed_load(ds_local, dtype, nb)
+            ok_cfg = dataclasses.replace(ds_local.config, name=lite.name) == lite
+            bitwise = same_params(ds_loaded, tree)
+            dcfg = family_config(ds_local.config, dtype=dtype)
+            a = asyncio.run(held_serve(dcfg, tree, mla_prompts, max_tokens))
+            b = asyncio.run(held_serve(dcfg, ds_loaded, mla_prompts, max_tokens))
+            ref = teacher_forced(ds_local.config, ds_loaded, mla_prompts, b["streams"])
+            ref.pop("first_token_ref_logprob")
+            del tree, ds_loaded
+            free_card()
+            shutil.rmtree(ds_dir)
+            key = "f32" if dtype == "float32" else "bf16"
+            launches[f"deepseek_{key}"] = b["kernel_launches"]
+            identical = a["streams"] == b["streams"]
+            limit = MLA_BF16_LIMITS["mla_bf16_dense"]
+            leg = {"write_s": write_s, "load": ds_load, "config_equal": ok_cfg,
+                   "params_bitwise_equal": bitwise,
+                   "streams_identical_to_params_engine": identical,
+                   "match_rate_vs_params_engine": match_rate(a["streams"], b["streams"]),
+                   **ref, **{k: b[k] for k in ("wall_s", "unified_dispatches",
+                                               "kernel_launches", "kernel_launches_by_path")}}
+            out["deepseek"][key] = leg
+            emit({"phase": "files_deepseek", "dtype": dtype, **leg})
+            held = identical if dtype == "float32" else (
+                identical or (ref["greedy_agreement_vs_no_cache_reference"] >= limit[0]
+                              and ref["max_logprob_gap_at_disagreement"] <= limit[1]))
+            if not (ok_cfg and bitwise and held and ref["logits_finite"]):
+                fail(f"files: the DeepSeek {dtype} checkout's config, weights or streams",
+                     [ok_cfg, bitwise, identical, ref["greedy_agreement_vs_no_cache_reference"]],
+                     [True, True, True, limit])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["ragged_launches"] = launches
+    out["phase_s"] = time.monotonic() - t_phase
+    emit({"phase": "files", "card": card, "ragged_launches": launches,
+          "phase_s": out["phase_s"]})
+    return out
 
 
 FLEET_ENDPOINT = "dyn://dynamo.torch.generate"
@@ -6464,6 +6958,8 @@ def run_all() -> int:
     observe = run_phase("observe", phase_observe, vocab)
     phases = run_phase("phases", phase_phases, engine.runner.params,
                        prompts[:PHASE_LANES], streams[:PHASE_LANES], max_tokens)
+    files = run_phase("files", phase_files, engine.runner.params, prompts, streams,
+                      max_tokens, card)
     # The fleet's workers are processes of their own on this card: free
     # this process's engines first, keeping the serve's weights (the
     # workers make the same ones from the same seed) for the gates.
@@ -6509,6 +7005,8 @@ def run_all() -> int:
                                         if not k.endswith("_int8")},
                      families_timing=family_timing(families, ""),
                      multimodal_launches=mm["kernel_launches"],
+                     files_launches={k: v for k, v in files["ragged_launches"].items()
+                                     if not k.startswith("deepseek")},
                      multimodal_mm_dispatch_launches=mm["mm_kernel_launches"]),
         kernel_entry("ragged_paged_attention_int8", ragged_src,
                      "dynamo_tpu/ops/pallas/ragged_attention.py:227",
@@ -6531,6 +7029,8 @@ def run_all() -> int:
                      "warp over 8 keys, P in shared memory, P.V by warp over 144 "
                      "columns), then the merge",
                      launches_by_leg={k: v["ragged_launches"] for k, v in mla["legs"].items()},
+                     files_launches={k: v for k, v in files["ragged_launches"].items()
+                                     if k.startswith("deepseek")},
                      http_launches=mla["http"]["kernel_launches"],
                      int8=mla["kernels"]["int8"], f32=mla["kernels"]["f32"]),
         kernel_entry("paged_decode_attention",

@@ -4,7 +4,9 @@ dynamo_tpu/cli.py): launch the port from a shell.
 
   python -m dynamo_tpu_torch run [--in {http,text,batch:FILE,dyn://ns.comp.ep}]
                                  [--out {torch,echo_core,echo_full,dyn}]
-                                 [--model-path preset:NAME] [--device {cuda,cpu}] ...
+                                 [--model-path preset:NAME|DIR|hf://ORG/NAME|FILE.gguf]
+                                 [--device {cuda,cpu}] [--config FILE.yaml]
+                                 [--set Section.key=value] ...
   python -m dynamo_tpu_torch control-plane [--host H] [--port P] [--token T]
   python -m dynamo_tpu_torch router --control-plane ADDR --endpoint dyn://ns.c.e
   python -m dynamo_tpu_torch metrics --control-plane ADDR [--component C]
@@ -91,9 +93,13 @@ The flags the port serves keep the reference's names, destinations and
 defaults, except ``--endpoint`` (``dyn://dynamo.torch.generate``), the
 exporter's ``--component`` and the planner's ``--decode-component``
 (``torch``: the port's workers serve that component). Flags that need what the port
-does not have yet — meshes and multi-host, weight quantization,
-embeddings, layered configs — are refused with an error that names them,
-never ignored. The
+does not have yet — meshes and multi-host, weight quantization — are
+refused with an error that names them, never ignored. ``--model-path``
+takes ``preset:NAME``, an HF checkout directory, ``hf://org/name`` (the
+local hub cache) or a ``.gguf`` file; ``--config FILE.yaml`` (sections
+Run, Frontend, Engine, Router; ``Common`` + ``common-configs``),
+``DYNTPU_<SECTION>_<KEY>`` and ``--set Section.key=value`` layer onto
+the flags as the reference layers them. The
 reference's persistent XLA compile cache has no counterpart (a CUDA
 graph cannot outlive its process): its flag is absent and rejected by
 the parser.
@@ -128,7 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="device of --out torch: cuda unless the CPU is "
                           "asked for (the plain PyTorch path)")
     run.add_argument("--model-path", default="preset:llama3.2-1b",
-                     help="preset:NAME")
+                     help="preset:NAME, an HF checkout directory, "
+                          "hf://org/name (local hub cache) or FILE.gguf")
     run.add_argument("--model-name", default=None)
     run.add_argument("--model-type", default="chat",
                      choices=["chat", "embeddings"])
@@ -347,15 +354,14 @@ def refuse_unserved(args) -> None:
         (args.coordinator is not None or args.num_nodes != 1 or args.node_rank != 0,
          "--coordinator/--num-nodes/--node-rank: multi-host serving is not "
          "served yet"),
-        (args.quant is not None, "--quant: weight quantization is not served yet"),
+        (args.quant is not None,
+         "--quant: weight quantization is not served yet (ROADMAP A3)"),
         (args.weight_quant is not None,
-         "--weight-quant: weight quantization is not served yet"),
+         "--weight-quant: weight quantization is not served yet (ROADMAP A3)"),
         (args.speculative_k < 0, "--speculative-k must be >= 0"),
         (args.model_type == "embeddings" and args.output in ("echo_core", "echo_full"),
          "--model-type embeddings: the echo engines serve chat; embeddings "
          "need --out torch"),
-        (args.config is not None or args.overrides,
-         "--config/--set: layered configs are not served yet"),
     ]
     for refused, message in refusals:
         if refused:
@@ -380,8 +386,65 @@ def main(argv: list[str] | None = None) -> None:
     if args.cmd == "planner":
         asyncio.run(_planner(args))
         return
+    _apply_config(args)
     refuse_unserved(args)
     asyncio.run(_run(args))
+
+
+#: config section → args attribute aliases (a section's keys are dash/
+#: underscore insensitive; an unknown key of a known section is refused).
+_CONFIG_SECTIONS = {
+    "Run": {"in": "input", "out": "output"},
+    "Frontend": {"host": "http_host", "port": "http_port"},
+    "Engine": {"block_size": "kv_cache_block_size"},
+    "Router": {"mode": "router_mode"},
+}
+
+
+def _apply_config(args) -> None:
+    """Layer ``--config FILE.yaml``, the DYNTPU_* environment and ``--set``
+    onto the parsed args. Precedence, highest first: ``--set
+    Component.key=value`` > explicit flags > file and environment >
+    defaults. "Explicit" is a value that differs from a defaults-only
+    parse, so a flag repeated in the file never loses to it. The values
+    then meet the same refusals as flags (``out: tpu``, say)."""
+    from dynamo_tpu_torch.utils.config import load_config
+
+    defaults = vars(build_parser().parse_args(["run"]))
+
+    def apply(cfg, force: bool) -> None:
+        for section, aliases in _CONFIG_SECTIONS.items():
+            for key, val in cfg.component(section).as_dict().items():
+                if section == "Engine" and key == "warmup":
+                    # Engine.warmup: false == --no-warmup
+                    if force or args.no_warmup == defaults["no_warmup"]:
+                        args.no_warmup = not val
+                    continue
+                attr = aliases.get(key, key)
+                if not hasattr(args, attr):
+                    raise SystemExit(
+                        f"dynamo-tpu-torch: --config/--set: unknown config key "
+                        f"{section}.{key} (no matching --{attr.replace('_', '-')} option)"
+                    )
+                if force or getattr(args, attr) == defaults.get(attr):
+                    setattr(args, attr, val)
+        unknown = set(cfg.sections()) - set(_CONFIG_SECTIONS)
+        if unknown:
+            raise SystemExit(
+                f"dynamo-tpu-torch: --config/--set: unknown config sections: "
+                f"{', '.join(sorted(unknown))} (expected {', '.join(_CONFIG_SECTIONS)})"
+            )
+
+    sections = {s: {} for s in _CONFIG_SECTIONS}
+    try:
+        # File + environment: fill in what the command line did not set.
+        apply(load_config(args.config, defaults=sections), force=False)
+        # --set beats everything, explicit flags included.
+        if args.overrides:
+            apply(load_config(None, overrides=args.overrides, defaults=sections, env={}),
+                  force=True)
+    except (OSError, ValueError, KeyError) as exc:
+        raise SystemExit(f"dynamo-tpu-torch: --config/--set: {exc}") from None
 
 
 async def _control_plane(args) -> None:
@@ -807,7 +870,7 @@ def _local_and_cfg(args):
             context_length=args.context_length,
             kv_block_size=args.kv_cache_block_size,
         )
-    except ValueError as exc:
+    except (ValueError, FileNotFoundError) as exc:
         raise SystemExit(f"dynamo-tpu-torch: {exc}") from None
     max_len = min(args.max_model_len, local.card.context_length)
     local.card.context_length = max_len
@@ -862,8 +925,11 @@ async def _start_engine(args, stack, hooks=None):
     if args.unified:
         logger.warning("--unified is a no-op: the unified step is the only engine path")
     local, ecfg = _local_and_cfg(args)
-    # Presets only: the runner seeds random weights on the device.
-    engine = TorchEngine(ecfg, device=args.device, **(hooks or {}))
+    # A checkout's or a GGUF's weights, read onto the device off the event
+    # loop; None for a preset (the runner seeds random weights there).
+    params = await asyncio.to_thread(local.load_params, args.dtype, args.device)
+    engine = TorchEngine(ecfg, params=params, device=args.device, **(hooks or {}))
+    del params
     await engine.start()
     stack.push_async_callback(engine.stop)
     if not args.no_warmup:
@@ -888,7 +954,8 @@ async def _start_embeddings(args):
     local, _ecfg = _local_and_cfg(args)
 
     def build():
-        engine = EmbeddingEngine(local.config, dtype=args.dtype, device=args.device)
+        engine = EmbeddingEngine(local.config, params=local.load_params(args.dtype, args.device),
+                                 dtype=args.dtype, device=args.device)
         if not args.no_warmup:
             engine._run([1] * 8)
         return engine

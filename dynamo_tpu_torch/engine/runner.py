@@ -62,6 +62,9 @@ Not in this port yet: weight quantization and meshes (ROADMAP queue A).
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 from typing import Any
 
 import numpy as np
@@ -221,6 +224,31 @@ class _StepBuffers:
         if self.embeds is None:
             return None
         return torch.zeros(self.embeds.shape, dtype=torch.float32, pin_memory=pinned)
+
+
+# The cycle collector is held off while any runner captures a graph: a
+# collection mid-capture, in the capturing thread or another, can destroy
+# a dead engine's CUDA graphs inside the capture, which invalidates it.
+_GC_HOLD = {"count": 0, "was_enabled": True}
+_GC_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def gc_held():
+    """Automatic garbage collection off until the last concurrent holder
+    leaves, then back to what it was."""
+    with _GC_LOCK:
+        if _GC_HOLD["count"] == 0:
+            _GC_HOLD["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _GC_HOLD["count"] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_HOLD["count"] -= 1
+            if _GC_HOLD["count"] == 0 and _GC_HOLD["was_enabled"]:
+                gc.enable()
 
 
 class _Program:
@@ -555,8 +583,8 @@ class ModelRunner(WarmupPlanMixin):
         reserved = torch.cuda.memory_reserved(self.device)
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
-                              capture_error_mode="thread_local"):
+        with gc_held(), torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
+                                         capture_error_mode="thread_local"):
             outs = self._body(b, greedy)
         after = kernels.launch_counts()
         # Nothing ran during the capture: the wrappers' counts move to the

@@ -21,6 +21,8 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
+import tempfile
 from dataclasses import dataclass
 
 from dynamo_tpu_torch.llm.backend import Detokenizer
@@ -165,6 +167,15 @@ class ModelWatcher:
         if card is None:
             card = ModelDeploymentCard(name=entry.name)
         card.model_type = entry.model_type or card.model_type
+        if card.model_path and not os.path.exists(card.model_path):
+            # A worker on another host: fetch its shipped tokenizer files.
+            dest = os.path.join(tempfile.gettempdir(), f"dynamo_tpu_mdc_{os.getuid()}")
+            try:
+                if await card.materialize(self._drt.bus, dest):
+                    logger.info("materialized tokenizer artifacts for %s -> %s",
+                                entry.name, card.model_path)
+            except Exception:  # noqa: BLE001 — the pipeline then names the missing path
+                logger.exception("artifact materialization failed for %s", entry.name)
         selector = None
         if self.router_mode is RouterMode.KV and self._kv_selector_factory is not None:
             selector = await self._kv_selector_factory(

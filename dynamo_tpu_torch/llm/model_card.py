@@ -4,17 +4,34 @@ location, context length, KV block size. A worker publishes its card to
 the control plane's object store (``register_llm``); a frontend fetches
 it when discovery announces the model. The JSON form is the reference's,
 field for field, so either package's frontend reads either package's
-card. The port serves presets (toy tokenizer, no model directory), so no
-tokenizer files ship with the card.
+card. A card whose ``model_path`` is a directory ships its
+prompt-formatter files (``ARTIFACT_FILES``) through the same object
+store, so a frontend on another host materializes the worker's
+tokenizer without sharing its filesystem.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
+import logging
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
 
+logger = logging.getLogger(__name__)
+
 MDC_BUCKET = "mdc"
+ARTIFACT_BUCKET = "mdc-artifacts"
+#: tokenizer and prompt-formatter files worth shipping (HF layout; the
+#: chat template lives in tokenizer_config.json or its own .jinja file)
+ARTIFACT_FILES = (
+    "tokenizer.json",
+    "tokenizer_config.json",
+    "special_tokens_map.json",
+    "chat_template.jinja",
+    "generation_config.json",
+)
 
 
 @dataclass
@@ -48,8 +65,43 @@ class ModelDeploymentCard:
             extra=d.get("extra") or {},
         )
 
-    async def publish(self, object_store) -> None:
+    async def publish(self, object_store, ship_artifacts: bool = True) -> None:
+        """Publish the card; when ``model_path`` is a directory, ship its
+        prompt-formatter files too (listed in ``extra["artifacts"]``)."""
+        if ship_artifacts and self.model_path:
+            root = Path(self.model_path)
+            shipped = []
+            for fname in ARTIFACT_FILES:
+                p = root / fname
+                if p.is_file():
+                    await object_store.put_object(
+                        ARTIFACT_BUCKET, f"{self.name}/{fname}",
+                        await asyncio.to_thread(p.read_bytes),
+                    )
+                    shipped.append(fname)
+            if shipped:
+                self.extra["artifacts"] = shipped
         await object_store.put_object(MDC_BUCKET, self.name, self.to_json())
+
+    async def materialize(self, object_store, dest_root: str | Path) -> bool:
+        """Fetch the shipped files into ``dest_root/<name>`` and point
+        ``model_path`` there; True when a tokenizer directory is now
+        local. All or nothing: with a file missing from the store,
+        ``model_path`` stays as it was."""
+        shipped = self.extra.get("artifacts") or []
+        if not shipped:
+            return False
+        dest = Path(dest_root) / self.name
+        await asyncio.to_thread(dest.mkdir, parents=True, exist_ok=True)
+        for fname in shipped:
+            raw = await object_store.get_object(ARTIFACT_BUCKET, f"{self.name}/{fname}")
+            if raw is None:
+                logger.warning("artifact %s/%s missing from the object store; "
+                               "not materializing", self.name, fname)
+                return False
+            await asyncio.to_thread((dest / fname).write_bytes, raw)
+        self.model_path = str(dest)
+        return True
 
     @staticmethod
     async def fetch(object_store, name: str) -> "ModelDeploymentCard | None":

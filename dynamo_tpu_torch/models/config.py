@@ -9,12 +9,22 @@ local rope base, the query scale fold), and the DeepSeek family: MLA's
 latent cache with its yarn rope, and Mixtral/DeepSeek routed experts
 with DeepSeek's shared experts and dense leading layers.
 ``EngineConfig.validate`` refuses a model whose weights outgrow one
-card (``param_count``).
+card (``param_count``). ``ModelConfig.from_hf`` reads a checkout's
+``config.json`` as the reference does; ``to_hf_config`` is its inverse,
+for writing checkouts (test fixtures, the chip check).
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, replace
+from pathlib import Path
+
+
+def _rope_scaling(d):
+    from dynamo_tpu_torch.ops.rope import RopeScaling
+
+    return RopeScaling.from_hf(d)
 
 
 @dataclass(frozen=True)
@@ -161,6 +171,131 @@ class ModelConfig:
         if layer_idx >= self.max_window_layers:
             return self.sliding_window
         return 0
+
+    @staticmethod
+    def from_hf(model_dir: str) -> "ModelConfig":
+        cfg = json.loads((Path(model_dir) / "config.json").read_text())
+        arch = (cfg.get("architectures") or ["LlamaForCausalLM"])[0]
+        if arch.startswith("Gemma2") or cfg.get("attn_logit_softcapping"):
+            raise NotImplementedError(
+                "Gemma-2 attention-logit softcapping is not implemented; "
+                "the Gemma-3 family (softcap-free) is supported"
+            )
+        if arch.startswith("Gemma3") or "gemma3" in cfg.get("model_type", ""):
+            if "text_config" in cfg:  # multimodal wrapper config
+                cfg = {**cfg["text_config"],
+                       "model_type": cfg.get("model_type", "gemma3")}
+            return ModelConfig._from_hf_gemma3(cfg)
+        num_heads = cfg["num_attention_heads"]
+        hidden = cfg["hidden_size"]
+        deepseek = "Deepseek" in arch or "deepseek" in cfg.get("model_type", "")
+        return ModelConfig(
+            name=cfg.get("model_type", "llama"),
+            vocab_size=cfg["vocab_size"],
+            hidden_size=hidden,
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=num_heads,
+            num_kv_heads=cfg.get("num_key_value_heads", num_heads),
+            head_dim=cfg.get("head_dim", hidden // num_heads),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rms_eps=cfg.get("rms_norm_eps", 1e-5),
+            max_position=cfg.get("max_position_embeddings", 8192),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+            qkv_bias="Qwen2" in arch,
+            qk_norm="Qwen3" in arch,
+            # Mistral carries sliding_window unconditionally (null = full
+            # attention in v0.2+); Qwen2 gates it behind use_sliding_window.
+            sliding_window=int(cfg.get("sliding_window") or 0)
+            if cfg.get("use_sliding_window", True)
+            else 0,
+            max_window_layers=int(cfg.get("max_window_layers") or 0)
+            if cfg.get("use_sliding_window", True)
+            else 0,
+            # DeepSeek uses n_routed_experts; Mixtral num_local_experts.
+            num_experts=cfg.get(
+                "n_routed_experts", cfg.get("num_local_experts", 0)
+            ) or 0,
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+            rope_scaling=_rope_scaling(cfg.get("rope_scaling")),
+            kv_lora_rank=(cfg.get("kv_lora_rank") or 0) if deepseek else 0,
+            q_lora_rank=(cfg.get("q_lora_rank") or 0) if deepseek else 0,
+            qk_nope_head_dim=cfg.get("qk_nope_head_dim", 128),
+            qk_rope_head_dim=cfg.get("qk_rope_head_dim", 64),
+            v_head_dim=cfg.get("v_head_dim", cfg.get("head_dim", hidden // num_heads)),
+            n_shared_experts=cfg.get("n_shared_experts", 0) or 0,
+            moe_intermediate_size=cfg.get("moe_intermediate_size", 0) or 0,
+            first_k_dense_replace=cfg.get("first_k_dense_replace", 0) or 0,
+            gating="sigmoid" if cfg.get("scoring_func") == "sigmoid" else "softmax",
+            norm_topk_prob=cfg.get("norm_topk_prob", True),
+            routed_scaling_factor=cfg.get("routed_scaling_factor", 1.0),
+            n_group=cfg.get("n_group", 1) or 1,
+            topk_group=cfg.get("topk_group", 1) or 1,
+        )
+
+    @staticmethod
+    def _from_hf_gemma3(cfg: dict) -> "ModelConfig":
+        """HF Gemma3TextConfig → ModelConfig (Gemma-3 1B/4B/12B/27B text
+        trunk: GeGLU, (1+w) norms, sandwich norms, scaled embeddings,
+        QK-norm, 5-local:1-global window pattern with a separate local
+        rope base)."""
+        if cfg.get("final_logit_softcapping") or cfg.get(
+            "attn_logit_softcapping"
+        ):
+            raise NotImplementedError(
+                "Gemma logit softcapping is not implemented"
+            )
+        # Published multimodal checkpoints (gemma-3-4b/12b/27b) ship SPARSE
+        # text_configs that rely on HF Gemma3TextConfig defaults — fill
+        # them in (values from transformers Gemma3TextConfig()).
+        defaults = {
+            "vocab_size": 262208,
+            "hidden_size": 2304,
+            "intermediate_size": 9216,
+            "num_hidden_layers": 26,
+            "num_attention_heads": 8,
+            "num_key_value_heads": 4,
+            "head_dim": 256,
+            "rope_theta": 1_000_000.0,
+            "rope_local_base_freq": 10_000.0,
+            "sliding_window": 4096,
+            "sliding_window_pattern": 6,
+            "rms_norm_eps": 1e-6,
+            "max_position_embeddings": 131072,
+            "tie_word_embeddings": True,
+            "query_pre_attn_scalar": 256,
+        }
+        cfg = {**defaults, **{k: v for k, v in cfg.items() if v is not None}}
+        # The global/local layer plan ships either as sliding_window_pattern
+        # (config.json) or as an explicit layer_types list (newer HF).
+        pattern = int(cfg.get("sliding_window_pattern") or 0)
+        lt = cfg.get("layer_types")
+        if lt and "full_attention" in lt:
+            pattern = lt.index("full_attention") + 1
+        return ModelConfig(
+            name=cfg.get("model_type", "gemma3"),
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg["num_key_value_heads"],
+            head_dim=cfg["head_dim"],
+            rope_theta=cfg["rope_theta"],
+            rms_eps=cfg["rms_norm_eps"],
+            max_position=cfg["max_position_embeddings"],
+            tie_word_embeddings=cfg["tie_word_embeddings"],
+            qk_norm=True,
+            sliding_window=int(cfg["sliding_window"] or 0),
+            window_pattern=pattern,
+            rope_local_theta=float(cfg["rope_local_base_freq"] or 0.0),
+            rope_scaling=_rope_scaling(cfg.get("rope_scaling")),
+            hidden_act="gelu_tanh",
+            norm_offset=True,
+            post_norms=True,
+            embed_scale=True,
+            query_pre_attn_scalar=float(cfg["query_pre_attn_scalar"] or 0.0),
+        )
 
     # -- presets ------------------------------------------------------------
     @staticmethod
@@ -543,3 +678,70 @@ PRESETS = {
     "mistral-7b": ModelConfig.mistral_7b,
     "gemma3-1b": ModelConfig.gemma3_1b,
 }
+
+
+def _rope_scaling_json(sc) -> dict | None:
+    if sc is None:
+        return None
+    if sc.kind == "llama3":
+        return {"rope_type": "llama3", "factor": sc.factor,
+                "low_freq_factor": sc.low_freq_factor,
+                "high_freq_factor": sc.high_freq_factor,
+                "original_max_position_embeddings": sc.original_max_position}
+    if sc.kind == "linear":
+        return {"rope_type": "linear", "factor": sc.factor}
+    return {"rope_type": "yarn", "factor": sc.factor,
+            "original_max_position_embeddings": sc.original_max_position,
+            "beta_fast": sc.beta_fast, "beta_slow": sc.beta_slow,
+            "mscale": sc.mscale, "mscale_all_dim": sc.mscale_all_dim}
+
+
+def to_hf_config(cfg: ModelConfig) -> dict:
+    """The ``config.json`` that ``ModelConfig.from_hf`` reads back as
+    ``cfg`` (its ``name`` becomes the ``model_type``)."""
+    common = {
+        "model_type": cfg.name, "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+        "max_position_embeddings": cfg.max_position,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "rope_scaling": _rope_scaling_json(cfg.rope_scaling),
+    }
+    if cfg.post_norms:
+        return {**common, "architectures": ["Gemma3ForCausalLM"],
+                "sliding_window": cfg.sliding_window,
+                "sliding_window_pattern": cfg.window_pattern,
+                "rope_local_base_freq": cfg.rope_local_theta,
+                "query_pre_attn_scalar": cfg.query_pre_attn_scalar,
+                "hidden_activation": "gelu_pytorch_tanh"}
+    if cfg.is_mla:
+        arch = "DeepseekV3ForCausalLM"
+    elif cfg.is_moe:
+        arch = "MixtralForCausalLM"
+    elif cfg.qk_norm:
+        arch = "Qwen3ForCausalLM"
+    elif cfg.qkv_bias:
+        arch = "Qwen2ForCausalLM"
+    else:
+        arch = "LlamaForCausalLM"
+    out = {**common, "architectures": [arch],
+           "sliding_window": cfg.sliding_window or None,
+           "max_window_layers": cfg.max_window_layers,
+           "num_experts_per_tok": cfg.num_experts_per_tok, "v_head_dim": cfg.v_head_dim}
+    if cfg.is_moe:
+        out["n_routed_experts" if cfg.is_mla else "num_local_experts"] = cfg.num_experts
+    if cfg.is_mla:
+        out.update(
+            kv_lora_rank=cfg.kv_lora_rank, q_lora_rank=cfg.q_lora_rank or None,
+            qk_nope_head_dim=cfg.qk_nope_head_dim, qk_rope_head_dim=cfg.qk_rope_head_dim,
+            n_shared_experts=cfg.n_shared_experts,
+            moe_intermediate_size=cfg.moe_intermediate_size,
+            first_k_dense_replace=cfg.first_k_dense_replace,
+            scoring_func="sigmoid" if cfg.gating == "sigmoid" else "softmax",
+            norm_topk_prob=cfg.norm_topk_prob,
+            routed_scaling_factor=cfg.routed_scaling_factor,
+            n_group=cfg.n_group, topk_group=cfg.topk_group,
+        )
+    return out

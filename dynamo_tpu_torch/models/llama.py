@@ -208,6 +208,218 @@ def params_from_jax(
     return out
 
 
+def load_hf_weights(
+    cfg: ModelConfig,
+    model_dir: str,
+    dtype: torch.dtype | str = torch.bfloat16,
+    device: torch.device | str | None = None,
+    policy=None,
+) -> Params:
+    """The params of an HF checkout's safetensors shards (read by
+    utils/safetensors.py), in the layout ``params_from_jax`` gives: torch
+    ``[out, in]`` weights transposed to ``[in, out]``. Each tensor moves
+    to ``device`` (default: the card) as it is read and is transposed and
+    cast there, so the host holds one tensor at a time. MLA's
+    ``kv_b_proj`` splits into the absorbed ``w_uk``/``w_uv``, with the
+    checkpoint's pair-interleaved rope dims permuted to halves in the
+    ``q_pe`` columns and ``k_pe`` rows; routed experts (Mixtral's
+    ``block_sparse_moe`` or DeepSeek's ``mlp.experts``) stack over the
+    expert axis."""
+    from dynamo_tpu_torch.utils.safetensors import Checkpoint
+
+    if policy is not None:
+        raise NotImplementedError(
+            "weight quantization at load (policy=) is not served yet: ROADMAP A3"
+        )
+    device = resolve_device(device)
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    with Checkpoint(model_dir) as ckpt:
+        return _load_hf(cfg, ckpt, dtype, device)
+
+
+def _load_hf(cfg: ModelConfig, ckpt, dtype: torch.dtype, device: torch.device) -> Params:
+    def raw(name: str) -> torch.Tensor:
+        return ckpt.get(name, device)
+
+    def w(name: str, transpose: bool = True, dt: torch.dtype | None = None) -> torch.Tensor:
+        t = raw(name)
+        if transpose and t.ndim == 2:
+            t = t.t()
+        return t.to(dt or dtype).contiguous()
+
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        if cfg.is_mla:
+            dn, dr, dc = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+            H, dv = cfg.num_heads, cfg.v_head_dim
+            # Interleaved rope pairs -> [evens ‖ odds] (the NeoX halves
+            # ops/rope.py rotates).
+            perm = torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)]).to(device)
+
+            def permute_q(t):  # [in, H*(dn+dr)], already transposed
+                qr = t.reshape(t.shape[0], H, dn + dr)
+                pe = qr[..., dn:].index_select(-1, perm)
+                return torch.cat([qr[..., :dn], pe], dim=-1).reshape(t.shape[0], -1)
+
+            kvb = raw(f"{p}.self_attn.kv_b_proj.weight").reshape(H, dn + dv, dc)
+            dkv = raw(f"{p}.self_attn.kv_a_proj_with_mqa.weight").t()
+            dkv = torch.cat([dkv[:, :dc], dkv[:, dc:].index_select(1, perm)], dim=1)
+            layer = {
+                "w_dkv": dkv.to(dtype).contiguous(),
+                "ln_kv": w(f"{p}.self_attn.kv_a_layernorm.weight", transpose=False),
+                "w_uk": kvb[:, :dn, :].to(dtype).contiguous(),
+                "w_uv": kvb[:, dn:, :].to(dtype).contiguous(),
+                "wo": w(f"{p}.self_attn.o_proj.weight"),
+                "ln_attn": w(f"{p}.input_layernorm.weight", transpose=False),
+                "ln_mlp": w(f"{p}.post_attention_layernorm.weight", transpose=False),
+            }
+            del kvb, dkv
+            if cfg.q_lora_rank:
+                layer["w_dq"] = w(f"{p}.self_attn.q_a_proj.weight")
+                layer["ln_q"] = w(f"{p}.self_attn.q_a_layernorm.weight", transpose=False)
+                layer["w_uq"] = permute_q(w(f"{p}.self_attn.q_b_proj.weight")).contiguous()
+            else:
+                layer["wq"] = permute_q(w(f"{p}.self_attn.q_proj.weight")).contiguous()
+        else:
+            layer = {
+                "wq": w(f"{p}.self_attn.q_proj.weight"),
+                "wk": w(f"{p}.self_attn.k_proj.weight"),
+                "wv": w(f"{p}.self_attn.v_proj.weight"),
+                "wo": w(f"{p}.self_attn.o_proj.weight"),
+                "ln_attn": w(f"{p}.input_layernorm.weight", transpose=False),
+            }
+            if cfg.post_norms:
+                # Gemma-3's sandwich norms: HF's post_attention_layernorm
+                # is the post-attention branch norm, the MLP's pre-norm is
+                # pre_feedforward_layernorm.
+                layer["ln_post_attn"] = w(f"{p}.post_attention_layernorm.weight",
+                                          transpose=False)
+                layer["ln_mlp"] = w(f"{p}.pre_feedforward_layernorm.weight", transpose=False)
+                layer["ln_post_mlp"] = w(f"{p}.post_feedforward_layernorm.weight",
+                                         transpose=False)
+            else:
+                layer["ln_mlp"] = w(f"{p}.post_attention_layernorm.weight", transpose=False)
+        if cfg.moe_layer(i):
+            if f"{p}.block_sparse_moe.gate.weight" in ckpt:
+                m = f"{p}.block_sparse_moe"
+                enames = ("w1.weight", "w3.weight", "w2.weight")
+            else:
+                m = f"{p}.mlp"
+                enames = ("gate_proj.weight", "up_proj.weight", "down_proj.weight")
+            layer["w_router"] = w(f"{m}.gate.weight")
+            if cfg.gating == "sigmoid":
+                bias = f"{m}.gate.e_score_correction_bias"
+                layer["router_bias"] = (
+                    w(bias, transpose=False, dt=torch.float32) if bias in ckpt
+                    else torch.zeros((cfg.num_experts,), dtype=torch.float32, device=device)
+                )
+            for key, ename in zip(("w_gate", "w_up", "w_down"), enames):
+                layer[key] = torch.stack(
+                    [w(f"{m}.experts.{e}.{ename}") for e in range(cfg.num_experts)]
+                )
+            if cfg.n_shared_experts:
+                layer["w_shared_gate"] = w(f"{m}.shared_experts.gate_proj.weight")
+                layer["w_shared_up"] = w(f"{m}.shared_experts.up_proj.weight")
+                layer["w_shared_down"] = w(f"{m}.shared_experts.down_proj.weight")
+        else:
+            layer["w_gate"] = w(f"{p}.mlp.gate_proj.weight")
+            layer["w_up"] = w(f"{p}.mlp.up_proj.weight")
+            layer["w_down"] = w(f"{p}.mlp.down_proj.weight")
+        if cfg.qkv_bias:
+            layer["bq"] = w(f"{p}.self_attn.q_proj.bias", transpose=False)
+            layer["bk"] = w(f"{p}.self_attn.k_proj.bias", transpose=False)
+            layer["bv"] = w(f"{p}.self_attn.v_proj.bias", transpose=False)
+        if cfg.qk_norm:
+            layer["ln_q_head"] = w(f"{p}.self_attn.q_norm.weight", transpose=False)
+            layer["ln_k_head"] = w(f"{p}.self_attn.k_norm.weight", transpose=False)
+        layers.append(layer)
+    params: Params = {
+        "embed": w("model.embed_tokens.weight", transpose=False),
+        "layers": layers,
+        "ln_f": w("model.norm.weight", transpose=False),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w("lm_head.weight")
+    return params
+
+
+def hf_tensors(cfg: ModelConfig, params: Params) -> dict[str, torch.Tensor]:
+    """The inverse of ``load_hf_weights``: the port's params as an HF
+    checkout's named tensors (``[out, in]`` views, MLA's rope dims
+    re-interleaved, experts unstacked in DeepSeek's layout), on the
+    params' device in their dtype — what a checkout written for the
+    tests or the chip check holds."""
+    out: dict[str, torch.Tensor] = {"model.embed_tokens.weight": params["embed"],
+                                    "model.norm.weight": params["ln_f"]}
+    if "lm_head" in params:
+        out["lm_head.weight"] = params["lm_head"].t()
+    dn, dr, dc = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    H = cfg.num_heads
+
+    def unperm(t, axis):  # [evens ‖ odds] -> interleaved pairs
+        inv = torch.empty(dr, dtype=torch.long)
+        inv[torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)])] = torch.arange(dr)
+        return t.index_select(axis, inv.to(t.device))
+
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}"
+        names = {
+            "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+            "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+            "ln_attn": "input_layernorm.weight", "bq": "self_attn.q_proj.bias",
+            "bk": "self_attn.k_proj.bias", "bv": "self_attn.v_proj.bias",
+            "ln_q_head": "self_attn.q_norm.weight", "ln_k_head": "self_attn.k_norm.weight",
+            "ln_kv": "self_attn.kv_a_layernorm.weight", "w_dq": "self_attn.q_a_proj.weight",
+            "ln_q": "self_attn.q_a_layernorm.weight",
+        }
+        if cfg.post_norms:
+            names.update(ln_post_attn="post_attention_layernorm.weight",
+                         ln_mlp="pre_feedforward_layernorm.weight",
+                         ln_post_mlp="post_feedforward_layernorm.weight")
+        else:
+            names["ln_mlp"] = "post_attention_layernorm.weight"
+        moe = cfg.moe_layer(i)
+        if not moe:
+            names.update(w_gate="mlp.gate_proj.weight", w_up="mlp.up_proj.weight",
+                         w_down="mlp.down_proj.weight")
+        for key, name in names.items():
+            if key not in layer or (cfg.is_mla and key == "wq"):
+                continue
+            t = layer[key]
+            out[f"{p}.{name}"] = t.t() if t.ndim == 2 else t
+        if cfg.is_mla:
+            def perm_q(t):  # our [in, H*(dn+dr)] -> HF [H*(dn+dr), in]
+                qr = t.reshape(t.shape[0], H, dn + dr)
+                qr = torch.cat([qr[..., :dn], unperm(qr[..., dn:], -1)], dim=-1)
+                return qr.reshape(t.shape[0], -1).t()
+
+            if "w_uq" in layer:
+                out[f"{p}.self_attn.q_b_proj.weight"] = perm_q(layer["w_uq"])
+            else:
+                out[f"{p}.self_attn.q_proj.weight"] = perm_q(layer["wq"])
+            dkv = layer["w_dkv"]
+            out[f"{p}.self_attn.kv_a_proj_with_mqa.weight"] = torch.cat(
+                [dkv[:, :dc], unperm(dkv[:, dc:], 1)], dim=1).t()
+            out[f"{p}.self_attn.kv_b_proj.weight"] = torch.cat(
+                [layer["w_uk"], layer["w_uv"]], dim=1).reshape(-1, dc)
+        if moe:
+            m = f"{p}.mlp"
+            out[f"{m}.gate.weight"] = layer["w_router"].t()
+            if "router_bias" in layer:
+                out[f"{m}.gate.e_score_correction_bias"] = layer["router_bias"]
+            for key, ename in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                               ("w_down", "down_proj")):
+                for e in range(cfg.num_experts):
+                    out[f"{m}.experts.{e}.{ename}.weight"] = layer[key][e].t()
+            for key, ename in (("w_shared_gate", "gate_proj"), ("w_shared_up", "up_proj"),
+                               ("w_shared_down", "down_proj")):
+                if key in layer:
+                    out[f"{m}.shared_experts.{ename}.weight"] = layer[key].t()
+    return out
+
+
 def _ln(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """RMSNorm with the family's scale: Gemma checkpoints store w and
     scale by (1 + w), computed in float32 before the norm."""

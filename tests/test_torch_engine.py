@@ -308,8 +308,10 @@ def _port_files():
 # The JAX stack, and the third-party packages the JAX package's serving
 # front uses that the machine with the card does not have.
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "ml_dtypes", "aiohttp", "pydantic",
-           "httpx", "jinja2", "tokenizers", "transformers", "uvicorn")
-THIRD_PARTY_ALLOWED = ("torch", "numpy")
+           "httpx", "tokenizers", "transformers", "uvicorn", "safetensors", "yaml")
+# jinja2 renders a model file's chat template (imported where it renders
+# one): a dependency of torch, present on the CUDA machine.
+THIRD_PARTY_ALLOWED = ("torch", "numpy", "jinja2")
 
 
 def _forbidden(name: str) -> bool:
@@ -341,7 +343,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_port_third_party_imports_are_torch_and_numpy_only():
     """Beyond the standard library, the port and chip_smoke.py import
-    torch and numpy only (the CUDA machine has no serving libraries)."""
+    torch and numpy only (the CUDA machine has no serving libraries),
+    and jinja2 where a model file's chat template is rendered (it comes
+    with torch)."""
     own = ("dynamo_tpu_torch", "chip_smoke", "__future__")
     bad = [
         f"{path}: {n}" for path, n in _imports()

@@ -206,15 +206,19 @@ def test_toy_tokenizer_matches():
 
 
 def test_load_tokenizer_refuses_model_files(tmp_path):
+    """Model files are read now (tests/test_torch_hf_tokenizer.py,
+    test_torch_gguf.py); what is refused is a tokenizer.json outside the
+    subset, a directory only ``transformers`` could load, and a missing
+    GGUF."""
     assert isinstance(load_tokenizer(None), TToy)
     assert isinstance(load_tokenizer("toy"), TToy)
-    (tmp_path / "tokenizer.json").write_text("{}")
-    with pytest.raises(RuntimeError, match="tokenizers"):
+    (tmp_path / "tokenizer.json").write_text('{"model": {"type": "WordPiece"}}')
+    with pytest.raises(ValueError, match="model 'WordPiece'"):
         load_tokenizer(str(tmp_path))
     with pytest.raises(RuntimeError, match="transformers"):
         load_tokenizer(str(tmp_path / "nothing"))
-    with pytest.raises(RuntimeError, match="GGUF"):
-        load_tokenizer("m.gguf")
+    with pytest.raises(FileNotFoundError):
+        load_tokenizer(str(tmp_path / "m.gguf"))
 
 
 # -- preprocessor -----------------------------------------------------------
@@ -483,12 +487,20 @@ def test_card_fields_match_the_reference():
     assert vars(TCard(name="m")) == vars(JCard(name="m"))
 
 
-def test_local_model_serves_presets_and_refuses_checkpoints(tmp_path):
+def test_local_model_serves_presets_and_refuses_checkpoints(tmp_path, monkeypatch):
+    """Checkpoints are served now (tests/test_torch_hf_load.py); what is
+    refused is an unknown preset and a reference that names no files: a
+    snapshot missing from the hub cache, a missing GGUF, a directory
+    without config.json."""
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
     local = LocalModel.prepare("preset:tiny-test", context_length=64)
     assert local.card.name == "tiny-test" and local.card.context_length == 64
-    assert local.card.model_path is None
-    for ref in ("hf://org/name", "m.gguf", str(tmp_path), "preset:nope"):
-        with pytest.raises(ValueError):
+    assert local.card.model_path is None and local.load_params() is None
+    with pytest.raises(ValueError):
+        LocalModel.prepare("preset:nope")
+    for ref in ("hf://org/name", str(tmp_path / "m.gguf"), str(tmp_path)):
+        with pytest.raises(FileNotFoundError):
             LocalModel.prepare(ref)
 
 
@@ -612,8 +624,12 @@ def test_cli_router_mode_kv_refusal_names_roadmap_a5():
     assert t == j
 
 
-def test_cli_refuses_non_preset_models_and_bad_dtypes():
-    for argv, words in ((["--model-path", "hf://a/b"], "preset:NAME"),
+def test_cli_refuses_non_preset_models_and_bad_dtypes(tmp_path, monkeypatch):
+    # Non-preset models are served now: an hf:// reference missing from
+    # the hub cache is what is refused, by name.
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    for argv, words in ((["--model-path", "hf://a/b"], "hf://a/b not in the local hub cache"),
                         (["--dtype", "float16"], "dtype")):
         args = t_cli.build_parser().parse_args(["run", *argv, "--device", "cpu"])
         with pytest.raises(SystemExit, match=words):

@@ -426,3 +426,45 @@ def test_static_buffer_step_pipelined_with_feeds_across_rungs_matches_jax(monkey
                  if calls[i][1] and calls[i][0] != calls[i - 1][0]]
     assert crossings, calls
     assert engine.runner.compile_stats.mid_traffic_compiles == 0
+
+
+def test_capture_holds_off_the_cycle_collector():
+    """A graph capture runs with automatic garbage collection off (a
+    collection mid-capture can destroy another engine's dead graphs
+    inside it and invalidate the capture): concurrent holds nest, the
+    last one out restores what was there before, and a hold that raises
+    still restores it."""
+    import gc
+    import threading
+
+    from dynamo_tpu_torch.engine.runner import gc_held
+
+    assert gc.isenabled()
+    inside = threading.Event()
+    release = threading.Event()
+
+    def other_capture():
+        with gc_held():
+            inside.set()
+            release.wait(10)
+
+    t = threading.Thread(target=other_capture)
+    with gc_held():
+        assert not gc.isenabled()
+        t.start()
+        assert inside.wait(10)
+    assert not gc.isenabled()  # the other capture still holds it
+    release.set()
+    t.join(10)
+    assert not t.is_alive() and gc.isenabled()
+    with pytest.raises(RuntimeError):
+        with gc_held():
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with gc_held():
+            pass
+        assert not gc.isenabled()  # a collector the caller had off stays off
+    finally:
+        gc.enable()

@@ -108,7 +108,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 capture, the flight recorder on and a profile directory.
                 Server A, ``--coloc static``: 4 interactive streams (64-token
                 prompts, 192 greedy tokens) give the decode ITL p50 at the
-                client; itl_slo_ms = 1.5 × that, printed; the same streams
+                client and the controller's ITL EMA; itl_slo_ms = 1.5 × the
+                EMA, printed with both; the same streams
                 again with a burst of 4 batch prompts of 896 tokens (8
                 tokens each) sent mid-decode; then the serve profile's wall
                 ms per dispatch with the tracer and the flight recorder on
@@ -185,6 +186,34 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 weights as a parameter tree: weights equal, streams equal
                 (bf16: or within MLA_BF16_LIMITS' dense leg against the
                 no-cache reference).
+   wquant     — weight quantization (the wq_gemm kernel, after files).
+                Kernel cases: int8 and e4m3 weights quantized on the card,
+                bf16 activations of T = 1, 16, 64, 256 rows at
+                llama3.2-1b's and llama3-8b's q, k/v, o, gate/up, down,
+                tied and untied heads; deepseek-v2-lite's 64 stacked
+                experts (4 and 48 rows each), the split_bmm hi/lo rows and
+                MLA's strided per-head w_uk / w_uv at (16, 128, 512);
+                float32 activations (the SIMT entry) at one shape each:
+                each within KERNEL_TOL (relative to the output's largest
+                magnitude) of the plain version and timed beside it, the
+                bound and one cuBLAS bf16 product on the unquantized
+                weight. llama3.2-1b at full width under int8, fp8,
+                attn=int8,mlp=fp8 and int8 with int8 KV (the serve's draws
+                quantized as drawn): phase 8's gates against the no-cache
+                reference on the same quantized tree, as many graphs as
+                the bf16 serve and none mid-traffic, wq_gemm launched and
+                the plain arm never, the three gauges; tok/s, TTFT p50,
+                profiled device ms per dispatch, resident weight bytes and
+                the greedy match against the bf16 serve's streams. The
+                OpenAI server (``run --weight-quant int8``) answers a chat
+                with the gauges on /metrics; the files phase's bf16
+                checkout quantizes as it loads to the drawn int8 tree
+                (peak device bytes of the load). llama3-8b (32 layers)
+                bf16 and int8, held to WQ_8B_LIMITS: device ms per
+                dispatch beside the weight pass's bound, each init's
+                peak. deepseek-v2-lite at 2
+                layers, int8, float32 (the SIMT entry) and bf16, under
+                phase 8's gates. Wall time at most WQ_BUDGET_S.
 9. fleet      — the runtime plane at full width, through the CLI's own
                 paths: a ``control-plane --port 0`` process; the frontend
                 ``run --in http --out dyn --control-plane ADDR`` built in
@@ -644,11 +673,12 @@ def phase_build() -> None:
         paged_decode_attention,
         paged_prefill_attention,
         ragged_attention,
+        wq_gemm,
     )
 
     t0 = time.monotonic()
     reports = _build.build_all(KERNEL_SOURCES)
-    for module in (ragged_attention, paged_decode_attention, paged_prefill_attention):
+    for module in (ragged_attention, paged_decode_attention, paged_prefill_attention, wq_gemm):
         module.build()
     try:
         # Renders a model file's chat template (phase files); torch
@@ -1498,9 +1528,11 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         capture = await warm_up(engine)
         recorded = record_dispatches(engine.runner)
         reset_counts()
+        reset_wq()
         streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
         recorded.stop()
         capture["mid_traffic_compiles_total"] = mid_traffic(engine)
+        wq = wq_counts()
         launches = fn.launches
         paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
         dispatches = engine.unified_dispatches
@@ -1531,7 +1563,7 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         "unified_dispatches": dispatches,
         "prefill_tokens": prefill_tokens, "decode_tokens": decode_tokens,
         "kernel_launches": launches, "kernel_launches_by_path": paths,
-        "num_layers": cfg.num_layers, "capture": capture,
+        "wq_gemm": wq, "num_layers": cfg.num_layers, "capture": capture,
         "streams_full_length": full, "tokens_in_vocab": in_vocab, **ref,
     }
     emit(result)
@@ -2232,7 +2264,7 @@ OBSERVE_PROMPT = 64          # their prompt tokens
 OBSERVE_TOKENS = 192         # their greedy tokens
 OBSERVE_BURST = (4, 896, 8)  # batch prompts mid-decode: count, tokens, output
 OBSERVE_QUANTUM = 256        # the static leg's quantum, the adaptive leg's start
-OBSERVE_SLO_X = 1.5          # itl_slo_ms = this × the measured decode ITL p50
+OBSERVE_SLO_X = 1.5          # itl_slo_ms = this × the decode-only leg's ITL EMA
 OBSERVE_TIGHT_X = 1.1        # the tight leg's SLO = this × the decode-only EMA
 RAGGED_SYMBOLS = (b"ragged_tc_kernel", b"ragged_split_kernel")
 
@@ -2529,7 +2561,13 @@ async def phase_observe(vocab: int) -> dict:
             emit({"phase": "observe_leg", "leg": "decode_only", **{
                 k: v for k, v in legs["decode_only"].items() if "streams" not in k}})
             decode_p50 = legs["decode_only"]["itl_p50_ms"]
-            slo = OBSERVE_SLO_X * decode_p50
+            # The controller holds its own ITL EMA (one sample per retired
+            # dispatch) to the SLO, so the SLO is set in those units: the
+            # client's gaps coalesce whenever this process's loop falls
+            # behind (one run read a p50 of 0.047 ms beside an EMA of 3.7,
+            # and the leg starved its streams at an SLO of 0.07 ms).
+            decode_ema = engine.coloc.snapshot()["itl_ema_ms"]
+            slo = OBSERVE_SLO_X * decode_ema
             # From here the static controller measures against that SLO,
             # as `--coloc static --itl-slo-ms` would have from the start
             # (a static quantum never moves).
@@ -2550,7 +2588,8 @@ async def phase_observe(vocab: int) -> dict:
         # a burst of them pressures this one and steady decode does not,
         # so this leg shows the controller under pressure either way.
         slo_tight = OBSERVE_TIGHT_X * legs["static"]["ema_first_ms"]
-        emit({"phase": "observe_slo", "decode_itl_p50_ms": decode_p50, "itl_slo_ms": slo,
+        emit({"phase": "observe_slo", "decode_itl_p50_ms": decode_p50,
+              "decode_only_ema_ms": decode_ema, "itl_slo_ms": slo,
               "decode_ema_ms": legs["static"]["ema_first_ms"],
               "static_ema_peak_ms": legs["static"]["ema_peak_ms"],
               "itl_slo_tight_ms": slo_tight})
@@ -2916,16 +2955,19 @@ async def cli_http_serve(model_path: str, prompt: list[int], max_tokens: int) ->
 
 
 def same_params(a, b) -> bool:
-    """Every tensor of two params trees equal bit for bit, with its dtype
-    and shape."""
-    def eq(x, y):
-        return x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(x, y))
-
-    if a.keys() != b.keys() or len(a["layers"]) != len(b["layers"]):
+    """Two params trees equal key for key and bit for bit, with each
+    tensor's dtype and shape (a quantized leaf by its bytes and scales)."""
+    if isinstance(a, dict) != isinstance(b, dict) or isinstance(a, list) != isinstance(b, list):
         return False
-    return all(eq(a[k], b[k]) for k in a if k != "layers") and all(
-        la.keys() == lb.keys() and all(eq(la[k], lb[k]) for k in la)
-        for la, lb in zip(a["layers"], b["layers"]))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_params(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_params(x, y) for x, y in zip(a, b))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.element_size() == 1:   # int8 / e4m3: compare the bytes
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return bool(torch.equal(a, b))
 
 
 def timed_load(local, dtype: str, nbytes: int) -> tuple[dict, dict]:
@@ -3060,8 +3102,11 @@ async def files_fleet(src: str, tok, tmp: str) -> dict:
             "chats": checks, "worker": report}
 
 
-def phase_files(params, prompts, streams, max_tokens, card: str) -> dict:
-    """Serving from files (see the module docstring)."""
+def phase_files(params, prompts, streams, max_tokens, card: str,
+                keep_checkout: str | None = None) -> dict:
+    """Serving from files (see the module docstring). ``keep_checkout``:
+    a directory the llama3.2-1b checkout is written to and left in (the
+    wquant phase loads it again), else it lives in the phase's own."""
     import shutil
 
     from dynamo_tpu_torch.llm.gguf import GgufTokenizer, read_gguf
@@ -3079,7 +3124,7 @@ def phase_files(params, prompts, streams, max_tokens, card: str) -> dict:
     launches: dict = {}
     try:
         # 1. The full-width llama3.2-1b checkout of the serve's weights.
-        src = os.path.join(tmp, "llama3.2-1b")
+        src = keep_checkout or os.path.join(tmp, "llama3.2-1b")
         t0 = time.perf_counter()
         nbytes = wc.write_weights(src, cfg, params, shards=2)
         tok_json = wc.llama3_tokenizer(cfg.vocab_size, merges=FILES_MERGES)
@@ -3145,7 +3190,8 @@ def phase_files(params, prompts, streams, max_tokens, card: str) -> dict:
                  {"chats": fleet["chats"], "context_length": fleet["card_context_length"],
                   "frontend_model_path": fleet["frontend_model_path"]},
                  {"context_length": FILES_MAX_LEN})
-        shutil.rmtree(src)
+        if keep_checkout is None:
+            shutil.rmtree(src)
 
         # 3. A GGUF (F16, FILES_SHALLOW layers, the whole vocabulary) and a
         # safetensors checkout of the same F16 weights.
@@ -3255,6 +3301,356 @@ def phase_files(params, prompts, streams, max_tokens, card: str) -> dict:
     out["phase_s"] = time.monotonic() - t_phase
     emit({"phase": "files", "card": card, "ragged_launches": launches,
           "phase_s": out["phase_s"]})
+    return out
+
+
+# -- phase wquant -------------------------------------------------------------
+WQ_POLICIES = [("int8", None), ("fp8", None), ("attn=int8,mlp=fp8", None), ("int8", "int8")]
+WQ_TOKENS = (1, 16, 64, 256)      # kernel cases' activation rows
+WQ_8B_LENS = (64, 513)            # llama3-8b prompts: 4 of this many tokens ...
+WQ_8B_TOKENS = 32                 # ... for this many greedy tokens each
+# llama3-8b's 32 bf16 layers of random weights put near ties just past
+# phase 8's 0.02 nats (the bf16 leg read 0.0179 and 0.0234 in two runs on
+# the H100, agreement 0.977 both; the arrivals race, so the batches and
+# their roundings differ run to run): both 8B legs are held to this
+# (agreement at least, largest gap at most). A wrong model reads near 0
+# and several nats.
+WQ_8B_LIMITS = (0.9, 0.05)
+WQ_MLA_TOKENS = 16                # deepseek-v2-lite's 2-layer legs, 4 prompts each
+WQ_BUDGET_S = 300.0               # the phase's wall time, at most
+WQ_MAIN_CASE = "llama3.2-1b_tied_head_int8_T16"
+
+
+def reset_wq() -> None:
+    """The weight-quantized GEMM's launch counters and the plain arm's
+    calls to 0."""
+    from dynamo_tpu_torch.ops.kernels.wq_gemm import wq_gemm_cuda
+    from dynamo_tpu_torch.ops.quant import PLAIN_CALLS
+
+    wq_gemm_cuda.launches = wq_gemm_cuda.launches_f32 = 0
+    PLAIN_CALLS["count"] = 0
+
+
+def wq_counts() -> dict:
+    from dynamo_tpu_torch.ops.kernels.wq_gemm import wq_gemm_cuda
+    from dynamo_tpu_torch.ops.quant import PLAIN_CALLS
+
+    return {"launches": wq_gemm_cuda.launches, "launches_f32": wq_gemm_cuda.launches_f32,
+            "plain_calls": PLAIN_CALLS["count"]}
+
+
+def wq_weight(B, N, K, fmt, act, transposed, cache: dict) -> tuple:
+    """A random bf16 weight quantized on the card (in float32 for float32
+    activations) and its dequantized bf16 copy for the library call,
+    made once per shape and format."""
+    from dynamo_tpu_torch.ops import quant as tq
+
+    key = (B, N, K, fmt, act, transposed)
+    if key not in cache:
+        cache.clear()
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(B * 7919 + N + K)
+        shape = (B, N, K) if transposed else (B, K, N)
+        w = (torch.randn(shape, generator=g, device=DEVICE) / K ** 0.5).to(torch.bfloat16)
+        axis = -1 if transposed else -2
+        qw = tq.quantize_weight(w if act == torch.bfloat16 else w.float(), axis=axis, fmt=fmt)
+        del w
+        deq = tq.dequantize_weight(qw, torch.bfloat16, axis=axis)
+        cache[key] = (qw, deq.transpose(-1, -2) if transposed else deq)
+    return cache[key]
+
+
+def wq_case(name, B, M, N, K, fmt, act, cache, transposed=False, out_dtype=None,
+            strided=False) -> dict:
+    """One product through the kernel against its plain version on the
+    same inputs (activations from a seed), timed beside the plain
+    version, the bound and one cuBLAS bf16 product on the unquantized
+    weight (the cost quantization should beat; the port never calls
+    it)."""
+    from dynamo_tpu_torch.ops.kernels import wq_gemm as wk
+
+    qw, wlib = wq_weight(B, N, K, fmt, act, transposed, cache)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(M)
+    if strided:
+        # MLA's per-head operand: [T, H, width] rows, the head the batch.
+        a = torch.randn((M, B, K + 64), generator=g, device=DEVICE).to(act)[..., :K]
+        a = a.permute(1, 0, 2)
+    else:
+        a = torch.randn((B, M, K), generator=g, device=DEVICE).to(act)
+    out_dtype = out_dtype or act
+    kernel = lambda: wk.wq_gemm_cuda(a, qw["q"], qw["s"], out_dtype=out_dtype,  # noqa: E731
+                                     transposed=transposed)
+    plain = lambda: wk.wq_gemm_plain(a, qw["q"], qw["s"], out_dtype, transposed)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    abs_err = max_err(got, want)
+    rel_err = abs_err / max(want.float().abs().max().item(), 1e-12)
+    check("wquant", name, {"max_rel_err": rel_err}, KERNEL_TOL[act], max_abs_err=abs_err)
+    alib = a.to(torch.bfloat16)
+    kw = {} if out_dtype == torch.bfloat16 else {"out_dtype": out_dtype}
+    if B == 1:
+        library = lambda: torch.mm(alib[0], wlib[0], **kw)  # noqa: E731
+    else:
+        library = lambda: torch.bmm(alib, wlib, **kw)  # noqa: E731
+    nbytes = (qw["q"].numel() + qw["s"].numel() * qw["s"].element_size()
+              + B * M * K * a.element_size() + B * M * N * got.element_size())
+    bound_ms, bound_by = bound(nbytes, 2 * B * M * N * K, act)
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
+            "kernel_ms": device_ms(kernel, iters=10), "plain_ms": device_ms(plain, iters=1),
+            "library_ms": device_ms(library, iters=5), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes}
+
+
+def wq_kernel_cases() -> dict:
+    """The kernel at the main paths' shapes (each against its plain
+    version, timed): llama3.2-1b's and llama3-8b's projections, MLP, tied
+    and untied heads at T in WQ_TOKENS, int8 and e4m3, bf16 activations;
+    deepseek-v2-lite's stacked experts (dense decode and capacity
+    buffers), the split_bmm hi/lo rows and MLA's per-head w_uk / w_uv;
+    float32 activations at one shape of each entry."""
+    f32 = torch.float32
+    bf = torch.bfloat16
+    shapes = {   # name: (N, K, transposed, f32 out)
+        "llama3.2-1b_q": (2048, 2048, False, False), "llama3.2-1b_kv": (512, 2048, False, False),
+        "llama3.2-1b_o": (2048, 2048, False, False), "llama3.2-1b_gate_up": (8192, 2048, False, False),
+        "llama3.2-1b_down": (2048, 8192, False, False),
+        "llama3.2-1b_tied_head": (128256, 2048, True, True),
+        "llama3-8b_q": (4096, 4096, False, False), "llama3-8b_kv": (1024, 4096, False, False),
+        "llama3-8b_o": (4096, 4096, False, False), "llama3-8b_gate_up": (14336, 4096, False, False),
+        "llama3-8b_down": (4096, 14336, False, False), "llama3-8b_head": (128256, 4096, False, True),
+    }
+    cases, cache = {}, {}
+    for fmt in ("int8", "fp8"):
+        for name, (N, K, tr, f32_out) in shapes.items():
+            for T in WQ_TOKENS:
+                cases[f"{name}_{fmt}_T{T}"] = wq_case(
+                    f"{name}_{fmt}_T{T}", 1, T, N, K, fmt, bf, cache, transposed=tr,
+                    out_dtype=f32 if f32_out else None)
+        # deepseek-v2-lite: 64 experts' w_gate/w_up (dense decode: 4 rows
+        # each; capacity at the 256 rung: C = 48), w_down's split_bmm rows
+        # (2C), MLA's per-head einsums at (H, dn|v, dc) = (16, 128, 512).
+        for C in (4, 48):
+            cases[f"deepseek_experts_up_{fmt}_C{C}"] = wq_case(
+                f"deepseek_experts_up_{fmt}_C{C}", 64, C, 1408, 2048, fmt, bf, cache, out_dtype=f32)
+        cases[f"deepseek_experts_down_hilo_{fmt}"] = wq_case(
+            f"deepseek_experts_down_hilo_{fmt}", 64, 96, 2048, 1408, fmt, bf, cache, out_dtype=f32)
+        for T in (16, 256):
+            cases[f"mla_w_uk_{fmt}_T{T}"] = wq_case(f"mla_w_uk_{fmt}_T{T}", 16, T, 512, 128,
+                                                   fmt, bf, cache, strided=True)
+            cases[f"mla_w_uv_{fmt}_T{T}"] = wq_case(f"mla_w_uv_{fmt}_T{T}", 16, T, 128, 512,
+                                                   fmt, bf, cache, transposed=True, strided=True)
+        # float32 activations (the SIMT loop): one shape each.
+        cases[f"f32_q_{fmt}"] = wq_case(f"f32_q_{fmt}", 1, 16, 2048, 2048, fmt, f32, cache)
+        cases[f"f32_tied_head_{fmt}"] = wq_case(f"f32_tied_head_{fmt}", 1, 16, 128256, 2048,
+                                                fmt, f32, cache, transposed=True)
+        cases[f"f32_experts_{fmt}"] = wq_case(f"f32_experts_{fmt}", 64, 8, 1408, 2048, fmt, f32, cache)
+    cache.clear()
+    return cases
+
+
+async def wquant_http(extra: list[str]) -> dict:
+    """``run --in http --out torch --model-path preset:llama3.2-1b
+    <extra>`` through the CLI's own path in this process: one chat
+    completion, then /metrics; the wq_gemm launches of the warmup and
+    the request."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm.http_client import fetch
+
+    args = cli.build_parser().parse_args([
+        *HTTP_ARGS, "--in", "http", "--http-host", "127.0.0.1", "--http-port", "0", *extra])
+    cli._apply_config(args)
+    cli.refuse_unserved(args)
+    reset_wq()
+    async with contextlib.AsyncExitStack() as stack:
+        service, engine = await cli.start_http(args, stack)
+        name = service.manager.models()[0]
+        resp = await fetch("127.0.0.1", service.port, "POST", "/v1/chat/completions", {
+            "model": name, "messages": [{"role": "user", "content": "hello, card"}],
+            "max_tokens": 16, "temperature": 0})
+        body = resp.json()
+        metrics = (await fetch("127.0.0.1", service.port, "GET", "/metrics")).body.decode()
+        dispatches = engine.unified_dispatches
+    gauges = {k: metric_value(metrics, k) for k in (
+        "weight_quant_active", "weight_quant_bytes_saved", "weight_quant_density")}
+    return {"status": resp.status, "completion_tokens": body["usage"]["completion_tokens"],
+            "gauges": gauges, "unified_dispatches": dispatches, "wq_gemm": wq_counts()}
+
+
+def wq_serve_gates(leg: str, served: dict, bf16_graphs: int | None, f32: bool = False) -> None:
+    """A quantized serve went through the kernel (bf16: the tensor-core
+    entry; float32: the SIMT loop), never the plain arm, captured as many
+    graphs as the unquantized engine (where one was served) and nothing
+    mid-traffic (serve_family's gate), with the policy's gauges set."""
+    wq, gauges = served["wq_gemm"], served["weight_quant"]
+    entry, other = ("launches_f32", "launches") if f32 else ("launches", "launches_f32")
+    if not (wq[entry] > 0 and wq[other] == 0 and wq["plain_calls"] == 0):
+        fail(f"{leg}: wq_gemm launches (kernel > 0, other entry and plain arm 0)", wq,
+             {entry: "> 0", other: 0, "plain_calls": 0})
+    if bf16_graphs is not None and served["capture"]["graphs_captured"] != bf16_graphs:
+        fail(f"{leg}: graphs captured against the unquantized engine's",
+             served["capture"]["graphs_captured"], bf16_graphs)
+    if not (gauges.get("weight_quant_bytes_saved", 0) > 0
+            and 0.0 < gauges.get("weight_quant_density", 0) <= 1.0):
+        fail(f"{leg}: weight-quant gauges", gauges, {"bytes_saved": "> 0"})
+
+
+def phase_wquant(card: str, prompts, more, streams, served: dict, checkout: str) -> dict:
+    """Weight quantization on the card (see the module docstring)."""
+    from dynamo_tpu_torch.llm.local_model import LocalModel
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import kernels
+
+    t_phase = time.monotonic()
+    kernels.set_launch_counts({k: 0 for k in kernels.launch_counts()})
+    free_card()
+    out: dict = {"phase": "wquant", "card": card, "legs": {}}
+    stage_s = {}
+    cases = wq_kernel_cases()
+    main = cases[WQ_MAIN_CASE]
+    bf16_cases = [c for n, c in cases.items() if not n.startswith("f32_")]
+    out["kernel"] = {**main, "max_abs_err": max(c["max_abs_err"] for c in bf16_cases),
+                     "max_rel_err": max(c["max_rel_err"] for c in bf16_cases),
+                     "max_rel_err_f32": max(c["max_rel_err"] for n, c in cases.items()
+                                            if n.startswith("f32_"))}
+    out["cases"] = cases
+    emit({"phase": "wquant_kernel_table", "card": card, "cases": cases})
+    stage_s["kernel_cases"] = time.monotonic() - t_phase
+    free_card()
+
+    # llama3.2-1b at full width under each policy, its weights the serve
+    # phase's draws quantized as they are drawn.
+    cfg = full_width_config().model
+    bf16_graphs = served["capture"]["graphs_captured"]
+    for spec, kvq in WQ_POLICIES:
+        t0 = time.monotonic()
+        leg = f"llama3.2-1b_{spec}" + (f"_kv_{kvq}" if kvq else "")
+        params = seeded_params(cfg, 0, torch.bfloat16, spec)
+        res, got = asyncio.run(serve_family(
+            full_width_config(weight_quant=spec, kv_quant=kvq), params, prompts, 32,
+            f"wquant_{leg}", profile_prompts=more))
+        wq_serve_gates(leg, res, bf16_graphs)
+        res["greedy_match_vs_bf16_same_weights"] = match_rate(got, streams)
+        res["leg_s"] = time.monotonic() - t0
+        out["legs"][leg] = res
+        emit({"phase": "wquant_leg", "leg": leg, "card": card,
+              **{k: res[k] for k in ("tokens_per_s", "ttft_p50_ms", "device_ms_per_dispatch",
+                                     "device_busy_share", "weight_bytes", "weight_quant",
+                                     "wq_gemm", "kernel_launches", "unified_dispatches",
+                                     "greedy_match_vs_bf16_same_weights", "leg_s")},
+              "graphs_captured": res["capture"]["graphs_captured"]})
+        if spec == "int8" and kvq is None:
+            int8_params = params
+        else:
+            del params
+        free_card()
+    stage_s["llama3.2-1b"] = time.monotonic() - t_phase - sum(stage_s.values())
+
+    # The OpenAI server through the CLI's own path, quantizing as it draws.
+    http = asyncio.run(wquant_http(["--weight-quant", "int8"]))
+    out["http"] = http
+    emit({"phase": "wquant_http", **http})
+    g = http["gauges"]
+    if not (http["status"] == 200 and http["completion_tokens"] > 0
+            and g["weight_quant_active"] == 1.0 and (g["weight_quant_bytes_saved"] or 0) > 0
+            and 0.9 < (g["weight_quant_density"] or 0) <= 1.0
+            and http["wq_gemm"]["launches"] > 0 and http["wq_gemm"]["plain_calls"] == 0):
+        fail("wquant: the int8 server's reply, gauges or launches", http,
+             {"status": 200, "weight_quant_active": 1.0, "density": "(0.9, 1]"})
+    free_card()
+
+    # The files phase's bf16 checkout (the serve's weights), quantized as
+    # it loads: equal to the draws quantized as drawn; the load's peak.
+    policy = llama.WeightQuantPolicy.from_string("int8")
+    local = LocalModel.prepare(checkout)
+    free_card()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loaded = local.load_params("bfloat16", DEVICE, policy)
+    torch.cuda.synchronize()
+    load = {"seconds": time.perf_counter() - t0,
+            "peak_bytes_over_start": torch.cuda.max_memory_allocated() - base,
+            "resident_bytes": param_bytes(loaded), "bf16_bytes": cfg.param_count() * 2,
+            "equal_to_drawn_int8": same_params(loaded, int8_params)}
+    out["checkout_load"] = load
+    emit({"phase": "wquant_checkout_load", **load})
+    if not load["equal_to_drawn_int8"]:
+        fail("wquant: the checkout quantized on load differs from the drawn int8 tree",
+             False, True)
+    del loaded, int8_params
+    free_card()
+
+    # llama3-8b at full width, bf16 then int8: is the dispatch's weight
+    # stream halved?
+    t0 = time.monotonic()
+    cfg8 = ModelConfig.llama3_8b()
+    rng = np.random.default_rng(8)
+    p8 = [rng.integers(0, cfg8.vocab_size, n).tolist() for n in rng.integers(*WQ_8B_LENS, 4)]
+    m8 = [rng.integers(0, cfg8.vocab_size, n).tolist() for n in rng.integers(*WQ_8B_LENS, 4)]
+    out["llama3-8b"] = {}
+    graphs8 = None
+    for spec in (None, "int8"):
+        name = spec or "bf16"
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = seeded_params(cfg8, 0, torch.bfloat16, spec)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() - base
+        res, _ = asyncio.run(serve_family(
+            family_config(cfg8, weight_quant=spec), params, p8, WQ_8B_TOKENS,
+            f"wquant_llama3-8b_{name}", profile_prompts=m8, limits=WQ_8B_LIMITS))
+        if spec:
+            wq_serve_gates(f"llama3-8b_{name}", res, graphs8)
+        elif res["wq_gemm"]["launches"]:
+            fail("wquant: the bf16 llama3-8b serve launched wq_gemm", res["wq_gemm"], 0)
+        graphs8 = res["capture"]["graphs_captured"]
+        leg = {k: res[k] for k in ("tokens_per_s", "ttft_p50_ms", "device_ms_per_dispatch",
+                                   "device_busy_share", "top_kernels_ms", "weight_bytes",
+                                   "weight_quant", "wq_gemm", "unified_dispatches",
+                                   "greedy_agreement_vs_no_cache_reference",
+                                   "max_logprob_gap_at_disagreement")}
+        leg["init_peak_bytes_over_start"] = init_peak
+        leg["weight_pass_bound_ms"] = res["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+        leg["graphs_captured"] = res["capture"]["graphs_captured"]
+        out["llama3-8b"][name] = leg
+        emit({"phase": "wquant_llama3-8b", "leg": name, "card": card, **leg})
+        del params
+        free_card()
+    stage_s["llama3-8b"] = time.monotonic() - t0
+
+    # deepseek-v2-lite at full width, 2 layers (dense, then MoE), int8:
+    # MLA's ladder, the 64 stacked experts and the shared experts through
+    # the kernel; a float32 witness (the SIMT entry) and a bf16 leg, both
+    # drop-free under phase 8's gates.
+    t0 = time.monotonic()
+    lite = ModelConfig.deepseek_v2_lite().scaled(num_layers=FILES_SHALLOW,
+                                                 moe_dispatch="dense")
+    rng = np.random.default_rng(15)
+    lp = [rng.integers(0, lite.vocab_size, n).tolist() for n in rng.integers(*MLA_LENS, 4)]
+    out["deepseek"] = {}
+    for dtype in ("float32", "bfloat16"):
+        params = seeded_params(lite, 1, getattr(torch, dtype), "int8")
+        res, _ = asyncio.run(serve_family(
+            family_config(lite, dtype=dtype, weight_quant="int8"), params, lp, WQ_MLA_TOKENS,
+            f"wquant_deepseek_{dtype}"))
+        wq_serve_gates(f"deepseek_{dtype}", res, None, f32=dtype == "float32")
+        out["deepseek"][dtype] = {k: res[k] for k in (
+            "tokens_per_s", "ttft_p50_ms", "weight_bytes", "weight_quant", "wq_gemm",
+            "kernel_launches", "unified_dispatches", "greedy_agreement_vs_no_cache_reference",
+            "max_logprob_gap_at_disagreement")}
+        emit({"phase": "wquant_deepseek", "dtype": dtype, **out["deepseek"][dtype]})
+        del params
+        free_card()
+    stage_s["deepseek"] = time.monotonic() - t0
+
+    out["stage_s"] = stage_s
+    out["phase_s"] = time.monotonic() - t_phase
+    emit({"phase": "wquant", "card": card, "stage_s": stage_s, "phase_s": out["phase_s"],
+          "kernel": out["kernel"]})
+    if out["phase_s"] > WQ_BUDGET_S:
+        fail("wquant: wall seconds", out["phase_s"], WQ_BUDGET_S)
     return out
 
 
@@ -5898,6 +6294,7 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
         capture = await warm_up(engine)
         recorded = record_dispatches(engine.runner) if record else None
         reset_counts()
+        reset_wq()
         sampler = asyncio.create_task(sample_blocks(engine, blocks))
         try:
             streams, finishes, ttft, wall = await serve(engine, prompts, max_tokens)
@@ -5906,9 +6303,11 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
             if recorded is not None:
                 recorded.stop()
         capture["mid_traffic_compiles_total"] = mid_traffic(engine)
+        wq = wq_counts()
         launches = fn.launches
         paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
         dispatches = engine.unified_dispatches
+        gauges = {k: v for k, v in engine.readiness().items() if k.startswith("weight_quant_")}
         if profile_prompts is not None:
             profile = await profile_serve(engine, profile_prompts, profile_tokens)
     finally:
@@ -5923,6 +6322,7 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
         "ttft_p50_ms": float(np.median(ttft)) * 1e3, "ttft_max_ms": max(ttft) * 1e3,
         "unified_dispatches": dispatches, "kernel_launches": launches,
         "kernel_launches_by_path": paths, "num_layers": cfg.num_layers,
+        "wq_gemm": wq, "weight_quant": gauges, "weight_bytes": param_bytes(params),
         "capture": capture, "rolling_buffer": cfg.rolling_buffer, "evict": evict,
         "kv_active_blocks_max": max((b for _, b in blocks), default=0),
         "kv_active_blocks_max_second_half": max(late, default=0),
@@ -6255,14 +6655,16 @@ MLA_HTTP_ARGS = [
 ]
 
 
-def seeded_params(cfg, seed: int, dtype):
+def seeded_params(cfg, seed: int, dtype, spec: str | None = None):
     """Random weights from ``seed``, drawn on the card tensor by tensor
-    (one float32 draw at a time, cast there)."""
+    (one float32 draw at a time, cast there); with a weight-quant policy
+    ``spec``, quantized as they are drawn (the same draws)."""
     from dynamo_tpu_torch.models import llama
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
-    return llama.init_params(cfg, g, dtype=dtype, device=DEVICE)
+    policy = llama.WeightQuantPolicy.from_string(spec) if spec else None
+    return llama.init_params(cfg, g, dtype=dtype, device=DEVICE, policy=policy)
 
 
 def moe_rungs(ecfg) -> dict:
@@ -6958,8 +7360,16 @@ def run_all() -> int:
     observe = run_phase("observe", phase_observe, vocab)
     phases = run_phase("phases", phase_phases, engine.runner.params,
                        prompts[:PHASE_LANES], streams[:PHASE_LANES], max_tokens)
-    files = run_phase("files", phase_files, engine.runner.params, prompts, streams,
-                      max_tokens, card)
+    # The files phase leaves its llama3.2-1b checkout for wquant to load.
+    keep = tempfile.mkdtemp(prefix="chip_smoke_checkout_")
+    try:
+        checkout = os.path.join(keep, "llama3.2-1b")
+        files = run_phase("files", phase_files, engine.runner.params, prompts, streams,
+                          max_tokens, card, checkout)
+        wquant = run_phase("wquant", phase_wquant, card, prompts, more, streams, served,
+                           checkout)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     # The fleet's workers are processes of their own on this card: free
     # this process's engines first, keeping the serve's weights (the
     # workers make the same ones from the same seed) for the gates.
@@ -7033,6 +7443,22 @@ def run_all() -> int:
                                      if k.startswith("deepseek")},
                      http_launches=mla["http"]["kernel_launches"],
                      int8=mla["kernels"]["int8"], f32=mla["kernels"]["f32"]),
+        kernel_entry("wq_gemm", "dynamo_tpu_torch/csrc/wq_gemm.cu",
+                     "none (no pl.pallas_call): the XLA fusion of dynamo_tpu/ops/quant.py:119 "
+                     "qmm", wquant["legs"]["llama3.2-1b_int8"]["wq_gemm"]["launches"],
+                     wquant["kernel"],
+                     "int8/e4m3 weights streamed by a 4-stage cp.async ring, converted to "
+                     "bf16 in registers, mma.sync m16n8k16 with f32 sums, the column "
+                     "scale in the epilogue; K split over blocks at decode sizes, then a "
+                     "reduce pass; f32 activations on a SIMT loop",
+                     main_case=WQ_MAIN_CASE, max_rel_err=wquant["kernel"]["max_rel_err"],
+                     launches_by_leg={
+                         **{k: v["wq_gemm"] for k, v in wquant["legs"].items()},
+                         **{f"llama3-8b_{k}": v["wq_gemm"]
+                            for k, v in wquant["llama3-8b"].items()},
+                         **{f"deepseek_{k}": v["wq_gemm"]
+                            for k, v in wquant["deepseek"].items()},
+                         "http": wquant["http"]["wq_gemm"]}),
         kernel_entry("paged_decode_attention",
                      "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
                      "dynamo_tpu/ops/pallas/attention.py:91",

@@ -162,11 +162,17 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--node-rank", type=int, default=0)
     run.add_argument("--dtype", default="bfloat16",
                      help="bfloat16 | float32")
-    run.add_argument("--quant", default=None, choices=["int8"])
+    run.add_argument("--quant", default=None, choices=["int8"],
+                     help="legacy whole-model int8 weights (every matmul site; "
+                          "--weight-quant int8 is its superset)")
     run.add_argument("--kv-quant", default=None, choices=["int8"],
                      help="int8 KV blocks with per-(block, kv head) scales, "
                           "read by the ragged kernel's int8 leg")
-    run.add_argument("--weight-quant", default=None, metavar="POLICY")
+    run.add_argument("--weight-quant", default=None, metavar="POLICY",
+                     help="per-matmul weight-quantization policy: 'int8' or "
+                          "'fp8' for every site, or site=fmt pairs over "
+                          "embedding, attn, mlp, unembed (e.g. "
+                          "'attn=int8,mlp=fp8'); weights quantize as they load")
     run.add_argument("--speculative-k", type=int, default=0)
     run.add_argument("--max-num-seqs", type=int, default=32)
     run.add_argument("--max-model-len", type=int, default=2048)
@@ -354,10 +360,9 @@ def refuse_unserved(args) -> None:
         (args.coordinator is not None or args.num_nodes != 1 or args.node_rank != 0,
          "--coordinator/--num-nodes/--node-rank: multi-host serving is not "
          "served yet"),
-        (args.quant is not None,
-         "--quant: weight quantization is not served yet (ROADMAP A3)"),
-        (args.weight_quant is not None,
-         "--weight-quant: weight quantization is not served yet (ROADMAP A3)"),
+        (args.model_type == "embeddings" and (args.quant or args.weight_quant),
+         "--model-type embeddings serves full-precision weights: drop "
+         "--quant/--weight-quant"),
         (args.speculative_k < 0, "--speculative-k must be >= 0"),
         (args.model_type == "embeddings" and args.output in ("echo_core", "echo_full"),
          "--model-type embeddings: the echo engines serve chat; embeddings "
@@ -888,6 +893,8 @@ def _local_and_cfg(args):
         coloc=args.coloc,
         coloc_min_quantum=args.coloc_min_quantum,
         kv_quant=args.kv_quant,
+        quant=args.quant,
+        weight_quant=args.weight_quant,
         speculative_k=args.speculative_k,
         shape_manifest_path=args.shape_manifest,
         # With warmup on, hold admission until the hot program set is
@@ -926,8 +933,11 @@ async def _start_engine(args, stack, hooks=None):
         logger.warning("--unified is a no-op: the unified step is the only engine path")
     local, ecfg = _local_and_cfg(args)
     # A checkout's or a GGUF's weights, read onto the device off the event
-    # loop; None for a preset (the runner seeds random weights there).
-    params = await asyncio.to_thread(local.load_params, args.dtype, args.device)
+    # loop (a checkout's quantized layer by layer under a weight policy);
+    # None for a preset (the runner draws random weights there, quantized
+    # as they are drawn).
+    params = await asyncio.to_thread(local.load_params, args.dtype, args.device,
+                                     ecfg.weight_policy())
     engine = TorchEngine(ecfg, params=params, device=args.device, **(hooks or {}))
     del params
     await engine.start()

@@ -109,9 +109,16 @@ class EngineConfig:
     # correctness dependency like disagg's inbound KV.
     kvbm_peer_timeout_s: float = 2.0
 
-    # -- reference features the port refuses (validate) --------------------
+    # Weight-only quantization (ops/quant.py): ``quant="int8"`` is the
+    # legacy whole-model flag; ``weight_quant`` the per-matmul policy
+    # (models/llama.py WeightQuantPolicy: "int8", "fp8", or
+    # "attn=int8,mlp=fp8"...). Quantized sites hold int8/e4m3 data and
+    # scales in `dtype`, quantized as they load or are drawn; the two
+    # flags exclude each other, and either composes with kv_quant.
     quant: str | None = None
     weight_quant: str | None = None
+
+    # -- reference features the port refuses (validate) --------------------
     mesh_shape: dict[str, int] = field(default_factory=dict)
     kv_sp: bool = False
     # Serve image requests (llm/multimodal.py): warmup also makes the
@@ -126,9 +133,38 @@ class EngineConfig:
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
+    _QUANT_MODES = (None, "int8")
     _KV_QUANT_MODES = (None, "int8")
     _WARMUP_GATES = ("hold", "degraded")
     _COLOC_MODES = ("static", "adaptive")
+
+    def weight_policy(self):
+        """The WeightQuantPolicy the weights are stored under, or None:
+        ``weight_quant``'s, or for the legacy ``quant="int8"`` every matmul
+        site (models/llama.py LEGACY_INT8)."""
+        from dynamo_tpu_torch.models.llama import LEGACY_INT8, WeightQuantPolicy
+
+        if self.weight_quant:
+            policy = WeightQuantPolicy.from_string(self.weight_quant)
+            return policy if policy.active else None
+        return LEGACY_INT8 if self.quant == "int8" else None
+
+    def weight_bytes(self) -> float:
+        """Resident bytes of the model's weights in ``dtype``, under the
+        weight policy if there is one, from shapes alone (the quantized
+        tree is built on the meta device; nothing is allocated)."""
+        itemsize = DTYPES[self.dtype].itemsize
+        total = self.model.param_count() * itemsize
+        policy = self.weight_policy()
+        if policy is None:
+            return float(total)
+        from dynamo_tpu_torch.models import llama
+        from dynamo_tpu_torch.ops.quant import quant_tree_stats
+
+        tree = llama.init_params(self.model, torch.Generator(), DTYPES[self.dtype],
+                                 device="meta", policy=policy)
+        saved, _ = quant_tree_stats(tree, itemsize)
+        return total - saved
 
     def validate(self) -> None:
         if self.speculative_k < 0 or self.speculative_k > self.block_size:
@@ -175,8 +211,25 @@ class EngineConfig:
                 "conflicting flags kv_quant + kv_sp: kv_quant does not "
                 "support the striped (sequence-parallel) KV cache"
             )
+        if self.quant not in self._QUANT_MODES:
+            raise ValueError(
+                f"quant={self.quant!r} not in {self._QUANT_MODES}"
+            )
+        if self.weight_quant:
+            # Parse-validate the policy spec so a typo fails at config
+            # time with the site/format vocabulary, not mid-load.
+            from dynamo_tpu_torch.models.llama import WeightQuantPolicy
+
+            WeightQuantPolicy.from_string(self.weight_quant)
+            if self.quant:
+                raise ValueError(
+                    "conflicting flags --quant + --weight-quant: the "
+                    "legacy whole-model quant flag and the per-matmul "
+                    "weight_quant policy both own the weight tree — "
+                    "use --weight-quant alone (--weight-quant int8 is "
+                    "the superset of --quant int8)"
+                )
         refused = [
-            (self.quant or self.weight_quant, "weight quantization"),
             (self.mesh_shape, "a device mesh"),
             (self.kv_sp, "kv_sp"),
         ]
@@ -186,11 +239,14 @@ class EngineConfig:
                     f"{what} is not served by this slice of the port"
                 )
         if self.dtype in DTYPES:
-            weight_bytes = self.model.param_count() * DTYPES[self.dtype].itemsize
+            weight_bytes = self.weight_bytes()
             if weight_bytes > CARD_BYTES:
+                stored = self.dtype
+                if self.weight_policy() is not None:
+                    stored += f", {self.weight_quant or 'quant=' + self.quant}"
                 raise ValueError(
                     f"model {self.model.name}: {weight_bytes / 1e9:.1f} GB of "
-                    f"{self.dtype} weights exceed one {CARD_BYTES / 1e9:.0f} GB "
+                    f"{stored} weights exceed one {CARD_BYTES / 1e9:.0f} GB "
                     "card: not served by this slice of the port (a model "
                     "sharded over cards is the parallel slice, ROADMAP A4)"
                 )

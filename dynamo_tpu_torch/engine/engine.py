@@ -433,6 +433,17 @@ class TorchEngine:
             await asyncio.sleep(0.02)
         return self.drained
 
+    def _weight_quant_gauges(self) -> dict:
+        """Weight precision (docs/architecture/weight_quant.md): whether a
+        per-matmul policy is armed, the resident bytes the quantized tree
+        saves against full precision, and its quantized fraction."""
+        r = self.runner
+        return {
+            "weight_quant_active": getattr(r, "weight_quant_active", 0.0),
+            "weight_quant_bytes_saved": getattr(r, "weight_quant_bytes_saved", 0.0),
+            "weight_quant_density": round(getattr(r, "weight_quant_density", 0.0), 4),
+        }
+
     def readiness(self) -> dict:
         """Snapshot for /health, /metrics and the admission watermarks,
         with the reference's names for the fields this engine has."""
@@ -460,6 +471,7 @@ class TorchEngine:
             "kv_reused_peer_blocks_total": self._reused_peer_blocks,
             "kvbm_kv_quant_ratio": round(
                 getattr(self.runner, "kv_bytes_ratio", 1.0), 4),
+            **self._weight_quant_gauges(),
             "last_dispatch_age_s": round(
                 time.monotonic() - self._last_dispatch_mono, 3
             ),
@@ -2047,14 +2059,14 @@ class TorchEngine:
             m["kvbm_onboard_skips"] = self._onboard_skips
             if self._onboard_bps is not None:
                 m["kvbm_onboard_bps"] = round(self._onboard_bps, 1)
-        # Actual reuse per tier and the KVBM's tier telemetry; the
-        # weight-quant fields keep their ForwardPassMetrics defaults
-        # until the port has them.
+        # Actual reuse per tier, the KVBM's tier telemetry and the
+        # weight precision.
         m["kv_reused_device_blocks_total"] = self._reused_device_blocks
         m["kv_reused_host_blocks_total"] = self._reused_host_blocks
         m["kv_reused_disk_blocks_total"] = self._reused_disk_blocks
         m["kv_reused_peer_blocks_total"] = self._reused_peer_blocks
         m["kvbm_kv_quant_ratio"] = round(getattr(self.runner, "kv_bytes_ratio", 1.0), 4)
+        m.update(self._weight_quant_gauges())
         m.update(self._kvbm_gauges())
         m["degraded_requests_total"] = self._degraded_requests
         if self.cfg.speculative_k:

@@ -57,7 +57,13 @@ in-place scatters of whole blocks and their int8 scale rows
 step that wrote its blocks and a scatter precedes the replay that reads
 them. Host block bytes are numpy: bfloat16 as its uint16 bit pattern.
 
-Not in this port yet: weight quantization and meshes (ROADMAP queue A).
+Weight quantization (``cfg.weight_quant`` or the legacy ``cfg.quant``)
+lives in the params tree: quantized sites hold ``{"q", "s"}`` dicts and
+every product of the step body dispatches on the value (ops/quant.py;
+the card's arm is the wq_gemm kernel), so warmup captures the same
+programs with or without it.
+
+Not in this port yet: meshes (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ from dynamo_tpu_torch.engine.compile_cache import (
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.ops import kernels, kv_copy
+from dynamo_tpu_torch.ops.quant import is_quantized, quant_tree_stats, quantize_params_policy
 from dynamo_tpu_torch.ops.sampling import (
     apply_penalties,
     sample_tokens,
@@ -137,6 +144,10 @@ class UnifiedOut:
 
 
 def _params_to(params: Any, device: torch.device, dtype: torch.dtype):
+    if is_quantized(params):
+        # int8/e4m3 data keeps its storage dtype; the scales take the model's.
+        return {"q": params["q"].to(device=device),
+                "s": params["s"].to(device=device, dtype=dtype)}
     if isinstance(params, dict):
         return {k: _params_to(v, device, torch.float32 if k in llama.FLOAT32_KEYS else dtype)
                 for k, v in params.items()}
@@ -273,13 +284,31 @@ class ModelRunner(WarmupPlanMixin):
         m = cfg.model
         self.device = resolve_device(device)
         self.dtype = cfg.torch_dtype
+        # Weight quantization: random weights quantize as they are drawn,
+        # a given tree site by site (weights a loader already quantized
+        # are kept). The step body dispatches on each weight's value, so
+        # the program set is the same with or without a policy.
+        policy = cfg.weight_policy()
         if params is None:
             g = torch.Generator(device=self.device)
             g.manual_seed(rng_seed)
-            params = llama.init_params(m, g, dtype=self.dtype, device=self.device)
+            params = llama.init_params(m, g, dtype=self.dtype, device=self.device,
+                                       policy=policy)
         else:
             params = _params_to(params, self.device, self.dtype)
+            if policy is not None:
+                params = quantize_params_policy(params, policy, tie_embed=m.tie_word_embeddings)
         self.params = params
+        # The weight-quant gauges: whether a per-matmul policy is armed,
+        # the resident bytes saved against the tree in `dtype`, and the
+        # quantized fraction of the parameters (shapes and dtypes only).
+        self.weight_quant_active = 1.0 if cfg.weight_quant and policy is not None else 0.0
+        self.weight_quant_bytes_saved = 0.0
+        self.weight_quant_density = 0.0
+        if policy is not None:
+            saved, density = quant_tree_stats(params, self.dtype.itemsize)
+            self.weight_quant_bytes_saved = float(saved)
+            self.weight_quant_density = float(density)
         # KV storage dtype: int8 blocks + f32 scales under kv_quant; the
         # compute (activations, q, dequantized pages) stays in `dtype`.
         self.kv_quant = cfg.kv_quant

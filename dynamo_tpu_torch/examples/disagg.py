@@ -49,6 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-local-prefill-length", type=int, default=32)
     ap.add_argument("--transport", default="auto",
                     choices=["auto", "device", "tcp", "native"])
+    ap.add_argument("--weight-quant", default=None, metavar="POLICY")
     ap.add_argument("--no-warmup", action="store_true")
     return ap
 
@@ -62,7 +63,8 @@ async def main(argv: list[str] | None = None) -> None:
         return TorchEngine(
             EngineConfig(model=local.config, dtype=args.dtype,
                          num_blocks=args.num_blocks, max_num_seqs=8,
-                         max_model_len=local.card.context_length),
+                         max_model_len=local.card.context_length,
+                         weight_quant=args.weight_quant),
             device=args.device,
         )
 

@@ -57,6 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-batch", type=int, default=4)
     ap.add_argument("--unified-token-budget", type=int, default=256)
     ap.add_argument("--kv-quant", default=None, choices=[None, "int8"])
+    ap.add_argument("--quant", default=None, choices=[None, "int8"])
+    ap.add_argument("--weight-quant", default=None, metavar="POLICY")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--warmup", action="store_true",
                     help="capture the step programs before serving")
@@ -73,7 +75,8 @@ async def main(argv: list[str] | None = None) -> None:
             max_num_seqs=args.max_num_seqs, max_model_len=args.max_model_len,
             prefill_batch=args.prefill_batch,
             unified_token_budget=args.unified_token_budget,
-            kv_quant=args.kv_quant, seed=args.seed,
+            kv_quant=args.kv_quant, quant=args.quant, weight_quant=args.weight_quant,
+            seed=args.seed,
         ),
         device=args.device,
     )

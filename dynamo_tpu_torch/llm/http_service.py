@@ -147,6 +147,10 @@ _ENGINE_GAUGES = (
     "flight_steps_total",
     "num_waiting_interactive",
     "num_waiting_batch",
+    # Weight precision: not kv_-prefixed, so the loop below misses them.
+    "weight_quant_active",
+    "weight_quant_bytes_saved",
+    "weight_quant_density",
 )
 
 

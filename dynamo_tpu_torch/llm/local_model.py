@@ -102,10 +102,12 @@ class LocalModel:
         )
         return LocalModel(name=name, config=config, model_path=model_path, card=card)
 
-    def load_params(self, dtype="bfloat16", device=None):
+    def load_params(self, dtype="bfloat16", device=None, policy=None):
         """The checkpoint's weights ([in, out]) in ``dtype`` on ``device``
         (default: the card), or None for a preset (the runner seeds
-        random weights on the device)."""
+        random weights on the device). With a weight-quant ``policy`` a
+        checkout's layers quantize as they load; a GGUF's weights load
+        whole and the runner quantizes them."""
         if self.model_path is None:
             return None
         logger.info("loading weights from %s", self.model_path)
@@ -117,4 +119,5 @@ class LocalModel:
             )
         from dynamo_tpu_torch.models import llama
 
-        return llama.load_hf_weights(self.config, self.model_path, dtype=dtype, device=device)
+        return llama.load_hf_weights(self.config, self.model_path, dtype=dtype, device=device,
+                                     policy=policy)

@@ -165,6 +165,17 @@ class _SimRunner(WarmupPlanMixin):
         lay = KvLayoutConfig.for_engine(self.cfg)
         return lay.block_bytes / lay.unquantized_block_bytes
 
+    # The weight-quant gauges, as the real runner's: the sim has no
+    # resident weights, so "bytes saved" is the per-step weight stream
+    # the cost model stops pricing.
+    @property
+    def weight_quant_bytes_saved(self) -> float:
+        return (1.0 - self.sim.weight_bytes_ratio) * self.sim.weight_bytes_per_step
+
+    @property
+    def weight_quant_density(self) -> float:
+        return 1.0 if self.cfg.weight_quant else 0.0
+
     def charged_clock(self) -> float:
         """Seconds of simulated work charged so far (the engine's
         coloc clock)."""

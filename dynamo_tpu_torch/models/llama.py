@@ -16,6 +16,7 @@ returns only the logits (and, for an int8 cache, the new scales).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -34,16 +35,94 @@ from dynamo_tpu_torch.ops.kernels.paged_prefill_attention import (
 )
 from dynamo_tpu_torch.ops.norms import rms_norm
 from dynamo_tpu_torch.ops.quant import (
+    WEIGHT_FORMATS,
     embed_lookup,
     head_mm,
+    policy_layer_fmts,
+    policy_top_fmts,
     qdot,
     qeinsum,
     quantize_kv_write,
+    quantize_layer,
+    quantize_weight,
     tied_head_mm,
+    weight_dtype,
 )
 from dynamo_tpu_torch.ops.rope import rope_tables, rotate
 
 Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightQuantPolicy:
+    """Per-matmul weight-quantization policy (docs/architecture/
+    weight_quant.md): each site — the embedding gather, the attention
+    projections (q/k/v/o and MLA's ladder), the gated MLP's and the
+    experts' matrices, and the unembed head — selects None (the model's
+    dtype) or a storage format of ops/quant.py WEIGHT_FORMATS.
+
+    The policy is value-level: quantized sites hold ``{"q", "s"}`` dicts
+    in the params tree and every matmul dispatches on the value
+    (ops/quant.py), so the step body, and the CUDA graphs captured from
+    it, are the same set with or without a policy."""
+
+    embedding: str | None = None
+    attn: str | None = None
+    mlp: str | None = None
+    unembed: str | None = None
+
+    SITES = ("embedding", "attn", "mlp", "unembed")
+
+    @classmethod
+    def from_string(cls, spec: str | None) -> "WeightQuantPolicy":
+        """Parse an EngineConfig.weight_quant / ``--weight-quant`` spec: a
+        bare format ("int8", "fp8") selects every site; a comma list of
+        ``site=fmt`` pairs ("attn=int8,mlp=fp8") selects per site.
+        None/"" is the all-off policy."""
+        if not spec:
+            return cls()
+        spec = spec.strip()
+        if "=" not in spec:
+            if spec not in WEIGHT_FORMATS:
+                raise ValueError(
+                    f"weight_quant format {spec!r} not in {WEIGHT_FORMATS}"
+                )
+            return cls(embedding=spec, attn=spec, mlp=spec, unembed=spec)
+        kw: dict[str, str] = {}
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            site, _, fmt = part.partition("=")
+            site, fmt = site.strip(), fmt.strip()
+            if site not in cls.SITES:
+                raise ValueError(
+                    f"weight_quant site {site!r} not in {cls.SITES}"
+                )
+            if fmt not in WEIGHT_FORMATS:
+                raise ValueError(
+                    f"weight_quant format {fmt!r} not in {WEIGHT_FORMATS}"
+                )
+            kw[site] = fmt
+        return cls(**kw)
+
+    @property
+    def active(self) -> bool:
+        return any(getattr(self, s) for s in self.SITES)
+
+    def describe(self) -> str:
+        """Canonical spec string (compile-cache fingerprint, gauges)."""
+        if not self.active:
+            return "off"
+        return ",".join(
+            f"{s}={getattr(self, s)}" for s in self.SITES if getattr(self, s)
+        )
+
+
+# The legacy whole-model ``--quant int8`` as a policy: every matmul site,
+# the table per row only when tied (it is the head's operand); the
+# reference's init_params_int8 / quantize_params.
+LEGACY_INT8 = WeightQuantPolicy(attn="int8", mlp="int8", unembed="int8")
 
 LAYER_KEYS = (
     "wq", "wk", "wv", "wo", "ln_attn", "ln_mlp", "w_gate", "w_up", "w_down",
@@ -64,10 +143,10 @@ FLOAT32_KEYS = ("router_bias",)
 
 
 def _dense_init(g: torch.Generator, shape, dtype, device, fan_in=None) -> torch.Tensor:
-    return (
-        torch.randn(shape, generator=g, dtype=torch.float32, device=device)
-        / ((fan_in or shape[0]) ** 0.5)
-    ).to(dtype)
+    # Scaled in place: one float32 copy of the weight at a time.
+    t = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
+    t /= (fan_in or shape[0]) ** 0.5
+    return t.to(dtype)
 
 
 def init_params(
@@ -75,6 +154,7 @@ def init_params(
     generator: torch.Generator,
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str | None = None,
+    policy: WeightQuantPolicy | None = None,
 ) -> Params:
     """Random-init params with 1/sqrt(fan_in) scaling (the reference's
     law, ``init_layer_params`` layer by layer, with its key set: norms
@@ -83,8 +163,21 @@ def init_params(
     which must live on the target device, and differ from JAX's). Each
     tensor is drawn on the device in float32 and cast there, so a model
     near the card's size never has a float32 copy of more than one
-    weight. ``device`` defaults to the card (``resolve_device``)."""
-    device = resolve_device(device)
+    weight. ``device`` defaults to the card (``resolve_device``).
+
+    With a ``policy`` each selected weight quantizes as soon as it is
+    drawn (the table and head) or its layer is (the layers), so the
+    full-precision transient never exceeds a layer or the table: the
+    counterpart of the reference's ``init_params_policy``. The draws are
+    the same, so the result equals ``quantize_params_policy`` of the
+    unquantized init."""
+    # The meta device gives the tree's shapes and dtypes with no storage
+    # (EngineConfig's one-card check of a quantized tree).
+    device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    fmts = policy_layer_fmts(policy) if policy is not None else {}
+    embed_fmt, unembed_fmt = (
+        policy_top_fmts(policy, cfg.tie_word_embeddings) if policy is not None else (None, None)
+    )
     D, H, kvH, hd = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     I = cfg.intermediate_size
     g = generator
@@ -150,27 +243,36 @@ def init_params(
             p.update(ln_q_head=norm(hd), ln_k_head=norm(hd))
         return p
 
+    embed = dense((cfg.vocab_size, D))
+    if embed_fmt:
+        embed = quantize_weight(embed, axis=-1, fmt=embed_fmt)
     params: Params = {
-        "embed": dense((cfg.vocab_size, D)),
-        "layers": [layer(li) for li in range(cfg.num_layers)],
+        "embed": embed,
+        "layers": [quantize_layer(layer(li), fmts) for li in range(cfg.num_layers)],
         "ln_f": norm(D),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = dense((D, cfg.vocab_size))
+        head = dense((D, cfg.vocab_size))
+        params["lm_head"] = quantize_weight(head, fmt=unembed_fmt) if unembed_fmt else head
     return params
 
 
-def _to_torch(arr, dtype, device) -> torch.Tensor:
+def _to_torch(arr, dtype, device):
+    """One leaf: an array in ``dtype`` (None: its own), or a quantized
+    ``{"q", "s"}`` dict whose ``q`` keeps its storage dtype and whose
+    scales take ``dtype``."""
     if isinstance(arr, dict):
-        raise NotImplementedError(
-            "quantized {'q','s'} weights arrive with the weight-quant "
-            "slice of the port (ROADMAP queue A7)"
-        )
+        if set(arr) != {"q", "s"}:
+            raise ValueError(f"a quantized leaf has keys q and s, not {sorted(arr)}")
+        return {"q": _to_torch(arr["q"], None, device), "s": _to_torch(arr["s"], dtype, device)}
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         # numpy has no native bfloat16: reinterpret the 16-bit payload.
         t = torch.from_numpy(np.array(arr).view(np.uint16))
         t = t.view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":
+        # ml_dtypes' e4m3 through its byte payload.
+        t = torch.from_numpy(np.array(arr).view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.array(arr))
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
@@ -224,21 +326,27 @@ def load_hf_weights(
     checkpoint's pair-interleaved rope dims permuted to halves in the
     ``q_pe`` columns and ``k_pe`` rows; routed experts (Mixtral's
     ``block_sparse_moe`` or DeepSeek's ``mlp.experts``) stack over the
-    expert axis."""
+    expert axis.
+
+    With a ``policy`` (WeightQuantPolicy) each selected weight quantizes
+    as its layer loads, so the full-precision tree never sits whole on
+    the device (the reference's ``load_hf_weights(policy=)``)."""
     from dynamo_tpu_torch.utils.safetensors import Checkpoint
 
-    if policy is not None:
-        raise NotImplementedError(
-            "weight quantization at load (policy=) is not served yet: ROADMAP A3"
-        )
     device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     with Checkpoint(model_dir) as ckpt:
-        return _load_hf(cfg, ckpt, dtype, device)
+        return _load_hf(cfg, ckpt, dtype, device, policy)
 
 
-def _load_hf(cfg: ModelConfig, ckpt, dtype: torch.dtype, device: torch.device) -> Params:
+def _load_hf(cfg: ModelConfig, ckpt, dtype: torch.dtype, device: torch.device,
+             policy=None) -> Params:
+    fmts = policy_layer_fmts(policy) if policy is not None else {}
+    embed_fmt, unembed_fmt = (
+        policy_top_fmts(policy, cfg.tie_word_embeddings) if policy is not None else (None, None)
+    )
+
     def raw(name: str) -> torch.Tensor:
         return ckpt.get(name, device)
 
@@ -334,14 +442,19 @@ def _load_hf(cfg: ModelConfig, ckpt, dtype: torch.dtype, device: torch.device) -
         if cfg.qk_norm:
             layer["ln_q_head"] = w(f"{p}.self_attn.q_norm.weight", transpose=False)
             layer["ln_k_head"] = w(f"{p}.self_attn.k_norm.weight", transpose=False)
-        layers.append(layer)
+        layers.append(quantize_layer(layer, fmts))
+        del layer
+    embed = w("model.embed_tokens.weight", transpose=False)
+    if embed_fmt:
+        embed = quantize_weight(embed, axis=-1, fmt=embed_fmt)
     params: Params = {
-        "embed": w("model.embed_tokens.weight", transpose=False),
+        "embed": embed,
         "layers": layers,
         "ln_f": w("model.norm.weight", transpose=False),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w("lm_head.weight")
+        head = w("lm_head.weight")
+        params["lm_head"] = quantize_weight(head, fmt=unembed_fmt) if unembed_fmt else head
     return params
 
 
@@ -564,7 +677,7 @@ def _residual_attn(x, layer: Params, attn_out, cfg: ModelConfig):
 def _residual_mlp(x, layer: Params, cfg: ModelConfig):
     """Pre-norm, gated MLP, Gemma's post-norm, residual add (the norm's
     output in the weights' dtype, whatever the residual stream's)."""
-    h = _ln(x, layer["ln_mlp"], cfg).to(layer["w_up"].dtype)
+    h = _ln(x, layer["ln_mlp"], cfg).to(weight_dtype(layer["w_up"]))
     m = _mlp(layer, h, cfg)
     if cfg.post_norms:
         m = _ln(m, layer["ln_post_mlp"], cfg)
@@ -610,7 +723,7 @@ def _layers(
         x = _splice(x, embeds, embed_mask)
     x = x.float()
     for li, layer in enumerate(params["layers"]):
-        h = _ln(x, layer["ln_attn"], cfg).to(layer["wo"].dtype)
+        h = _ln(x, layer["ln_attn"], cfg).to(weight_dtype(layer["wo"]))
         cos, sin = tables[li]
         if cfg.is_mla:
             x = x + _mla_out(layer, attend(li, *_qkv_mla(layer, h, cfg, cos, sin)), cfg)

@@ -19,7 +19,9 @@ two formulations of the expert SwiGLUs.
 The JAX package computes the experts with XLA einsums, not a Pallas
 kernel; here they are batched matrix products (``ops/quant.py``
 ``expert_mm``: the weights' dtype in, float32 out; ``expert_mm_f32``
-for ``w_down``, whose float32 input stays float32). Every shape follows
+for ``w_down``, whose float32 input stays float32; quantized stacked
+weights, scaled per (expert, out), go through the wq_gemm kernel with
+the experts as its batch). Every shape follows
 from T, a host integer fixed per budget rung, so a dispatch never reads
 the card back and a CUDA graph captures either formulation.
 """
@@ -32,7 +34,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.ops.quant import expert_mm, expert_mm_f32
+from dynamo_tpu_torch.ops.quant import expert_mm, expert_mm_f32, weight_dtype
 
 # Dense runs E/topk times the selected FLOPs; capacity pays the gather
 # and scatter. E=16 is the reference's crossover.
@@ -141,7 +143,7 @@ def _experts(params: dict, buf: torch.Tensor) -> torch.Tensor:
     and up products (the reference's input is in that dtype); the
     activation ``h`` stays float32 into ``w_down``, as in the reference
     (``expert_mm_f32``)."""
-    buf = buf.to(params["w_down"].dtype)
+    buf = buf.to(weight_dtype(params["w_down"]))
     h = F.silu(expert_mm(buf, params["w_gate"])) * expert_mm(buf, params["w_up"])
     return expert_mm_f32(h, params["w_down"])
 

@@ -10,7 +10,7 @@ launches on the card, whether eager or replayed.
 """
 
 KERNEL_SOURCES = [
-    "ragged_attention", "paged_decode_attention", "paged_prefill_attention",
+    "ragged_attention", "paged_decode_attention", "paged_prefill_attention", "wq_gemm",
 ]
 
 
@@ -25,6 +25,7 @@ def _counters():
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
         ragged_paged_attention_cuda,
     )
+    from dynamo_tpu_torch.ops.kernels.wq_gemm import wq_gemm_cuda
 
     return [
         (ragged_paged_attention_cuda, "launches"),
@@ -34,6 +35,8 @@ def _counters():
         (paged_decode_attention_cuda, "launches"),
         (paged_prefill_attention_cuda, "launches"),
         (paged_prefill_attention_cuda, "launches_tc"),
+        (wq_gemm_cuda, "launches"),
+        (wq_gemm_cuda, "launches_f32"),
     ]
 
 

@@ -36,18 +36,20 @@ Seeded (``--seed``): one seed replays one trace.
 The pull-win gate reads each TTFT on the simulation's clock (``_generate``):
 the device time the mocker charged, the link time the serving peer's
 pacing slept, and the host's CPU time over the request on the two
-threads that serve it (the event loop's, where the pull, the serving
-peer and the client run, and the engine's). On a host with cores of its
-own, as the card's has, that sums to the wall time; on a loaded CPU,
-wall time stretches the pull's host work (its thread crossings, its
-frames) while the recompute's simulated sleep does not, and the ratio
-read there says how busy the machine was. Wall-clock TTFTs are reported
-beside.
+threads that serve it (the event loop's, where the pull and the client
+run, and the engine's). The serving peer's request handlers run on the
+same loop here, as the whole fleet shares one process; on a fleet the
+peer is another host, so their CPU time (``_PeerCpu``) is left out of
+the puller's clock, which charges the peer's side as its link time. A
+loaded CPU stretches CPU time too (threads share cores), and counting
+the peer's side as well could put the median under 2 there. Wall-clock
+TTFTs are reported beside.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections.abc
 import logging
 import random
 import sys
@@ -95,11 +97,70 @@ def _layout():
     )
 
 
-async def _generate(engine, prompt, n=4, link=None):
+class _TimedCoro(collections.abc.Coroutine):
+    """A coroutine whose every step's CPU time on this thread is added to
+    ``acc.seconds`` (the task runs it step by step: each step is a
+    ``send`` or ``throw``)."""
+
+    def __init__(self, coro, acc) -> None:
+        self._coro, self._acc = coro, acc
+
+    def send(self, value):
+        t0 = time.thread_time()
+        try:
+            return self._coro.send(value)
+        finally:
+            self._acc.seconds += time.thread_time() - t0
+
+    def throw(self, *exc):
+        t0 = time.thread_time()
+        try:
+            return self._coro.throw(*exc)
+        finally:
+            self._acc.seconds += time.thread_time() - t0
+
+    def close(self):
+        return self._coro.close()
+
+    def __await__(self):
+        return self._coro.__await__()
+
+
+class _PeerCpu:
+    """CPU time the event loop's thread spends serving pulls: the request
+    handlers (runtime/ingress.py ``_handle_request``) of the servers in
+    ``servers``, timed by a task factory installed on the loop until
+    ``close``. The fleet here shares one process and one loop, so a
+    serving peer's work (matching its rows, building and packing frames,
+    its response connection) runs on the puller's thread; on a fleet the
+    peer is another host, and its side of a pull costs the puller the
+    link's time (paced) and not this CPU time."""
+
+    def __init__(self) -> None:
+        self.servers: set = set()
+        self.seconds = 0.0
+        self._loop = asyncio.get_running_loop()
+        self._prev = self._loop.get_task_factory()
+        self._loop.set_task_factory(self._factory)
+
+    def _factory(self, loop, coro, **kw):
+        frame = getattr(coro, "cr_frame", None)
+        if frame is not None and frame.f_locals.get("engine") in self.servers:
+            coro = _TimedCoro(coro, self)
+        if self._prev is not None:
+            return self._prev(loop, coro, **kw)
+        return asyncio.Task(coro, loop=loop, **kw)
+
+    def close(self) -> None:
+        self._loop.set_task_factory(self._prev)
+
+
+async def _generate(engine, prompt, n=4, link=None, peer_cpu=None):
     """(tokens, wall TTFT, TTFT on the simulation's clock: the mocker's
     charged device time, ``link``'s paced seconds (a serving
-    PeerBlockServer) and the CPU time of this event loop's thread and of
-    the engine's thread, each from the request's submission to its first
+    PeerBlockServer) and the CPU time of this event loop's thread, less
+    the serving peer's share of it (``peer_cpu``, a _PeerCpu), and of the
+    engine's thread, each from the request's submission to its first
     token)."""
     from dynamo_tpu_torch.llm.protocols.common import (
         PreprocessedRequest,
@@ -118,7 +179,8 @@ async def _generate(engine, prompt, n=4, link=None):
     def clock() -> float:
         return (engine.runner.charged_clock() + time.thread_time()
                 + time.clock_gettime(engine_cpu)
-                + (link.paced_s if link is not None else 0.0))
+                + (link.paced_s if link is not None else 0.0)
+                - (peer_cpu.seconds if peer_cpu is not None else 0.0))
 
     out: list[int] = []
     ttft = ttft_clock = None
@@ -234,6 +296,7 @@ async def _leg_pull_win(main) -> dict:
         main, link_gbps=cal.HANDOFF_GBPS, host_blocks=128 * PULL_TRIALS
     )
     server = None
+    peer_cpu = _PeerCpu()
     drt_b = kvbm_b = eng_b = client = None
     drt_c = kvbm_c = eng_c = None
     try:
@@ -251,9 +314,11 @@ async def _leg_pull_win(main) -> dict:
             if server is not None:
                 await server.stop()
             server = await _export_peer(drt_a, kvbm_a, eng_a)
+            peer_cpu.servers = {server}
             drt_b, kvbm_b, eng_b = await _spawn_worker(main)
             client = await _attach_client(drt_b, kvbm_b, _chain(p), prefix_blocks)
-            pulled_toks, wall_pull, ttft_pull = await _generate(eng_b, p, link=server)
+            pulled_toks, wall_pull, ttft_pull = await _generate(
+                eng_b, p, link=server, peer_cpu=peer_cpu)
             recomputed_toks, wall_recompute, ttft_recompute = await _generate(eng_c, p)
             identical &= pulled_toks == cold_toks == recomputed_toks
             trials.append((ttft_pull, ttft_recompute, wall_pull, wall_recompute))
@@ -288,6 +353,7 @@ async def _leg_pull_win(main) -> dict:
             "link_peer_bps": rd["kvbm_link_peer_bps"],
         }
     finally:
+        peer_cpu.close()
         for eng in (eng_b, eng_c, eng_a):
             if eng is not None:
                 await eng.stop()

@@ -166,8 +166,11 @@ def test_cli_refuses_a_config_value_as_it_refuses_the_flag(tmp_path):
     path = _write(tmp_path, "Run:\n  out: torch\nEngine:\n  mesh: tp=4\n")
     with pytest.raises(SystemExit, match="--mesh"):
         t_cli.main(["run", "--config", str(path)])
-    with pytest.raises(SystemExit, match="--quant.*A3"):
-        t_cli.main(["run", "--set", "Engine.quant=int8"])
+    # (Weight quantization is served since the weight-quant slice:
+    # tests/test_torch_weight_quant.py sets it from --set; the striped KV
+    # cache is still refused.)
+    with pytest.raises(SystemExit, match="--kv-sp"):
+        t_cli.main(["run", "--set", "Engine.kv_sp=true"])
 
 
 # -- the YAML subset ---------------------------------------------------------

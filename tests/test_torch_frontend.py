@@ -532,8 +532,10 @@ REFUSED = {
     "--kv-sp": ["--kv-sp"],
     "--coordinator": ["--coordinator", "h:1"],
     "--num-nodes": ["--num-nodes", "2"],
-    "--quant": ["--quant", "int8"],
-    "--weight-quant": ["--weight-quant", "int8"],
+    # Served with --out torch since the weight-quant slice; the
+    # embeddings engine serves full-precision weights only.
+    "--quant": ["--quant", "int8", "--model-type", "embeddings"],
+    "--weight-quant": ["--weight-quant", "int8", "--model-type", "embeddings"],
     "--speculative-k": ["--speculative-k", "-1"],
     # Served with --out torch (tests/test_torch_embedding.py); the echo
     # engines serve chat only.

@@ -181,8 +181,26 @@ def test_bf16_checkout_loads_bit_for_bit(tmp_path):
 
 
 def test_policy_is_refused_naming_roadmap_a3(tmp_path):
-    with pytest.raises(NotImplementedError, match="A3"):
-        t_llama.load_hf_weights(ModelConfig.tiny_test(), str(tmp_path), policy=object())
+    """A policy was refused (naming ROADMAP A3) until the weight-quant
+    slice; now each layer quantizes as it loads, to what quantizing the
+    loaded tree gives (tests/test_torch_weight_quant.py holds both
+    against the JAX loader)."""
+    from dynamo_tpu_torch.ops.quant import quantize_params_policy
+
+    jcfg, tcfg = _configs("tiny-test")
+    path = str(_write(tmp_path / "f32", tcfg, _tree(jcfg), np.float32))
+    policy = t_llama.WeightQuantPolicy.from_string("int8")
+    got = t_llama.load_hf_weights(tcfg, path, dtype="float32", device="cpu", policy=policy)
+    want = quantize_params_policy(
+        t_llama.load_hf_weights(tcfg, path, dtype="float32", device="cpu"),
+        policy, tie_embed=tcfg.tie_word_embeddings)
+    assert got["embed"]["q"].dtype == torch.int8
+    for g, w in zip(got["layers"], want["layers"]):
+        for k in w:
+            if isinstance(w[k], dict):
+                assert torch.equal(g[k]["q"], w[k]["q"]) and torch.equal(g[k]["s"], w[k]["s"]), k
+            else:
+                assert torch.equal(g[k], w[k]), k
 
 
 def test_hf_load_applies_rope_permutation(tmp_path):

@@ -551,7 +551,9 @@ def test_tiny_test_readiness_uses_jax_names(tiny_servers):
         "kv_reused_disk_blocks_total", "kv_reused_peer_blocks_total",
         "last_dispatch_age_s",
         # disaggregation's degraded completions, the stored-KV precision
-        "degraded_requests_total", "kvbm_kv_quant_ratio"}
+        "degraded_requests_total", "kvbm_kv_quant_ratio",
+        # the weight precision
+        "weight_quant_active", "weight_quant_bytes_saved", "weight_quant_density"}
     # Decode lanes issued depend on when requests arrived and how deep the
     # pipeline ran; the prompt tokens prefilled do not.
     for key in ("unified_step_tokens_prefill_total", "num_requests_waiting",

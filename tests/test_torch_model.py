@@ -167,9 +167,15 @@ def test_params_from_jax_keeps_bf16_bits():
 def test_params_from_jax_refuses_what_the_slice_does_not_serve():
     tree = jax.tree.map(np.asarray, j_llama.init_params(
         jax.random.PRNGKey(0), JCfg.tiny_test(), dtype=jnp.float32))
-    quant = dict(tree, embed={"q": tree["embed"], "s": tree["ln_f"]})
-    with pytest.raises(NotImplementedError, match="weight-quant"):
-        t_llama.params_from_jax(quant, device="cpu")
+    # Quantized {"q", "s"} leaves carry across since the weight-quant
+    # slice (q keeps its storage dtype); any other dict leaf is refused.
+    q = np.round(tree["embed"] * 50).astype(np.int8)
+    quant = dict(tree, embed={"q": q, "s": tree["embed"][:, 0]})
+    got = t_llama.params_from_jax(quant, device="cpu")
+    assert got["embed"]["q"].dtype == torch.int8
+    np.testing.assert_array_equal(got["embed"]["q"].numpy(), q)
+    with pytest.raises(ValueError, match="keys q and s"):
+        t_llama.params_from_jax(dict(tree, embed={"q": q}), device="cpu")
     # A routed-experts layer's router carries across now (MoE is served:
     # tests/test_torch_moe.py); a key no family has is refused.
     routed = dict(tree, layers=[dict(tree["layers"][0], w_router=tree["ln_f"])])

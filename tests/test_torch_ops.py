@@ -387,8 +387,11 @@ def test_token_block_sequence_chains_hashes():
 
 @pytest.mark.parametrize("field,value,extra,match", [
     ("kv_quant", "fp8", {}, "not served"),
-    ("quant", "int8", {}, "not served"),
-    ("weight_quant", "int8", {}, "not served"),
+    # Weight quantization is served since the weight-quant slice
+    # (tests/test_torch_weight_quant.py); the legacy flag and the policy
+    # together are refused, naming the pair.
+    ("quant", "int8", {"weight_quant": "fp8"}, "--quant \\+ --weight-quant"),
+    ("weight_quant", "int8", {"quant": "int8"}, "--quant \\+ --weight-quant"),
     # Speculative decoding is served; a k past the block size is refused
     # with the JAX config's rule.
     ("speculative_k", 2, {"block_size": 1, "num_blocks": 1024}, "block_size=1"),

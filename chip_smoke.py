@@ -190,30 +190,36 @@ Phases, one JSON line each; any failure exits non-zero without the final
                 Kernel cases: int8 and e4m3 weights quantized on the card,
                 bf16 activations of T = 1, 16, 64, 256 rows at
                 llama3.2-1b's and llama3-8b's q, k/v, o, gate/up, down,
-                tied and untied heads; deepseek-v2-lite's 64 stacked
+                tied and untied heads, and of T = 17, 65, 200 at
+                llama3.2-1b's q and tied head; deepseek-v2-lite's 64 stacked
                 experts (4 and 48 rows each), the split_bmm hi/lo rows and
                 MLA's strided per-head w_uk / w_uv at (16, 128, 512);
                 float32 activations (the SIMT entry) at one shape each:
                 each within KERNEL_TOL (relative to the output's largest
                 magnitude) of the plain version and timed beside it, the
                 bound and one cuBLAS bf16 product on the unquantized
-                weight. llama3.2-1b at full width under int8, fp8,
-                attn=int8,mlp=fp8 and int8 with int8 KV (the serve's draws
+                weight (each case's plan, kernel/library ratio and share
+                of the bound printed); two launches on the same inputs
+                give equal bytes (a decode and a rows product that split
+                K, a rows product that does not). llama3.2-1b at full
+                width under int8, fp8, attn=int8,mlp=fp8 and int8 with
+                int8 KV (the serve's draws
                 quantized as drawn): phase 8's gates against the no-cache
                 reference on the same quantized tree, as many graphs as
-                the bf16 serve and none mid-traffic, wq_gemm launched and
-                the plain arm never, the three gauges; tok/s, TTFT p50,
+                the bf16 serve and none mid-traffic, wq_gemm launched (per
+                entry: decode, rows, f32; int8's rows entry too) and the
+                plain arm never, the three gauges; tok/s, TTFT p50,
                 profiled device ms per dispatch, resident weight bytes and
                 the greedy match against the bf16 serve's streams. The
                 OpenAI server (``run --weight-quant int8``) answers a chat
                 with the gauges on /metrics; the files phase's bf16
                 checkout quantizes as it loads to the drawn int8 tree
                 (peak device bytes of the load). llama3-8b (32 layers)
-                bf16 and int8, held to WQ_8B_LIMITS: device ms per
-                dispatch beside the weight pass's bound, each init's
-                peak. deepseek-v2-lite at 2
-                layers, int8, float32 (the SIMT entry) and bf16, under
-                phase 8's gates. Wall time at most WQ_BUDGET_S.
+                bf16 and int8, held to WQ_8B_LIMITS (int8's rows entry
+                launched): device ms per dispatch beside the weight pass's
+                bound, each init's peak. deepseek-v2-lite at 2 layers,
+                int8, float32 (the SIMT entry) and bf16, under phase 8's
+                gates. Wall time at most WQ_BUDGET_S.
 9. fleet      — the runtime plane at full width, through the CLI's own
                 paths: a ``control-plane --port 0`` process; the frontend
                 ``run --in http --out dyn --control-plane ADDR`` built in
@@ -570,8 +576,11 @@ def run_phase(name: str, fn, *args):
     """Run one phase (a coroutine function runs in its own event loop),
     named in the failure line if a gate of it fails."""
     CURRENT["phase"] = name
+    t0 = time.monotonic()
     out = fn(*args)
-    return asyncio.run(out) if asyncio.iscoroutine(out) else out
+    out = asyncio.run(out) if asyncio.iscoroutine(out) else out
+    emit({"phase_wall_s": {name: round(time.monotonic() - t0, 1)}})
+    return out
 
 
 def failure_record(exc: BaseException) -> dict:
@@ -3307,6 +3316,7 @@ def phase_files(params, prompts, streams, max_tokens, card: str,
 # -- phase wquant -------------------------------------------------------------
 WQ_POLICIES = [("int8", None), ("fp8", None), ("attn=int8,mlp=fp8", None), ("int8", "int8")]
 WQ_TOKENS = (1, 16, 64, 256)      # kernel cases' activation rows
+WQ_RAGGED_TOKENS = (17, 65, 200)  # rows off the token tiles (llama3.2-1b q, tied head)
 WQ_8B_LENS = (64, 513)            # llama3-8b prompts: 4 of this many tokens ...
 WQ_8B_TOKENS = 32                 # ... for this many greedy tokens each
 # llama3-8b's 32 bf16 layers of random weights put near ties just past
@@ -3327,7 +3337,8 @@ def reset_wq() -> None:
     from dynamo_tpu_torch.ops.kernels.wq_gemm import wq_gemm_cuda
     from dynamo_tpu_torch.ops.quant import PLAIN_CALLS
 
-    wq_gemm_cuda.launches = wq_gemm_cuda.launches_f32 = 0
+    for entry in ("", "_decode", "_rows", "_f32"):
+        setattr(wq_gemm_cuda, f"launches{entry}", 0)
     PLAIN_CALLS["count"] = 0
 
 
@@ -3335,8 +3346,9 @@ def wq_counts() -> dict:
     from dynamo_tpu_torch.ops.kernels.wq_gemm import wq_gemm_cuda
     from dynamo_tpu_torch.ops.quant import PLAIN_CALLS
 
-    return {"launches": wq_gemm_cuda.launches, "launches_f32": wq_gemm_cuda.launches_f32,
-            "plain_calls": PLAIN_CALLS["count"]}
+    return {"launches": wq_gemm_cuda.launches, "launches_decode": wq_gemm_cuda.launches_decode,
+            "launches_rows": wq_gemm_cuda.launches_rows,
+            "launches_f32": wq_gemm_cuda.launches_f32, "plain_calls": PLAIN_CALLS["count"]}
 
 
 def wq_weight(B, N, K, fmt, act, transposed, cache: dict) -> tuple:
@@ -3396,17 +3408,21 @@ def wq_case(name, B, M, N, K, fmt, act, cache, transposed=False, out_dtype=None,
     nbytes = (qw["q"].numel() + qw["s"].numel() * qw["s"].element_size()
               + B * M * K * a.element_size() + B * M * N * got.element_size())
     bound_ms, bound_by = bound(nbytes, 2 * B * M * N * K, act)
-    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
-            "kernel_ms": device_ms(kernel, iters=10), "plain_ms": device_ms(plain, iters=1),
-            "library_ms": device_ms(library, iters=5), "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes}
+    kernel_ms, library_ms = device_ms(kernel, iters=10), device_ms(library, iters=5)
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err, "kernel_ms": kernel_ms,
+            "plain_ms": device_ms(plain, iters=1), "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "kernel_over_library": kernel_ms / library_ms, "bound_share": bound_ms / kernel_ms,
+            "plan": list(wk.kernel_plan(B, M, N, K, torch.cuda.get_device_properties(
+                0).multi_processor_count, act == torch.bfloat16))}
 
 
 def wq_kernel_cases() -> dict:
     """The kernel at the main paths' shapes (each against its plain
     version, timed): llama3.2-1b's and llama3-8b's projections, MLP, tied
     and untied heads at T in WQ_TOKENS, int8 and e4m3, bf16 activations;
-    deepseek-v2-lite's stacked experts (dense decode and capacity
+    llama3.2-1b's q and tied head at WQ_RAGGED_TOKENS (rows off the token
+    tiles); deepseek-v2-lite's stacked experts (dense decode and capacity
     buffers), the split_bmm hi/lo rows and MLA's per-head w_uk / w_uv;
     float32 activations at one shape of each entry."""
     f32 = torch.float32
@@ -3424,6 +3440,12 @@ def wq_kernel_cases() -> dict:
     for fmt in ("int8", "fp8"):
         for name, (N, K, tr, f32_out) in shapes.items():
             for T in WQ_TOKENS:
+                cases[f"{name}_{fmt}_T{T}"] = wq_case(
+                    f"{name}_{fmt}_T{T}", 1, T, N, K, fmt, bf, cache, transposed=tr,
+                    out_dtype=f32 if f32_out else None)
+        for name in ("llama3.2-1b_q", "llama3.2-1b_tied_head"):
+            N, K, tr, f32_out = shapes[name]
+            for T in WQ_RAGGED_TOKENS:
                 cases[f"{name}_{fmt}_T{T}"] = wq_case(
                     f"{name}_{fmt}_T{T}", 1, T, N, K, fmt, bf, cache, transposed=tr,
                     out_dtype=f32 if f32_out else None)
@@ -3447,6 +3469,42 @@ def wq_kernel_cases() -> dict:
         cases[f"f32_experts_{fmt}"] = wq_case(f"f32_experts_{fmt}", 64, 8, 1408, 2048, fmt, f32, cache)
     cache.clear()
     return cases
+
+
+# (name, B, M, N, K, transposed): a decode product whose K splits (the
+# last split to arrive sums the partials) and a rows product that splits.
+WQ_DETERMINISM = [("llama3.2-1b_q_int8_T1", 1, 1, 2048, 2048, False),
+                  ("llama3.2-1b_q_int8_T256", 1, 256, 2048, 2048, False),
+                  ("llama3.2-1b_tied_head_int8_T200", 1, 200, 128256, 2048, True)]
+
+
+def wq_determinism() -> dict:
+    """Two launches on the same inputs give the same bytes (the split
+    sums run in split order, whichever split arrives last)."""
+    from dynamo_tpu_torch.ops.kernels import wq_gemm as wk
+
+    out, cache = {}, {}
+    for name, B, M, N, K, tr in WQ_DETERMINISM:
+        qw, _ = wq_weight(B, N, K, "int8", torch.bfloat16, tr, cache)
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(M)
+        a = torch.randn((B, M, K), generator=g, device=DEVICE).to(torch.bfloat16)
+        od = torch.float32 if tr else torch.bfloat16
+        runs = [wk.wq_gemm_cuda(a, qw["q"], qw["s"], out_dtype=od, transposed=tr)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        plan = wk.kernel_plan(B, M, N, K, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        out[name] = {"equal_bytes": bool(torch.equal(runs[0].view(torch.uint8),
+                                                      runs[1].view(torch.uint8))),
+                     "plan": list(plan)}
+    cache.clear()
+    emit({"phase": "wquant_determinism", "cases": out})
+    if not all(v["equal_bytes"] for v in out.values()):
+        fail("wquant: two launches on the same inputs differ", out, "equal bytes")
+    if not any(v["plan"][2] > 1 for v in out.values()):
+        fail("wquant: no determinism case splits K", out, "a split")
+    return out
 
 
 async def wquant_http(extra: list[str]) -> dict:
@@ -3477,16 +3535,21 @@ async def wquant_http(extra: list[str]) -> dict:
             "gauges": gauges, "unified_dispatches": dispatches, "wq_gemm": wq_counts()}
 
 
-def wq_serve_gates(leg: str, served: dict, bf16_graphs: int | None, f32: bool = False) -> None:
-    """A quantized serve went through the kernel (bf16: the tensor-core
-    entry; float32: the SIMT loop), never the plain arm, captured as many
-    graphs as the unquantized engine (where one was served) and nothing
-    mid-traffic (serve_family's gate), with the policy's gauges set."""
+def wq_serve_gates(leg: str, served: dict, bf16_graphs: int | None, f32: bool = False,
+                   rows: bool = False) -> None:
+    """A quantized serve went through the kernel (bf16: the wgmma kernel,
+    with `rows` its rows entry among them; float32: the SIMT loop), never
+    the plain arm, captured as many graphs as the unquantized engine
+    (where one was served) and nothing mid-traffic (serve_family's gate),
+    with the policy's gauges set."""
     wq, gauges = served["wq_gemm"], served["weight_quant"]
     entry, other = ("launches_f32", "launches") if f32 else ("launches", "launches_f32")
-    if not (wq[entry] > 0 and wq[other] == 0 and wq["plain_calls"] == 0):
+    if not (wq[entry] > 0 and wq[other] == 0 and wq["plain_calls"] == 0
+            and wq["launches"] == wq["launches_decode"] + wq["launches_rows"]
+            and (wq["launches_rows"] > 0 or not rows)):
         fail(f"{leg}: wq_gemm launches (kernel > 0, other entry and plain arm 0)", wq,
-             {entry: "> 0", other: 0, "plain_calls": 0})
+             {entry: "> 0", other: 0, "plain_calls": 0,
+              "launches_rows": "> 0" if rows else ">= 0"})
     if bf16_graphs is not None and served["capture"]["graphs_captured"] != bf16_graphs:
         fail(f"{leg}: graphs captured against the unquantized engine's",
              served["capture"]["graphs_captured"], bf16_graphs)
@@ -3516,6 +3579,7 @@ def phase_wquant(card: str, prompts, more, streams, served: dict, checkout: str)
                                             if n.startswith("f32_"))}
     out["cases"] = cases
     emit({"phase": "wquant_kernel_table", "card": card, "cases": cases})
+    out["determinism"] = wq_determinism()
     stage_s["kernel_cases"] = time.monotonic() - t_phase
     free_card()
 
@@ -3530,7 +3594,7 @@ def phase_wquant(card: str, prompts, more, streams, served: dict, checkout: str)
         res, got = asyncio.run(serve_family(
             full_width_config(weight_quant=spec, kv_quant=kvq), params, prompts, 32,
             f"wquant_{leg}", profile_prompts=more))
-        wq_serve_gates(leg, res, bf16_graphs)
+        wq_serve_gates(leg, res, bf16_graphs, rows=spec == "int8" and kvq is None)
         res["greedy_match_vs_bf16_same_weights"] = match_rate(got, streams)
         res["leg_s"] = time.monotonic() - t0
         out["legs"][leg] = res
@@ -3602,7 +3666,7 @@ def phase_wquant(card: str, prompts, more, streams, served: dict, checkout: str)
             family_config(cfg8, weight_quant=spec), params, p8, WQ_8B_TOKENS,
             f"wquant_llama3-8b_{name}", profile_prompts=m8, limits=WQ_8B_LIMITS))
         if spec:
-            wq_serve_gates(f"llama3-8b_{name}", res, graphs8)
+            wq_serve_gates(f"llama3-8b_{name}", res, graphs8, rows=True)
         elif res["wq_gemm"]["launches"]:
             fail("wquant: the bf16 llama3-8b serve launched wq_gemm", res["wq_gemm"], 0)
         graphs8 = res["capture"]["graphs_captured"]
@@ -7447,10 +7511,13 @@ def run_all() -> int:
                      "none (no pl.pallas_call): the XLA fusion of dynamo_tpu/ops/quant.py:119 "
                      "qmm", wquant["legs"]["llama3.2-1b_int8"]["wq_gemm"]["launches"],
                      wquant["kernel"],
-                     "int8/e4m3 weights streamed by a 4-stage cp.async ring, converted to "
-                     "bf16 in registers, mma.sync m16n8k16 with f32 sums, the column "
-                     "scale in the epilogue; K split over blocks at decode sizes, then a "
-                     "reduce pass; f32 activations on a SIMT loop",
+                     "out^T = q^T a^T: int8/e4m3 weight tiles and bf16 activation tiles by "
+                     "TMA (a producer thread, an mbarrier ring), the weight converted to "
+                     "bf16 in registers as wgmma's A, activations its B from 128-byte "
+                     "swizzled shared memory, tokens its N (16, 64, 128 or 256); two "
+                     "consumer warpgroups, a persistent grid, the column scale in the "
+                     "epilogue; few tiles split K and the last split to arrive sums the "
+                     "partials in split order (one launch); f32 activations on a SIMT loop",
                      main_case=WQ_MAIN_CASE, max_rel_err=wquant["kernel"]["max_rel_err"],
                      launches_by_leg={
                          **{k: v["wq_gemm"] for k, v in wquant["legs"].items()},

@@ -36,6 +36,8 @@ def _counters():
         (paged_prefill_attention_cuda, "launches"),
         (paged_prefill_attention_cuda, "launches_tc"),
         (wq_gemm_cuda, "launches"),
+        (wq_gemm_cuda, "launches_decode"),
+        (wq_gemm_cuda, "launches_rows"),
         (wq_gemm_cuda, "launches_f32"),
     ]
 

@@ -10,19 +10,23 @@ q[b, k, n]) · s[b, n]`` (``transposed``: ``q[b, n, k]``) with float32
 sums, the scale on the float32 sum and one rounding to the output's
 dtype. For a CUDA tensor it launches the kernel (building it on first
 use) or raises; for a CPU tensor it runs the plain version
-``wq_gemm_plain``, the same arithmetic in torch ops. Each call that
-launches adds one to ``wq_gemm_cuda.launches`` (bf16 activations, the
-tensor-core kernel) or ``wq_gemm_cuda.launches_f32`` (float32, the SIMT
-loop), however many kernels run behind it. ``split_plan`` picks the K
-split from shapes alone, so the wrapper reads nothing back from the card
-and runs inside a captured CUDA graph (its scratch comes from torch's
-allocator, the graph's pool during a capture).
+``wq_gemm_plain``, the same arithmetic in torch ops. Each launch adds one
+to the counter of its entry (``kernel_plan``): ``launches_decode`` (bf16
+activations, at most DECODE_ROWS rows), ``launches_rows`` (bf16, more
+rows; both the wgmma kernel) or ``launches_f32`` (float32, the SIMT
+loop); ``launches`` counts the two bf16 entries. The plan comes from
+shapes alone and the TMA descriptors are encoded on the host, so the
+wrapper reads nothing back from the card and runs inside a captured CUDA
+graph (its scratch comes from torch's allocator, the graph's pool during
+a capture; the split's arrival counters are the kernel library's own,
+zero from load and put back to zero by every launch).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,15 +34,33 @@ from dynamo_tpu_torch.ops.kernels import _build
 
 NAME = "wq_gemm"
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-ARGTYPES = [_P, _L, _L, _P, _L, _P, _L, _P, _L, _L, _P] + [_I] * 12 + [_P]
+ARGTYPES = [_P, _L, _L, _P, _L, _P, _L, _P, _L, _L, _P] + [_I] * 13 + [_P]
 
-BN, BK = 128, 64            # the tile's columns and its stage of K
+BN, BK = 128, 64            # a tile's weight columns and a stage of K
+DECODE_ROWS = 16            # rows the decode entry's token tile holds
+TOKEN_TILES = (256, 128, 64)  # the rows entry's token tiles, largest first
+BLOCKS_PER_SM = {16: 2, 64: 1, 128: 1, 256: 1}
 MIN_SPLIT_STAGES = 4        # stages of K a split covers at least
 MAX_SPLITS = 32
-BLOCKS_PER_SM = 2           # blocks the plan aims for per SM
+COUNTER_SLOTS = 16384       # the kernel's tile arrival counters
 FORMATS = {torch.int8: 0, torch.float8_e4m3fn: 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535
+MAX_TMA_STRIDE = 1 << 39    # bytes: a TMA descriptor's strides stay below 2^40
+
+
+class Plan(NamedTuple):
+    """One launch, from shapes: ``entry`` ("decode", "rows" or "f32"),
+    the token tile ``bt`` (0 for f32), ``splits`` of ``k_per_split``
+    each, the output ``tiles`` (each an arrival counter when split), the
+    ``grid`` of blocks and the f32 partials' element count ``part``."""
+    entry: str
+    bt: int
+    splits: int
+    k_per_split: int
+    tiles: int
+    grid: int
+    part: int
 
 
 def build() -> None:
@@ -46,31 +68,75 @@ def build() -> None:
     _build.load(NAME)
 
 
+# The rows entry's cost model (microseconds, fitted on an H100 to the
+# timings of forced plans; dynamo_tpu_torch/tools/wq_sweep.py measures
+# them against it): a work item costs ITEM_US plus STAGE_US[bt] a stage
+# of K; a split adds SPLIT_US and, in the last block to arrive,
+# REDUCE_US a round trip (one per split and 64 rows).
+ITEM_US, SPLIT_US, REDUCE_US = 3.0, 3.0, 0.65
+STAGE_US = {64: 0.41, 128: 0.49, 256: 0.80}
+
+
+def _rows_cost(B: int, M: int, N: int, K: int, num_sms: int, bt: int, splits: int) -> float:
+    tiles = B * -(-N // BN) * -(-M // bt)
+    waves = -(-tiles * splits // (num_sms * BLOCKS_PER_SM[bt]))
+    item = ITEM_US + -(-K // (BK * splits)) * STAGE_US[bt]
+    if splits > 1:
+        item += SPLIT_US + splits * (bt // 64) * REDUCE_US
+    return waves * item
+
+
+def _max_splits(tiles: int, M: int, K: int) -> int:
+    """The most splits a product may take: each at least MIN_SPLIT_STAGES
+    stages, f32 partials of at most twice the weight's bytes, one arrival
+    counter a tile."""
+    if tiles > COUNTER_SLOTS:
+        return 1
+    return max(1, min(-(-K // BK) // MIN_SPLIT_STAGES, MAX_SPLITS, K // (2 * M)))
+
+
 @functools.lru_cache(maxsize=4096, typed=True)
-def split_plan(B: int, M: int, N: int, K: int, num_sms: int = 132,
-               a_bf16: bool = True) -> tuple[int, int, int]:
-    """(num_splits, k_per_split, m_tiles) of one product, from host
-    integers only. m_tiles: 16-row mma tiles a block takes (1 for M <= 16,
-    else 4). The split aims for BLOCKS_PER_SM blocks per SM, with at least
-    MIN_SPLIT_STAGES stages of K each and f32 partials of at most half the
-    weight's bytes; float32 activations (the SIMT loop) never split."""
+def kernel_plan(B: int, M: int, N: int, K: int, num_sms: int = 132,
+                a_bf16: bool = True) -> Plan:
+    """The launch of one product, from host integers only. bf16
+    activations take the wgmma kernel. At most DECODE_ROWS rows: the
+    decode entry (a 16-row token tile, two blocks an SM), K split until
+    the tiles fill a wave. More rows: the rows entry, the token tile of
+    TOKEN_TILES (no wider than twice the rows) and the split (none at
+    256 rows a tile) that the cost model prices lowest, ties to the wider
+    tile and the fewer splits. The grid is at most a wave of blocks
+    (persistent). float32 activations take the SIMT loop, unsplit."""
     shape = (B, M, N, K, num_sms)
     if not all(isinstance(x, int) for x in shape):
-        raise TypeError("split_plan takes host integers only")
-    m_tiles = 1 if M <= 16 else 4
+        raise TypeError("kernel_plan takes host integers only")
     if not a_bf16:
-        return 1, K, m_tiles
-    tiles = -(-N // BN) * -(-M // (16 * m_tiles)) * B
+        return Plan("f32", 0, 1, K, 0, 0, 0)
+    col_tiles = -(-N // BN)
+    if M <= DECODE_ROWS:
+        entry, bt = "decode", DECODE_ROWS
+        tiles = B * col_tiles
+        slots = num_sms * BLOCKS_PER_SM[bt]
+        splits = min(max(1, slots // tiles), _max_splits(tiles, M, K))
+    else:
+        entry = "rows"
+        best = None
+        for bt in TOKEN_TILES:
+            if bt >= 2 * M and bt != TOKEN_TILES[-1]:
+                continue
+            tiles = B * col_tiles * -(-M // bt)
+            most = 1 if bt == 256 else _max_splits(tiles, M, K)
+            for s in range(1, most + 1):
+                cost = _rows_cost(B, M, N, K, num_sms, bt, s)
+                if best is None or cost < best[0] - 1e-9:
+                    best = (cost, bt, s)
+        _, bt, splits = best
+        tiles = B * col_tiles * -(-M // bt)
     stages = -(-K // BK)
-    splits = min(
-        -(-BLOCKS_PER_SM * num_sms // tiles),
-        stages // MIN_SPLIT_STAGES,
-        MAX_SPLITS,
-        K // (8 * M),
-    )
-    splits = max(splits, 1)
     per = -(-stages // splits)
-    return -(-stages // per), per * BK, m_tiles
+    splits = -(-stages // per)
+    part = splits * B * M * N if splits > 1 else 0
+    slots = num_sms * BLOCKS_PER_SM[bt]
+    return Plan(entry, bt, splits, per * BK, tiles, min(tiles * splits, slots), part)
 
 
 @functools.cache
@@ -80,12 +146,14 @@ def _num_sms(device: torch.device) -> int:
 
 def operand_ok(a: torch.Tensor) -> bool:
     """Whether ``a [B, M, K]`` can be the kernel's activation as it lies:
-    k contiguous; for bf16 also 16-byte aligned rows and batches (the
-    cp.async copies)."""
+    k contiguous; for bf16 also what a TMA descriptor takes: a 16-byte
+    aligned start, rows and batches 16-byte multiples apart (a batch
+    stride of 0 too) and below MAX_TMA_STRIDE."""
     if a.stride(-1) != 1:
         return False
     if a.dtype == torch.bfloat16:
-        return a.data_ptr() % 16 == 0 and a.stride(0) % 8 == 0 and a.stride(1) % 8 == 0
+        return (a.data_ptr() % 16 == 0 and a.stride(0) % 8 == 0 and a.stride(1) % 8 == 0
+                and 2 * max(a.stride(0), a.stride(1)) < MAX_TMA_STRIDE)
     return True
 
 
@@ -125,12 +193,20 @@ def check_kernel_args(a, q, s, out, transposed: bool) -> tuple[int, int, int, in
     if out.stride(-1) != 1:
         raise ValueError("out must be contiguous along n")
     if not operand_ok(a):
-        raise ValueError("a must be contiguous along k (bf16: 16-byte aligned rows)")
-    if a.dtype == torch.bfloat16 and (K % 16 or N % 16 or q.data_ptr() % 16):
-        raise ValueError("bf16 products take K and N in multiples of 16 and a 16-byte aligned q")
+        raise ValueError("a must be contiguous along k (bf16: a 16-byte aligned start, rows "
+                         "and batches 16-byte multiples apart, as a TMA descriptor takes them)")
+    if a.dtype == torch.bfloat16:
+        if K % 16 or N % 16 or q.data_ptr() % 16:
+            raise ValueError("bf16 products take K and N in multiples of 16 and a 16-byte "
+                             "aligned q")
+        # The epilogue stores two adjacent columns as one bf16x2 / float2.
+        pair = 2 * out.element_size()
+        if out.data_ptr() % pair or out.stride(0) % 2 or out.stride(1) % 2:
+            raise ValueError("out rows must start on column pairs (an even stride and an "
+                             "aligned start) for bf16 products")
     if min(B, M, N, K) < 1:
         raise ValueError("empty product")
-    if -(-M // 8) > MAX_GRID_YZ or B * MAX_SPLITS > MAX_GRID_YZ:
+    if -(-M // 8) > MAX_GRID_YZ or B > MAX_GRID_YZ:
         raise ValueError("too many rows or batches for one launch")
     return B, M, N, K
 
@@ -157,25 +233,27 @@ def wq_gemm_cuda(
         raise ValueError(f"no weight-quantized product for device {a.device}")
     B, M, N, K = check_kernel_args(a, q, s, out, transposed)
     bf16 = a.dtype == torch.bfloat16
-    splits, per, m_tiles = split_plan(B, M, N, K, _num_sms(a.device), bf16)
+    plan = kernel_plan(B, M, N, K, _num_sms(a.device), bf16)
     part = None
-    if splits > 1:
-        part = torch.empty(splits * B * M * N, dtype=torch.float32, device=a.device)
+    if plan.part:
+        part = torch.empty(plan.part, dtype=torch.float32, device=a.device)
     _build.launch(
         NAME, NAME, ARGTYPES,
         a.data_ptr(), a.stride(0), a.stride(1), q.data_ptr(), q.stride(0),
         s.data_ptr(), s.stride(0), out.data_ptr(), out.stride(0), out.stride(1),
         part.data_ptr() if part is not None else None,
         B, M, N, K, int(bf16), int(transposed), FORMATS[q.dtype],
-        DTYPES[s.dtype], DTYPES[out.dtype], m_tiles, splits, per,
-        torch.cuda.current_stream(a.device).cuda_stream,
+        DTYPES[s.dtype], DTYPES[out.dtype], plan.bt, plan.splits, plan.k_per_split,
+        plan.grid, torch.cuda.current_stream(a.device).cuda_stream,
     )
+    counter = f"launches_{plan.entry}"
+    setattr(wq_gemm_cuda, counter, getattr(wq_gemm_cuda, counter) + 1)
     if bf16:
         wq_gemm_cuda.launches += 1
-    else:
-        wq_gemm_cuda.launches_f32 += 1
     return out
 
 
-wq_gemm_cuda.launches = 0
+wq_gemm_cuda.launches = 0           # launches_decode + launches_rows
+wq_gemm_cuda.launches_decode = 0
+wq_gemm_cuda.launches_rows = 0
 wq_gemm_cuda.launches_f32 = 0

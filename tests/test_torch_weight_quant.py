@@ -242,6 +242,13 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take():
     s = torch.zeros(1, 32, dtype=torch.bfloat16)
     out = torch.empty(1, 4, 32, dtype=torch.bfloat16)
     assert wk.check_kernel_args(a, q, s, out, False) == (1, 4, 32, 64)
+    # MLA's per-head rows ([T, H, width] read per head) and the dense
+    # experts' rows (batch stride 0) are taken as they lie.
+    strided = torch.zeros(4, 2, 72, dtype=torch.bfloat16)[..., :64].permute(1, 0, 2)
+    q2, s2 = torch.zeros(2, 64, 32, dtype=torch.int8), torch.zeros(2, 32, dtype=torch.bfloat16)
+    out2 = torch.empty(2, 4, 32, dtype=torch.bfloat16)
+    assert wk.check_kernel_args(strided, q2, s2, out2, False) == (2, 4, 32, 64)
+    assert wk.check_kernel_args(a.expand(2, 4, 64), q2, s2, out2, False) == (2, 4, 32, 64)
     bad = [
         (a, q.float(), s, out, False, "q dtype"),
         (a, q, s, out, True, "expected"),
@@ -251,37 +258,80 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take():
          "contiguous along k"),
         (torch.zeros(1, 4, 40, dtype=torch.bfloat16), torch.zeros(1, 40, 32, dtype=torch.int8),
          s, out, False, "multiples of 16"),
+        # A TMA descriptor takes rows and batches 16 bytes apart only, and
+        # the kernel has no other way to load them.
+        (torch.zeros(2 * 260, dtype=torch.bfloat16).as_strided((2, 4, 64), (260, 64, 1)),
+         q2, s2, out2, False, "contiguous along k"),
+        (torch.zeros(1, 4, 68, dtype=torch.bfloat16)[..., 2:66], q, s, out, False,
+         "contiguous along k"),
+        # The epilogue stores column pairs: an odd row stride or a start
+        # off a pair is refused.
+        (a, q, s, torch.empty(1, 4, 33, dtype=torch.bfloat16)[..., :32], False, "column pairs"),
+        (a, q, s, torch.empty(1, 4, 34, dtype=torch.bfloat16)[..., 1:33], False, "column pairs"),
+        (a, q, s, torch.empty(1, 4, 34)[..., 1:33], False, "column pairs"),
     ]
     for a_, q_, s_, o_, tr, match in bad:
         with pytest.raises((ValueError, TypeError), match=match):
             wk.check_kernel_args(a_, q_, s_, o_, tr)
 
 
-@pytest.mark.parametrize("shape", [
-    (1, 1, 2048, 2048), (1, 4, 512, 2048), (1, 64, 8192, 2048), (1, 1, 2048, 8192),
-    (1, 256, 128256, 2048), (64, 48, 1408, 2048), (16, 8, 512, 128), (16, 8, 128, 512),
-    (1, 1, 576, 2048), (1, 1, 4096, 14336), (1, 3, 16, 16), (2, 100, 48, 4096),
-])
+# Every product chip_smoke.py's wquant phase runs (wq_kernel_cases: the
+# llama3.2-1b and llama3-8b projections, MLP and heads at T = 1, 16, 64,
+# 256 and the ragged 17, 65, 200; deepseek-v2-lite's experts and MLA's
+# per-head einsums; the float32 witnesses) as (B, M, N, K).
+_DENSE_NK = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192), (128256, 2048),
+             (4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (128256, 4096)]
+PLAN_SHAPES = [(1, T, N, K) for N, K in _DENSE_NK for T in (1, 16, 17, 64, 65, 200, 256)] + [
+    (64, 4, 1408, 2048), (64, 48, 1408, 2048), (64, 96, 2048, 1408), (64, 8, 1408, 2048),
+    (16, 16, 512, 128), (16, 256, 512, 128), (16, 16, 128, 512), (16, 256, 128, 512),
+    (1, 1, 576, 2048), (1, 3, 16, 16), (2, 100, 48, 4096),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_split_plan_covers_k_in_whole_stages(shape):
     B, M, N, K = shape
-    splits, per, m_tiles = wk.split_plan(B, M, N, K)
+    plan = wk.kernel_plan(B, M, N, K)
+    # The entry: at most DECODE_ROWS rows take the decode tile, more a
+    # rows tile no wider than twice the rows (64 at least).
+    if M <= wk.DECODE_ROWS:
+        assert (plan.entry, plan.bt) == ("decode", wk.DECODE_ROWS)
+    else:
+        assert plan.entry == "rows" and plan.bt in wk.TOKEN_TILES
+        assert plan.bt < 2 * M or plan.bt == wk.TOKEN_TILES[-1]
+    # Every split non-empty and whole in stages.
+    splits, per = plan.splits, plan.k_per_split
     assert 1 <= splits <= wk.MAX_SPLITS and per % wk.BK == 0
-    assert splits * per >= K > (splits - 1) * per       # every split non-empty
-    assert m_tiles == (1 if M <= 16 else 4)
+    assert splits * per >= K > (splits - 1) * per
+    assert plan.tiles == B * -(-N // wk.BN) * -(-M // plan.bt)
+    assert 1 <= plan.grid <= min(plan.tiles * splits, 132 * wk.BLOCKS_PER_SM[plan.bt])
     if splits > 1:
-        # Each split streams at least MIN_SPLIT_STAGES stages, and the f32
-        # partials stay under half the weight's bytes.
-        assert per >= wk.MIN_SPLIT_STAGES * wk.BK and 8 * splits * M <= K
-    assert wk.split_plan(B, M, N, K, a_bf16=False) == (1, K, m_tiles)
+        # Each split streams at least MIN_SPLIT_STAGES stages; its tiles'
+        # arrival counters fit the kernel's, and the f32 partials stay
+        # under twice the weight's bytes.
+        assert per >= wk.MIN_SPLIT_STAGES * wk.BK
+        assert plan.tiles <= wk.COUNTER_SLOTS
+        assert plan.part == splits * B * M * N and 4 * plan.part <= 2 * B * N * K
+    else:
+        assert plan.part == 0
+    assert wk.kernel_plan(B, M, N, K, a_bf16=False) == wk.Plan("f32", 0, 1, K, 0, 0, 0)
     with pytest.raises(TypeError):
-        wk.split_plan(B, M, N, float(K))
+        wk.kernel_plan(B, M, N, float(K))
+    with pytest.raises(TypeError):
+        wk.kernel_plan(B, float(M), N, K)
 
 
 def test_split_plan_fills_the_card_at_decode():
-    # llama3.2-1b's wq at one decode row: 16 column tiles x 8 splits.
-    assert wk.split_plan(1, 1, 2048, 2048)[0] == 8
-    # The tied head's 1002 column tiles need no split.
-    assert wk.split_plan(1, 4, 128256, 2048)[0] == 1
+    # llama3.2-1b's wq at one decode row: 16 column tiles x 8 splits, one
+    # launch (the last split to arrive sums them).
+    plan = wk.kernel_plan(1, 1, 2048, 2048)
+    assert (plan.entry, plan.splits, plan.grid) == ("decode", 8, 128)
+    # The tied head's 1002 column tiles need no split; at most a wave of
+    # blocks (two an SM) walks them.
+    plan = wk.kernel_plan(1, 4, 128256, 2048)
+    assert (plan.splits, plan.grid) == (1, 264)
+    # At 256 rows the tied head takes the widest token tile.
+    assert wk.kernel_plan(1, 256, 128256, 2048)[:3] == ("rows", 256, 1)
 
 
 # -- whole trees --------------------------------------------------------------

@@ -702,6 +702,12 @@ def phase_build() -> None:
           "nvcc_s": {name: float(text.rsplit("nvcc seconds:", 1)[1])
                      for name, text in reports.items()},
           "ptxas": ptxas_summary(reports)})
+    # The tensor-core tiles at D = 256 (gemma3-1b) keep their accumulators
+    # in registers: no spill.
+    spills = {k: v for k, v in ptxas_summary(reports).items()
+              if k.startswith("ragged_tc_") and "Li256" in k and v[1]}
+    if spills:
+        fail("build: the D = 256 ragged tile spills", spills, "no spill stores")
 
 
 def ptxas_summary(reports: dict) -> dict:
@@ -1526,7 +1532,7 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
         ragged_paged_attention_cuda as fn,
     )
-    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts, split_on_wgmma
 
     cfg = ecfg.model
     # Random weights from torch.Generator(seed=ecfg.seed) on the card.
@@ -1543,7 +1549,8 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         capture["mid_traffic_compiles_total"] = mid_traffic(engine)
         wq = wq_counts()
         launches = fn.launches
-        paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
+        paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk,
+                 "split_wgmma": fn.launches_split_wgmma}
         dispatches = engine.unified_dispatches
         prefill_tokens = engine.unified_prefill_tokens
         decode_tokens = engine.unified_decode_tokens
@@ -1583,10 +1590,12 @@ async def serve_full(ecfg, prompts, max_tokens, phase, profile_prompts=None):
         fail(f"{phase}: ragged launches for {dispatches} dispatches x "
              f"{cfg.num_layers} layers", launches, cfg.num_layers * dispatches)
     # bf16 q: every call runs the multi-row spans on the tensor-core tile
-    # and the one-row spans on the split path; the f32 walk never runs.
-    if paths != {"tc": launches, "split": launches, "walk": 0}:
-        fail(f"{phase}: ragged paths launched", paths,
-             {"tc": launches, "split": launches, "walk": 0})
+    # and the one-row spans on the split path (on the wgmma tile at its
+    # head dims); the f32 walk never runs.
+    want = {"tc": launches, "split": launches, "walk": 0,
+            "split_wgmma": launches * split_on_wgmma(torch.bfloat16, cfg.kv_cache_head_dim)}
+    if paths != want:
+        fail(f"{phase}: ragged paths launched", paths, want)
     if not (full and in_vocab and ref["logits_finite"] and ref["logits_shape_ok"]):
         fail(f"{phase}: served streams failed their checks",
              {"full_length": full, "in_vocab": in_vocab,
@@ -1657,10 +1666,20 @@ async def profile_serve(engine, prompts, max_tokens) -> dict:
         *_, wall = await serve(engine, prompts, max_tokens)
         torch.cuda.synchronize()
     by_kernel: dict[str, float] = {}
+    # The ragged kernel's three launches: the tile, the split (on CUDA
+    # cores, "split", or on the wgmma tile, "split_wgmma") and the merge.
+    ragged = {"tc": 0.0, "split": 0.0, "split_wgmma": 0.0, "merge": 0.0}
     for e in prof.events():   # device-side events only: kernels and copies
         if str(e.device_type).endswith("CUDA"):
             name = e.name[:48]
-            by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            by_kernel[name] = by_kernel.get(name, 0.0) + ms
+            core = e.name.split("<")[0].split("::")[-1]
+            part = {"ragged_tc_kernel": "tc", "ragged_split_kernel": "split",
+                    "ragged_tc_split_kernel": "split_wgmma",
+                    "ragged_merge_kernel": "merge"}.get(core)
+            if part:
+                ragged[part] += ms
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     n = engine.unified_dispatches - d0
@@ -1670,6 +1689,7 @@ async def profile_serve(engine, prompts, max_tokens) -> dict:
         "wall_ms_per_dispatch": wall * 1e3 / n,
         "device_ms_per_dispatch": busy / n,
         "top_kernels_ms": [[k, v, v / busy] for k, v in top],
+        "ragged_ms_per_dispatch": {k: [v / n, v / busy] for k, v in ragged.items()},
     }
 
 
@@ -2275,7 +2295,7 @@ OBSERVE_BURST = (4, 896, 8)  # batch prompts mid-decode: count, tokens, output
 OBSERVE_QUANTUM = 256        # the static leg's quantum, the adaptive leg's start
 OBSERVE_SLO_X = 1.5          # itl_slo_ms = this × the decode-only leg's ITL EMA
 OBSERVE_TIGHT_X = 1.1        # the tight leg's SLO = this × the decode-only EMA
-RAGGED_SYMBOLS = (b"ragged_tc_kernel", b"ragged_split_kernel")
+RAGGED_SYMBOLS = (b"ragged_tc_kernel", b"ragged_split_kernel", b"ragged_tc_split_kernel")
 
 
 class NullTracer:
@@ -2634,16 +2654,21 @@ async def phase_observe(vocab: int) -> dict:
             async def during_burst():
                 # Send once every slot is running (read from the engine)
                 # and none of the running sequences is within 3 tokens of
-                # its end: the 1 ms request then waits for a slot that
-                # frees 2+ dispatches later, and expires in the waiting
-                # list before any output. (Running plus waiting filling
-                # the slots left one free: the request could take it and
-                # reach its first token within the millisecond.)
+                # its end, counting the tokens of the pipeline_depth
+                # dispatches that may be in flight and not yet delivered:
+                # the 1 ms request then waits for a slot that frees 2+
+                # dispatches later, and expires in the waiting list before
+                # any output. (Running plus waiting filling the slots left
+                # one free: the request could take it and reach its first
+                # token within the millisecond. Without the in-flight
+                # tokens counted, a sequence could end at the next retire,
+                # in the step that also admits the request.)
+                margin = 3 + engine.cfg.pipeline_depth
                 t0 = time.monotonic()
                 while True:
                     running = list(engine.scheduler.running.values())
                     if (len(running) == engine.cfg.max_num_seqs
-                            and all(len(q.output_tokens) + 3 <= q.stop.max_tokens
+                            and all(len(q.output_tokens) + margin <= q.stop.max_tokens
                                     for q in running)):
                         break
                     if time.monotonic() - t0 > 10.0:
@@ -3499,12 +3524,51 @@ def wq_determinism() -> dict:
                                                       runs[1].view(torch.uint8))),
                      "plan": list(plan)}
     cache.clear()
+    out["two_streams"] = wq_two_streams()
     emit({"phase": "wquant_determinism", "cases": out})
     if not all(v["equal_bytes"] for v in out.values()):
         fail("wquant: two launches on the same inputs differ", out, "equal bytes")
+    if out["two_streams"]["max_rel_err"] > KERNEL_TOL[torch.bfloat16]:
+        fail("wquant: two-stream launches against the plain version",
+             out["two_streams"]["max_rel_err"], KERNEL_TOL[torch.bfloat16])
     if not any(v["plan"][2] > 1 for v in out.values()):
         fail("wquant: no determinism case splits K", out, "a split")
     return out
+
+
+# llama3-8b's o projection [4096, 4096] at a 4-lane decode step: the
+# decode entry splits K 8 ways (32 output tiles).
+WQ_TWO_STREAMS = (1, 4, 4096, 4096)
+WQ_TWO_STREAMS_ROUNDS = 20
+
+
+def wq_two_streams() -> dict:
+    """Split launches in flight at once on two streams, round after
+    round on the same inputs: every output equal, byte for byte, to the
+    first, and that one within the tolerance of wq_gemm_plain (each
+    launch sums through its own arrival counters)."""
+    from dynamo_tpu_torch.ops.kernels import wq_gemm as wk
+
+    B, M, N, K = WQ_TWO_STREAMS
+    qw, _ = wq_weight(B, N, K, "int8", torch.bfloat16, False, {})
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(M)
+    a = torch.randn((B, M, K), generator=g, device=DEVICE).to(torch.bfloat16)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(WQ_TWO_STREAMS_ROUNDS):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(wk.wq_gemm_cuda(a, qw["q"], qw["s"]))
+    torch.cuda.synchronize()
+    want = wk.wq_gemm_plain(a, qw["q"], qw["s"], torch.bfloat16, False)
+    rel = max_err(outs[0], want) / max(want.float().abs().max().item(), 1e-12)
+    first = outs[0].view(torch.uint8)
+    plan = wk.kernel_plan(B, M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"equal_bytes": all(torch.equal(first, o.view(torch.uint8)) for o in outs[1:]),
+            "launches": len(outs), "max_rel_err": rel, "plan": list(plan)}
 
 
 async def wquant_http(extra: list[str]) -> dict:
@@ -6274,26 +6338,43 @@ def poison_behind_window(c, window: int) -> int:
     return n
 
 
+FAMILY_GEMMA_PREFILL = [(0, 64), (480, 64), (900, 100), (0, 0)]
+FAMILY_MISTRAL_PREFILL = [(4300, 64), (4100, 96), (0, 0)]
+# (case, (H, kvH, D, bs), window, T, table columns, blocks, spans): the
+# families' mixed batches and their long-prefix twins (the prefill spans
+# alone, no decode span).
+FAMILY_KERNEL_SHAPES = [
+    ("gemma_w512", (4, 1, 256, 16), 512, 256, 80, 1024,
+     [(c - 1, 1) for c in (300, 511, 513, 700, 1024, 1200)] + FAMILY_GEMMA_PREFILL),
+    ("gemma_prefill_w512", (4, 1, 256, 16), 512, 256, 80, 1024, FAMILY_GEMMA_PREFILL),
+    ("mistral_w4096", (32, 8, 128, 16), 4096, 192, 320, 2304,
+     [(c - 1, 1) for c in (4200, 4350, 4511, 4700)] + FAMILY_MISTRAL_PREFILL),
+    ("mistral_prefill_w4096", (32, 8, 128, 16), 4096, 192, 320, 2304,
+     FAMILY_MISTRAL_PREFILL),
+]
+
+
+def tile_plan(c, window=0) -> int:
+    """The tile's key ranges for this case, as its wrapper computes it."""
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import call_tile_plan
+
+    return call_tile_plan(c["q"], c["k"], c["tables"], c["bs"], window)
+
+
 def family_kernel_cases() -> dict:
     """The ragged kernel at the families' new shapes against its plain
     version, bf16 and int8 legs, unowned rows zero: gemma3-1b's (H, kvH,
     D) = (4, 1, 256) with window 512 in a mixed batch; mistral-7b's (32, 8,
     128) with window 4096 at contexts 4200–4700 over 320-column tables;
-    each again with the entries behind every span's window set to the 0
-    sentinel and block 0 poisoned. The unpoisoned cases are timed beside
-    the fair library call."""
+    each mix's prefill spans alone behind their long prefixes; each case
+    again with the entries behind every span's window set to the 0
+    sentinel and block 0 poisoned. Each line carries the case's plans
+    (the split path's splits and pages, the tile's key ranges); the
+    unpoisoned cases are timed beside the fair library call."""
     rng = np.random.default_rng(12)
     bf16, int8 = torch.bfloat16, torch.int8
-    shapes = [
-        ("gemma_w512", (4, 1, 256, 16), 512, 256, 80, 1024,
-         [(c - 1, 1) for c in (300, 511, 513, 700, 1024, 1200)]
-         + [(0, 64), (480, 64), (900, 100), (0, 0)]),
-        ("mistral_w4096", (32, 8, 128, 16), 4096, 192, 320, 2304,
-         [(c - 1, 1) for c in (4200, 4350, 4511, 4700)]
-         + [(4300, 64), (4100, 96), (0, 0)]),
-    ]
     timed = {}
-    for name, dims, window, T, max_blocks, num_blocks, spans in shapes:
+    for name, dims, window, T, max_blocks, num_blocks, spans in FAMILY_KERNEL_SHAPES:
         for kv in (None, int8):
             for poisoned in (False, True):
                 case = f"{name}{'_int8' if kv else ''}{'_sentinel_nan' if poisoned else ''}"
@@ -6309,7 +6390,8 @@ def family_kernel_cases() -> dict:
                       KERNEL_TOL[bf16], ok=finite and pad_zero,
                       kv_dtype=str(kv or bf16).split(".")[-1], T=T, spans=len(spans),
                       window=window, H_kvH_D_bs=list(dims), max_blocks=max_blocks,
-                      splits_pages=ragged_plan(c, window), sentinel_entries=zeroed,
+                      splits_pages=ragged_plan(c, window),
+                      tile_ranges=tile_plan(c, window), sentinel_entries=zeroed,
                       output_finite=finite, unowned_rows_zero=pad_zero)
                 if not poisoned:
                     nbytes, flops = ragged_work(c, window)
@@ -6318,6 +6400,8 @@ def family_kernel_cases() -> dict:
                         "ragged_" + case, lambda c=c: run_kernel(c, window),
                         lambda c=c: run_plain(c, window), library,
                         run_plain(c, window)[rows], nbytes, flops, bf16)
+                    timed[case].update(splits_pages=ragged_plan(c, window),
+                                       tile_ranges=tile_plan(c, window))
                 del c
                 free_card()
     return timed
@@ -6345,7 +6429,7 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
     from dynamo_tpu_torch.ops.kernels.ragged_attention import (
         ragged_paged_attention_cuda as fn,
     )
-    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts
+    from dynamo_tpu_torch.ops.kernels.ragged_attention import reset_counts, split_on_wgmma
 
     cfg = ecfg.model
     engine = TorchEngine(ecfg, params=params, device=DEVICE)
@@ -6369,7 +6453,8 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
         capture["mid_traffic_compiles_total"] = mid_traffic(engine)
         wq = wq_counts()
         launches = fn.launches
-        paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk}
+        paths = {"tc": fn.launches_tc, "split": fn.launches_split, "walk": fn.launches_walk,
+                 "split_wgmma": fn.launches_split_wgmma}
         dispatches = engine.unified_dispatches
         gauges = {k: v for k, v in engine.readiness().items() if k.startswith("weight_quant_")}
         if profile_prompts is not None:
@@ -6393,6 +6478,7 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
         "device_ms_per_dispatch": profile and profile["device_ms_per_dispatch"],
         "device_busy_share": profile and profile["device_busy_share"],
         "top_kernels_ms": profile and profile["top_kernels_ms"][:6],
+        "ragged_ms_share_per_dispatch": profile and profile["ragged_ms_per_dispatch"],
     }
     if cfg.is_moe and cfg.moe_dispatch != "dense":
         # Beside the reference with the serve's own dispatch, the
@@ -6417,9 +6503,13 @@ async def serve_family(ecfg, params, prompts, max_tokens, phase, evict=True,
     if launches != cfg.num_layers * dispatches or dispatches == 0:
         fail(f"{phase}: ragged launches for {dispatches} dispatches x "
              f"{cfg.num_layers} layers", launches, cfg.num_layers * dispatches)
-    # Multi-row spans on the tensor-core tile in bf16, on the walk in f32.
+    # Multi-row spans on the tensor-core tile in bf16, on the walk in f32;
+    # one-row spans on the split path, on the wgmma tile in bf16 at its
+    # head dims.
     tile = "walk" if ecfg.dtype == "float32" else "tc"
-    want = {"tc": 0, "walk": 0, tile: launches, "split": launches}
+    wgmma = split_on_wgmma(getattr(torch, ecfg.dtype), cfg.kv_cache_head_dim)
+    want = {"tc": 0, "walk": 0, tile: launches, "split": launches,
+            "split_wgmma": launches * wgmma}
     if paths != want:
         fail(f"{phase}: ragged paths launched", paths, want)
     if recorded is not None:
@@ -6512,6 +6602,7 @@ def phase_families(card: str) -> dict:
         per_model[name] = {
             "tokens_per_s": served["tokens_per_s"], "ttft_p50_ms": served["ttft_p50_ms"],
             "device_ms_per_dispatch": served["device_ms_per_dispatch"],
+            "ragged_ms_share_per_dispatch": served["ragged_ms_share_per_dispatch"],
             "peak_memory_bytes": take_peak(), "wall_s": time.monotonic() - t0}
         emit({"phase": "families_model", "model": name, "card": card, **per_model[name]})
 
@@ -7454,10 +7545,14 @@ def run_all() -> int:
 
     print(card, flush=True)
     ragged_src = "dynamo_tpu_torch/csrc/ragged_attention.cu"
-    ragged = ("3 launches: spans of <= 4 rows split-KV over table columns "
-              "(paged_split.cuh, cp.async ring) on a second stream beside the "
-              "longer spans' mma.sync m16n8k16 tile of 128 query vectors "
-              "(paged_attention_tc.cuh; the f32 walk for f32 q), then a merge pass "
+    ragged = ("3 launches: spans of <= 4 rows split-KV over balanced runs of the "
+              "columns inside their window (at D = 64, 128, 256 a one-warpgroup "
+              "wgmma tile; else paged_split.cuh on CUDA cores) on a second stream "
+              "beside the longer spans' tile of 128 query vectors "
+              "(paged_attention_tc.cuh: wgmma at D = 64, 128, 256, mma.sync "
+              "m16n8k16 else; K/V by a cp.async ring into 128-byte swizzled atoms; "
+              "its visible columns cut into key ranges until the blocks fill a wave; "
+              "the f32 walk for f32 q), then a merge pass over splits and ranges "
               "that also zeroes unowned rows")
     emit({"kernels": [
         kernel_entry("ragged_paged_attention", ragged_src,

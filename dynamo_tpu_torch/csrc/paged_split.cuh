@@ -4,16 +4,22 @@
 //
 // Shared by paged_decode_attention.cu (a lane is a span of one row at
 // position ctx - 1 with keys < ctx, VB = 8) and ragged_attention.cu
-// (decode and short spec-verify spans of the flat batch, VB = 16).
+// (decode and short spec-verify spans of the flat batch, VB = 16, where
+// its wgmma split does not apply: float32 q, head dims other than 64,
+// 128 and 256).
 //
-// - Work. Block (split s, vector group vg, span, kv head) owns table
-//   columns [s*P, (s+1)*P) and the span's query vectors [vg*VB, vg*VB +
-//   VB); vector v is row v / G, head h*G + v % G (G = H / kvH), as in
-//   attend_tile. It is exactly the plain version over those columns with
-//   page_offset + s*P*stride and stats: it writes (out_s f32 normalized,
-//   m_s, l_s) to the caller's scratch, or, with one split, the output
-//   itself. Splits past the keys its rows can see, or wholly behind their
-//   window, write m = -1e30, l = 0 and exit.
+// - Work. Block (split s, vector group vg, span, kv head) owns a run of
+//   table columns and the span's query vectors [vg*VB, vg*VB + VB);
+//   vector v is row v / G, head h*G + v % G (G = H / kvH), as in
+//   attend_tile. The decode kernel's split s owns columns [s*P,
+//   (s+1)*P); the ragged kernel's owns the s-th of num_splits balanced
+//   runs of the columns its rows can see, from the first column inside
+//   their window ([s*n/num_splits, (s+1)*n/num_splits) of the n visible),
+//   so no split of a span that sees at least num_splits columns is empty,
+//   lies behind its window or past its context. It is exactly the plain version over those columns with
+//   stats: it writes (out_s f32 normalized, m_s, l_s) to the caller's
+//   scratch, or, with one split, the output itself. A split that holds
+//   no visible column writes m = -1e30, l = 0 and exits.
 // - Staging. 32-key chunks are staged by 16-byte cp.async into a ring of
 //   kStages (4 bf16 and int8, 3 f32; at head dims past 256, 2 bf16 and
 //   1 f32: Ring<C, true>), so up to 128 keys are in flight;
@@ -22,8 +28,9 @@
 //   (k_scales/v_scales, per (block, kv head), read by physical page id)
 //   ride in the same ring by 4-byte cp.async.
 // - Passes. Score pass: warp per query vector, lane per key (a warp's 32
-//   scores reduce by shuffles); the row's causal and window bounds mask
-//   per vector. P.V pass: thread per (vector, d pair), accumulators in
+//   scores reduce by shuffles; each lane's dot product in four partial
+//   sums, so its chain of dependent FMAs is D / 4 long); the row's causal
+//   and window bounds mask per vector. P.V pass: thread per (vector, d pair), accumulators in
 //   registers. An int8 page dequantizes in registers: the key's k scale
 //   multiplies its f32 score, and its v scale multiplies P before P.V
 //   (S = (q.k_int) k_s, O += (P v_s) v_int), the plain version's math.
@@ -127,8 +134,13 @@ __device__ __forceinline__ float2 pair_f(const int8_t* p) {
 // accumulators grow to VB x 576 / 2 pairs over 128 threads, 72 floats a
 // thread, so the caller's kernel takes one block per SM), with the
 // shallower ring of Ring<C, true>; a one-stage ring loads each chunk
-// after the last one is consumed.
-template <typename T, typename C, int VB, bool kRows, bool kWide = false>
+// after the last one is consumed. kVisible (the ragged kernel): split s
+// owns the s-th of num_splits balanced runs of the columns its rows see,
+// counted from the first column inside their window, and
+// pages_per_split is not read; else split s owns table columns [s*P,
+// (s+1)*P) (the decode kernel, whose striped shards plan by column).
+template <typename T, typename C, int VB, bool kRows, bool kWide = false,
+          bool kVisible = false>
 __device__ __forceinline__ void split_block(const SplitArgs<T, C>& a, const SplitSpan& sp,
                                             int s, int vg, int h) {
   constexpr int kStages = Ring<C, kWide>::kStages;
@@ -152,11 +164,18 @@ __device__ __forceinline__ void split_block(const SplitArgs<T, C>& a, const Spli
   const int hi = min(sp.q0 + last_row + 1, sp.kv);
   const int lo_pos = a.window > 0 ? max(sp.q0 + first_row - a.window + 1, 0) : 0;
 
-  // Visible columns of this split: logical pages [lo_pos / bs, ceil(hi / bs)).
-  const int col_lo = max(ceil_div_pos(lo_pos / bs - off, stride), s * a.pages_per_split);
-  const int col_hi = min(min(ceil_div_pos((hi + bs - 1) / bs - off, stride),
-                             (s + 1) * a.pages_per_split),
-                         a.max_blocks);
+  // Visible columns: logical pages [lo_pos / bs, ceil(hi / bs)).
+  const int vis_lo = ceil_div_pos(lo_pos / bs - off, stride);
+  const int vis_hi = min(ceil_div_pos((hi + bs - 1) / bs - off, stride), a.max_blocks);
+  int col_lo, col_hi;   // this split's
+  if constexpr (kVisible) {
+    const int n = max(vis_hi - vis_lo, 0);
+    col_lo = vis_lo + s * n / a.num_splits;
+    col_hi = vis_lo + (s + 1) * n / a.num_splits;
+  } else {
+    col_lo = max(vis_lo, s * a.pages_per_split);
+    col_hi = min(vis_hi, (s + 1) * a.pages_per_split);
+  }
   const int u_lo = col_lo * bs;
   const int u_hi = col_hi * bs;
   const int chunks = u_hi > u_lo ? (u_hi - u_lo + kN - 1) / kN : 0;
@@ -276,16 +295,20 @@ __device__ __forceinline__ void split_block(const SplitArgs<T, C>& a, const Spli
         float sc = kNegInf;
         if (ok) {
           // 16-byte reads: the padded rows put 8 lanes on 32 distinct banks.
+          // Four partial sums: the chain of dependent FMAs a key waits
+          // on is D / 4 long, not D.
           const float* qr = q_s + vi * D;
           const C* kr = ks + lane * SD;
-          float dot = 0.f;
+          float dot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
           for (int d = 0; d < D; d += VEC) {
             float kk[VEC];
             paged::Vec<C>::load(kr + d, kk);
 #pragma unroll
-            for (int t = 0; t < VEC; ++t) dot = fmaf(qr[d + t], kk[t], dot);
+            for (int t = 0; t < VEC; ++t) dot[t & 3] = fmaf(qr[d + t], kk[t], dot[t & 3]);
           }
-          sc = kInt8 ? dot * k_sc : dot;
+          const float sum = (dot[0] + dot[1]) + (dot[2] + dot[3]);
+          sc = kInt8 ? sum * k_sc : sum;
         }
         const float m_new = fmaxf(m_r[i], warp_max(sc));
         const float corr = expf(m_r[i] - m_new);

@@ -64,12 +64,20 @@
 //   accumulators (rows and columns masked, the scales in registers).
 // - Few output tiles (decode rows, small weights) split K. Each split
 //   writes f32 partials and bumps its tile's arrival counter (a
-//   __threadfence, then atomicAdd); the last to arrive reads every
-//   split's partials back, its own too, and sums them in split order (so
-//   the bytes never depend on which split came last), scales, rounds,
-//   stores and puts the counter back to 0. The counters are this
-//   library's device array, zero from load, so nothing is reset on the
-//   graph's path. One launch, no reduce pass.
+//   __threadfence, then a compare-and-swap); the last to arrive reads
+//   every split's partials back, its own too, and sums them in split
+//   order (so the bytes never depend on which split came last), scales,
+//   rounds, stores and puts the counter back to 0. One launch, no reduce
+//   pass. The counters are the launch's own: a slice of the wrapper's
+//   scratch after the partials, so two launches in flight at once (two
+//   engines, two streams) never share one. Scratch comes from torch's
+//   allocator uninitialised, so nothing is zeroed on the graph's path: a
+//   counter holds the launch's tag (a number the wrapper draws per
+//   launch, spread over the upper 48 bits) beside its count in the low
+//   16, and a value under another tag counts as 0. Zeroing the slice
+//   instead costs a fill node a launch, ~1.2 us each on the H100 (8.4 us
+//   over a llama3-8b layer's 7 split launches: tools/wq_sweep.py
+//   --counter-cost).
 // The host plan (ops/kernels/wq_gemm.py kernel_plan, shapes only) picks
 // BT, the split and the grid; the TMA descriptors are encoded on the host
 // per call (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so
@@ -88,10 +96,8 @@
 // FMAs: a thread per column over [K, N], a warp per column over [N, K].
 // Not done: TMA multicast of A across a cluster (half its L2 reads),
 // 256-column tiles at BT <= 128, programmatic dependent launch for the
-// small products' fixed cost; two launches that run on different streams
-// at once may share a tile counter (the port runs one stream per engine);
-// an fp8 wgmma (activations quantized per row) would compute another
-// function.
+// small products' fixed cost; an fp8 wgmma (activations quantized per
+// row) would compute another function.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -102,17 +108,19 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBN = 128;                // weight columns a block
 constexpr int kBK = 64;                 // contraction depth a stage
 constexpr int kThreads = 384;           // 2 consumer warpgroups + the producer's
 constexpr int kConsumers = 256;
-constexpr int kCounterSlots = 16384;    // tiles a split launch may have
 constexpr int kSimtThreads = 256;
 constexpr int kSimtRows = 8;            // rows a SIMT thread (or warp) sums
-
-__device__ unsigned int g_tile_arrivals[kCounterSlots];
+constexpr unsigned long long kCountMask = 0xffffull;   // a counter's count bits
 
 struct Args {
   const void* a;
@@ -124,6 +132,8 @@ struct Args {
   void* out;
   long long o_bs, o_rs;
   float* part;                          // [S, B, M, N] with more than one split
+  unsigned long long* arrivals;         // [tiles] with more than one split
+  unsigned long long tag;               // this launch's, in the upper 48 bits
   int B, M, N, K;
   int num_splits, k_per_split;
   int s_bf16, out_bf16;
@@ -142,172 +152,18 @@ struct Tile {
   static constexpr bool kMoveRegisters = BT >= 128;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// -- mbarriers and TMA -------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// -- wgmma ---------------------------------------------------------------------
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator accesses across the async
-// products.
-template <int N>
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// A K-major tile of 128-byte rows under the 128-byte swizzle: 8-row
-// groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-// d[m64 x BT] += a (64 x 16 bf16, registers) * B (16 x BT bf16, the
-// descriptor's K-major tile).
-template <int BT>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+// One split's arrival at its tile's counter; returns the splits that
+// arrived before it. A counter under another tag (another launch's left
+// value, or scratch never written) counts as 0 and is taken over.
+__device__ __forceinline__ int arrive(unsigned long long* counter, unsigned long long tag) {
+  unsigned long long seen = *reinterpret_cast<volatile unsigned long long*>(counter);
+  while (true) {
+    const unsigned long long before = (seen & ~kCountMask) == tag ? seen : tag;
+    const unsigned long long got = atomicCAS(counter, seen, before + 1);
+    if (got == seen) return static_cast<int>(before & kCountMask);
+    seen = got;
   }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<256> {
-  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-          "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
+}
 
 // -- the convert ---------------------------------------------------------------
 // Two stored weights (low byte: the lower k) → bf16x2, exactly. int8: each
@@ -337,13 +193,7 @@ __device__ __forceinline__ void deq4(uint32_t x, uint32_t& a, uint32_t& b) {
     a = deq2<true>(x);
     b = deq2<true>(x >> 16);
   } else {
-    const uint32_t u = x ^ 0x80808080u;
-    const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-    const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-    const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-    const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
-    a = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-    b = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+    int8x4_to_bf16(x, a, b);
   }
 }
 
@@ -598,14 +448,11 @@ __global__ void __launch_bounds__(kThreads, Tile<BT>::kBlocksPerSm)
         }
         __threadfence();
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
-        if (tid == 0) {
-          const unsigned prev = atomicAdd(&g_tile_arrivals[it.tile], 1u);
-          *last_flag = prev == static_cast<unsigned>(p.num_splits - 1);
-        }
+        if (tid == 0) *last_flag = arrive(p.arrivals + it.tile, p.tag) == p.num_splits - 1;
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
         if (!*last_flag) continue;
         __threadfence();
-        if (tid == 0) g_tile_arrivals[it.tile] = 0;
+        if (tid == 0) p.arrivals[it.tile] = 0;
 #pragma unroll
         for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
         // Loads in groups with no branch between them (rows past M read
@@ -800,20 +647,23 @@ extern "C" {
 // a_bf16: A is bf16 (the wgmma kernel: bt rows a token tile, 16, 64, 128
 // or 256; `grid` blocks over the work items) or f32 (the SIMT loop; one
 // split). transposed: Q is [B, N, K]. fp8: Q is e4m3, else int8. With
-// num_splits > 1, `part` is f32 scratch of num_splits * B * M * N and
-// k_per_split a multiple of 64 that covers K in num_splits non-empty
-// pieces.
+// num_splits > 1, `part` is f32 scratch of num_splits * B * M * N,
+// `arrivals` one 8-byte counter an output tile (neither needs zeroing),
+// `tag` this launch's number (nonzero below 2^48) and k_per_split a
+// multiple of 64 that covers K in num_splits non-empty pieces.
 int wq_gemm(const void* a, long long a_bs, long long a_rs, const void* q, long long q_bs,
             const void* s, long long s_bs, void* out, long long o_bs, long long o_rs, void* part,
-            int B, int M, int N, int K, int a_bf16, int transposed, int fp8, int s_bf16,
-            int out_bf16, int bt, int num_splits, int k_per_split, int grid, void* stream) {
+            void* arrivals, unsigned long long tag, int B, int M, int N, int K, int a_bf16,
+            int transposed, int fp8, int s_bf16, int out_bf16, int bt, int num_splits,
+            int k_per_split, int grid, void* stream) {
   if (B < 1 || M < 1 || N < 1 || K < 1 || num_splits < 1 || k_per_split < 1)
     return cudaErrorInvalidValue;
   if ((long long)num_splits * k_per_split < K) return cudaErrorInvalidValue;
   if ((long long)(num_splits - 1) * k_per_split >= K) return cudaErrorInvalidValue;
+  if (tag == 0 || tag >> 48 != 0) return cudaErrorInvalidValue;
   Args p{a, a_bs, a_rs, static_cast<const uint8_t*>(q), q_bs, s, s_bs, out, o_bs, o_rs,
-         static_cast<float*>(part), B, M, N, K, num_splits, k_per_split, s_bf16, out_bf16,
-         a_bs != 0, 0, 0, 0};
+         static_cast<float*>(part), static_cast<unsigned long long*>(arrivals), tag << 16,
+         B, M, N, K, num_splits, k_per_split, s_bf16, out_bf16, a_bs != 0, 0, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (!a_bf16) {
@@ -827,7 +677,7 @@ int wq_gemm(const void* a, long long a_bs, long long a_rs, const void* q, long l
   p.n_tiles = (N + kBN - 1) / kBN;
   const long long tiles = (long long)B * p.m_tiles * p.n_tiles;
   if (tiles * num_splits > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (num_splits > 1 && (part == nullptr || tiles > kCounterSlots)) return cudaErrorInvalidValue;
+  if (num_splits > 1 && (part == nullptr || arrivals == nullptr)) return cudaErrorInvalidValue;
   p.items = static_cast<int>(tiles * num_splits);
   if (transposed) {
     err = fp8 ? run_bt<true, true>(p, bt, grid, st) : run_bt<true, false>(p, bt, grid, st);

@@ -32,6 +32,7 @@ def _counters():
         (ragged_paged_attention_cuda, "launches_tc"),
         (ragged_paged_attention_cuda, "launches_walk"),
         (ragged_paged_attention_cuda, "launches_split"),
+        (ragged_paged_attention_cuda, "launches_split_wgmma"),
         (paged_decode_attention_cuda, "launches"),
         (paged_prefill_attention_cuda, "launches"),
         (paged_prefill_attention_cuda, "launches_tc"),

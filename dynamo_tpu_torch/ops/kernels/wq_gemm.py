@@ -18,14 +18,16 @@ loop); ``launches`` counts the two bf16 entries. The plan comes from
 shapes alone and the TMA descriptors are encoded on the host, so the
 wrapper reads nothing back from the card and runs inside a captured CUDA
 graph (its scratch comes from torch's allocator, the graph's pool during
-a capture; the split's arrival counters are the kernel library's own,
-zero from load and put back to zero by every launch).
+a capture; the split's arrival counters are a slice of that scratch, the
+launch's own, tagged with a number drawn per launch so that they need
+no zeroing).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -34,7 +36,7 @@ from dynamo_tpu_torch.ops.kernels import _build
 
 NAME = "wq_gemm"
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-ARGTYPES = [_P, _L, _L, _P, _L, _P, _L, _P, _L, _L, _P] + [_I] * 13 + [_P]
+ARGTYPES = [_P, _L, _L, _P, _L, _P, _L, _P, _L, _L, _P, _P, ctypes.c_ulonglong] + [_I] * 13 + [_P]
 
 BN, BK = 128, 64            # a tile's weight columns and a stage of K
 DECODE_ROWS = 16            # rows the decode entry's token tile holds
@@ -42,7 +44,8 @@ TOKEN_TILES = (256, 128, 64)  # the rows entry's token tiles, largest first
 BLOCKS_PER_SM = {16: 2, 64: 1, 128: 1, 256: 1}
 MIN_SPLIT_STAGES = 4        # stages of K a split covers at least
 MAX_SPLITS = 32
-COUNTER_SLOTS = 16384       # the kernel's tile arrival counters
+COUNTER_SLOTS = 16384       # arrival counters (one a tile) a split launch holds at most
+TAG_BITS = 48               # a launch's tag, beside the counters' 16 count bits
 FORMATS = {torch.int8: 0, torch.float8_e4m3fn: 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535
@@ -137,6 +140,16 @@ def kernel_plan(B: int, M: int, N: int, K: int, num_sms: int = 132,
     part = splits * B * M * N if splits > 1 else 0
     slots = num_sms * BLOCKS_PER_SM[bt]
     return Plan(entry, bt, splits, per * BK, tiles, min(tiles * splits, slots), part)
+
+
+_launch_numbers = itertools.count(1)
+
+
+def launch_tag() -> int:
+    """A new launch's tag: nonzero, below 2^TAG_BITS, the launch number
+    times an odd constant, so tags of launches near in time differ in
+    many bits."""
+    return next(_launch_numbers) * 0x9E3779B97F4B % (1 << TAG_BITS) or 1
 
 
 @functools.cache
@@ -234,15 +247,17 @@ def wq_gemm_cuda(
     B, M, N, K = check_kernel_args(a, q, s, out, transposed)
     bf16 = a.dtype == torch.bfloat16
     plan = kernel_plan(B, M, N, K, _num_sms(a.device), bf16)
-    part = None
+    part = arrivals = None
     if plan.part:
-        part = torch.empty(plan.part, dtype=torch.float32, device=a.device)
+        # The f32 partials, then the launch's 8-byte arrival counters.
+        start = -(-plan.part // 2) * 2
+        scratch = torch.empty(start + 2 * plan.tiles, dtype=torch.float32, device=a.device)
+        part, arrivals = scratch.data_ptr(), scratch.data_ptr() + 4 * start
     _build.launch(
         NAME, NAME, ARGTYPES,
         a.data_ptr(), a.stride(0), a.stride(1), q.data_ptr(), q.stride(0),
         s.data_ptr(), s.stride(0), out.data_ptr(), out.stride(0), out.stride(1),
-        part.data_ptr() if part is not None else None,
-        B, M, N, K, int(bf16), int(transposed), FORMATS[q.dtype],
+        part, arrivals, launch_tag(), B, M, N, K, int(bf16), int(transposed), FORMATS[q.dtype],
         DTYPES[s.dtype], DTYPES[out.dtype], plan.bt, plan.splits, plan.k_per_split,
         plan.grid, torch.cuda.current_stream(a.device).cuda_stream,
     )

@@ -1,6 +1,6 @@
 """The weight-quantized GEMM under every plan the rows entry may take.
 
-    cd <checkout> && python3 <this file> [--out FILE]
+    cd <checkout> && python3 <this file> [--out FILE] [--counter-cost]
 
 Builds the checkout's ``wq_gemm`` kernel, then, for llama3.2-1b's and
 llama3-8b's int8 projections, MLP and tied head at 64, 128 and 256 rows
@@ -9,8 +9,15 @@ under each token tile and K split that ``kernel_plan``'s rules allow and
 under the plan it picks, with the cost model's estimate beside each.
 Prints one JSON line per shape: every plan's µs, the best, the picked
 plan and its share of the best (how far the cost model, whose constants
-were fitted to such timings, is from the measured optimum). Needs one
-CUDA device.
+were fitted to such timings, is from the measured optimum).
+
+``--counter-cost`` instead prices the other way to give a split launch
+arrival counters of its own: zeroing them before each launch. For one
+llama3-8b decoder layer's seven int8 projections at decode rows, it
+times the layer's launches in a CUDA graph as they are and with a fill
+of a counter-sized int32 tensor before each split launch (the node that
+a zeroed counter slice adds), and prints both, the difference and the
+difference over a 32-layer dispatch. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -39,6 +46,10 @@ SHAPES = {
     "llama3-8b_down": (4096, 14336, False, False),
 }
 ROWS = (64, 128, 256)
+# llama3-8b's decoder layer: (N, K) of wq, wk, wv, wo, w_gate, w_up, w_down.
+LAYER_8B = ((4096, 4096), (1024, 4096), (1024, 4096), (4096, 4096), (14336, 4096),
+            (14336, 4096), (4096, 14336))
+DECODE_ROWS = (1, 4, 8)
 
 
 def device_us(fn, iters: int = 10) -> float:
@@ -82,14 +93,59 @@ def candidates(M: int, N: int, K: int, num_sms: int) -> list:
     return plans
 
 
+def counter_cost(num_sms: int) -> list[dict]:
+    """One line per decode row count: llama3-8b's layer with and without
+    a zero fill of each split launch's counters."""
+    gen = torch.Generator(device="cuda")
+    layer = []
+    for N, K in LAYER_8B:
+        gen.manual_seed(N + K)
+        w = (torch.randn((1, K, N), generator=gen, device="cuda") / K ** 0.5).to(torch.bfloat16)
+        layer.append(tq.quantize_weight(w, axis=-2, fmt="int8"))
+        del w
+    lines = []
+    for M in DECODE_ROWS:
+        acts = {K: torch.randn((1, M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                for K in {k for _, k in LAYER_8B}}
+        plans = [wk.kernel_plan(1, M, N, K, num_sms) for N, K in LAYER_8B]
+
+        def run(zero: bool):
+            for (N, K), qw, plan in zip(LAYER_8B, layer, plans):
+                if zero and plan.part:
+                    torch.zeros(2 * plan.tiles, dtype=torch.int32, device="cuda")
+                wk.wq_gemm_cuda(acts[K], qw["q"], qw["s"])
+
+        timed = {"plain": [], "zeroed": []}
+        for key in ("plain", "zeroed", "plain", "zeroed"):   # in turns
+            timed[key].append(device_us(lambda z=key == "zeroed": run(z)))
+        plain, zeroed = min(timed["plain"]), min(timed["zeroed"])
+        line = {"counter_cost": "llama3-8b layer", "M": M,
+                "split_launches_per_layer": sum(1 for p in plans if p.part),
+                "layer_us": plain, "layer_us_with_zeroing": zeroed,
+                "zeroing_us_per_layer": zeroed - plain,
+                "zeroing_us_per_dispatch_32_layers": 32 * (zeroed - plain),
+                "all_us": timed, "card": torch.cuda.get_device_name(0)}
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the lines to this file")
+    ap.add_argument("--counter-cost", action="store_true",
+                    help="price zeroing each split launch's counters instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("wq_sweep: no CUDA device", file=sys.stderr)
         return 1
     wk.build()
+    if args.counter_cost:
+        lines = counter_cost(torch.cuda.get_device_properties(0).multi_processor_count)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write("".join(json.dumps(x) + "\n" for x in lines))
+        return 0
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     real = wk.kernel_plan
     lines = []

@@ -4,16 +4,18 @@ plain versions.
 
 The CUDA ragged kernel routes each span on the card by its row count:
 spans of at most ``SPLIT_ROWS`` rows (decode lanes, short spec-verify
-spans) split their block table into column ranges [s*P, (s+1)*P), each
-split the plain attention over those columns with stats, merged by
-``merge_stats``; longer spans run unsplit (the tensor-core tile in bf16,
-the walk in f32). Here: that routing, emulated with the plain versions
-over ``ragged_split_plan``'s splits, equals the unsplit plain call and
-the JAX package (the Pallas kernel in interpret mode for caches in q's
-dtype; for int8 caches the XLA oracle with scales, since the Pallas int8
-branch fails under jax 0.9); the plan covers every column exactly once
-for any shapes, fills the card at the serve's shapes and takes host
-integers only. The tile's int8 leg (pages converted to bf16 unscaled, the
+spans) split the table columns their rows can see into num_splits even
+runs from the first column inside their window, each split the plain
+attention over its columns with stats, merged by ``merge_stats``;
+longer spans run on the tensor-core tile in bf16 (its key ranges are
+held in test_torch_ragged_tile_split.py), the walk in f32. Here: that
+routing, emulated with the plain versions over ``ragged_split_plan``'s
+splits, equals the unsplit plain call and the JAX package (the Pallas
+kernel in interpret mode for caches in q's dtype; for int8 caches the
+XLA oracle with scales, since the Pallas int8 branch fails under jax
+0.9); the plan's runs cover every visible column exactly once for any
+shapes, fill the card at the serve's shapes and take host integers
+only. The tile's int8 leg (pages converted to bf16 unscaled, the
 k scale on the f32 scores, the v scale on P before its two-term bf16
 split) is emulated at chip_smoke.py's main mixed case and stays within the
 bf16 tolerance of the plain version.
@@ -101,18 +103,42 @@ def _token_call(t, tables, page_offset, window):
     )
 
 
-def _routed(t, window, num_splits, pages):
-    """The kernel's routing with the plain versions: rows of spans of at
-    most SPLIT_ROWS rows merge the partials of the plan's column splits;
-    other rows take the unsplit call; rows no span owns stay zero. Returns
-    (routed, merged, unsplit), float32."""
+def _columns_call(t, r0, n, table, lo, hi, window):
+    """The plain attention of flat rows [r0, r0 + n) over table columns
+    [lo, hi) of their span's ``table``, with stats: float32 (out, m, l);
+    an empty run gives out 0, m -1e30, l 0."""
+    H, D = t["q"].shape[1:]
+    if hi <= lo:
+        return (torch.zeros(n, H, D), torch.full((n, H), -1e30), torch.zeros(n, H))
+    ctx = t["token_pos"][r0:r0 + n].long() + 1
+    return t_attn.paged_decode_attention(
+        t["q"][r0:r0 + n], t["k"], t["v"], table[lo:hi].expand(n, -1).contiguous(), ctx,
+        BS, window, page_offset=lo, with_stats=True,
+        k_scales=t.get("ks"), v_scales=t.get("vs"),
+    )
+
+
+def _routed(t, window, num_splits):
+    """The kernel's routing with the plain versions: the rows of each
+    span merge the partials of num_splits balanced runs of the columns the
+    span's rows can see (``span_columns``, ``split_columns``); rows of
+    spans of at most SPLIT_ROWS rows take that, other rows the unsplit
+    call; rows no span owns stay zero. Returns (routed, merged,
+    unsplit), float32."""
     rows = torch.clamp(t["token_seq"].long(), 0, t["tables"].shape[0] - 1)
     tables = t["tables"][rows]
     unsplit = _token_call(t, tables, 0, window)
-    parts = [_token_call(t, tables[:, s * pages:(s + 1) * pages].contiguous(),
-                         s * pages, window)
-             for s in range(num_splits)]
-    merged = t_attn.merge_stats(parts)
+    merged = torch.zeros_like(unsplit[0])
+    max_blocks = t["tables"].shape[1]
+    for s, (qs, ql, kv, r0) in enumerate(zip(*(t[n].tolist() for n in (
+            "q_start", "q_len", "kv_len", "row_start")))):
+        if ql == 0:
+            continue
+        first, end = t_rag.span_columns(qs, 0, ql - 1, kv, window, BS, max_blocks)
+        merged[r0:r0 + ql] = t_attn.merge_stats([
+            _columns_call(t, r0, ql, t["tables"][s],
+                          *t_rag.split_columns(first, end, num_splits, i), window)
+            for i in range(num_splits)])
     short = (t["q_len"].long()[rows] <= t_rag.SPLIT_ROWS) & (t["token_pos"] >= 0)
     routed = torch.where(short[:, None, None], merged, unsplit[0])
     return routed, merged, unsplit
@@ -132,9 +158,14 @@ def test_split_law_f32_equals_the_unsplit_call(name, pages):
     spans, T, window = CASES[name]
     c = _case(0, spans, T)
     cols = c["tables"].shape[1]
-    num_splits, pages = _plan(c, window) if pages == "plan" else (-(-cols // pages), pages)
-    assert num_splits > 1
-    routed, merged, (out, m, l) = _routed(_torch(c), window, num_splits, pages)
+    if pages == "plan":
+        num_splits, pages = _plan(c, window)
+        reach = window + t_rag.SPLIT_ROWS - 1 if window else 0
+        assert num_splits == -(-t_rag.visible_columns(cols, BS, reach) // pages)
+    else:
+        num_splits = -(-cols // pages)
+        assert num_splits > 1
+    routed, merged, (out, m, l) = _routed(_torch(c), window, num_splits)
     np.testing.assert_allclose(merged.numpy(), out.numpy(), rtol=F32_TOL, atol=F32_TOL)
     np.testing.assert_allclose(routed.numpy(), out.numpy(), rtol=F32_TOL, atol=F32_TOL)
     assert not routed[c["token_pos"] < 0].any()                 # unowned rows zero
@@ -150,7 +181,7 @@ def test_routed_split_law_matches_the_pallas_kernel(name, dtype):
     tdt, jdt, tol = ((torch.float32, jnp.float32, F32_TOL) if dtype == "f32"
                      else (torch.bfloat16, jnp.bfloat16, BF16_TOL))
     t = _torch(c, tdt)
-    routed, _, _ = _routed(t, window, *_plan(c, window))
+    routed, _, _ = _routed(t, window, _plan(c, window)[0])
     want = ragged_paged_attention_pallas(
         *(jnp.asarray(c[n], jdt) for n in ("q", "k", "v")),
         *(jnp.asarray(c[n]) for n in ("tables", "q_start", "q_len", "kv_len",
@@ -166,7 +197,7 @@ def test_int8_routed_split_law_matches_the_xla_oracle_with_scales(name):
     spans, T, window = CASES[name]
     c = _case(2, spans, T, int8=True)
     t = _torch(c)
-    routed, merged, (out, _, _) = _routed(t, window, *_plan(c, window))
+    routed, merged, (out, _, _) = _routed(t, window, _plan(c, window)[0])
     np.testing.assert_allclose(merged.numpy(), out.numpy(), rtol=F32_TOL, atol=F32_TOL)
     want = np.asarray(j_attn.ragged_paged_attention(
         *(jnp.asarray(c[n]) for n in ("q", "k", "v", "tables", "token_seq", "token_pos")),
@@ -182,18 +213,31 @@ def test_int8_routed_split_law_matches_the_xla_oracle_with_scales(name):
     max_blocks=st.integers(1, 4096), block_size=st.sampled_from([4, 16]),
     window=st.sampled_from([0, 1, 16, 100, 4096]),
     num_sms=st.sampled_from([1, 66, 132]), head_groups=st.integers(1, 4),
+    q_start=st.integers(0, 1 << 16), q_len=st.integers(1, 4),
 )
 def test_ragged_plan_covers_every_column_exactly_once(
-    spans, kv_heads, max_blocks, block_size, window, num_sms, head_groups,
+    spans, kv_heads, max_blocks, block_size, window, num_sms, head_groups, q_start, q_len,
 ):
+    """The splits' runs partition the columns a short span's rows can see
+    (any position that fits the table), none holds more than P, and the
+    split count is what the visible columns need, not the table's
+    width."""
     S, P = t_rag.ragged_split_plan(
         spans, kv_heads, max_blocks, block_size, window, num_sms, head_groups)
     assert 1 <= S <= t_dec.MAX_SPLITS and 1 <= P <= max_blocks
+    reach = window + t_rag.SPLIT_ROWS - 1 if window else 0
+    visible = t_rag.visible_columns(max_blocks, block_size, reach)
+    assert (S - 1) * P < visible <= S * P                     # no split is empty by shape
+    q_start %= max(max_blocks * block_size - q_len + 1, 1)
+    kv = min(q_start + q_len, max_blocks * block_size)
+    first, end = t_rag.span_columns(q_start, 0, q_len - 1, kv, window, block_size, max_blocks)
+    assert end - first <= visible
     covered = np.zeros(max_blocks, np.int32)
     for s in range(S):
-        covered[s * P:(s + 1) * P] += 1
-    assert (covered == 1).all()
-    assert (S - 1) * P < max_blocks                           # no split is empty by shape
+        lo, hi = t_rag.split_columns(first, end, S, s)
+        assert hi - lo <= P
+        covered[lo:hi] += 1
+    assert (covered[first:end] == 1).all() and covered.sum() == end - first
 
 
 def test_ragged_plan_fills_the_card_at_the_serve_shapes():
@@ -211,17 +255,29 @@ def test_ragged_plan_reads_no_tensor(monkeypatch):
     (q_len never enters it). ``call_split_plan`` plans a call from the
     operands' shapes alone: tensors on the meta device, which hold no
     data, plan as CUDA tensors of the same shapes would."""
-    params = inspect.signature(t_rag.ragged_split_plan).parameters
-    assert not {"q_len", "q_start", "kv_len", "row_start"} & set(params)
-    for p in params.values():
-        assert p.annotation in ("int", int), p
+    for plan in (t_rag.ragged_split_plan, t_rag.ragged_tile_plan):
+        params = inspect.signature(plan).parameters
+        assert not {"q_len", "q_start", "kv_len", "row_start"} & set(params)
+        for p in params.values():
+            assert p.annotation in ("int", int), p
     with pytest.raises(TypeError):
         t_rag.ragged_split_plan(torch.tensor(12), 8, 64, 16)
+    with pytest.raises(TypeError):
+        t_rag.ragged_tile_plan(torch.tensor(256), 32, 8, 64, 64, 16)
     monkeypatch.setattr(t_rag, "_num_sms", lambda device: 132)
     q = torch.empty(256, 32, 64, device="meta", dtype=torch.bfloat16)
     k = torch.empty(1024 * BS, 8, 64, device="meta", dtype=torch.bfloat16)
     tables = torch.empty(12, 64, device="meta", dtype=torch.int32)
     assert t_rag.call_split_plan(q, k, tables, BS) == (6, 11)
+    assert t_rag.call_tile_plan(q, k, tables, BS) == 1
+    # mistral-7b's shapes (chip_smoke.py's families case): the tile's keys
+    # cut into ranges, from the operands' shapes alone.
+    q = torch.empty(192, 32, 128, device="meta", dtype=torch.bfloat16)
+    k = torch.empty(2304 * BS, 8, 128, device="meta", dtype=torch.bfloat16)
+    tables = torch.empty(7, 320, device="meta", dtype=torch.int32)
+    assert t_rag.call_tile_plan(q, k, tables, BS, 4096) == 3
+    # The wgmma split at D = 128 holds 2 blocks an SM: 5 splits of 52 pages.
+    assert t_rag.call_split_plan(q, k, tables, BS, 4096) == (5, 52)
 
 
 # -- the tile's int8 leg: scales folded into the products ----------------------
